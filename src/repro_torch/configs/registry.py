@@ -1,0 +1,22 @@
+"""Architecture registry: --arch <id> → (full CONFIG, reduced SMOKE).
+
+Lists only the architectures the port has brought over; the others are
+queued in ROADMAP Queue A9.
+"""
+from __future__ import annotations
+
+from . import internlm2_1_8b
+from .base import SHAPES, MeshConfig, ModelConfig, ShapeConfig  # noqa: F401
+
+_MODULES = (internlm2_1_8b,)
+
+ARCHS: dict[str, ModelConfig] = {m.CONFIG.arch: m.CONFIG for m in _MODULES}
+SMOKES: dict[str, ModelConfig] = {m.CONFIG.arch: m.SMOKE for m in _MODULES}
+
+
+def get(arch: str, *, smoke: bool = False) -> ModelConfig:
+    table = SMOKES if smoke else ARCHS
+    if arch not in table:
+        raise KeyError(f"arch {arch!r} is not ported yet (ROADMAP Queue A9); "
+                       f"available: {sorted(table)}")
+    return table[arch]

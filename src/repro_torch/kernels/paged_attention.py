@@ -1,0 +1,313 @@
+"""Paged-attention subsystem: block-table flash attention + registry.
+
+A small registry of attention backends, each consuming the paged K/V pool
+and the per-slot block tables directly:
+
+  backend   what it does                                          runs on
+  --------  ----------------------------------------------------  --------
+  "exact"   gather each slot's window through its table, one-pass  any
+            softmax over the whole window (models.common
+            decode_attention / paged_prefill_attention)
+  "kernel"  the Hopper flash kernel B3 (csrc/paged_attention.cu)    CUDA;
+            over the tables, plus the fused decode write B4; on a   plain
+            CPU tensor their plain versions run                     on CPU
+  "plain"   the plain PyTorch versions of B3 and B4, on any device  any
+            (the card-side yardstick the kernels are held against)
+  "auto"    "kernel"
+
+B3 folds GQA as C·G rows per KV head, so decode (C = 1) and chunked
+prefill are one kernel; the mask is pos_s <= lens + row // G and
+pos_s < kv_len; masked scores are −1e30 and their weights forced to 0; V
+rows at or past kv_len are zeroed with `where` before the PV product (the
+trash block may hold NaN); the output is acc / max(l, 1e−30), so idle lanes
+(kv_len = 0) emit 0.
+"""
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+import torch.nn.functional as F
+
+from . import build
+
+
+# ---------------------------------------------------------------------------
+# backend registry
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class AttnBackendSpec:
+    """One paged-attention evaluation strategy.
+
+    fn(q, k_pool, v_pool, tables, positions, kv_len) -> o
+      q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB] physical
+      block ids; positions [B, C] absolute query positions; kv_len [B]
+      tokens valid INCLUDING this step's writes. Returns [B, C, H, dh].
+    `fused_write`, when set, is the decode-step (C = 1) K/V write that
+    replaces `models.common.paged_write` on this backend.
+    """
+
+    name: str
+    fn: Callable
+    fused_write: Callable | None = None
+
+
+_ATTN_REGISTRY: dict[str, AttnBackendSpec] = {}
+
+
+def register_attn_backend(name: str, *, fused_write=None):
+    """Register a paged-attention backend under `name` (decorator)."""
+    def deco(fn):
+        _ATTN_REGISTRY[name] = AttnBackendSpec(name, fn, fused_write)
+        return fn
+    return deco
+
+
+def get_attn_backend(name: str) -> AttnBackendSpec:
+    try:
+        return _ATTN_REGISTRY[name]
+    except KeyError:
+        raise ValueError(f"unknown attention backend {name!r}; "
+                         f"registered: {sorted(_ATTN_REGISTRY)}") from None
+
+
+def available_attn_backends() -> tuple[str, ...]:
+    return tuple(sorted(_ATTN_REGISTRY))
+
+
+def choose_attn_backend(backend: str) -> str:
+    """Resolve "auto" (or an explicit name) to a registered backend."""
+    if backend != "auto":
+        return get_attn_backend(backend).name
+    return "kernel"
+
+
+# ---------------------------------------------------------------------------
+# "exact" backend: window gather + one-pass softmax
+# ---------------------------------------------------------------------------
+@register_attn_backend("exact")
+def _exact_attention(q, k_pool, v_pool, tables, positions, kv_len):
+    """Window gather through the table + the dense-cache attention math,
+    with V rows at positions >= kv_len zeroed (by `where`: 0 · NaN is NaN)
+    before the PV contraction."""
+    from repro_torch.models import common  # kernels must not import models
+    k_win = common.paged_gather(k_pool, tables)
+    v_win = common.paged_gather(v_pool, tables)
+    w = k_win.shape[1]
+    valid = torch.arange(w, device=q.device)[None, :] < kv_len[:, None]
+    v_win = torch.where(valid[..., None, None], v_win,
+                        torch.zeros((), dtype=v_win.dtype, device=q.device))
+    if q.shape[1] == 1:
+        return common.decode_attention(q, k_win, v_win,
+                                       kv_len[:, None, None, None])
+    return common.paged_prefill_attention(q, k_win, v_win, positions, kv_len)
+
+
+# ---------------------------------------------------------------------------
+# B3: flash attention over block tables
+# ---------------------------------------------------------------------------
+def _butterfly(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (32 lanes) in the order of a warp's xor
+    butterfly: offsets 16, 8, 4, 2, 1."""
+    while v.shape[-1] > 1:
+        half = v.shape[-1] // 2
+        v = v[..., :half] + v[..., half:]
+    return v[..., 0]
+
+
+def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
+    """Plain version of B3, in the kernel's exact operation order: one pass
+    over the logical blocks with an online softmax; each score is the
+    lane-strided partial dot products (dh/32 per lane, in order) summed by
+    the warp butterfly; the PV sum runs in token order. All math is f32
+    with separate multiplies and adds, so on the card it matches the
+    kernel bit for bit.
+
+    q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB]; lens [B] (the
+    chunk's base position); kv_len [B]. Returns f32 [B, C, H, dh].
+    """
+    b, c, h, dh = q.shape
+    bs, kh = k_pool.shape[1], k_pool.shape[2]
+    if dh % 32 or bs > 32:
+        raise ValueError(f"head_dim {dh} must be a multiple of 32 and "
+                         f"block_size {bs} at most 32")
+    g = h // kh
+    cg = c * g
+    dpl = dh // 32
+    dev = q.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    q3 = q.float().reshape(b, c, kh, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, kh, cg, 1, dpl, 32)
+    scale = 1.0 / math.sqrt(dh)      # multiplied as its f32 value
+    m = torch.full((b, kh, cg), -1e30, **f32)
+    l_sum = torch.zeros((b, kh, cg), **f32)
+    acc = torch.zeros((b, kh, cg, dh), **f32)
+    pos_q = lens.long()[:, None] + (torch.arange(cg, device=dev) // g)
+    kvl = kv_len.long()
+    # every table column: past a slot's kv_len the update is an exact
+    # no-op (all weights 0, alpha 1), and no host sync is needed
+    for j in range(tables.shape[1]):
+        blk = tables[:, j].long()
+        k = k_pool[blk].float().permute(0, 2, 1, 3)       # [B, KH, bs, dh]
+        v = v_pool[blk].float().permute(0, 2, 1, 3)
+        pos_s = j * bs + torch.arange(bs, device=dev)     # [bs]
+        v = torch.where((pos_s[None, :] < kvl[:, None])[:, None, :, None],
+                        v, 0.0)                           # select, never x0
+        prod = q3 * k.reshape(b, kh, 1, bs, dpl, 32)      # [B,KH,CG,bs,dpl,32]
+        part = prod[..., 0, :]
+        for i in range(1, dpl):
+            part = part + prod[..., i, :]
+        s = _butterfly(part) * scale                      # [B, KH, CG, bs]
+        ok = ((pos_s[None, None, :] <= pos_q[:, :, None])
+              & (pos_s[None, None, :] < kvl[:, None, None]))[:, None]
+        s = torch.where(ok, s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + _butterfly(F.pad(p, (0, 32 - bs)))
+        pv = torch.zeros_like(acc)
+        for t in range(bs):
+            pv = pv + p[..., t:t + 1] * v[:, :, None, t, :]
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    return out.reshape(b, kh, c, g, dh).permute(0, 2, 1, 3, 4) \
+        .reshape(b, c, h, dh)
+
+
+def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len):
+    """B3 wrapper: q [B, C, H, dh] × pools [NB, bs, KH, dh] through tables
+    [B, MB] → f32 [B, C, H, dh]. Replaces
+    `kernels/paged_attention.py:_paged_attn_call` of the JAX package."""
+    if not q.is_cuda:
+        return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len)
+    b, c, h, dh = q.shape
+    nb, bs, kh, dh_p = k_pool.shape
+    if (v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype
+            or dh_p != dh or h % kh):
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} pools "
+                         f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
+    if k_pool.dtype not in (torch.bfloat16, torch.float32):
+        raise ValueError(f"pool dtype {k_pool.dtype} unsupported")
+    if dh not in (32, 64, 128, 256) or not 1 <= bs <= 32:
+        raise ValueError(f"head_dim {dh} / block_size {bs} unsupported by "
+                         "the kernel")
+    for t in (k_pool, v_pool, tables, lens, kv_len):
+        if t.device != q.device:
+            raise ValueError("all operands must lie on q's CUDA device")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous")
+    q32 = q.to(torch.float32).contiguous()
+    tables = tables.to(torch.int32).contiguous()
+    lens = lens.to(torch.int32).contiguous()
+    kv_len = kv_len.to(torch.int32).contiguous()
+    out = torch.empty(b, c, h, dh, dtype=torch.float32, device=q.device)
+    lib = build.load("paged_attention")
+    rc = lib.paged_attn_launch(
+        int(k_pool.dtype == torch.bfloat16), q32.data_ptr(),
+        k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
+        lens.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, c, h, kh, dh,
+        bs, tables.shape[1], 1.0 / math.sqrt(dh),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    paged_attn_call.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"paged_attn_call kernel launch failed: CUDA "
+                           f"error {rc}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# B4: fused decode write, in place
+# ---------------------------------------------------------------------------
+def fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx):
+    """Plain version of B4: each lane's K/V row goes to pool row flat_idx
+    (block flat // bs, offset flat % bs), in place; flat_idx 0 writes
+    nothing. Returns the (same) pools."""
+    nb, bs = k_pool.shape[:2]
+    fi = flat_idx.reshape(-1).long()
+    keep = (fi != 0)[:, None, None]
+    for pool, new in ((k_pool, new_k), (v_pool, new_v)):
+        flat = pool.view(nb * bs, *pool.shape[2:])
+        rows = new.reshape(-1, *new.shape[2:]).to(pool.dtype)
+        # an invalid lane writes row 0 back onto itself: no change, and no
+        # data-dependent shapes (so no host sync)
+        rows = torch.where(keep, rows, flat[0])
+        flat.index_put_((fi,), rows)
+    return k_pool, v_pool
+
+
+def fused_write_call(k_pool, v_pool, new_k, new_v, flat_idx):
+    """B4 wrapper, the decode-step (C = 1) K/V write: each slot's new row
+    goes into its pool block IN PLACE (the TPU kernel aliased the pools to
+    its outputs), and the pools are returned. new_k / new_v [B, 1, KH, dh];
+    flat_idx [B, 1], where 0 marks an invalid lane that writes nothing
+    (`paged_write` would park it in the trash block; only never-attended
+    bits differ). The scheduler copy-on-writes shared blocks before the
+    step, so no write target is shared. Replaces
+    `kernels/paged_attention.py:_fused_write_call` of the JAX package."""
+    if not k_pool.is_cuda:
+        return fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx)
+    b = new_k.shape[0]
+    row = k_pool.shape[2] * k_pool.shape[3]
+    if (new_k.shape[0] * new_k.shape[1] != b or new_k.shape != new_v.shape
+            or new_k[0].numel() != row or v_pool.shape != k_pool.shape
+            or flat_idx.numel() != b):
+        raise ValueError(f"shape mismatch pools {tuple(k_pool.shape)} new "
+                         f"{tuple(new_k.shape)} flat {tuple(flat_idx.shape)}")
+    if k_pool.dtype not in (torch.bfloat16, torch.float32) \
+            or v_pool.dtype != k_pool.dtype:
+        raise ValueError(f"pool dtype {k_pool.dtype} unsupported")
+    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
+        raise ValueError("pools must be contiguous (written in place)")
+    nk = new_k.to(k_pool.dtype).contiguous()
+    nv = new_v.to(v_pool.dtype).contiguous()
+    fi = flat_idx.reshape(-1).to(torch.int32).contiguous()
+    lib = build.load("paged_attention")
+    rc = lib.fused_write_launch(
+        k_pool.element_size(), k_pool.data_ptr(), v_pool.data_ptr(),
+        nk.data_ptr(), nv.data_ptr(), fi.data_ptr(), b, row,
+        torch.cuda.current_stream(k_pool.device).cuda_stream)
+    fused_write_call.launches += 1
+    if rc != 0:
+        raise RuntimeError(f"fused_write_call kernel launch failed: CUDA "
+                           f"error {rc}")
+    return k_pool, v_pool
+
+
+@register_attn_backend("kernel", fused_write=fused_write_call)
+def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len):
+    lens = positions[:, 0]   # chunk base = first query position
+    return paged_attn_call(q, k_pool, v_pool, tables, lens,
+                           kv_len).to(q.dtype)
+
+
+@register_attn_backend("plain", fused_write=fused_write_plain)
+def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len):
+    return paged_attn_plain(q, k_pool, v_pool, tables, positions[:, 0],
+                            kv_len).to(q.dtype)
+
+
+paged_attn_call.launches = 0
+fused_write_call.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# dispatch (the single entry point models.common calls)
+# ---------------------------------------------------------------------------
+def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
+                    backend: str = "auto"):
+    """Attend q [B, C, H, dh] over a paged KV pool through per-slot block
+    tables; positions [B, C]; kv_len [B]. Returns [B, C, H, dh]."""
+    spec = get_attn_backend(choose_attn_backend(backend))
+    return spec.fn(q, k_pool, v_pool, tables, positions, kv_len)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+build.declare("paged_attention", {
+    "paged_attn_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                          _I, _I, _I, _F, _P],
+    "fused_write_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+})

@@ -1,0 +1,62 @@
+"""Model registry: ModelConfig.family → implementation module, plus the
+bridge that carries the reference package's weights across.
+
+Only the dense transformer family is ported; the others are queued in
+ROADMAP Queue A9.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+
+from . import transformer
+
+_FAMILY = {"dense": transformer}
+
+
+def get_module(cfg: ModelConfig):
+    if cfg.family not in _FAMILY:
+        raise NotImplementedError(
+            f"model family {cfg.family!r} ({cfg.arch}) is not ported yet "
+            "(ROADMAP A9)")
+    return _FAMILY[cfg.family]
+
+
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
+    return get_module(cfg).init(cfg, seed=seed, device=device)
+
+
+def _to_tensor(a, device) -> torch.Tensor:
+    a = np.array(a)        # a writable copy torch may own
+    if a.dtype == np.uint16:              # bf16 stored as a uint16 view
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            .to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """The reference package's parameter tree, as numpy arrays, → the
+    port's params on `device`.
+
+    Stacked [L, ...] leaves under "layers" become one dict per layer; bf16
+    leaves arrive as uint16 views (the checkpoint format's encoding).
+    """
+    get_module(cfg)
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _to_tensor(node, dev)
+
+    def split(node, i):
+        if isinstance(node, dict):
+            return {k: split(v, i) for k, v in node.items()}
+        return _to_tensor(node[i], dev)
+
+    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
+    out["layers"] = [split(tree["layers"], i) for i in range(cfg.n_layers)]
+    return out

@@ -1,0 +1,500 @@
+"""Continuous-batching serving loop over the paged KV cache: chunked
+prefill, watermark admission with preemption, prefix sharing with
+copy-on-write, greedy decoding.
+
+    from repro_torch.runtime.server import Request, Server, ServingConfig
+    server = Server(params, cfg, ServingConfig(paged=True, n_slots=4,
+                                               max_len=256))
+
+A physical pool of fixed-size KV blocks is shared by all slots through a
+refcounted `BlockAllocator` + `PrefixTrie` (runtime.paging) and per-slot
+block tables threaded through `models.transformer.paged_step`. Prefill is
+chunked through the same step as decode (decode is C = 1), and a token
+budget caps new tokens per step (decode lanes first, then prompt chunks).
+At admission a prompt is matched against the trie of cached full-block
+prefixes (the shared span maps the same physical blocks); a lane about to
+write into a block another holder maps first forks it (`_write_plan` →
+`cow_copy_block`); when decode growth outruns the pool the newest-admitted
+lane is preempted and re-queued with prompt + generated-so-far.
+
+Every step runs all `n_slots` lanes at one chunk width (1, or the prefill
+chunk), idle lanes included, exactly as the reference engine does: the
+dynamic activation scale of the CIM path spans the whole [B, C, D] tensor,
+so dropping idle lanes or changing C would change the quantization grid.
+
+Not ported yet, and raising NotImplementedError with their ROADMAP item:
+sampling at temperature > 0 and speculative decoding (A4a), parallel
+samples (A4b), telemetry (A4c), static activation grids and precision
+manifests (A7), the trie watermark sweep (A4d) and the slot engine (A4e).
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models import registry
+from repro_torch.runtime.paging import BlockAllocator, PrefixTrie, SlotTables
+
+
+def _not_ported(what: str, item: str):
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingConfig:
+    """Everything the Server needs beyond (params, model cfg); the fields
+    of the reference's ServingConfig (`spec_k` comes with the drafter).
+    `paged` defaults to True here because the slot engine is not ported;
+    `telemetry` defaults to False because telemetry is not ported."""
+    n_slots: int = 4
+    max_len: int = 128
+    prequant: bool = False
+    packed: bool = True
+    paged: bool = True
+    block_size: int = 16
+    num_blocks: Optional[int] = None
+    prefill_chunk: int = 16
+    token_budget: Optional[int] = None
+    attn: str = "auto"
+    act_scale: Optional[float] = None
+    act_zero_point: Optional[float] = None
+    precision_manifest: Optional[str] = None
+    prefix_sharing: bool = True
+    watermark: float = 1 / 16
+    drafter: str = "off"
+    trie_watermark: Optional[float] = None
+    telemetry: bool = False
+
+    def __post_init__(self):
+        if self.n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if self.max_len < 2:
+            raise ValueError("max_len must be >= 2")
+        if self.prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
+        if self.token_budget is not None and self.token_budget < 1:
+            raise ValueError("token_budget must be >= 1")
+        if self.block_size < 1:
+            raise ValueError("block_size must be >= 1")
+        if self.max_len % self.block_size:
+            raise ValueError("max_len must be a multiple of block_size")
+        if self.num_blocks is not None and self.num_blocks < 1:
+            raise ValueError("num_blocks must be >= 1")
+        if not 0.0 <= self.watermark < 1.0:
+            raise ValueError("watermark is a pool fraction in [0, 1)")
+        from repro_torch.kernels.paged_attention import choose_attn_backend
+        choose_attn_backend(self.attn)   # validate the name up front
+        if not self.paged:
+            raise _not_ported("the slot-based engine (paged=False)", "A4e")
+        if self.drafter != "off":
+            raise _not_ported("speculative decoding (drafter != 'off')",
+                              "A4a")
+        if self.act_scale is not None or self.act_zero_point is not None:
+            raise _not_ported("static activation grids (act_scale)", "A7")
+        if self.precision_manifest is not None:
+            raise _not_ported("precision manifests", "A7")
+        if self.trie_watermark is not None:
+            raise _not_ported("the trie watermark sweep", "A4d")
+        if self.telemetry:
+            raise _not_ported("serving telemetry", "A4c")
+
+    @classmethod
+    def from_flags(cls, args, **overrides) -> "ServingConfig":
+        """Build from an argparse namespace (launch.serve's flag names)."""
+        kw = {}
+        pairs = [("n_slots", "slots"), ("max_len", "max_len"),
+                 ("paged", "paged"), ("block_size", "block_size"),
+                 ("num_blocks", "num_blocks"),
+                 ("prefill_chunk", "prefill_chunk"),
+                 ("token_budget", "token_budget"), ("attn", "attn"),
+                 ("watermark", "watermark")]
+        for field, flag in pairs:
+            v = getattr(args, flag, None)
+            if v is not None:
+                kw[field] = v
+        if getattr(args, "no_prefix_sharing", False):
+            kw["prefix_sharing"] = False
+        if getattr(args, "cim", None) == "bp-prequant":
+            kw["prequant"] = True
+        kw.update(overrides)
+        return cls(**kw)
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: list[int]
+    max_new_tokens: int = 16
+    eos_id: Optional[int] = None
+    n_samples: int = 1
+    temperature: float = 0.0   # greedy only (> 0: ROADMAP A4a)
+    # filled by the server:
+    rid: int = -1
+    output: list[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+
+    @property
+    def ttft_s(self) -> float:
+        return max(self.t_first - self.t_submit, 0.0)
+
+    @property
+    def latency_s(self) -> float:
+        return max(self.t_done - self.t_submit, 0.0)
+
+
+@dataclasses.dataclass
+class ServerMetrics:
+    steps: int = 0
+    decode_tokens: int = 0
+    prefill_tokens: int = 0
+    stalled_prefills: int = 0
+    stalled_decodes: int = 0
+    preemptions: int = 0
+    prefix_hit_tokens: int = 0
+    cow_forks: int = 0
+    peak_active: int = 0
+    peak_decode_lanes: int = 0
+    wall_s: float = 0.0
+
+    def summary(self) -> dict:
+        w = max(self.wall_s, 1e-9)
+        return {"steps": self.steps,
+                "decode_tokens": self.decode_tokens,
+                "prefill_tokens": self.prefill_tokens,
+                "decode_tok_s": self.decode_tokens / w,
+                "prefill_tok_s": self.prefill_tokens / w,
+                "stalled_prefills": self.stalled_prefills,
+                "stalled_decodes": self.stalled_decodes,
+                "preemptions": self.preemptions,
+                "prefix_hit_tokens": self.prefix_hit_tokens,
+                "cow_forks": self.cow_forks,
+                "peak_active": self.peak_active,
+                "peak_decode_lanes": self.peak_decode_lanes,
+                "wall_s": self.wall_s}
+
+
+class Server:
+    def __init__(self, params, cfg: ModelConfig,
+                 serving: ServingConfig | None = None, *, device=None):
+        serving = serving or ServingConfig()
+        self.serving = serving
+        self.device = resolve_device(device)
+        cfg = cfg.replace(attn_backend=serving.attn)
+        if serving.prequant:
+            if not cfg.cim.enabled:
+                raise ValueError("prequant serving needs cim.enabled")
+            from repro_torch.models.quantize import quantize_params
+            params = quantize_params(params, cfg, packed=serving.packed)
+        self.params = params
+        self.cfg = cfg
+        self.n_slots = serving.n_slots
+        self.max_len = serving.max_len
+        self.mod = registry.get_module(cfg)
+        if not self.mod.supports_paged(cfg):
+            raise NotImplementedError(
+                f"paged serving not supported for arch {cfg.arch!r}")
+        self.slot_req: list[Optional[Request]] = [None] * self.n_slots
+        self.queue: list[Request] = []
+        self._next_rid = 0
+        self.steps_run = 0
+        self.metrics = ServerMetrics()
+
+        self.block_size = serving.block_size
+        max_blocks = self.max_len // self.block_size
+        num_blocks = serving.num_blocks
+        if num_blocks is None:
+            num_blocks = self.n_slots * max_blocks
+        self.alloc = BlockAllocator(num_blocks)
+        self.tables = SlotTables(self.n_slots, max_blocks, self.block_size)
+        self.trie = PrefixTrie(self.block_size) \
+            if serving.prefix_sharing else None
+        self.prefill_chunk = serving.prefill_chunk
+        self.token_budget = serving.token_budget \
+            if serving.token_budget is not None \
+            else self.n_slots + self.prefill_chunk
+        self._watermark = max(1, round(num_blocks * serving.watermark)) \
+            if serving.watermark > 0 else 0
+        # pool holds num_blocks usable blocks + the trash block (id 0)
+        self.cache = self.mod.init_paged_cache(cfg, num_blocks + 1,
+                                               self.block_size,
+                                               device=self.device)
+        self._pf_done = np.zeros(self.n_slots, np.int64)
+        self._pf_src: list[Optional[list[int]]] = [None] * self.n_slots
+        self._slot_seq = np.zeros(self.n_slots, np.int64)
+        self._adm_seq = 0
+        self._rr = 0   # round-robin offset for budget-capped decode
+
+    # -- request lifecycle ---------------------------------------------------
+    def submit(self, req: Request) -> int:
+        if not req.prompt:
+            raise ValueError("empty prompt")
+        if req.n_samples != 1:
+            raise _not_ported("parallel samples (n_samples > 1)", "A4b")
+        if req.temperature != 0.0:
+            raise _not_ported("sampling at temperature > 0", "A4a")
+        if len(req.prompt) >= self.max_len - 1:
+            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
+                             f"max_len={self.max_len}")
+        need = self._blocks_worst_case(req)
+        if need > self.alloc.stats.num_blocks:
+            raise ValueError(f"request needs {need} KV blocks worst-case but "
+                             f"the pool only has "
+                             f"{self.alloc.stats.num_blocks}")
+        req.rid = self._next_rid
+        self._next_rid += 1
+        req.t_submit = time.monotonic()
+        self.queue.append(req)
+        t0 = time.monotonic()
+        self._admit()
+        self.metrics.wall_s += time.monotonic() - t0
+        return req.rid
+
+    def step(self):
+        """One serving step; retires finished requests and re-admits."""
+        t0 = time.monotonic()
+        self._step_paged()
+        self.metrics.wall_s += time.monotonic() - t0
+
+    def _blocks_worst_case(self, req: Request) -> int:
+        need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
+        return self.tables.blocks_for(need)
+
+    def _available(self) -> int:
+        """Blocks admission can count on: free now + trie-evictable."""
+        n = self.alloc.stats.free
+        if self.trie is not None:
+            n += self.trie.evictable(self.alloc)
+        return n
+
+    def _admit(self):
+        while self.queue:
+            try:
+                slot = self.slot_req.index(None)
+            except ValueError:
+                return
+            req = self.queue[0]
+            # effective prompt: prompt + anything generated before a
+            # preemption (resume is a prefill of the longer prompt; the trie
+            # turns most of it into a free match)
+            eff = req.prompt + req.output
+            matched = self.trie.match(eff[:-1]) if self.trie is not None \
+                else []
+            need = self.tables.blocks_for(len(eff)) - len(matched)
+            headroom = self._watermark if any(
+                r is not None for r in self.slot_req) else 0
+            if self._available() < need + headroom:
+                return  # head-of-line waits; active lanes keep draining
+            self.queue.pop(0)
+            self.slot_req[slot] = req
+            self._slot_seq[slot] = self._adm_seq
+            self._adm_seq += 1
+            if matched:
+                self.alloc.incref(matched)
+                self.tables.assign(slot, matched,
+                                   len(matched) * self.block_size)
+                self.metrics.prefix_hit_tokens += \
+                    len(matched) * self.block_size
+            self._pf_src[slot] = eff
+            self._pf_done[slot] = len(matched) * self.block_size
+
+    def _schedule(self, active):
+        """Pick this step's lanes under the token budget: decode first
+        (1 token each), then prompt chunks. Returns
+        (decode_lanes, dropped_decodes, takes, starved_prefills)."""
+        prefilling = [s for s in active
+                      if self._pf_done[s] < len(self._pf_src[s])]
+        budget = self.token_budget
+        cands = [s for s in active if s not in prefilling]
+        if cands:
+            rot = self._rr % len(cands)
+            cands = cands[rot:] + cands[:rot]
+        decode_lanes = cands[:budget]
+        dropped = len(cands) - len(decode_lanes)
+        budget -= len(decode_lanes)
+        takes: dict[int, int] = {}
+        starved = 0
+        for s in prefilling:
+            take = min(len(self._pf_src[s]) - int(self._pf_done[s]),
+                       self.prefill_chunk, budget)
+            if take <= 0:
+                starved += 1
+                continue
+            takes[s] = take
+            budget -= take
+        return decode_lanes, dropped, takes, starved
+
+    def _write_plan(self, valid_map: dict[int, int]):
+        """Blocks this step must acquire: table growth for new positions,
+        plus one private copy per shared block about to be written (CoW).
+        Returns (total_new_blocks, [(slot, logical_idx, shared_block)])."""
+        bs = self.block_size
+        need, copies = 0, []
+        for s, v in valid_map.items():
+            if not v:
+                continue
+            lens = int(self.tables.lens[s])
+            new_len = lens + v
+            need += max(0, self.tables.blocks_for(new_len)
+                        - int(self.tables.n_alloc[s]))
+            for j in range(lens // bs,
+                           min((new_len - 1) // bs + 1,
+                               int(self.tables.n_alloc[s]))):
+                b = int(self.tables.tables[s, j])
+                if self.alloc.refcount(b) > 1:
+                    copies.append((s, j, b))
+                    need += 1
+        return need, copies
+
+    def _step_paged(self):
+        if not any(r is not None for r in self.slot_req):
+            return
+        # plan the step; preempt the newest-admitted lane while the pool
+        # cannot back every write
+        while True:
+            active = [s for s in range(self.n_slots) if self.slot_req[s]]
+            if not active:
+                return
+            decode_lanes, dropped, takes, starved = self._schedule(active)
+            valid_map = {s: 1 for s in decode_lanes}
+            valid_map.update(takes)
+            need, copies = self._write_plan(valid_map)
+            if need <= self._available() or len(active) == 1:
+                break
+            victim = max(active, key=lambda s: int(self._slot_seq[s]))
+            self._preempt(victim)
+        self._rr += 1
+        self.metrics.stalled_decodes += dropped
+        self.metrics.stalled_prefills += starved
+        self.metrics.peak_active = max(self.metrics.peak_active, len(active))
+        self.metrics.peak_decode_lanes = max(self.metrics.peak_decode_lanes,
+                                             len(decode_lanes))
+        shortfall = need - self.alloc.stats.free
+        if shortfall > 0 and self.trie is not None:
+            self.trie.evict(shortfall, self.alloc)
+        if not self.alloc.can_acquire(need):
+            raise RuntimeError(
+                f"pool cannot back this step: need {need} blocks, free "
+                f"{self.alloc.stats.free} — scheduler invariant violated")
+        for s, j, b in copies:
+            [nb] = self.alloc.acquire(1)
+            self.cache = self.mod.cow_copy_block(self.cache, b, nb)
+            self.tables.replace(s, j, nb, self.alloc)
+            self.metrics.cow_forks += 1
+        for s, v in valid_map.items():
+            if v:
+                self.tables.grow(s, int(self.tables.lens[s]) + v, self.alloc)
+        # steps whose prefill lanes are all budget-starved run C = 1
+        c = self.prefill_chunk if takes else 1
+        toks = np.zeros((self.n_slots, c), np.int32)
+        valid = np.zeros(self.n_slots, np.int32)
+        for s in decode_lanes:
+            toks[s, 0] = self.slot_req[s].output[-1]
+            valid[s] = 1
+        for s, take in takes.items():
+            done = int(self._pf_done[s])
+            toks[s, :take] = self._pf_src[s][done:done + take]
+            valid[s] = take
+        dev = self.device
+        logits, self.cache = self.mod.paged_step(
+            self.params, torch.from_numpy(toks).to(dev), self.cache,
+            torch.from_numpy(self.tables.tables).to(dev),
+            torch.from_numpy(self.tables.lens).to(dev),
+            torch.from_numpy(valid).to(dev), self.cfg)
+        # greedy argmax on the host, as the reference's sample_token does
+        # at temperature 0
+        rows = logits.float().cpu().numpy()              # [B, V]
+        now = time.monotonic()
+        retires = []
+        for s in active:
+            if not valid[s]:
+                continue
+            req = self.slot_req[s]
+            if s in takes:
+                self.tables.lens[s] += int(valid[s])
+                self._pf_done[s] += int(valid[s])
+                self.metrics.prefill_tokens += int(valid[s])
+                if self._pf_done[s] == len(self._pf_src[s]):
+                    req.output.append(int(np.argmax(rows[s])))
+                    if not req.t_first:
+                        req.t_first = now
+                    self._register_prefix(s)
+                    if (len(req.output) >= req.max_new_tokens
+                            or (req.eos_id is not None
+                                and req.output[-1] == req.eos_id)):
+                        self._retire(s, now)
+                continue
+            self.tables.lens[s] += 1
+            nxt = int(np.argmax(rows[s]))
+            req.output.append(nxt)
+            self.metrics.decode_tokens += 1
+            exhausted = len(req.output) >= req.max_new_tokens
+            hit_eos = req.eos_id is not None and nxt == req.eos_id
+            full = int(self.tables.lens[s]) + 1 >= self.max_len - 1
+            if exhausted or hit_eos or full:
+                retires.append(s)
+        for s in retires:
+            self._retire(s, now)
+        self.steps_run += 1
+        self.metrics.steps += 1
+        self._admit()
+
+    def _register_prefix(self, slot: int):
+        """Cache the completed prefill's full prompt blocks in the trie."""
+        if self.trie is None:
+            return
+        src = self._pf_src[slot]
+        nfull = len(src) // self.block_size
+        if nfull:
+            self.trie.insert(src[:nfull * self.block_size],
+                             self.tables.held(slot)[:nfull], self.alloc)
+
+    def _preempt(self, slot: int):
+        """Evict a running lane under pool pressure: register its full
+        blocks in the trie, release its refs, and re-queue it at the head
+        with prompt + generated-so-far as the effective prompt."""
+        req = self.slot_req[slot]
+        lens = int(self.tables.lens[slot])
+        if self.trie is not None and lens >= self.block_size:
+            nfull = lens // self.block_size
+            stream = (req.prompt + req.output)[:nfull * self.block_size]
+            self.trie.insert(stream, self.tables.held(slot)[:nfull],
+                             self.alloc)
+        self.tables.release(slot, self.alloc)
+        self.slot_req[slot] = None
+        self._pf_src[slot] = None
+        self._pf_done[slot] = 0
+        self.queue.insert(0, req)
+        self.metrics.preemptions += 1
+
+    def _retire(self, slot: int, now: float):
+        req = self.slot_req[slot]
+        req.done = True
+        req.t_done = now
+        self.tables.release(slot, self.alloc)
+        self.slot_req[slot] = None
+        self._pf_src[slot] = None
+        self._pf_done[slot] = 0
+
+    def run_until_drained(self, max_steps: int = 10_000):
+        while any(self.slot_req) or self.queue:
+            before = self.steps_run
+            self.step()
+            if self.steps_run == before:
+                self._admit()
+                if not any(self.slot_req):
+                    raise RuntimeError("admission stalled with an empty "
+                                       "batch — the head request cannot fit")
+            if self.steps_run > max_steps:
+                raise RuntimeError("serving loop did not drain")
+
+    def flush_prefix_cache(self) -> int:
+        """Drop every trie entry; returns blocks freed to the pool."""
+        return self.trie.flush(self.alloc) if self.trie is not None else 0

@@ -1,0 +1,80 @@
+"""The port's configs equal the reference's, field for field."""
+import dataclasses
+import importlib
+
+import pytest
+
+from _torch_helpers import normalize
+
+pytest.importorskip("jax")
+
+from repro.configs import internlm2_1_8b as ref_arch  # noqa: E402
+from repro.configs import base as ref_base  # noqa: E402
+from repro.core import macro as ref_macro  # noqa: E402
+from repro.core import quant as ref_quant  # noqa: E402
+from repro_torch.configs import base as t_base  # noqa: E402
+from repro_torch.configs import internlm2_1_8b as t_arch  # noqa: E402
+from repro_torch.configs import registry as t_registry  # noqa: E402
+from repro_torch.core import cim_matmul as t_cim  # noqa: E402
+from repro_torch.core import macro as t_macro  # noqa: E402
+from repro_torch.core import quant as t_quant  # noqa: E402
+
+# repro.core re-exports a function named cim_matmul over the submodule
+ref_cim = importlib.import_module("repro.core.cim_matmul")
+
+PAIRS = {
+    "CONFIG": (ref_arch.CONFIG, t_arch.CONFIG),
+    "SMOKE": (ref_arch.SMOKE, t_arch.SMOKE),
+    "MacroConfig": (ref_macro.MacroConfig(), t_macro.MacroConfig()),
+    "CIMConfig": (ref_cim.CIMConfig(), t_cim.CIMConfig()),
+    "CIMConfig_enabled": (ref_cim.CIMConfig(enabled=True),
+                          t_cim.CIMConfig(enabled=True)),
+    "ActQuantConfig": (ref_quant.ActQuantConfig(), t_quant.ActQuantConfig()),
+    "WeightQuantConfig": (ref_quant.WeightQuantConfig(),
+                          t_quant.WeightQuantConfig()),
+    "TRAIN_4K": (ref_base.TRAIN_4K, t_base.TRAIN_4K),
+    "DECODE_32K": (ref_base.DECODE_32K, t_base.DECODE_32K),
+    "TrainConfig": (ref_base.TrainConfig(), t_base.TrainConfig()),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PAIRS))
+def test_fields_equal(name):
+    ref, port = PAIRS[name]
+    assert [f.name for f in dataclasses.fields(ref)] \
+        == [f.name for f in dataclasses.fields(port)]
+    assert normalize(ref) == normalize(port)
+
+
+@pytest.mark.parametrize("vdd", [0.65, 0.7, 0.75, 0.9, 1.2])
+@pytest.mark.parametrize("gain", [1.0, 2.5])
+def test_macro_derived_quantities(vdd, gain):
+    r = ref_macro.MacroConfig(gain=gain, op=ref_macro.OperatingPoint(vdd=vdd))
+    t = t_macro.MacroConfig(gain=gain, op=t_macro.OperatingPoint(vdd=vdd))
+    assert t.effective_adc_levels() == r.effective_adc_levels()
+    assert t.full_scale() == r.full_scale()
+    assert t.adc_lsb() == r.adc_lsb()
+    assert t.full_scale(1, 1) == r.full_scale(1, 1)
+
+
+def test_macro_defaults():
+    m = t_macro.MacroConfig()
+    assert (m.n_rows, m.adc_levels, m.effective_adc_levels()) == (144, 362,
+                                                                   362)
+
+
+def test_model_config_widths():
+    c = t_registry.get("internlm2-1.8b")
+    assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
+            c.d_ff, c.vocab) == (24, 2048, 16, 8, 128, 8192, 92544)
+    assert t_registry.get("internlm2-1.8b", smoke=True) == t_arch.SMOKE
+
+
+def test_registry_unported_arch_raises():
+    with pytest.raises(KeyError, match="A9"):
+        t_registry.get("llama3-8b")
+
+
+def test_cim_config_site_overrides_raise():
+    with pytest.raises(NotImplementedError, match="A7"):
+        t_cim.CIMConfig(site_overrides=(("wq", None),))

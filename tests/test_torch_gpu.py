@@ -1,0 +1,99 @@
+"""The port's Hopper kernels against their plain PyTorch versions, on the
+card (marker `gpu`; each test skips without a CUDA device). Run there with
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+B1, B2 and B4 must be bit-exact; B3 too, since its plain version follows
+the kernel's operation order on the same device. Inputs come from numpy
+seeds. This file needs no JAX.
+"""
+import numpy as np
+import pytest
+import torch
+
+from _torch_helpers import gpu_device
+
+from repro_torch.kernels import cim_mvm, ops
+from repro_torch.kernels import paged_attention as pa
+
+pytestmark = pytest.mark.gpu
+
+KW = dict(n_rows=144, levels=362, gain=1.0, full_scale=32400.0)
+
+
+def _codes(seed, shape):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 16, shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 301, 70), (5, 288, 129),
+                                   (130, 145, 257), (4, 2048, 2048),
+                                   (64, 2048, 1024), (4, 8192, 2048)])
+def test_b1_b2_bit_exact_vs_plain(m, k, n):
+    dev = gpu_device()
+    x = _codes(m, (m, k)).to(dev)
+    w = _codes(n, (k, n)).to(dev)
+    wp = ops.pack_codes(w).contiguous()
+    before = cim_mvm.cim_mvm_grouped.launches
+    assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **KW),
+                       cim_mvm.cim_mvm_grouped_plain(x, w, **KW))
+    assert torch.equal(cim_mvm.cim_mvm_grouped_packed(x, wp, **KW),
+                       cim_mvm.cim_mvm_grouped_packed_plain(x, wp, **KW))
+    assert cim_mvm.cim_mvm_grouped.launches == before + 1
+
+
+def test_b1_rejects_bad_operands():
+    dev = gpu_device()
+    x = _codes(0, (4, 300)).to(dev)
+    with pytest.raises(ValueError):
+        cim_mvm.cim_mvm_grouped_packed(x, torch.zeros(10, 8, dtype=torch.uint8,
+                                                      device=dev), **KW)
+    with pytest.raises(ValueError):
+        cim_mvm.cim_mvm_grouped_packed(x, torch.zeros(150, 8, device=dev),
+                                       **KW)
+
+
+def _attn_case(seed, c, dtype, dev, b=4, kh=8, g=2, dh=128, bs=16, mb=16):
+    rng = np.random.RandomState(seed)
+    nb = b * mb + 1
+    q = torch.from_numpy(rng.standard_normal((b, c, kh * g, dh))
+                         .astype(np.float32)).to(dev)
+    kp = torch.from_numpy(rng.standard_normal((nb, bs, kh, dh))
+                          .astype(np.float32)).to(dev, dtype)
+    vp = torch.from_numpy(rng.standard_normal((nb, bs, kh, dh))
+                          .astype(np.float32)).to(dev, dtype)
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    lens = torch.tensor([0, 37, 130, 224 - c], dtype=torch.int32, device=dev)
+    kvl = lens + torch.tensor([0, c, c, c], dtype=torch.int32, device=dev)
+    tables = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                              .astype(np.int32).reshape(b, mb)).to(dev)
+    return q, kp, vp, tables, lens, kvl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 16])
+def test_b3_bit_exact_vs_plain(c, dtype):
+    dev = gpu_device()
+    case = _attn_case(7, c, dtype, dev)
+    out = pa.paged_attn_call(*case)
+    ref = pa.paged_attn_plain(*case)
+    assert torch.isfinite(out).all()
+    assert torch.equal(out, ref)
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4_bit_exact_vs_plain(dtype):
+    dev = gpu_device()
+    g = torch.Generator(device="cpu").manual_seed(8)
+    kp = torch.randn(9, 16, 8, 128, generator=g).to(dev, dtype)
+    vp = torch.randn(9, 16, 8, 128, generator=g).to(dev, dtype)
+    nk = torch.randn(4, 1, 8, 128, generator=g).to(dev)
+    nv = torch.randn(4, 1, 8, 128, generator=g).to(dev)
+    flat = torch.tensor([[17], [0], [40], [143]], device=dev)
+    k2, v2, k3, v3 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    pa.fused_write_call(k2, v2, nk, nv, flat)
+    pa.fused_write_plain(k3, v3, nk, nv, flat)
+    assert torch.equal(k2, k3) and torch.equal(v2, v3)
+    assert torch.equal(k2[0], kp[0])       # flat 0: no write
