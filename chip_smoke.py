@@ -8,24 +8,34 @@ only the port (`src/repro_torch`), never JAX or the JAX package, and exits
 non-zero without a CUDA device or without the port beside it. Phases, each
 of which fails the run when it fails:
 
-  1. the card's name and power limit (nvidia-smi); build the four Hopper
-     kernels (one nvcc per source, started together) and time the build;
+  1. the card's name and power limit (nvidia-smi); build the Hopper kernels
+     B1-B6 (one nvcc per source, started together) and time the build;
   2. each kernel against its plain PyTorch version on the card at the main
      path's shapes, from numpy-seeded inputs: B1/B2 (grouped ADC MVM,
      packed/dense) bit-exact at M in {4, 64} over the internlm2-1.8b layer
-     and head widths; B3 (paged flash attention) at decode C=1 and prefill
-     C=16 with mixed lengths, an idle lane and a NaN trash block, bit-exact
-     and finite; B4 (fused decode write) bit-exact. Each is timed with CUDA
+     and head widths; B5/B6 (the same with the seeded NOISY converter)
+     bit-exact at the same shapes for seeds 0 and 7, B6 equal to B5, the
+     inl_seed salt changing the draws, and FULL (INL curve) at one layer
+     shape; B3 (paged flash attention) at decode C=1 and prefill C=16 with
+     mixed lengths, an idle lane and a NaN trash block, bit-exact and
+     finite; B4 (fused decode write) bit-exact. Each is timed with CUDA
      events beside its plain version, a bound and, where one exists, a
-     PyTorch library call;
+     PyTorch library call (the MVM kernels over one decode step's 169
+     MVMs; B1 and B6 also over a prefill chunk's 168 layer MVMs at M=64);
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
      sharing a 32-token prefix. Launch counts are reset just before and
      read just after; B1, B3 and B4 must each have launched. Then one
      prefill and one decode `paged_step` with the kernels and with their
-     plain versions, which must give identical logits;
+     plain versions, which must give identical logits, and where one
+     decode step's time goes (CUDA graph vs eager, profiler rows);
   4. a short --cim bp serve, which must launch B2;
+  4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
+     full width: phase 3's serve with nibble-packed prequant weights (B6,
+     B3, B4 must launch), the kernel-vs-plain step check and the decode
+     step breakdown again, then a short --cim bp-noisy serve with weights
+     quantized on the fly, which must launch B5;
   5. a `kernels` JSON line, then the result line.
 """
 from __future__ import annotations
@@ -43,6 +53,16 @@ ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
 F32_FLOP_S = 67e12             # H100 SXM f32 outside the tensor cores
 INT_OP_S = 1979e12             # H100 SXM int8 tensor-core ops (dense)
+# H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (half
+# the 128 FP32 lanes that give the data sheet's 67 TFLOP/s) x 1.98 GHz
+INT32_OP_S = 132 * 64 * 1.98e9
+# integer operations the counter hash of B5/B6 needs (murmur3 finalizer
+# mix32 = 3 shifts + 3 xors + 2 multiplies = 8): per conversion, the group
+# absorption (xor + mix32) and 12 uniforms (add + mix32 each); per output
+# element, the row and column absorptions (2 x (xor + mix32))
+HASH_OPS_PER_CONVERSION = 9 + 12 * 9
+HASH_OPS_PER_OUTPUT = 2 * 9
+FULL_TOL = 0                   # outputs of B5/B6 at FULL that may differ
 
 # (name, rows of the decode-step MVM shapes: K, N, launches per step)
 DECODE_MVMS = [("wq+wo", 2048, 2048, 48), ("wk+wv", 2048, 1024, 48),
@@ -133,7 +153,9 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.adc import stochastic_transfer_params
     from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import MacroConfig, SimLevel
     from repro_torch.kernels import build, cim_mvm as cm, ops
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import common, registry, transformer
@@ -190,23 +212,97 @@ def main() -> int:
     log("phase 2: B1, B2 bit-exact vs plain at M in {4, 64} x "
         f"{PARITY_KN} (tolerance 0)")
 
+    # B5/B6: the seeded stochastic converter, NOISY (and FULL once)
+    def stochastic_kw(level):
+        st = stochastic_transfer_params(MacroConfig(sim_level=level))
+        return dict(kw, sigma=st["sigma"], inl_amp=st["inl_amp"],
+                    apply_inl=st["apply_inl"])
+
+    noisy_kw, full_kw = (stochastic_kw(SimLevel.NOISY),
+                         stochastic_kw(SimLevel.FULL))
+    seeds = {v: torch.tensor([v], dtype=torch.int32, device=dev)
+             for v in (0, 7)}
+    err["B5"] = err["B6"] = 0.0
+    for m in (4, 64):
+        for k, n in PARITY_KN:
+            x, w = codes((m, k)), codes((k, n))
+            wp = ops.pack_codes(w).contiguous()
+            for sd, seed in seeds.items():
+                y5 = cm.cim_mvm_grouped_noisy(x, w, seed, **noisy_kw)
+                y6 = cm.cim_mvm_grouped_noisy_packed(x, wp, seed, **noisy_kw)
+                y5p = cm.cim_mvm_grouped_noisy_plain(x, w, seed, **noisy_kw)
+                y6p = cm.cim_mvm_grouped_noisy_packed_plain(x, wp, seed,
+                                                            **noisy_kw)
+                torch.cuda.synchronize()
+                e5 = (y5 - y5p).abs().max().item()
+                e6 = (y6 - y6p).abs().max().item()
+                where = f"at M={m} K={k} N={n} seed {sd}"
+                check(bool(torch.isfinite(y5).all()), f"B5 not finite {where}")
+                check(torch.equal(y5, y5p), f"B5 differs from its plain "
+                      f"version {where}: max |err| {e5}")
+                check(torch.equal(y6, y6p), f"B6 differs from its plain "
+                      f"version {where}: max |err| {e6}")
+                check(torch.equal(y6, y5), f"B6 differs from B5 {where}")
+                err["B5"], err["B6"] = max(err["B5"], e5), max(err["B6"], e6)
+                if sd == 0:
+                    y0 = y5
+            salted = cm.cim_mvm_grouped_noisy(x, w, seeds[0], inl_seed=3,
+                                              **noisy_kw)
+            check(not torch.equal(salted, y0), f"inl_seed 3 drew the same "
+                  f"noise as inl_seed 0 at M={m} K={k} N={n}")
+            del x, w, wp, y5, y6, y5p, y6p, y0, salted
+    log("phase 2: B5, B6 bit-exact vs plain at NOISY, M in {4, 64} x "
+        f"{PARITY_KN}, seeds 0 and 7 (tolerance 0); B6 == B5; inl_seed "
+        "3 salts the draws")
+    full_diff = 0
+    for m in (4, 64):
+        x, w = codes((m, 2048)), codes((2048, 2048))
+        wp = ops.pack_codes(w).contiguous()
+        y5 = cm.cim_mvm_grouped_noisy(x, w, seeds[7], inl_seed=3, **full_kw)
+        y6 = cm.cim_mvm_grouped_noisy_packed(x, wp, seeds[7], inl_seed=3,
+                                             **full_kw)
+        y5p = cm.cim_mvm_grouped_noisy_plain(x, w, seeds[7], inl_seed=3,
+                                             **full_kw)
+        torch.cuda.synchronize()
+        full_diff += int((y5 != y5p).sum()) + int((y6 != y5p).sum())
+        err["B5"] = max(err["B5"], (y5 - y5p).abs().max().item())
+        err["B6"] = max(err["B6"], (y6 - y5p).abs().max().item())
+        del x, w, wp, y5, y6, y5p
+    log(f"phase 2: B5, B6 at FULL (INL instance 3), M in {{4, 64}}, "
+        f"K=N=2048: {full_diff} outputs differ from the plain version "
+        f"(tolerance {FULL_TOL})")
+    check(full_diff <= FULL_TOL, "B5/B6 at FULL differ from their plain "
+          "versions beyond the tolerance")
+
     # decode-step timing: M = 4 slots, every MVM shape of one step
-    for name, packed in (("B1", True), ("B2", False)):
+    mvms = {"B1": (cm.cim_mvm_grouped_packed, cm.cim_mvm_grouped_packed_plain,
+                   True, {}),
+            "B2": (cm.cim_mvm_grouped, cm.cim_mvm_grouped_plain, False, {}),
+            "B5": (cm.cim_mvm_grouped_noisy, cm.cim_mvm_grouped_noisy_plain,
+                   False, noisy_kw),
+            "B6": (cm.cim_mvm_grouped_noisy_packed,
+                   cm.cim_mvm_grouped_noisy_packed_plain, True, noisy_kw)}
+    for name, (kern, plain, packed, nkw) in mvms.items():
         tot = {"ms": 0.0, "call_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0,
-               "ops": 0.0}
+               "ops": 0.0, "hash_ops": 0.0}
+        extra = (seeds[0],) if nkw else ()
+        fkw = nkw or kw
+
+        def run_k(a, b):
+            return kern(a, b, *extra, **fkw)
+
+        def run_p(a, b):
+            return plain(a, b, *extra, **fkw)
+
         for label, k, n, count in DECODE_MVMS:
             x = codes((4, k))
             w = codes((k, n))
             w = ops.pack_codes(w).contiguous() if packed else w
-            kern = cm.cim_mvm_grouped_packed if packed else cm.cim_mvm_grouped
-            plain = cm.cim_mvm_grouped_packed_plain if packed \
-                else cm.cim_mvm_grouped_plain
             ws = copies(w)
             args = [(x, wi) for wi in ws]
-            t_k = graph_ms(torch, lambda a, b: kern(a, b, **kw), args)
-            t_call = time_ms(torch, lambda a, b: kern(a, b, **kw), args)
-            t_p = graph_ms(torch, lambda a, b: plain(a, b, **kw), args[:4],
-                           reps=3, min_iters=4)
+            t_k = graph_ms(torch, run_k, args)
+            t_call = time_ms(torch, run_k, args)
+            t_p = graph_ms(torch, run_p, args[:4], reps=3, min_iters=4)
             wbytes = w.numel() * w.element_size()
             log(f"  {name} {label:12s} M=4 K={k} N={n} x{count}/step: "
                 f"kernel {t_k * 1e3:.2f} us on the card "
@@ -218,9 +314,14 @@ def main() -> int:
             tot["plain_ms"] += count * t_p
             tot["bytes"] += count * (wbytes + 4 * k * 4 + 4 * n * 4)
             tot["ops"] += count * 2 * 4 * k * n
+            if nkw:
+                groups = -(-k // kw["n_rows"])
+                tot["hash_ops"] += count * (
+                    4 * n * groups * HASH_OPS_PER_CONVERSION
+                    + 4 * n * HASH_OPS_PER_OUTPUT)
             del x, w, ws
         b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
-        b_ops = tot["ops"] / INT_OP_S * 1e3
+        b_ops = max(tot["ops"] / INT_OP_S, tot["hash_ops"] / INT32_OP_S) * 1e3
         report[name] = dict(
             ms=tot["ms"], plain_ms=tot["plain_ms"],
             bound_ms=max(b_bytes, b_ops),
@@ -228,8 +329,36 @@ def main() -> int:
             library_ms=None, max_abs_err=err[name])
         log(f"  {name} one decode step (169 MVMs): kernel {tot['ms']:.3f} ms "
             f"on the card, {tot['call_ms']:.3f} ms as eager calls, plain "
-            f"{tot['plain_ms']:.3f} ms, bound {b_bytes:.3f} ms "
-            f"(weight bytes / 3.35 TB/s)")
+            f"{tot['plain_ms']:.3f} ms, bound {max(b_bytes, b_ops):.3f} ms "
+            f"(weight bytes / 3.35 TB/s: {b_bytes:.3f} ms; operations: "
+            f"{b_ops:.3f} ms, hash {tot['hash_ops'] / 1e9:.3f} G int32 ops)")
+        if not packed:
+            continue
+        # the packed (serving) kernels at a prefill chunk: 4 slots x 16
+        # tokens = 64 rows through the 168 layer MVMs (the head sees only
+        # each lane's last row, M = 4, timed above)
+        pre = {"ms": 0.0, "bytes": 0.0, "ops": 0.0, "hash_ops": 0.0}
+        for label, k, n, count in DECODE_MVMS[:-1]:
+            x = codes((64, k))
+            w = ops.pack_codes(codes((k, n))).contiguous()
+            ws = copies(w)
+            t_k = graph_ms(torch, run_k, [(x, wi) for wi in ws])
+            pre["ms"] += count * t_k
+            pre["bytes"] += count * (w.numel() + 64 * k * 4 + 64 * n * 4)
+            pre["ops"] += count * 2 * 64 * k * n
+            if nkw:
+                pre["hash_ops"] += count * 64 * n * (
+                    -(-k // kw["n_rows"]) * HASH_OPS_PER_CONVERSION
+                    + HASH_OPS_PER_OUTPUT)
+            del x, w, ws
+        pb_bytes = pre["bytes"] / HBM_BYTES_S * 1e3
+        pb_ops = max(pre["ops"] / INT_OP_S,
+                     pre["hash_ops"] / INT32_OP_S) * 1e3
+        log(f"  {name} one prefill chunk's 168 layer MVMs at M=64: kernel "
+            f"{pre['ms']:.3f} ms on the card, bound "
+            f"{max(pb_bytes, pb_ops):.3f} ms (bytes {pb_bytes:.3f} ms, "
+            f"operations {pb_ops:.3f} ms, hash "
+            f"{pre['hash_ops'] / 1e9:.3f} G int32 ops)")
 
     # B3: paged flash attention at the main path's shapes
     b, kh, g, dh, bs, mb = 4, 8, 2, 128, 16, 16
@@ -339,6 +468,140 @@ def main() -> int:
         f"{t_p * 1e3:.2f} us, 2x index_copy_ {2 * t_lib * 1e3:.2f} us")
     del k_pool, v_pool, k2, v2, k3, v3, pool_copies, kw_, vw_
 
+    # ---- shared by phases 3, 4 and 4b ------------------------------------
+    def serve_mix(server, prompts, tag):
+        """Phase 3's 8-request mix, 16 new tokens each; launch counts are
+        reset just before and read just after."""
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            server.submit(r)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in reqs:
+            log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
+            check(len(r.output) == 16 and all(0 <= t < cfg.vocab
+                                              for t in r.output),
+                  f"{tag} req{r.rid}: bad output {r.output}")
+        total = sum(len(r.output) for r in reqs)
+        m = server.metrics.summary()
+        log(f"{tag}: 8 requests, {total} tokens, {server.steps_run} steps, "
+            f"{dt:.2f} s ({total / dt:.1f} tok/s), peak memory {peak:.2f} "
+            f"GiB, prefix_hit_tokens={m['prefix_hit_tokens']} "
+            f"cow_forks={m['cow_forks']} preemptions={m['preemptions']}")
+        log(f"{tag}: launches {counts}")
+        check(m["prefix_hit_tokens"] >= 32, "the shared prefix was not reused")
+        return counts
+
+    def two_steps(server, step_cfg):
+        """One prefill (C=16) and one decode step from an empty pool."""
+        cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
+                                             device=dev)
+        tb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
+        srng = np.random.RandomState(7)
+        toks = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        valid = torch.tensor([16, 16, 9, 0], device=dev)
+        l1, cache = transformer.paged_step(
+            server.params, toks, cache, tb, torch.zeros(4, device=dev,
+                                                        dtype=torch.long),
+            valid, step_cfg)
+        nxt = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 1))).to(dev)
+        l2, cache = transformer.paged_step(
+            server.params, nxt, cache, tb, valid,
+            torch.tensor([1, 1, 1, 0], device=dev), step_cfg)
+        return l1, l2
+
+    def check_steps(server, tag):
+        """The two steps with the kernels and with their plain versions
+        must give identical logits."""
+        l_k = two_steps(server, server.cfg)
+        plain_cfg = server.cfg.replace(
+            attn_backend="plain",
+            cim=dataclasses.replace(server.cfg.cim, backend="plain"))
+        l_p = two_steps(server, plain_cfg)
+        torch.cuda.synchronize()
+        step_err = 0.0
+        for a, p_ in zip(l_k, l_p):
+            check(a.shape == (4, cfg.vocab) and bool(torch.isfinite(a).all()),
+                  "paged_step logits malformed")
+            step_err = max(step_err, (a[:3] - p_[:3]).abs().max().item())
+        log(f"{tag}: paged_step prefill C=16 + decode C=1, kernels vs plain "
+            f"versions: max |dlogit| = {step_err} (tolerance 0, bit-exact)")
+        check(step_err == 0.0, f"{tag}: kernel and plain paged_step logits "
+              "differ")
+
+    def decode_breakdown(server, tag):
+        """Where a decode step's time goes: the whole C=1 step captured
+        into a CUDA graph gives the card's time; the eager step adds the
+        host's; torch.profiler gives device time by kernel name."""
+        dcache = transformer.init_paged_cache(server.cfg, 4 * 16 + 1, 16,
+                                              device=dev)
+        dtb = torch.arange(1, 65, dtype=torch.int32,
+                           device=dev).reshape(4, 16)
+        dlens = torch.tensor([40, 100, 17, 0], device=dev)
+        dvalid = torch.tensor([1, 1, 1, 0], device=dev)
+        dtok = torch.from_numpy(np.random.RandomState(8).randint(
+            0, cfg.vocab, (4, 1))).to(dev)
+
+        def decode_step():
+            transformer.paged_step(server.params, dtok, dcache, dtb, dlens,
+                                   dvalid, server.cfg)
+
+        t_dev = graph_ms(torch, decode_step, [()], reps=3, min_iters=3)
+        t_eager = time_ms(torch, decode_step, [()], reps=3, min_iters=3)
+        log(f"{tag}: one decode step (4 slots, C=1): {t_dev:.2f} ms on the "
+            f"card (CUDA graph), {t_eager:.2f} ms eager -> the card is idle "
+            f"{100 * (1 - t_dev / t_eager):.1f} % of the eager step")
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            decode_step()
+            torch.cuda.synchronize()
+
+        def dev_us(e):
+            return getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0))
+
+        # kernels only: an aten op's row repeats the time of its kernels
+        rows_ = sorted((e for e in prof.key_averages()
+                        if str(getattr(e, "device_type", "")).endswith(
+                            "CUDA")), key=dev_us, reverse=True)
+        total_us = sum(dev_us(e) for e in rows_)
+        if total_us <= 0:
+            log(f"{tag}: profiler recorded no device time (not measured)")
+        else:
+            log(f"{tag}: profiled decode step: {total_us / 1e3:.3f} ms of "
+                f"kernel time in {sum(e.count for e in rows_)} launches")
+        for e in rows_[:12] if total_us > 0 else []:
+            log(f"  profile: {dev_us(e) / 1e3:8.3f} ms "
+                f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<5d} "
+                f"{e.key[:100]}")
+
+    def short_serve(server, prompts, tag):
+        """2 requests x 4 tokens; returns the launch counts of the run."""
+        reqs = [Request(prompt=prompts[i][:24], max_new_tokens=4)
+                for i in (1, 2)]
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            server.submit(r)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = build.launch_counts()
+        for r in reqs:
+            log(f"{tag} req{r.rid}: -> {r.output}")
+            check(len(r.output) == 4, f"{tag} req{r.rid}: bad output "
+                  f"{r.output}")
+        log(f"{tag}: 2 requests x 4 tokens in {dt:.2f} s; launches {counts}")
+        return counts
+
     # ---- phase 3: full-width paged serve, --cim bp-prequant --------------
     cfg = ARCHS["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
     t0 = time.monotonic()
@@ -359,137 +622,49 @@ def main() -> int:
                for n in lengths]
     for i in (0, 6):
         prompts[i] = prefix + prompts[i][32:]
-    reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    build.reset_launch_counts()
-    t0 = time.monotonic()
-    for r in reqs:
-        server.submit(r)
-    server.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.monotonic() - t0
-    counts = build.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for r in reqs:
-        log(f"req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-        check(len(r.output) == 16 and all(0 <= t < cfg.vocab
-                                          for t in r.output),
-              f"req{r.rid}: bad output {r.output}")
-    total = sum(len(r.output) for r in reqs)
-    m = server.metrics.summary()
-    log(f"phase 3: 8 requests, {total} tokens, {server.steps_run} steps, "
-        f"{dt:.2f} s ({total / dt:.1f} tok/s), peak memory {peak:.2f} GiB, "
-        f"prefix_hit_tokens={m['prefix_hit_tokens']} "
-        f"cow_forks={m['cow_forks']} preemptions={m['preemptions']}")
-    log(f"phase 3: launches {counts}")
+    counts = serve_mix(server, prompts, "phase 3")
     main_launches = {"B1": counts["cim_mvm_grouped_packed"],
                      "B3": counts["paged_attn_call"],
                      "B4": counts["fused_write_call"]}
     for name, n in main_launches.items():
         check(n > 0, f"{name} was not launched on the main path")
-    check(m["prefix_hit_tokens"] >= 32, "the shared prefix was not reused")
-
-    # one prefill + one decode step: kernels vs their plain versions
-    def two_steps(step_cfg):
-        cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
-                                             device=dev)
-        tb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
-        srng = np.random.RandomState(7)
-        toks = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 16))).to(dev)
-        valid = torch.tensor([16, 16, 9, 0], device=dev)
-        l1, cache = transformer.paged_step(
-            server.params, toks, cache, tb, torch.zeros(4, device=dev,
-                                                        dtype=torch.long),
-            valid, step_cfg)
-        nxt = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 1))).to(dev)
-        l2, cache = transformer.paged_step(
-            server.params, nxt, cache, tb, valid,
-            torch.tensor([1, 1, 1, 0], device=dev), step_cfg)
-        return l1, l2
-
-    l_k = two_steps(server.cfg)
-    plain_cfg = server.cfg.replace(
-        attn_backend="plain",
-        cim=dataclasses.replace(server.cfg.cim, backend="plain"))
-    l_p = two_steps(plain_cfg)
-    torch.cuda.synchronize()
-    step_err = 0.0
-    for a, p_ in zip(l_k, l_p):
-        check(a.shape == (4, cfg.vocab) and bool(torch.isfinite(a).all()),
-              "paged_step logits malformed")
-        step_err = max(step_err, (a[:3] - p_[:3]).abs().max().item())
-    log(f"phase 3: paged_step prefill C=16 + decode C=1, kernels vs plain "
-        f"versions: max |dlogit| = {step_err} (tolerance 0, bit-exact)")
-    check(step_err == 0.0, "kernel and plain paged_step logits differ")
-
-    # where a decode step's time goes: the whole C=1 step captured into a
-    # CUDA graph gives the card's time; the eager step adds the host's
-    dcache = transformer.init_paged_cache(server.cfg, 4 * 16 + 1, 16,
-                                          device=dev)
-    dtb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
-    dlens = torch.tensor([40, 100, 17, 0], device=dev)
-    dvalid = torch.tensor([1, 1, 1, 0], device=dev)
-    dtok = torch.from_numpy(np.random.RandomState(8).randint(
-        0, cfg.vocab, (4, 1))).to(dev)
-
-    def decode_step():
-        transformer.paged_step(server.params, dtok, dcache, dtb, dlens,
-                               dvalid, server.cfg)
-
-    t_dev = graph_ms(torch, decode_step, [()], reps=3, min_iters=3)
-    t_eager = time_ms(torch, decode_step, [()], reps=3, min_iters=3)
-    log(f"phase 3: one decode step (4 slots, C=1): {t_dev:.2f} ms on the "
-        f"card (CUDA graph), {t_eager:.2f} ms eager -> the card is idle "
-        f"{100 * (1 - t_dev / t_eager):.1f} % of the eager step")
-    # the same step under torch.profiler: device time by kernel name
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        decode_step()
-        torch.cuda.synchronize()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # kernels only: an aten op's row repeats the time of its kernels
-    rows_ = sorted((e for e in prof.key_averages()
-                    if str(getattr(e, "device_type", "")).endswith("CUDA")),
-                   key=dev_us, reverse=True)
-    total_us = sum(dev_us(e) for e in rows_)
-    if total_us <= 0:
-        log("phase 3: profiler recorded no device time (not measured)")
-    else:
-        log(f"phase 3: profiled decode step: {total_us / 1e3:.3f} ms of "
-            f"kernel time in {sum(e.count for e in rows_)} launches")
-    for e in rows_[:12] if total_us > 0 else []:
-        log(f"  profile: {dev_us(e) / 1e3:8.3f} ms "
-            f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<5d} "
-            f"{e.key[:100]}")
-    del server, dcache
+    check_steps(server, "phase 3")
+    decode_breakdown(server, "phase 3")
+    del server
 
     # ---- phase 4: --cim bp serve (B2) ------------------------------------
     server = Server(params, cfg, ServingConfig(
         paged=True, attn="kernel", n_slots=4, max_len=256,
         prefill_chunk=16), device=dev)
-    reqs = [Request(prompt=prompts[i][:24], max_new_tokens=4)
-            for i in (1, 2)]
-    build.reset_launch_counts()
-    t0 = time.monotonic()
-    for r in reqs:
-        server.submit(r)
-    server.run_until_drained()
-    torch.cuda.synchronize()
-    dt = time.monotonic() - t0
-    counts = build.launch_counts()
-    for r in reqs:
-        log(f"bp req{r.rid}: -> {r.output}")
-        check(len(r.output) == 4, f"bp req{r.rid}: bad output {r.output}")
-    log(f"phase 4: --cim bp, 2 requests x 4 tokens in {dt:.2f} s; "
-        f"launches {counts}")
+    counts = short_serve(server, prompts, "phase 4: --cim bp")
     main_launches["B2"] = counts["cim_mvm_grouped"]
     check(main_launches["B2"] > 0, "B2 was not launched on the --cim bp path")
+    del server
+
+    # ---- phase 4b: the seeded NOISY converter (B6, then B5) --------------
+    # built as the reference's serve.py --cim bp-noisy builds it
+    noisy = CIMConfig(enabled=True, noise_seed=0)
+    noisy = dataclasses.replace(noisy, macro=dataclasses.replace(
+        noisy.macro, sim_level=SimLevel.NOISY))
+    ncfg = cfg.replace(cim=noisy)
+    server = Server(params, ncfg, serving, device=dev)
+    counts = serve_mix(server, prompts, "phase 4b: NOISY prequant")
+    for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
+                    ("B3", counts["paged_attn_call"]),
+                    ("B4", counts["fused_write_call"])):
+        check(n > 0, f"{name} was not launched on the NOISY prequant serve")
+    main_launches["B6"] = counts["cim_mvm_grouped_noisy_packed"]
+    check_steps(server, "phase 4b: NOISY prequant")
+    decode_breakdown(server, "phase 4b: NOISY prequant")
+    del server
+    server = Server(params, ncfg, ServingConfig(
+        paged=True, attn="kernel", n_slots=4, max_len=256,
+        prefill_chunk=16), device=dev)
+    counts = short_serve(server, prompts, "phase 4b: --cim bp-noisy")
+    main_launches["B5"] = counts["cim_mvm_grouped_noisy"]
+    check(main_launches["B5"] > 0,
+          "B5 was not launched on the --cim bp-noisy path")
+    del server
 
     # ---- phase 5: report -------------------------------------------------
     meta = {
@@ -501,6 +676,10 @@ def main() -> int:
                "paged_attention.cu", "src/repro/kernels/paged_attention.py:257"),
         "B4": ("fused_write_call", "src/repro_torch/kernels/csrc/"
                "paged_attention.cu", "src/repro/kernels/paged_attention.py:420"),
+        "B5": ("cim_mvm_grouped_noisy", "src/repro_torch/kernels/csrc/"
+               "cim_mvm.cu", "src/repro/kernels/cim_mvm.py:210"),
+        "B6": ("cim_mvm_grouped_noisy_packed", "src/repro_torch/kernels/"
+               "csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:253"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

@@ -3,7 +3,8 @@
 Pipeline (per Eq. 1/7):
   1. activation quantization  — in-situ C-DAC codes X̃ (u4, affine)
   2. weight quantization      — offset-encoded stored codes W̃ (u4)
-  3. grouped analog MAC + ADC — kernels B1/B2 (core.engine)
+  3. grouped analog MAC + ADC — kernels B1/B2, or B6/B5 for the
+                                 stochastic converter (core.engine)
   4. digital corrections      — Eq. 7 offset/zero-point terms
   5. dequantize               — × s_x s_w
 
@@ -28,9 +29,10 @@ from .quant import (ActQuantConfig, WeightQuantConfig, act_scale,
 class CIMConfig:
     """How (and whether) a model's matmuls run on the simulated macro.
 
-    Field for field the reference's CIMConfig. `noise_seed` (stochastic
-    converter, ROADMAP A6) and a non-empty `site_overrides` (per-site
-    mixed precision, ROADMAP A7) raise until their slices land.
+    Field for field the reference's CIMConfig. `noise_seed` names one
+    stochastic converter instance (see core.engine). A non-empty
+    `site_overrides` (per-site mixed precision, ROADMAP A7) raises until
+    its slice lands.
     """
 
     enabled: bool = False
@@ -38,7 +40,8 @@ class CIMConfig:
     act: ActQuantConfig = dataclasses.field(default_factory=ActQuantConfig)
     weight: WeightQuantConfig = dataclasses.field(
         default_factory=WeightQuantConfig)
-    backend: Literal["auto", "cuda", "cuda_packed", "plain"] = "auto"
+    backend: Literal["auto", "einsum", "scan", "cuda", "cuda_packed",
+                     "cuda_noisy", "cuda_noisy_packed", "plain"] = "auto"
     noise_seed: int | None = None
     site_overrides: tuple = ()
 
@@ -52,11 +55,14 @@ class CIMConfig:
             self, macro=dataclasses.replace(self.macro, scheme=scheme))
 
 
-def cim_matmul(x: torch.Tensor, w: torch.Tensor,
-               cfg: CIMConfig) -> torch.Tensor:
+def cim_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
+               key: torch.Generator | None = None,
+               inl_seed: int = 0) -> torch.Tensor:
     """Analog-CIM simulation of y = x @ w, quantizing w on the fly.
 
-    x: [..., K] float; w: [K, M] float. Returns float32 [..., M].
+    x: [..., K] float; w: [K, M] float. Returns float32 [..., M]. `key`
+    (a torch.Generator) and `inl_seed` reach the stochastic converter
+    (core.engine).
     """
     if not cfg.enabled:
         return x @ w
@@ -65,11 +71,12 @@ def cim_matmul(x: torch.Tensor, w: torch.Tensor,
     s_w = weight_scale(w, cfg.weight)
     w_codes = quantize_weight(w, s_w, cfg.weight)
     return execute_mvm(x_codes, w_codes, cfg, s_x=s_x, s_w=s_w,
-                       x_zero_point=zp)
+                       x_zero_point=zp, key=key, inl_seed=inl_seed)
 
 
 def cim_matmul_prequant(x: torch.Tensor, w_codes, w_scale,
-                        cfg: CIMConfig) -> torch.Tensor:
+                        cfg: CIMConfig, *, key: torch.Generator | None = None,
+                        inl_seed: int = 0) -> torch.Tensor:
     """CIM matmul against OFFLINE-quantized weights (the serving path).
 
     w_codes: an int8 container [K, M], the nibble-packed uint8 format
@@ -85,7 +92,7 @@ def cim_matmul_prequant(x: torch.Tensor, w_codes, w_scale,
     else:
         weights = w_codes.to(torch.float32)
     return execute_mvm(x_codes, weights, cfg, s_x=s_x, s_w=w_scale,
-                       x_zero_point=zp)
+                       x_zero_point=zp, key=key, inl_seed=inl_seed)
 
 
 def quantize_weight_offline(w: torch.Tensor, cfg: CIMConfig):

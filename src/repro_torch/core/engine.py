@@ -5,19 +5,48 @@ through `execute_mvm`, which owns backend selection, the grouped MVM, the
 Eq. 7 digital correction and dequantization. Backends differ only in how
 the DAC→MAC→ADC core is evaluated:
 
-  backend        what it runs                                   runs on
-  -------------  ---------------------------------------------  ---------
-  "cuda"         Hopper kernel B2 over dense stored codes        CUDA (its
-                 (kernels/csrc/cim_mvm.cu)                        plain
-  "cuda_packed"  Hopper kernel B1 over nibble-packed codes,       version on
-                 unpacked in registers                            a CPU
-                                                                  tensor)
-  "plain"        the kernels' plain PyTorch versions, either      any
-                 container (the yardstick on the card)
+  backend              what it runs                              runs on
+  -------------------  ----------------------------------------  ---------
+  "einsum"             the whole [.., G, M] pre-ADC tensor at     any; small
+                       once, then one vectorized ADC transfer     layers /
+                       (core.adc.adc_quantize; every sim level)   tests
+  "scan"               the same group by group, O(M) live memory  any; large
+                                                                  layers
+  "cuda"               Hopper kernel B2 over dense stored codes    CUDA (its
+                       (kernels/csrc/cim_mvm.cu), IDEAL transfer   plain
+  "cuda_packed"        kernel B1 over nibble-packed codes          version on
+  "cuda_noisy"         kernel B5: B2 with the NOISY/FULL           a CPU
+                       converter, noise drawn in the kernel from   tensor)
+                       a counter hash of (seed, coordinate, group)
+  "cuda_noisy_packed"  kernel B6: B5 over nibble-packed codes,
+                       bit-identical to B5 under one seed
+  "plain"              the kernels' plain PyTorch versions, either any
+                       container and every sim level (the
+                       yardstick on the card)
 
-Only the bit-parallel scheme at the IDEAL sim level is ported; the
-stochastic converter (ROADMAP A6) and the WBS/BS baselines (ROADMAP A8)
-raise NotImplementedError.
+Only the bit-parallel scheme is ported; the WBS/BS baselines raise
+NotImplementedError naming ROADMAP A8.
+
+noise_seed semantics
+--------------------
+`CIMConfig.noise_seed` (or `noise_seed=` on `execute_mvm`) names one
+stochastic instance of the converter chain, as in the reference:
+
+  * auto + BP + NOISY/FULL + noise_seed → "cuda_noisy[_packed]"; without a
+    seed the eager backends (einsum, or scan past 64 MB of pre-ADC tensor)
+    run, drawing noise from the optional `key`.
+  * A seed is bit-reproducible: outputs are a pure function of (operands,
+    config, noise_seed, inl_seed). So two same-shaped MVMs under one
+    (noise_seed, inl_seed) draw the SAME noise realization, by design; the
+    serving path shares one realization per shape, as the reference does.
+  * `key` is a torch.Generator, the counterpart of the reference's
+    jax.random key. Given only a noise_seed, einsum/scan derive a
+    generator seeded with salt_seed(noise_seed, inl_seed), the counterpart
+    of the reference's fold_in(PRNGKey(noise_seed), inl_seed), so they are
+    seeded-reproducible too. torch's draws differ from jax.random's, so
+    the eager backends agree with the reference (and with the kernels) in
+    distribution only; the kernels' counter hash is bit-exact against the
+    reference's Pallas kernels.
 
 `s_w` may be per-matrix or per-output-channel ([..., 1, M]); the Eq. 7
 integer correction is scale-free, so per-channel dequant broadcasts
@@ -26,14 +55,17 @@ s_w[..., 0, :] over the output after the correction.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Callable
 
 import torch
 
 from repro_torch.kernels import cim_mvm, ops
 
+from .adc import adc_quantize
 from .macro import MacroConfig, Scheme, SimLevel
-from .schemes import signed_correction
+from .schemes import cim_mvm_codes, pad_and_group, signed_correction
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +104,8 @@ _REGISTRY: dict[str, BackendSpec] = {}
 
 
 def register_backend(name: str, *, schemes, sim_levels, packed=False):
-    """Register a backend fn(x_codes, weights, macro) under `name`."""
+    """Register a backend fn(x_codes, weights, macro, *, key, inl_seed,
+    noise_seed) under `name`."""
     def deco(fn):
         _REGISTRY[name] = BackendSpec(name, fn, frozenset(schemes),
                                       frozenset(sim_levels), packed)
@@ -92,67 +125,210 @@ def available_backends() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
+_ALL_SCHEMES = (Scheme.BP, Scheme.WBS, Scheme.BS)
+_ALL_LEVELS = (SimLevel.IDEAL, SimLevel.NOISY, SimLevel.FULL)
 _BP, _IDEAL = (Scheme.BP,), (SimLevel.IDEAL,)
+_STOCHASTIC = (SimLevel.NOISY, SimLevel.FULL)
 
 
+# ---------------------------------------------------------------------------
+# seeds
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=64)
+def _seed_tensor(seed: int, device: torch.device) -> torch.Tensor:
+    """A 1-element int32 tensor holding `seed` on `device`, made once per
+    (seed, device): the kernels read it, so serving steps copy nothing to
+    the card and stay capturable in a CUDA graph."""
+    return torch.tensor([int(seed)], dtype=torch.int32, device=device)
+
+
+def _resolve_noise_seed(noise_seed: int | None, key,
+                        device) -> torch.Tensor:
+    """The int32 seed of the fused stochastic kernels, as a 1-element
+    tensor on `device`. Prefers the explicit noise_seed; with only a
+    torch.Generator `key` it folds the generator's initial seed to int32,
+    so an explicit backend="cuda_noisy" also runs from key-based call
+    sites."""
+    if noise_seed is not None:
+        return _seed_tensor(noise_seed, device)
+    if key is not None:
+        return _seed_tensor(cim_mvm._wrap_i32(key.initial_seed()), device)
+    raise ValueError(
+        "the stochastic kernels need CIMConfig.noise_seed (or an explicit "
+        "torch.Generator key); at the IDEAL sim level use cuda/cuda_packed")
+
+
+def _derive_key(noise_seed: int, inl_seed: int,
+                device) -> torch.Generator:
+    """The eager backends' generator for a noise_seed, seeded with
+    salt_seed(noise_seed, inl_seed) as a uint32 (the kernels' salted seed;
+    a CPU generator keeps 32 bits of its seed): the counterpart of the
+    reference's fold_in(PRNGKey(noise_seed), inl_seed)."""
+    salted = cim_mvm.salt_seed(noise_seed, inl_seed)
+    g = torch.Generator(device=device)
+    g.manual_seed(int(salted) & 0xFFFFFFFF)
+    return g
+
+
+# ---------------------------------------------------------------------------
+# eager backends
+# ---------------------------------------------------------------------------
+def _eager_key(key, noise_seed, inl_seed, x_codes):
+    if key is None and noise_seed is not None:
+        return _derive_key(noise_seed, inl_seed, x_codes.device)
+    return key
+
+
+@register_backend("einsum", schemes=_ALL_SCHEMES, sim_levels=_ALL_LEVELS)
+def _einsum_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
+                    inl_seed=0, noise_seed=None):
+    key = _eager_key(key, noise_seed, inl_seed, x_codes)
+    return cim_mvm_codes(x_codes, w_codes, cfg, key=key, inl_seed=inl_seed)
+
+
+@register_backend("scan", schemes=_ALL_SCHEMES, sim_levels=_ALL_LEVELS)
+def _scan_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
+                  inl_seed=0, noise_seed=None):
+    """Group-sequential BP MVM: the math of schemes.bp_mvm with O(M) live
+    memory (non-BP schemes go to the einsum path, as in the reference)."""
+    if cfg.scheme != Scheme.BP:
+        return _einsum_backend(x_codes, w_codes, cfg, key=key,
+                               inl_seed=inl_seed, noise_seed=noise_seed)
+    key = _eager_key(key, noise_seed, inl_seed, x_codes)
+    xg, g = pad_and_group(x_codes.float(), cfg.n_rows)       # [..., G, N]
+    wg, _ = pad_and_group(w_codes.float(), cfg.n_rows, axis=0)
+    acc = torch.zeros(x_codes.shape[:-1] + (w_codes.shape[-1],),
+                      dtype=torch.float32, device=x_codes.device)
+    for i in range(g):
+        v = xg[..., i, :] @ wg[i]
+        acc = acc + adc_quantize(v, cfg, key=key, inl_seed=inl_seed)
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# Hopper kernels
+# ---------------------------------------------------------------------------
 @register_backend("cuda", schemes=_BP, sim_levels=_IDEAL)
-def _cuda_backend(x_codes, w_codes, cfg: MacroConfig):
+def _cuda_backend(x_codes, w_codes, cfg: MacroConfig, **_):
     return ops.cim_mvm_dense(x_codes, w_codes, cfg)
 
 
 @register_backend("cuda_packed", schemes=_BP, sim_levels=_IDEAL, packed=True)
-def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig):
+def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig,
+                         **_):
     return ops.cim_mvm_packed(x_codes, weights.data, cfg)
 
 
-@register_backend("plain", schemes=_BP, sim_levels=_IDEAL, packed=None)
-def _plain_backend(x_codes, weights, cfg: MacroConfig):
+@register_backend("cuda_noisy", schemes=_BP, sim_levels=_STOCHASTIC)
+def _cuda_noisy_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
+                        inl_seed=0, noise_seed=None):
+    seed = _resolve_noise_seed(noise_seed, key, x_codes.device)
+    return ops.cim_mvm_noisy(x_codes, w_codes, cfg, noise_seed=seed,
+                             inl_seed=inl_seed)
+
+
+@register_backend("cuda_noisy_packed", schemes=_BP, sim_levels=_STOCHASTIC,
+                  packed=True)
+def _cuda_noisy_packed_backend(x_codes, weights: PackedCodes,
+                               cfg: MacroConfig, *, key=None, inl_seed=0,
+                               noise_seed=None):
+    seed = _resolve_noise_seed(noise_seed, key, x_codes.device)
+    return ops.cim_mvm_noisy_packed(x_codes, weights.data, cfg,
+                                    noise_seed=seed, inl_seed=inl_seed)
+
+
+@register_backend("plain", schemes=_BP, sim_levels=_ALL_LEVELS, packed=None)
+def _plain_backend(x_codes, weights, cfg: MacroConfig, *, key=None,
+                   inl_seed=0, noise_seed=None):
+    """The kernels' plain versions on any device: B1/B2 at IDEAL, B6/B5 at
+    NOISY/FULL (same seed contract as cuda_noisy)."""
     kw = ops._kernel_kw(cfg)
-    if isinstance(weights, PackedCodes):
+    packed = isinstance(weights, PackedCodes)
+    if packed:
         x2, w2, lead = ops._prep_packed(x_codes, weights.data)
-        out = cim_mvm.cim_mvm_grouped_packed_plain(x2, w2, **kw)
     else:
         x2, w2, lead = ops._prep_dense(x_codes, weights)
-        out = cim_mvm.cim_mvm_grouped_plain(x2, w2, **kw)
+    if cfg.sim_level == SimLevel.IDEAL:
+        fn = cim_mvm.cim_mvm_grouped_packed_plain if packed \
+            else cim_mvm.cim_mvm_grouped_plain
+        out = fn(x2, w2, **kw)
+    else:
+        kw = ops._check_stochastic(cfg)
+        fn = cim_mvm.cim_mvm_grouped_noisy_packed_plain if packed \
+            else cim_mvm.cim_mvm_grouped_noisy_plain
+        out = fn(x2, w2, _resolve_noise_seed(noise_seed, key, x2.device),
+                 inl_seed=inl_seed, **kw)
     return out.reshape(*lead, w2.shape[1])
 
 
-def _check_ported(macro: MacroConfig) -> None:
-    if macro.scheme != Scheme.BP:
-        raise NotImplementedError(
-            f"scheme {macro.scheme.value!r} is not ported yet (ROADMAP A8)")
-    if macro.sim_level != SimLevel.IDEAL:
-        raise NotImplementedError(
-            f"sim level {macro.sim_level.value!r} is not ported yet "
-            "(ROADMAP A6)")
+# ---------------------------------------------------------------------------
+# backend selection
+# ---------------------------------------------------------------------------
+# Materializing the [rows, G, M] pre-ADC tensor beyond this switches the
+# eager path from einsum to the group-sequential scan.
+_EINSUM_BYTES_CEILING = 64 << 20
 
 
 def choose_backend(cfg, x_codes: torch.Tensor, weights) -> str:
     """Resolve cfg.backend ("auto" or explicit) to a registered backend:
-    auto picks the Hopper kernel for the weight container ("cuda_packed"
-    for PackedCodes, else "cuda")."""
-    _check_ported(cfg.macro)
+
+      * IDEAL + BP → the Hopper kernel for the container, "cuda_packed"
+        for PackedCodes, else "cuda";
+      * NOISY/FULL + BP with a noise_seed → "cuda_noisy[_packed]";
+      * otherwise (no seed, WBS/BS) → "einsum", or "scan" for BP once the
+        pre-ADC tensor would exceed 64 MB.
+    """
+    macro: MacroConfig = cfg.macro
+    packed = isinstance(weights, PackedCodes)
     if cfg.backend != "auto":
         return get_backend(cfg.backend).name
-    return "cuda_packed" if isinstance(weights, PackedCodes) else "cuda"
+    if macro.scheme == Scheme.BP:
+        if macro.sim_level == SimLevel.IDEAL:
+            return "cuda_packed" if packed else "cuda"
+        if getattr(cfg, "noise_seed", None) is not None:
+            return "cuda_noisy_packed" if packed else "cuda_noisy"
+    k = weights.k if packed else weights.shape[-2]
+    m = weights.n_cols if packed else weights.shape[-1]
+    groups = -(-k // macro.n_rows)
+    rows = math.prod(x_codes.shape[:-1]) if x_codes.ndim > 1 else 1
+    big = rows * groups * m * 4 > _EINSUM_BYTES_CEILING
+    return "scan" if (big and macro.scheme == Scheme.BP) else "einsum"
 
 
 def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
                 s_w: torch.Tensor | None, x_zero_point: torch.Tensor,
-                backend: str | None = None) -> torch.Tensor:
+                key: torch.Generator | None = None, inl_seed: int = 0,
+                backend: str | None = None,
+                noise_seed: int | None = None) -> torch.Tensor:
     """Run one MVM through the simulated datapath and dequantize.
 
     x_codes [..., K] unsigned DAC codes; weights are dense stored codes
     [K, M] (float / int8 container) or PackedCodes. Eq. 7's ΣW̃ comes from
-    the packed bytes and `k` is the logical K. Returns f32 [..., M].
+    the packed bytes and `k` is the logical K. `noise_seed` overrides
+    cfg.noise_seed for this call; `key` is a torch.Generator for the eager
+    backends (see the module docstring). Returns f32 [..., M].
     """
     macro: MacroConfig = cfg.macro
-    _check_ported(macro)
-    if getattr(cfg, "noise_seed", None) is not None:
-        raise NotImplementedError("seeded stochastic converters are not "
-                                  "ported yet (ROADMAP A6)")
+    if noise_seed is None:
+        noise_seed = getattr(cfg, "noise_seed", None)
+    if macro.sim_level == SimLevel.IDEAL:
+        key = None          # no stochastic terms at the ideal sim level
+        noise_seed = None
     name = backend or choose_backend(cfg, x_codes, weights)
     spec = get_backend(name)
+    if macro.scheme not in spec.schemes:
+        raise ValueError(f"backend {name!r} does not implement scheme "
+                         f"{macro.scheme}; use einsum/scan")
+    if macro.sim_level not in spec.sim_levels:
+        if SimLevel.IDEAL in spec.sim_levels:
+            raise ValueError(
+                f"backend {name!r} is deterministic; sim level "
+                f"{macro.sim_level} needs a stochastic backend "
+                "(einsum/scan/cuda_noisy)")
+        raise ValueError(
+            f"backend {name!r} models the stochastic converter chain only; "
+            f"sim level {macro.sim_level} runs on cuda/cuda_packed or the "
+            "eager backends")
     packed = isinstance(weights, PackedCodes)
     if s_w is None:
         s_w = weights.scale if packed else None
@@ -165,13 +341,14 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
         w_codes = weights.to(torch.float32)
         weights = PackedCodes(ops.pack_codes(w_codes), w_codes.shape[-2])
         packed = True
+    kw = dict(key=key, inl_seed=inl_seed, noise_seed=noise_seed)
     if packed:
-        y_codes = spec.fn(x_codes, weights, macro)
+        y_codes = spec.fn(x_codes, weights, macro, **kw)
         sum_w = ops.packed_col_sums(weights.data)
         k = weights.k
     else:
         w_codes = weights.to(torch.float32)
-        y_codes = spec.fn(x_codes, w_codes, macro)
+        y_codes = spec.fn(x_codes, w_codes, macro, **kw)
         sum_w = torch.sum(w_codes, dim=-2)
         k = w_codes.shape[-2]
     y_int = signed_correction(y_codes, x_codes, None,

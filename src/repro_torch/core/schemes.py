@@ -2,15 +2,17 @@
 
   BP (Eq. 1):  ŷ = Σ_g Q_g( Σ_{i∈g} W̃_i X̃_i )      one ADC per 144-row group
 
-with Q the TD-ADC transfer at full scale. The weight-bit-serial and
-bit-serial baselines are queued with the paper figures (ROADMAP A8).
+with Q the TD-ADC transfer at full scale (core.adc.adc_quantize, at every
+sim level). The weight-bit-serial and bit-serial baselines are queued with
+the paper figures (ROADMAP A8).
 """
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-from .macro import MacroConfig, Scheme, SimLevel
+from .adc import adc_quantize
+from .macro import MacroConfig, Scheme
 
 
 def pad_and_group(x: torch.Tensor, n_rows: int, axis: int = -1):
@@ -30,27 +32,36 @@ def pad_and_group(x: torch.Tensor, n_rows: int, axis: int = -1):
     return x.reshape(new_shape), groups
 
 
-def bp_mvm(x_codes: torch.Tensor, w_codes: torch.Tensor,
-           cfg: MacroConfig) -> torch.Tensor:
-    """Bit-parallel MVM at the IDEAL sim level, written like the reference
-    `schemes.bp_mvm`: one einsum over every group, then the ADC transfer
-    (divide by the LSB), then the sum over groups. It divides where the
-    kernels multiply by 1/LSB, so it agrees with them to within one LSB
-    rounding tie, not bit for bit."""
+def bp_mvm(x_codes: torch.Tensor, w_codes: torch.Tensor, cfg: MacroConfig,
+           *, key: torch.Generator | None = None,
+           inl_seed: int = 0) -> torch.Tensor:
+    """Bit-parallel MVM, written like the reference `schemes.bp_mvm`: one
+    einsum over every group, then the ADC transfer (`adc_quantize`, which
+    divides by the LSB and, at NOISY/FULL, adds the INL instance and noise
+    drawn from the torch.Generator `key`), then the sum over groups. It
+    divides where the kernels multiply by 1/LSB, so at IDEAL it agrees with
+    them to within one LSB rounding tie, not bit for bit."""
     if cfg.scheme != Scheme.BP:
         raise NotImplementedError(f"scheme {cfg.scheme} is not ported yet "
                                   "(ROADMAP A8)")
-    if cfg.sim_level != SimLevel.IDEAL:
-        raise NotImplementedError(f"sim level {cfg.sim_level} is not "
-                                  "ported yet (ROADMAP A6)")
     xg, _ = pad_and_group(x_codes.float(), cfg.n_rows)
     wg, _ = pad_and_group(w_codes.float(), cfg.n_rows, axis=0)
     v = torch.einsum("...gn,gnm->...gm", xg, wg)
-    levels = cfg.effective_adc_levels()
-    lsb = cfg.full_scale() / (cfg.gain * (levels - 1))
-    lsb_t = torch.full((), lsb, dtype=torch.float32, device=v.device)
-    code = torch.clamp(torch.round(v / lsb_t), 0.0, float(levels - 1))
-    return torch.sum(code * lsb_t, dim=-2)
+    q = adc_quantize(v, cfg, key=key, act_bits_active=cfg.act_bits,
+                     weight_bits_active=cfg.weight_bits, inl_seed=inl_seed)
+    return torch.sum(q, dim=-2)
+
+
+def cim_mvm_codes(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                  cfg: MacroConfig, *, key: torch.Generator | None = None,
+                  inl_seed: int = 0) -> torch.Tensor:
+    """Dispatch on the configured multi-bit scheme: x_codes [..., K]
+    unsigned DAC codes, w_codes [K, M] stored codes → ŷ ≈ Σ X̃ W̃ (f32, in
+    integer MAC units). Only BP is ported; WBS and BS raise."""
+    if cfg.scheme != Scheme.BP:
+        raise NotImplementedError(f"scheme {cfg.scheme.value!r} is not "
+                                  "ported yet (ROADMAP A8)")
+    return bp_mvm(x_codes, w_codes, cfg, key=key, inl_seed=inl_seed)
 
 
 def signed_correction(y_codes: torch.Tensor, x_codes: torch.Tensor,

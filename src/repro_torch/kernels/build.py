@@ -113,5 +113,7 @@ def reset_launch_counts() -> None:
 
 def _wrappers(cim_mvm, paged_attention):
     return (cim_mvm.cim_mvm_grouped_packed, cim_mvm.cim_mvm_grouped,
+            cim_mvm.cim_mvm_grouped_noisy,
+            cim_mvm.cim_mvm_grouped_noisy_packed,
             paged_attention.paged_attn_call,
             paged_attention.fused_write_call)

@@ -1,7 +1,8 @@
 """Entry points of the grouped ADC MVM kernels and the nibble-pack helpers.
 
 Handles leading-dim flattening and operand dtype/contiguity, then calls
-the kernel wrappers in `kernels.cim_mvm` (B1 packed, B2 dense). K is not
+the kernel wrappers in `kernels.cim_mvm` (B1 packed, B2 dense, and their
+stochastic twins B6, B5). K is not
 padded here: the plain versions zero-pad it to the macro depth, and the
 CUDA kernels read rows past K as zero codes, which is the same function
 without copying the weights.
@@ -11,12 +12,16 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.core.macro import MacroConfig, Scheme
+from repro_torch.core.adc import stochastic_transfer_params
+from repro_torch.core.macro import MacroConfig, Scheme, SimLevel
 
-from .cim_mvm import cim_mvm_grouped, cim_mvm_grouped_packed, unpack_nibbles
+from .cim_mvm import (cim_mvm_grouped, cim_mvm_grouped_noisy,
+                      cim_mvm_grouped_noisy_packed, cim_mvm_grouped_packed,
+                      salt_seed, unpack_nibbles)
 
-__all__ = ["cim_mvm_dense", "cim_mvm_packed", "pack_codes", "unpack_codes",
-           "packed_col_sums"]
+__all__ = ["cim_mvm_dense", "cim_mvm_packed", "cim_mvm_noisy",
+           "cim_mvm_noisy_packed", "pack_codes", "unpack_codes",
+           "packed_col_sums", "salt_seed"]
 
 
 def pack_codes(w_codes: torch.Tensor) -> torch.Tensor:
@@ -93,4 +98,43 @@ def cim_mvm_dense(x_codes: torch.Tensor, w_codes: torch.Tensor,
         raise ValueError("the fused kernel implements BP only")
     x2, w2, lead = _prep_dense(x_codes, w_codes)
     out = cim_mvm_grouped(x2, w2, **_kernel_kw(cfg))
+    return out.reshape(*lead, w2.shape[1])
+
+
+def _check_stochastic(cfg: MacroConfig) -> dict:
+    if cfg.scheme != Scheme.BP:
+        raise ValueError("the fused stochastic kernels implement BP only")
+    if cfg.sim_level == SimLevel.IDEAL:
+        raise ValueError("the IDEAL transfer runs the deterministic kernels "
+                         "(cim_mvm_dense / cim_mvm_packed)")
+    st = stochastic_transfer_params(cfg)
+    return dict(_kernel_kw(cfg), sigma=st["sigma"], inl_amp=st["inl_amp"],
+                apply_inl=st["apply_inl"])
+
+
+def cim_mvm_noisy(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                  cfg: MacroConfig, *, noise_seed: torch.Tensor,
+                  inl_seed: int = 0) -> torch.Tensor:
+    """Stochastic (NOISY/FULL) fused BP MVM through kernel B5: per-conversion
+    thermal noise (and, at FULL, the Fig. 15 INL instance of inl_seed) drawn
+    inside the kernel. `noise_seed` is an int32 scalar tensor on x's device
+    (a CPU tensor or an int on the CPU); σ/INL come from
+    core.adc.stochastic_transfer_params, as adc_quantize takes them."""
+    kw = _check_stochastic(cfg)
+    x2, w2, lead = _prep_dense(x_codes, w_codes)
+    out = cim_mvm_grouped_noisy(x2, w2, noise_seed, inl_seed=inl_seed, **kw)
+    return out.reshape(*lead, w2.shape[1])
+
+
+def cim_mvm_noisy_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,
+                         cfg: MacroConfig, *, noise_seed: torch.Tensor,
+                         inl_seed: int = 0) -> torch.Tensor:
+    """Stochastic fused BP MVM over nibble-packed weights (kernel B6):
+    bit-identical to cim_mvm_noisy on the unpacked codes under one seed."""
+    kw = _check_stochastic(cfg)
+    if cfg.n_rows % 2:
+        raise ValueError("nibble packing needs an even macro depth")
+    x2, w2, lead = _prep_packed(x_codes, w_packed)
+    out = cim_mvm_grouped_noisy_packed(x2, w2, noise_seed, inl_seed=inl_seed,
+                                       **kw)
     return out.reshape(*lead, w2.shape[1])

@@ -8,12 +8,17 @@ requests, on the card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
       --cim bp-prequant --device cpu
 
+  # the stochastic (NOISY) converter chain, seeded: kernel B5
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --cim bp-noisy --device cpu
+
 Weights are random, drawn from a torch.Generator seeded with --seed.
 Prints each request's generated token ids and the tokens per second.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import numpy as np
@@ -21,6 +26,7 @@ import torch
 
 from repro_torch.configs.registry import ARCHS, SMOKES
 from repro_torch.core.cim_matmul import CIMConfig
+from repro_torch.core.macro import SimLevel
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.runtime.server import Request, Server, ServingConfig
@@ -52,11 +58,14 @@ def main(argv=None):
                     help="paged attention backend: kernel = Hopper kernels "
                          "B3/B4, exact = window gather + one-pass softmax, "
                          "auto = kernel")
-    ap.add_argument("--cim", choices=("off", "bp", "bp-prequant"),
+    ap.add_argument("--cim", choices=("off", "bp", "bp-noisy",
+                                      "bp-prequant"),
                     default="off",
                     help="bp = weights quantized on the fly (kernel B2); "
-                         "bp-prequant = nibble-packed stored codes "
-                         "(kernel B1)")
+                         "bp-noisy = the NOISY converter chain with "
+                         "noise_seed=0, weights quantized on the fly "
+                         "(kernel B5); bp-prequant = nibble-packed stored "
+                         "codes (kernel B1)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -67,7 +76,12 @@ def main(argv=None):
     # float matmuls (--cim off) run in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (SMOKES if args.smoke else ARCHS)[args.arch]
-    if args.cim != "off":
+    if args.cim == "bp-noisy":
+        cim = CIMConfig(enabled=True, noise_seed=0)
+        cfg = cfg.replace(cim=dataclasses.replace(
+            cim, macro=dataclasses.replace(cim.macro,
+                                           sim_level=SimLevel.NOISY)))
+    elif args.cim != "off":
         cfg = cfg.replace(cim=CIMConfig(enabled=True))
     params = registry.init_params(cfg, seed=args.seed, device=device)
     server = Server(params, cfg, ServingConfig.from_flags(args),

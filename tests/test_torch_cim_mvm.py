@@ -151,8 +151,9 @@ def test_bp_mvm_vs_reference():
 
 
 def test_engine_registry_and_choice():
-    assert set(engine.available_backends()) == {"cuda", "cuda_packed",
-                                                "plain"}
+    assert set(engine.available_backends()) == {
+        "cuda", "cuda_packed", "cuda_noisy", "cuda_noisy_packed", "einsum",
+        "scan", "plain"}
     cfg = CIMConfig(enabled=True)
     x = torch.zeros(2, 8)
     w = torch.zeros(8, 3)
@@ -160,22 +161,21 @@ def test_engine_registry_and_choice():
     assert engine.choose_backend(
         cfg, x, engine.PackedCodes(ops.pack_codes(w), 8)) == "cuda_packed"
     with pytest.raises(ValueError, match="unknown CIM backend"):
-        engine.get_backend("einsum")
+        engine.get_backend("pallas")
 
 
-@pytest.mark.parametrize("what,item", [("scheme", "A8"), ("sim", "A6"),
-                                       ("seed", "A6")])
+@pytest.mark.parametrize("what,item", [("scheme", "A8"), ("scheme-bs", "A8"),
+                                       ("scheme-noisy", "A8")])
 def test_engine_unported_raises(what, item):
-    cfg = CIMConfig(enabled=True)
-    if what == "scheme":
-        cfg = cfg.with_scheme(Scheme.WBS)
-    elif what == "sim":
-        import dataclasses
-        cfg = dataclasses.replace(cfg, macro=dataclasses.replace(
+    """The WBS/BS baselines are not ported (ROADMAP A8): auto resolves them
+    to einsum, as the reference does, and einsum raises, at IDEAL and at
+    NOISY with a noise_seed."""
+    import dataclasses
+    cfg = CIMConfig(enabled=True).with_scheme(
+        Scheme.BS if what == "scheme-bs" else Scheme.WBS)
+    if what == "scheme-noisy":
+        cfg = dataclasses.replace(cfg, noise_seed=0, macro=dataclasses.replace(
             cfg.macro, sim_level=SimLevel.NOISY))
-    else:
-        import dataclasses
-        cfg = dataclasses.replace(cfg, noise_seed=0)
     with pytest.raises(NotImplementedError, match=item):
         cim_matmul(torch.ones(2, 8), torch.ones(8, 3), cfg)
 

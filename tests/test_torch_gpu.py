@@ -3,9 +3,10 @@ card (marker `gpu`; each test skips without a CUDA device). Run there with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-B1, B2 and B4 must be bit-exact; B3 too, since its plain version follows
-the kernel's operation order on the same device. Inputs come from numpy
-seeds. This file needs no JAX.
+B1, B2, B4, B5 and B6 must be bit-exact (B5/B6 at NOISY and at FULL: the
+kernel's sinf and torch.sin on the card are the same CUDA sinf); B3 too,
+since its plain version follows the kernel's operation order on the same
+device. Inputs come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -26,9 +27,13 @@ def _codes(seed, shape):
         0, 16, shape).astype(np.float32))
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 1, 1), (3, 301, 70), (5, 288, 129),
-                                   (130, 145, 257), (4, 2048, 2048),
-                                   (64, 2048, 1024), (4, 8192, 2048)])
+SHAPES = [(1, 1, 1), (3, 301, 70), (5, 288, 129), (130, 145, 257),
+          (4, 2048, 2048), (64, 2048, 1024), (4, 8192, 2048)]
+NOISY = dict(KW, sigma=0.277)
+FULL = dict(KW, sigma=0.277, inl_amp=1.1, apply_inl=True)
+
+
+@pytest.mark.parametrize("m,k,n", SHAPES)
 def test_b1_b2_bit_exact_vs_plain(m, k, n):
     dev = gpu_device()
     x = _codes(m, (m, k)).to(dev)
@@ -40,6 +45,44 @@ def test_b1_b2_bit_exact_vs_plain(m, k, n):
     assert torch.equal(cim_mvm.cim_mvm_grouped_packed(x, wp, **KW),
                        cim_mvm.cim_mvm_grouped_packed_plain(x, wp, **KW))
     assert cim_mvm.cim_mvm_grouped.launches == before + 1
+
+
+@pytest.mark.parametrize("level", ["noisy", "full"])
+@pytest.mark.parametrize("m,k,n", SHAPES)
+def test_b5_b6_bit_exact_vs_plain(m, k, n, level):
+    dev = gpu_device()
+    x = _codes(m + 1, (m, k)).to(dev)
+    w = _codes(n + 1, (k, n)).to(dev)
+    wp = ops.pack_codes(w).contiguous()
+    kw = NOISY if level == "noisy" else FULL
+    for seed, inl_seed in ((0, 0), (7, 3)):
+        s = torch.tensor([seed], dtype=torch.int32, device=dev)
+        y5 = cim_mvm.cim_mvm_grouped_noisy(x, w, s, inl_seed=inl_seed, **kw)
+        y6 = cim_mvm.cim_mvm_grouped_noisy_packed(x, wp, s, inl_seed=inl_seed,
+                                                  **kw)
+        assert torch.isfinite(y5).all()
+        assert torch.equal(y5, cim_mvm.cim_mvm_grouped_noisy_plain(
+            x, w, s, inl_seed=inl_seed, **kw))
+        assert torch.equal(y6, cim_mvm.cim_mvm_grouped_noisy_packed_plain(
+            x, wp, s, inl_seed=inl_seed, **kw))
+        assert torch.equal(y6, y5)
+
+
+def test_b5_seed_is_read_on_the_card():
+    """A new seed value in the same tensor changes the draws (no rebuild,
+    no host copy), and inl_seed salts them."""
+    dev = gpu_device()
+    x = _codes(3, (4, 2048)).to(dev)
+    w = _codes(4, (2048, 256)).to(dev)
+    s = torch.zeros(1, dtype=torch.int32, device=dev)
+    y0 = cim_mvm.cim_mvm_grouped_noisy(x, w, s, **NOISY)
+    s.fill_(7)
+    y7 = cim_mvm.cim_mvm_grouped_noisy(x, w, s, **NOISY)
+    assert not torch.equal(y0, y7)
+    assert not torch.equal(y7, cim_mvm.cim_mvm_grouped_noisy(
+        x, w, s, inl_seed=3, **NOISY))
+    with pytest.raises(ValueError, match="seed"):
+        cim_mvm.cim_mvm_grouped_noisy(x, w, s.cpu(), **NOISY)
 
 
 def test_b1_rejects_bad_operands():

@@ -4,8 +4,13 @@ import and device contracts.
 Greedy token streams must EQUAL the reference's on the reference's own
 smoke schedules (mixed-depth admission, preemption with trie resume, a
 prefix hit), in the float32 model, on the same weights carried across by
-`params_from_numpy`; the scheduler metrics must agree too.
+`params_from_numpy`; the scheduler metrics must agree too. Legs: no CIM
+with the exact attention; nibble-packed prequant (B1) with the kernel
+attention; and the seeded NOISY converter chain (noise_seed 0, as
+`serve.py --cim bp-noisy` builds it) with weights quantized on the fly
+(B5) and with nibble-packed prequant weights (B6).
 """
+import dataclasses
 import os
 import subprocess
 import sys
@@ -23,8 +28,17 @@ from repro_torch.runtime import server as tserver
 
 REPO = os.path.join(os.path.dirname(__file__), "..")
 MAX_LEN = 64
-LEGS = {"off-exact": ("off", "exact"), "prequant-kernel": ("bp-prequant",
-                                                           "kernel")}
+LEGS = {"off-exact": ("off", "exact"),
+        "prequant-kernel": ("bp-prequant", "kernel"),
+        "bp-noisy": ("bp-noisy", "kernel"),
+        "noisy-prequant": ("noisy-prequant", "kernel")}
+
+
+def _noisy(cim_cls, level_cls):
+    """CIMConfig at NOISY with noise_seed 0, built as serve.py builds it."""
+    cim = cim_cls(enabled=True, noise_seed=0)
+    return dataclasses.replace(cim, macro=dataclasses.replace(
+        cim.macro, sim_level=level_cls.NOISY))
 
 
 @pytest.fixture(scope="module")
@@ -41,16 +55,21 @@ def ref_weights():
 def _servers(ref_weights, leg, **kw):
     from repro.configs.registry import SMOKES as REF_SMOKES
     from repro.core.cim_matmul import CIMConfig as RefCIM
+    from repro.core.macro import SimLevel as RefLevel
     from repro.runtime import server as rserver
+    from repro_torch.core.macro import SimLevel
     cim, attn = LEGS[leg]
     rcfg = REF_SMOKES["internlm2-1.8b"].replace(dtype="float32")
     tcfg = SMOKES["internlm2-1.8b"].replace(dtype="float32")
-    if cim != "off":
+    if cim in ("bp-noisy", "noisy-prequant"):
+        rcfg = rcfg.replace(cim=_noisy(RefCIM, RefLevel))
+        tcfg = tcfg.replace(cim=_noisy(CIMConfig, SimLevel))
+    elif cim != "off":
         rcfg = rcfg.replace(cim=RefCIM(enabled=True))
         tcfg = tcfg.replace(cim=CIMConfig(enabled=True))
     kw = dict(dict(n_slots=2, max_len=MAX_LEN, block_size=8,
                    prefill_chunk=4, attn=attn,
-                   prequant=cim == "bp-prequant"), **kw)
+                   prequant=cim in ("bp-prequant", "noisy-prequant")), **kw)
     ref = rserver.Server(ref_weights[0], rcfg,
                          rserver.ServingConfig(paged=True, telemetry=False,
                                                **kw))
@@ -91,7 +110,13 @@ def test_mixed_depth_schedule_matches_reference(ref_weights, leg):
     assert outs[0] == outs[1]
 
 
-@pytest.mark.parametrize("leg", sorted(LEGS))
+# The NOISY legs are not held to the jitted reference on this schedule: at
+# its step 8 the reference's jitted step and its own eager step differ by a
+# whole ADC step (layer 1's K of the resumed lane moves by 3.07; the jit
+# rounds some f32 op differently and a DAC code flips, ROADMAP Queue C).
+# The port there agrees with the eager reference to 2.4e-7 and emits its
+# token.
+@pytest.mark.parametrize("leg", ["off-exact", "prequant-kernel"])
 def test_preemption_schedule_matches_reference(ref_weights, leg):
     (ref, RReq), (port, TReq) = _servers(
         ref_weights, leg, n_slots=3, num_blocks=5, watermark=0.0,
@@ -140,6 +165,9 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
+        "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops'):\n"
+        "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
         "print(bad)\n"

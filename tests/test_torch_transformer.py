@@ -5,7 +5,9 @@ A step sequence runs from an empty pool: a prefill chunk (C = 8, mixed
 lanes, one idle), a decode step (C = 1) and an all-positions step
 (C = 3, `all_logits`), each compared on logits and on the pools (blocks
 >= 1; the trash block takes masked writes by design). Legs: --cim off,
-bp and bp-prequant, in a float32 model and in the bfloat16 model.
+bp and bp-prequant, and the seeded NOISY converter chain (noise_seed 0)
+on the fly (bp-noisy, B5) and prequant (noisy-prequant, B6), in a float32
+model and in the bfloat16 model.
 
 Tolerances, relative to the largest |logit| of the step (pools: to their
 largest |value|):
@@ -25,6 +27,8 @@ scales, the size of the output itself at smoke width), so the reference
 differs from itself by as much under a one-ulp perturbation of its input.
 `test_dense_bf16_cim_bit_exact` holds the bf16 CIM layer itself exact.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -36,11 +40,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.configs.registry import SMOKES as REF_SMOKES  # noqa: E402
 from repro.core.cim_matmul import CIMConfig as RefCIM  # noqa: E402
+from repro.core.macro import SimLevel as RefLevel  # noqa: E402
 from repro.models import registry as ref_registry  # noqa: E402
 from repro.models import transformer as ref_tf  # noqa: E402
 from repro.models.quantize import quantize_params as ref_quantize  # noqa
 from repro_torch.configs.registry import SMOKES  # noqa: E402
 from repro_torch.core.cim_matmul import CIMConfig  # noqa: E402
+from repro_torch.core.macro import SimLevel  # noqa: E402
 from repro_torch.models import registry, transformer  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
 
@@ -48,10 +54,19 @@ TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 B, BS, MB = 4, 8, 4
 
 
+def _noisy(cim_cls, level_cls):
+    cim = cim_cls(enabled=True, noise_seed=0)
+    return dataclasses.replace(cim, macro=dataclasses.replace(
+        cim.macro, sim_level=level_cls.NOISY))
+
+
 def _cfgs(dtype, cim, attn):
     ref = REF_SMOKES["internlm2-1.8b"].replace(dtype=dtype, attn_backend=attn)
     port = SMOKES["internlm2-1.8b"].replace(dtype=dtype, attn_backend=attn)
-    if cim != "off":
+    if cim in ("bp-noisy", "noisy-prequant"):
+        ref = ref.replace(cim=_noisy(RefCIM, RefLevel))
+        port = port.replace(cim=_noisy(CIMConfig, SimLevel))
+    elif cim != "off":
         ref = ref.replace(cim=RefCIM(enabled=True))
         port = port.replace(cim=CIMConfig(enabled=True))
     return ref, port
@@ -86,13 +101,15 @@ def _rel_err(a, b):
 @pytest.mark.parametrize("cim,attn", [("off", "exact"), ("off", "kernel"),
                                       ("bp", "exact"),
                                       ("bp-prequant", "exact"),
-                                      ("bp-prequant", "kernel")])
+                                      ("bp-prequant", "kernel"),
+                                      ("bp-noisy", "exact"),
+                                      ("noisy-prequant", "kernel")])
 def test_paged_step_matches_reference(weights, cim, attn):
     dtype, ref_params, tree = weights
     whole = dtype == "float32" or cim == "off"
     ref_cfg, cfg = _cfgs(dtype, cim, attn)
     params = registry.params_from_numpy(tree, cfg, device="cpu")
-    if cim == "bp-prequant":
+    if cim in ("bp-prequant", "noisy-prequant"):
         ref_params = ref_quantize(ref_params, ref_cfg)
         params = quantize_params(params, cfg)
     tables, steps = _schedule(np.random.RandomState(0), cfg.vocab)
