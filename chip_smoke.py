@@ -21,7 +21,8 @@ of which fails the run when it fails:
      finite; B4 (fused decode write) bit-exact. Each is timed with CUDA
      events beside its plain version, a bound and, where one exists, a
      PyTorch library call (the MVM kernels over one decode step's 169
-     MVMs; B1 and B6 also over a prefill chunk's 168 layer MVMs at M=64);
+     MVMs, logged per shape; B1 and B6 also over a prefill chunk's 168
+     layer MVMs at M=64; B3 at decode and at the prefill chunk);
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
@@ -343,6 +344,8 @@ def main() -> int:
             w = ops.pack_codes(codes((k, n))).contiguous()
             ws = copies(w)
             t_k = graph_ms(torch, run_k, [(x, wi) for wi in ws])
+            log(f"  {name} {label:12s} M=64 K={k} N={n} x{count}/chunk: "
+                f"kernel {t_k * 1e3:.2f} us on the card")
             pre["ms"] += count * t_k
             pre["bytes"] += count * (w.numel() + 64 * k * 4 + 64 * n * 4)
             pre["ops"] += count * 2 * 64 * k * n
@@ -393,6 +396,8 @@ def main() -> int:
         check(bool((o[0] == 0).all()), "B3 idle lane must emit 0")
         if c == 1:
             q_dec, kvl_dec = q, kvl
+        else:
+            q_pre, kvl_pre = q, kvl
     log(f"phase 2: B3 bit-exact vs plain at C=1 and C=16, finite "
         f"(tolerance 0)")
     pool_copies = list(zip(copies(k_pool), copies(v_pool)))
@@ -429,6 +434,37 @@ def main() -> int:
         f"card, {t_call * 1e3:.2f} us per eager call, plain "
         f"{t_p * 1e3:.2f} us, SDPA on the gathered window "
         f"{t_lib * 1e3:.2f} us")
+
+    # B3 at a prefill chunk (C = 16: 32 query rows per KV head), beside
+    # SDPA on the pre-gathered window with the same causal and length masks
+    t_kp = graph_ms(torch, lambda kp, vp: pa.paged_attn_call(
+        q_pre, kp, vp, tables, lens, kvl_pre), pool_copies)
+    t_pp = graph_ms(torch, lambda kp, vp: pa.paged_attn_plain(
+        q_pre, kp, vp, tables, lens, kvl_pre), pool_copies[:2], reps=3,
+        min_iters=2)
+    pos_q = lens[:, None].long() + torch.arange(16, device=dev)[None, :]
+    pos_s = torch.arange(win, device=dev)
+    vwp = torch.where((pos_s[None, :] < kvl_pre[:, None].long())[
+        :, None, :, None], common.paged_gather(v_pool, tables).permute(
+            0, 2, 1, 3), 0)
+    mask_p = ((pos_s[None, None, :] <= pos_q[:, :, None])
+              & (pos_s[None, None, :] < kvl_pre[:, None, None].long())
+              )[:, None]
+    qp = q_pre.permute(0, 2, 1, 3).bfloat16()
+    t_libp = graph_ms(torch, lambda: sdpa(qp, kw_, vwp, attn_mask=mask_p,
+                                          enable_gqa=True), [()])
+    # bound: each slot's K/V rows read once, q read and out written once;
+    # each query row attends its causal prefix (lens + offset + 1 tokens)
+    att = torch.minimum(pos_q + 1, kvl_pre[:, None].long()).sum().item()
+    pb_bytes = (int(kvl_pre.sum()) * kh * dh * 2 * 2
+                + 2 * q_pre.numel() * 4) / HBM_BYTES_S * 1e3
+    pb_ops = att * g * kh * dh * 4 / F32_FLOP_S * 1e3
+    log(f"  B3 prefill C=16 kv_len={kvl_pre.tolist()}: kernel "
+        f"{t_kp * 1e3:.2f} us on the card, plain {t_pp * 1e3:.2f} us, SDPA "
+        f"on the gathered window {t_libp * 1e3:.2f} us, bound "
+        f"{max(pb_bytes, pb_ops) * 1e3:.2f} us "
+        f"({'bytes' if pb_bytes >= pb_ops else 'operations'})")
+    del vwp, mask_p, qp
 
     # B4: fused decode write
     nk = torch.from_numpy(rng.standard_normal((b, 1, kh, dh),
@@ -473,6 +509,19 @@ def main() -> int:
         """Phase 3's 8-request mix, 16 new tokens each; launch counts are
         reset just before and read just after."""
         reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        # host wall time of each scheduler step (each ends by reading the
+        # sampled tokens back), split by whether it prefilled
+        step_s = {"prefill": [], "decode": []}
+        inner = server.step
+
+        def timed_step():
+            t, before = time.monotonic(), server.metrics.prefill_tokens
+            inner()
+            kind = ("prefill" if server.metrics.prefill_tokens > before
+                    else "decode")
+            step_s[kind].append(time.monotonic() - t)
+
+        server.step = timed_step
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
@@ -483,6 +532,10 @@ def main() -> int:
         torch.cuda.synchronize()
         dt = time.monotonic() - t0
         counts = build.launch_counts()
+        del server.step
+        log(f"{tag}: host time per step: " + ", ".join(
+            f"{len(v)} {k} steps, median {1e3 * statistics.median(v):.1f} "
+            f"ms, total {sum(v):.2f} s" for k, v in step_s.items() if v))
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")

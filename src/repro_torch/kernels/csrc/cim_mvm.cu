@@ -37,34 +37,48 @@
 // finalizers): B6 is bound by that hash work on the INT32 lanes, B5 still by
 // its 4-byte dense weight codes.
 //
-// What the design does about that:
-//  * one thread block owns a tile of 32 output columns x BM rows and walks
-//    the groups itself; K is never split across blocks, so no atomics and
-//    no second pass. One lane owns one column, so a warp reads 32
-//    consecutive weight bytes (one sector) per row; the 16 warps of the
-//    block take 16 groups at once (all of a K = 2048 row), which keeps 16x
-//    more loads in flight than one warp walking K would.
-//  * a group's MAC is an exact integer <= 144 * 15 * 15 = 32400, so the
-//    f32 fused multiply-adds reproduce it bit for bit in any order.
+// What the design does about that. B1 and B6 (the packed kernel,
+// cim_mvm_packed_kernel below) and B2/B5 (cim_mvm_kernel) share these:
+//  * a group's MAC is an exact integer <= 144 * 15 * 15 = 32400, so it may
+//    be formed in any order and anywhere (f32 fused multiply-adds in
+//    B2/B5, int8 dot products in B1/B6): the codes are the same.
 //  * the ADC happens in registers: rint (round half to even, as
 //    jnp.round) of an explicitly rounded product with inv_lsb, then the
-//    clip. Each warp parks its group's codes in shared memory, and after a
-//    barrier the block adds code * lsb to the outputs in ascending group
-//    order as one explicit __fmaf_rn(code, lsb, o): the reference's
-//    o += code * lsb, which XLA evaluates as a fused multiply-add (checked
-//    against the Pallas kernel in interpret mode; a separate multiply and
-//    add differ in the last bit).
-//  * weights are unpacked in registers (B1), 4 bits each from device
-//    memory, as in the SRAM array.
+//    clip. The codes are parked in shared memory, and code * lsb is added
+//    to each output in ascending group order as one explicit
+//    __fmaf_rn(code, lsb, o): the reference's o += code * lsb, which XLA
+//    evaluates as a fused multiply-add (checked against the Pallas kernel
+//    in interpret mode; a separate multiply and add differ in the last
+//    bit). Only this digital accumulation has an order that matters.
 //  * stochastic kernels: the row and column stay fixed for a thread across
-//    all groups, so their two hash absorptions are computed once per row
-//    before the group loop; each conversion then costs one finalizer for
-//    its group and twelve for its uniforms.
-// Later work: wider loads (16 bytes a lane), TMA pipelines, and int8 MMA
-// for prefill-sized M.
+//    all groups, so their two hash absorptions are computed once before
+//    the group loop; each conversion then costs one finalizer for its
+//    group and twelve for its uniforms.
+// B1/B6 (redesigned): at decode the one-block-per-32-columns design left
+// most SMs idle on the 1024- and 2048-wide matrices and kept ~4 KB of
+// weights in flight per block. Now every lane loads 16 bytes (16 columns
+// of one byte row) at a time, all of its rows of a group at once; the
+// nibbles are rearranged in registers into int8x4 words and multiplied by
+// __dp4a (four exact multiply-adds per instruction, against six
+// instructions per weight for unpack-to-f32 and fmaf); and the group axis
+// is split over a thread-block cluster (cudaLaunchKernelEx with a cluster
+// dimension) wherever the column tiles alone would give the card fewer
+// than 64 CTAs: at M = 4 the 2048-wide MVMs (wq, wo, w_down) take clusters
+// of 2 and the 1024-wide ones (wk, wv) clusters of 4, each CTA converting
+// its own groups and the cluster finalising the outputs over distributed
+// shared memory. Wide matrices (the head, and prefill-sized M) instead put
+// up to 8 warps side by side along the columns, so that one CTA's staged
+// activation codes serve more columns. B2/B5 keep the one-block-per-32-
+// columns body (16 warps over 16 groups at a time); it is also the
+// fallback where the packed kernel's shared memory would not fit.
+// Later work: a TMA/cp.async weight pipeline (the head reaches ~1/3 of the
+// HBM rate), and int8 MMA for prefill-sized M.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -259,10 +273,352 @@ int launch(const float* x, const void* w, float* out, int M, int N, int K,
   return (int)cudaGetLastError();
 }
 
+// ---- B1 / B6: the packed kernel, group axis split over a cluster -------
+//
+// A warp owns NC = 4 * VB output columns x BM rows; a CTA holds `wcols`
+// such warps side by side and `wgs` rows of them that take the CTA's
+// `gpc` consecutive groups in turn; the cluster's CTAs (grid y, cluster
+// dims (1, CS, 1)) own the G groups between them. The activation codes
+// of the CTA's groups are staged once in shared memory as int8x4 words.
+// For each of its groups a warp's lane
+// (chunk = lane % 4, slice = lane / 4) loads VB bytes (VB columns) of two
+// consecutive byte rows, i.e. four consecutive weight rows, for every
+// fourth-row quad p = slice, slice + 8, ... of the group, all of them at
+// once (up to kQuads quads in flight per lane). The nibbles are
+// rearranged in registers into one int8x4 word per column (its four
+// weight rows) and multiplied with the matching int8x4 word of
+// activation codes by __dp4a: four exact integer multiply-adds in one
+// instruction. The 8 slices are summed by a three-step reduce-scatter
+// over the lanes (exact integers), which leaves each lane VB / 8 columns x
+// BM rows of group sums; the ADC converts them (as f32, exact below 2^24)
+// in registers and the codes go to this CTA's shared memory. After
+// cluster.sync() every CTA finalises a slice of the tile's outputs,
+// reading every group's code through distributed shared memory in
+// ascending group order, one __fmaf_rn(code, lsb, o) per group.
+constexpr int kSlices = 8;            // quad slices per group (lane bits 2-4)
+constexpr int kChunks = 4;            // column chunks per warp (lane bits 0-1)
+constexpr int kQuads = 5;             // quads a lane loads at once
+constexpr int kGroupWarps = 8;        // warps per CTA at most
+constexpr int kMaxCluster = 8;        // portable cluster size
+constexpr int kCtaTarget = 64;        // CTAs the cluster split aims for
+constexpr int kWideTiles = 256;       // CTA tiles left after widening
+
+// One step of the reduce-scatter: lanes `mask` apart swap halves of their
+// first 2W columns; the lane with `upper` set keeps the upper half.
+template <int W, int VB, int BM>
+__device__ __forceinline__ void reduce_half(int (&acc)[VB][BM], int upper,
+                                            int mask) {
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+#pragma unroll
+    for (int mm = 0; mm < BM; ++mm) {
+      const int send = upper ? acc[c][mm] : acc[c + W][mm];
+      const int keep = upper ? acc[c + W][mm] : acc[c][mm];
+      acc[c][mm] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+}
+
+template <int VB>
+__device__ __forceinline__ void load_bytes(const uint8_t* __restrict__ w,
+                                           size_t off, int cols_left,
+                                           bool vec, uint32_t* out) {
+  if (vec) {
+    if (cols_left <= 0) {
+#pragma unroll
+      for (int q = 0; q < VB / 4; ++q) out[q] = 0u;
+    } else if constexpr (VB == 16) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(w + off));
+      out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(w + off));
+      out[0] = v.x; out[1] = v.y;
+    }
+    return;
+  }
+#pragma unroll
+  for (int q = 0; q < VB / 4; ++q) {
+    uint32_t word = 0u;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      if (4 * q + j < cols_left)
+        word |= (uint32_t)__ldg(w + off + 4 * q + j) << (8 * j);
+    out[q] = word;
+  }
+}
+
+// Four columns x four weight rows: r0 holds byte row 2p of four columns
+// (weight rows 4p, 4p+1 in its nibbles), r1 byte row 2p+1 (4p+2, 4p+3).
+// col[j] gets column j's rows 4p..4p+3 as int8x4, lowest row first.
+__device__ __forceinline__ void quad_columns(uint32_t r0, uint32_t r1,
+                                             int* col) {
+  const uint32_t lo0 = r0 & 0x0F0F0F0Fu, hi0 = (r0 >> 4) & 0x0F0F0F0Fu;
+  const uint32_t lo1 = r1 & 0x0F0F0F0Fu, hi1 = (r1 >> 4) & 0x0F0F0F0Fu;
+  const uint32_t a01 = __byte_perm(lo0, hi0, 0x5140);   // lo0.0 hi0.0 lo0.1 hi0.1
+  const uint32_t a23 = __byte_perm(lo0, hi0, 0x7362);
+  const uint32_t b01 = __byte_perm(lo1, hi1, 0x5140);
+  const uint32_t b23 = __byte_perm(lo1, hi1, 0x7362);
+  col[0] = (int)__byte_perm(a01, b01, 0x5410);
+  col[1] = (int)__byte_perm(a01, b01, 0x7632);
+  col[2] = (int)__byte_perm(a23, b23, 0x5410);
+  col[3] = (int)__byte_perm(a23, b23, 0x7632);
+}
+
+template <int BM, int VB, int MODE>
+__global__ void __launch_bounds__(kGroupWarps * 32)
+cim_mvm_packed_kernel(const float* __restrict__ x,
+                      const uint8_t* __restrict__ w, float* __restrict__ out,
+                      int M, int N, int K, int KW, int n_rows, int G, int gpc,
+                      int wcols, int vec, float inv_lsb, float lsb,
+                      float code_max, Stochastic st) {
+  constexpr int NC = kChunks * VB;    // columns per warp
+  constexpr int VO = VB / 8;          // columns per lane after the reduction
+  extern __shared__ float smem[];
+  const int nct = wcols * NC;                       // columns per CTA
+  const int nq = n_rows >> 2;                       // quads per group
+  int* xq = reinterpret_cast<int*>(smem);           // [gpc][BM][nq] int8x4
+  float* cs = smem + (size_t)gpc * BM * nq;         // [gpc][BM][nct] codes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_rank = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wc = warp % wcols;                      // the warp's column tile
+  const int wg = warp / wcols;                      // ... and group lane
+  const int wgs = (blockDim.x >> 5) / wcols;
+  const int n0 = blockIdx.x * nct + wc * NC;
+  const int m0 = blockIdx.z * BM;
+  const int g0 = rank * gpc;
+  const int ng = max(0, min(gpc, G - g0));
+  const int chunk = lane & 3;
+  const int slice = lane >> 2;
+  const int half = n_rows >> 1;
+  const int col = n0 + chunk * VB;                  // first column loaded
+
+  // the first quads of the warp's first group: issued before anything waits
+  uint32_t wv[kQuads][2][VB / 4];
+  auto load_quads = [&](int gl, int p0) {
+#pragma unroll
+    for (int i = 0; i < kQuads; ++i) {
+      const int p = p0 + i * kSlices;               // quad in the group
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int br = 2 * p + h;                   // byte row in the group
+        const int row = (g0 + gl) * half + br;
+        const bool ok = p < nq && row < KW;
+        load_bytes<VB>(w, (size_t)row * N + col, ok ? N - col : 0, vec,
+                       wv[i][h]);
+      }
+    }
+  };
+  if (wg < ng) load_quads(wg, slice);
+
+  // this CTA's activation codes as int8x4 words (zero past M and K)
+  const int tile = BM * nq;
+  for (int idx = threadIdx.x; idx < ng * tile; idx += blockDim.x) {
+    const int gl = idx / tile;
+    const int rem = idx - gl * tile;
+    const int mm = rem / nq;
+    const int k = (g0 + gl) * n_rows + 4 * (rem - mm * nq);
+    const int m = m0 + mm;
+    uint32_t word = 0u;
+    if (m < M) {
+      const float* xr = x + (size_t)m * K + k;
+      if (k + 3 < K && (((uintptr_t)xr) & 15) == 0) {
+        const float4 v = __ldg(reinterpret_cast<const float4*>(xr));
+        word = (uint32_t)__float2int_rn(v.x) |
+               ((uint32_t)__float2int_rn(v.y) << 8) |
+               ((uint32_t)__float2int_rn(v.z) << 16) |
+               ((uint32_t)__float2int_rn(v.w) << 24);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < K)
+            word |= (uint32_t)__float2int_rn(__ldg(xr + j)) << (8 * j);
+      }
+    }
+    xq[idx] = (int)word;
+  }
+  __syncthreads();
+
+  // the lane's output columns after the reduce-scatter
+  const int off = ((slice & 1) ? VB / 2 : 0) + ((slice & 2) ? VB / 4 : 0) +
+                  ((slice & 4) ? VB / 8 : 0);
+  const int ccol = chunk * VB + off;                // column within the tile
+  uint32_t hrc[MODE == kIdeal ? 1 : BM][MODE == kIdeal ? 1 : VO];
+  if constexpr (MODE != kIdeal) {
+    const uint32_t h0 = mix32(((uint32_t)__ldg(st.seed) ^ st.salt) ^ kGolden);
+#pragma unroll
+    for (int mm = 0; mm < BM; ++mm) {
+      const uint32_t hr = mix32(h0 ^ (uint32_t)(m0 + mm));
+#pragma unroll
+      for (int j = 0; j < VO; ++j)
+        hrc[mm][j] = mix32(hr ^ (uint32_t)(n0 + ccol + j));
+    }
+  }
+
+  const int q_step = kQuads * kSlices;
+  for (int gl = wg; gl < ng; gl += wgs) {
+    const int g = g0 + gl;
+    const int* xg = xq + gl * tile;
+    int acc[VB][BM];
+#pragma unroll
+    for (int c = 0; c < VB; ++c)
+#pragma unroll
+      for (int mm = 0; mm < BM; ++mm) acc[c][mm] = 0;
+    for (int p0 = slice; p0 < nq; p0 += q_step) {
+      if (p0 != slice) load_quads(gl, p0);
+#pragma unroll
+      for (int i = 0; i < kQuads; ++i) {
+        const int p = p0 + i * kSlices;
+        if (p >= nq) break;
+        int xw[BM];
+#pragma unroll
+        for (int mm = 0; mm < BM; ++mm) xw[mm] = xg[mm * nq + p];
+#pragma unroll
+        for (int q = 0; q < VB / 4; ++q) {
+          int cw[4];
+          quad_columns(wv[i][0][q], wv[i][1][q], cw);
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int mm = 0; mm < BM; ++mm)
+              acc[4 * q + j][mm] = __dp4a(cw[j], xw[mm], acc[4 * q + j][mm]);
+        }
+      }
+    }
+    if (gl + wgs < ng) load_quads(gl + wgs, slice);   // next group
+    // reduce-scatter over the 8 slices (lane bits 2, 3, 4)
+    reduce_half<VB / 2>(acc, slice & 1, 4);
+    reduce_half<VB / 4>(acc, slice & 2, 8);
+    reduce_half<VB / 8>(acc, slice & 4, 16);
+    // TD-ADC transfer in registers
+#pragma unroll
+    for (int mm = 0; mm < BM; ++mm)
+#pragma unroll
+      for (int j = 0; j < VO; ++j) {
+        const float part = (float)acc[j][mm];       // exact: < 2^24
+        float v = __fmul_rn(part, inv_lsb);
+        if constexpr (MODE == kFull) {
+          const float cf =
+              fminf(fmaxf(__fmul_rn(part, st.frac_scale), 0.f), 1.f);
+          v = __fmaf_rn(part, inv_lsb, inl_curve(cf, st));
+        }
+        if constexpr (MODE != kIdeal) {
+          const uint32_t base =
+              mix32(hrc[mm][j] ^ ((uint32_t)g * 0x01000193u));
+          v = __fmaf_rn(st.sigma, normal12(base), v);
+        }
+        float c = rintf(v);
+        c = fminf(fmaxf(c, 0.f), code_max);
+        cs[(gl * BM + mm) * nct + wc * NC + ccol + j] = c;
+      }
+  }
+  cluster.sync();
+
+  // digital partial-sum accumulation over the cluster, ascending group
+  // order; the codes of a rank are fetched eight at a time before the
+  // dependent chain of multiply-adds
+  for (int e = rank * blockDim.x + threadIdx.x; e < BM * nct;
+       e += n_rank * blockDim.x) {
+    const int mm = e / nct;
+    const int c = e - mm * nct;
+    const int m = m0 + mm;
+    const int n = blockIdx.x * nct + c;
+    if (m >= M || n >= N) continue;
+    float o = 0.f;
+    for (int r = 0; r < n_rank; ++r) {
+      const float* rc =
+          (r == rank ? cs : cluster.map_shared_rank(cs, r)) + mm * nct + c;
+      const int gn = min(gpc, G - r * gpc);
+      for (int gb = 0; gb < gn; gb += 8) {
+        float v[8];
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          v[i] = gb + i < gn ? rc[(gb + i) * BM * nct] : 0.f;
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+          if (gb + i < gn) o = __fmaf_rn(v[i], lsb, o);
+      }
+    }
+    out[(size_t)m * N + n] = o;
+  }
+  cluster.sync();                 // peers may still read this CTA's codes
+}
+
+// The cluster launch of the packed kernel; returns -1 for shapes it does
+// not take (groups of rows that are no multiple of four, or more shared
+// memory than a CTA has): the caller then takes the one-block-per-32-
+// columns body.
+template <int BM, int VB, int MODE>
+int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
+                  int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
+                  float code_max, const Stochastic& st, cudaStream_t stream) {
+  constexpr int NC = kChunks * VB;
+  // Wide matrices: up to 8 warps side by side along the columns share one
+  // CTA's staged activations. Then the groups split over just enough
+  // cluster ranks to give the card ~kCtaTarget CTAs: the cluster barrier
+  // and the DSMEM pass cost latency that only pays where the column tiles
+  // alone would leave SMs idle. The remaining warps of a CTA (up to 8 in
+  // all) take the rank's groups in turn.
+  const long mt = (M + BM - 1) / BM;
+  const long warp_tiles = (long)((N + NC - 1) / NC) * mt;
+  int wcols = 1;
+  while (wcols < kGroupWarps && warp_tiles >= 2L * wcols * kWideTiles)
+    wcols *= 2;
+  const long tiles = (long)((N + wcols * NC - 1) / (wcols * NC)) * mt;
+  int cs = 1;
+  while (cs < kMaxCluster && cs * tiles < kCtaTarget) cs *= 2;
+  if (cs > G) cs = G;
+  const int gpc = (G + cs - 1) / cs;
+  cs = (G + gpc - 1) / gpc;                 // no rank without a group
+  int wgs = kGroupWarps / wcols;
+  if (wgs > gpc) wgs = gpc;
+  const size_t smem =
+      sizeof(float) * (size_t)gpc * BM * (n_rows / 4 + wcols * NC);
+  if (smem > 227 * 1024 || n_rows % 4) return -1;
+  static size_t cap = 48 * 1024;   // raised once per instantiation and size
+  if (smem > cap) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cim_mvm_packed_kernel<BM, VB, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cap = smem;
+  }
+  const int vec = (N % VB == 0) && ((uintptr_t)w % 16 == 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + wcols * NC - 1) / (wcols * NC), cs, (int)mt);
+  cfg.blockDim = dim3(wgs * wcols * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, cim_mvm_packed_kernel<BM, VB, MODE>,
+                                     x, w, out, M, N, K, KW, n_rows, G, gpc,
+                                     wcols, vec, inv_lsb, lsb, code_max, st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool PACKED, int MODE>
 int dispatch_rows(const float* x, const void* w, float* out, int M, int N,
                   int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
                   float code_max, const Stochastic& st, cudaStream_t stream) {
+  if constexpr (PACKED) {
+    const uint8_t* wp = static_cast<const uint8_t*>(w);
+    const int rc =
+        M <= 4 ? launch_packed<4, 16, MODE>(x, wp, out, M, N, K, KW, n_rows,
+                                            G, inv_lsb, lsb, code_max, st,
+                                            stream)
+               : launch_packed<8, 8, MODE>(x, wp, out, M, N, K, KW, n_rows,
+                                           G, inv_lsb, lsb, code_max, st,
+                                           stream);
+    if (rc != -1) return rc;
+  }
   if (M <= 4)
     return launch<4, PACKED, MODE>(x, w, out, M, N, K, KW, n_rows, G,
                                    inv_lsb, lsb, code_max, st, stream);

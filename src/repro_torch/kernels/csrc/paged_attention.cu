@@ -12,22 +12,40 @@
 // rows at or past kv_len are zeroed by selection before the PV sum (the
 // trash block may hold NaN, and 0 * NaN is NaN); the output is
 // acc / max(l, 1e-30), so idle lanes (kv_len 0) emit 0. Math is f32 with
-// scale = 1/sqrt(dh); the pools are upcast as they are loaded.
+// scale = 1/sqrt(dh); the pools are upcast as they are read.
 //
 // What bounds B3 on the H100: the bytes of K/V it reads (each slot's
-// kv_len rows of one KV head per block), and at decode sizes the launch
-// itself: a step attends over at most a few hundred tokens.
-// What the design does about that: one thread block per (slot, KV head,
-// tile of 4 rows); the block loads its own table entries and walks only
-// the slot's blocks below kv_len, staging each [bs, dh] K and V block in
-// shared memory once for all its rows (one warp per row). Online-softmax
-// state (m, l and the dh-wide accumulator, dh/32 values per lane) lives
-// in registers for the whole pass. No score tensor is ever written out.
+// kv_len rows of one KV head), a few hundred KB at decode, so in practice
+// the latency of one launch and of one or two trips to device memory.
+// What the design does about that (split-KV flash decoding):
+//  * each (slot, KV head, tile of query rows) gets a thread-block cluster
+//    of S = min(8, MB) CTAs (the wrapper's attn_splits; launched with
+//    cudaLaunchKernelEx and a cluster-dimension attribute). S is fixed by
+//    the table width MB, never by the device-side kv_len, so the launch
+//    stays capturable in a CUDA graph. Rank r takes the contiguous table columns [r*per, (r+1)*per),
+//    per = ceil(MB / S), and walks only those below kv_len; a rank with
+//    nothing to read publishes the empty state (m = -1e30, l = 0, acc = 0).
+//    At decode (4 slots x 8 KV heads, MB = 16) that is 256 CTAs, not 32.
+//  * all query rows of the tile share each staged K/V block: the block is
+//    copied with 16-byte cp.async into shared memory, double-buffered, so
+//    block j+1 arrives while block j is computed. Rows are padded by one
+//    16-byte chunk, so the per-token 16-byte reads are conflict-free.
+//  * scores are one token per lane: lane t forms the 32 lane-strided
+//    partial dot products of q and k_t itself (dh/32 terms each, in order)
+//    and sums them in the order of the warp's xor butterfly (16, 8, 4, 2,
+//    1). That is the order the plain version writes down (`_butterfly`).
+//    The online softmax (m, l, the dh-wide accumulator, dh/32 values per
+//    lane) then runs per row as a single-pass kernel would; the PV sum in
+//    token order.
+//  * after cluster.sync(), the CTAs of the cluster combine the ranks'
+//    (m, l, acc) read through distributed shared memory, each CTA a slice
+//    of the tile's outputs, in rank order: m* = max_r m_r,
+//    l* = sum_r l_r * exp(m_r - m*), acc* likewise, out = acc* /
+//    max(l*, 1e-30). A second cluster.sync() keeps every CTA's shared
+//    memory alive until its peers have read it.
 // Every float operation is an explicit _rn intrinsic (nothing is
-// contracted into an FMA) and every sum has a fixed order: lane-strided
-// partial dot products, then the xor butterfly over the warp; the
-// per-token PV sum in token order. The plain PyTorch version follows the
-// same order, so on the card the two agree bit for bit.
+// contracted into an FMA) and every sum has a fixed order, which the plain
+// PyTorch version follows, so on the card the two agree bit for bit.
 //
 // B4 replaces kernels/paged_attention.py:_fused_write_call
 // (_fused_write_kernel): the decode step's K/V row of each slot is copied
@@ -35,14 +53,17 @@
 // with flat_idx 0 writes nothing. Bound by launch latency: it moves
 // 2 * B * KH * dh elements. One block per slot; 16-bit or 32-bit words.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kRows = 4;                  // query rows (warps) per block
-constexpr int kThreads = kRows * 32;
+constexpr int kMaxWarps = 8;      // warps per CTA
+constexpr int kMaxSplit = 8;      // portable cluster size
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -63,135 +84,321 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-template <typename T, int DPL>   // DPL = dh / 32 values per lane
-__global__ void __launch_bounds__(kThreads)
+// one step of the xor butterfly on 32 partials held by one lane: what
+// lane u < O holds after the shuffle step of offset O
+template <int O>
+__device__ __forceinline__ void butterfly(float* part) {
+#pragma unroll
+  for (int u = 0; u < O; ++u) part[u] = __fadd_rn(part[u], part[u + O]);
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::);
+}
+
+// 16 bytes of pool elements -> f32
+template <typename T>
+__device__ __forceinline__ void chunk_f32(const unsigned char* p, float* f);
+template <>
+__device__ __forceinline__ void chunk_f32<float>(const unsigned char* p,
+                                                 float* f) {
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  f[0] = v.x; f[1] = v.y; f[2] = v.z; f[3] = v.w;
+}
+template <>
+__device__ __forceinline__ void chunk_f32<__nv_bfloat16>(
+    const unsigned char* p, float* f) {
+  const uint4 v = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);           // bf16 -> f32 is exact
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// Shared-memory layout of one CTA (bytes), for T, dh, bs, TR query rows.
+struct AttnSmem {
+  int row_bytes, stage_bytes, kv_bytes, q_off, m_off, l_off, acc_off, total;
+};
+template <typename T>
+__host__ __device__ inline AttnSmem attn_smem(int dh, int bs, int tr) {
+  AttnSmem s;
+  s.row_bytes = dh * (int)sizeof(T) + 16;   // one pad chunk per row
+  s.stage_bytes = 2 * bs * s.row_bytes;     // K then V
+  s.kv_bytes = 2 * s.stage_bytes;           // double buffer
+  s.q_off = s.kv_bytes;
+  s.m_off = s.q_off + tr * dh * 4;
+  s.l_off = s.m_off + tr * 4;
+  s.acc_off = s.l_off + tr * 4;
+  s.total = s.acc_off + tr * dh * 4;
+  return s;
+}
+
+// One CTA: query rows [tile*TR, tile*TR + TR) of (slot b, KV head h),
+// table columns of cluster rank `rank`. RPW rows per warp, TR = warps*RPW.
+template <typename T, int DPL, int RPW>
+__global__ void __launch_bounds__(kMaxWarps * 32)
 paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
                   const T* __restrict__ vpool,
                   const int* __restrict__ tables,
                   const int* __restrict__ lens, const int* __restrict__ kvl,
                   float* __restrict__ out, int C, int H, int KH, int G,
-                  int bs, int MB, float scale) {
+                  int bs, int MB, int per, int tiles, float scale) {
   constexpr int dh = DPL * 32;
-  extern __shared__ float smem[];
-  float* ks = smem;             // [bs][dh]
-  float* vs = smem + bs * dh;   // [bs][dh]
-  const int b = blockIdx.x;
+  constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
+  constexpr int CPR = dh / EPC;              // chunks per row
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_split = (int)cluster.num_blocks();
+  const int nwarps = blockDim.x >> 5;
+  const int tr = nwarps * RPW;
+  const AttnSmem L = attn_smem<T>(dh, bs, tr);
+  float* qs = reinterpret_cast<float*>(smem + L.q_off);     // [tr][dh]
+  float* sm_m = reinterpret_cast<float*>(smem + L.m_off);   // [tr]
+  float* sm_l = reinterpret_cast<float*>(smem + L.l_off);   // [tr]
+  float* sm_acc = reinterpret_cast<float*>(smem + L.acc_off);  // [tr][dh]
+
   const int h = blockIdx.y;
+  const int b = blockIdx.z / tiles;
+  const int row0 = (blockIdx.z - b * tiles) * tr;
+  const int rows = C * G;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const int row = blockIdx.z * kRows + warp;
-  const bool live = row < C * G;
-  const int c_off = live ? row / G : 0;
-  const int head = h * G + (live ? row % G : 0);
   const int kv = kvl[b];
-  const int pos_q = lens[b] + c_off;
+  const int base = lens[b];
 
-  float qr[DPL];
-  float acc[DPL];
-  const size_t qbase = (((size_t)b * C + c_off) * H + head) * dh;
-#pragma unroll
-  for (int i = 0; i < DPL; ++i) {
-    qr[i] = live ? q[qbase + lane + 32 * i] : 0.f;
-    acc[i] = 0.f;
+  // the tile's query rows, f32, zero past the last row
+  for (int idx = threadIdx.x; idx < tr * dh; idx += blockDim.x) {
+    const int lr = idx / dh;
+    const int d = idx - lr * dh;
+    const int row = row0 + lr;
+    float v = 0.f;
+    if (row < rows) {
+      const int head = h * G + row % G;
+      v = q[(((size_t)b * C + row / G) * H + head) * dh + d];
+    }
+    qs[idx] = v;
   }
-  float m = -1e30f;
-  float l = 0.f;
 
-  const int nblk = (kv + bs - 1) / bs;   // blocks holding attendable rows
-  for (int j = 0; j < nblk; ++j) {
+  int nblk = (kv + bs - 1) / bs;           // blocks holding attendable rows
+  if (nblk > MB) nblk = MB;
+  const int j0 = rank * per;
+  const int j1 = min(j0 + per, nblk);
+
+  auto issue = [&](int j, int st) {
     const int blk = tables[(size_t)b * MB + j];
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < bs * dh; idx += kThreads) {
-      const int t = idx / dh;
-      const int d = idx - t * dh;
-      const size_t src = (((size_t)blk * bs + t) * KH + h) * dh + d;
-      ks[idx] = to_f32(kpool[src]);
-      const float vv = to_f32(vpool[src]);
-      vs[idx] = (j * bs + t < kv) ? vv : 0.f;   // select, never multiply
+    unsigned char* dst = smem + st * L.stage_bytes;
+    for (int idx = threadIdx.x; idx < 2 * bs * CPR; idx += blockDim.x) {
+      const int which = idx / (bs * CPR);        // 0 = K, 1 = V
+      const int rem = idx - which * bs * CPR;
+      const int t = rem / CPR;
+      const int c = rem - t * CPR;
+      const T* pool = which ? vpool : kpool;
+      const T* src = pool + (((size_t)blk * bs + t) * KH + h) * dh + c * EPC;
+      cp_async16(dst + (which * bs + t) * L.row_bytes + c * 16, src);
     }
-    __syncthreads();
-    if (!live) continue;
+  };
 
-    // scores of this block: lane t keeps s_t (bs <= 32)
-    float my_s = -1e30f;
-    bool my_ok = false;
-    for (int t = 0; t < bs; ++t) {
-      float part = 0.f;
+  float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        part = __fadd_rn(part, __fmul_rn(qr[i], ks[t * dh + lane + 32 * i]));
-      const float s = __fmul_rn(warp_sum(part), scale);
-      const int pos_s = j * bs + t;
-      const bool ok = (pos_s <= pos_q) && (pos_s < kv);
-      if (lane == t) {
-        my_ok = ok;
-        my_s = ok ? s : -1e30f;
-      }
-    }
-    const float m_new = fmaxf(m, warp_max(my_s));
-    const float p = my_ok ? expf(__fsub_rn(my_s, m_new)) : 0.f;
-    const float alpha = expf(__fsub_rn(m, m_new));
-    l = __fadd_rn(__fmul_rn(l, alpha), warp_sum(p));
-    float pv[DPL];
+  for (int k = 0; k < RPW; ++k) {
+    m[k] = -1e30f;
+    l[k] = 0.f;
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
-    for (int t = 0; t < bs; ++t) {
-      const float pt = __shfl_sync(0xffffffffu, p, t);
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, vs[t * dh + lane + 32 * i]));
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i)
-      acc[i] = __fadd_rn(__fmul_rn(acc[i], alpha), pv[i]);
-    m = m_new;
+    for (int i = 0; i < DPL; ++i) acc[k][i] = 0.f;
   }
-  if (!live) return;
-  const float den = fmaxf(l, 1e-30f);
+
+  if (j0 < j1) issue(j0, 0);
+  cp_async_commit();
+  for (int j = j0; j < j1; ++j) {
+    const int st = (j - j0) & 1;
+    if (j + 1 < j1) issue(j + 1, st ^ 1);
+    cp_async_commit();
+    cp_async_wait1();             // block j's copies (this thread's) landed
+    __syncthreads();              // ... and everyone else's
+    const unsigned char* ks = smem + st * L.stage_bytes;
+    const unsigned char* vs = ks + bs * L.row_bytes;
+    const int tt = lane < bs ? lane : bs - 1;
+    const int pos_s = j * bs + lane;
 #pragma unroll
-  for (int i = 0; i < DPL; ++i) out[qbase + lane + 32 * i] = __fdiv_rn(acc[i], den);
+    for (int k = 0; k < RPW; ++k) {
+      const int lr = warp + k * nwarps;
+      if (row0 + lr >= rows) break;              // warp-uniform
+      const int pos_q = base + (row0 + lr) / G;
+      const float* qr = qs + lr * dh;
+      // score of token `lane`: 32 lane-strided partials, butterfly order
+      float part[32];
+#pragma unroll
+      for (int u = 0; u < 32; ++u) part[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+#pragma unroll
+        for (int c = 0; c < 32 / EPC; ++c) {
+          float kf[EPC];
+          chunk_f32<T>(ks + tt * L.row_bytes + (i * 32 + c * EPC) *
+                       (int)sizeof(T), kf);
+#pragma unroll
+          for (int u = 0; u < EPC; ++u)
+            part[c * EPC + u] = __fadd_rn(
+                part[c * EPC + u],
+                __fmul_rn(qr[i * 32 + c * EPC + u], kf[u]));
+        }
+      }
+      butterfly<16>(part);
+      butterfly<8>(part);
+      butterfly<4>(part);
+      butterfly<2>(part);
+      butterfly<1>(part);
+      const float s = __fmul_rn(part[0], scale);
+      const bool ok = lane < bs && pos_s <= pos_q && pos_s < kv;
+      const float my_s = ok ? s : -1e30f;
+      const float m_new = fmaxf(m[k], warp_max(my_s));
+      const float p = ok ? expf(__fsub_rn(my_s, m_new)) : 0.f;
+      const float alpha = expf(__fsub_rn(m[k], m_new));
+      l[k] = __fadd_rn(__fmul_rn(l[k], alpha), warp_sum(p));
+      float pv[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
+      for (int t = 0; t < bs; ++t) {
+        const float pt = __shfl_sync(0xffffffffu, p, t);
+        const bool vok = j * bs + t < kv;
+        const T* vrow = reinterpret_cast<const T*>(vs + t * L.row_bytes);
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          const float vv = vok ? to_f32(vrow[lane + 32 * i]) : 0.f;  // select
+          pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, vv));
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < DPL; ++i)
+        acc[k][i] = __fadd_rn(__fmul_rn(acc[k][i], alpha), pv[i]);
+      m[k] = m_new;
+    }
+    __syncthreads();              // stage st is refilled next iteration
+  }
+
+  // publish this rank's state (the empty state if it read nothing)
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int lr = warp + k * nwarps;
+    if (lane == 0) {
+      sm_m[lr] = m[k];
+      sm_l[lr] = l[k];
+    }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) sm_acc[lr * dh + lane + 32 * i] = acc[k][i];
+  }
+  cluster.sync();
+
+  // combine in rank order; this CTA takes every n_split-th output
+  for (int e = rank * blockDim.x + threadIdx.x; e < tr * dh;
+       e += n_split * blockDim.x) {
+    const int lr = e / dh;
+    const int d = e - lr * dh;
+    const int row = row0 + lr;
+    if (row >= rows) break;                    // rows are contiguous in e
+    float ms = -1e30f;
+    for (int r = 0; r < n_split; ++r)
+      ms = fmaxf(ms, *cluster.map_shared_rank(sm_m + lr, r));
+    float ls = 0.f, as = 0.f;
+    for (int r = 0; r < n_split; ++r) {
+      const float w = expf(__fsub_rn(*cluster.map_shared_rank(sm_m + lr, r),
+                                     ms));
+      ls = __fadd_rn(ls, __fmul_rn(*cluster.map_shared_rank(sm_l + lr, r), w));
+      as = __fadd_rn(as, __fmul_rn(
+          *cluster.map_shared_rank(sm_acc + lr * dh + d, r), w));
+    }
+    const int head = h * G + row % G;
+    out[(((size_t)b * C + row / G) * H + head) * dh + d] =
+        __fdiv_rn(as, fmaxf(ls, 1e-30f));
+  }
+  cluster.sync();                 // peers may still read this CTA's state
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, int RPW>
 int launch_attn(const float* q, const void* k, const void* v,
                 const int* tables, const int* lens, const int* kvl,
                 float* out, int B, int C, int H, int KH, int bs, int MB,
-                float scale, cudaStream_t stream) {
+                int n_split, int per, int warps, float scale,
+                cudaStream_t stream) {
   const int G = H / KH;
-  const size_t smem = sizeof(float) * 2 * (size_t)bs * DPL * 32;
+  const int tr = warps * RPW;
+  const int tiles = (C * G + tr - 1) / tr;
+  const size_t smem = (size_t)attn_smem<T>(DPL * 32, bs, tr).total;
   static size_t cap = 48 * 1024;   // raised once, not per (captured) launch
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, DPL>,
+        paged_attn_kernel<T, DPL, RPW>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
   }
-  dim3 grid(B, KH, (C * G + kRows - 1) / kRows);
-  paged_attn_kernel<T, DPL><<<grid, kThreads, smem, stream>>>(
-      q, static_cast<const T*>(k), static_cast<const T*>(v), tables, lens,
-      kvl, out, C, H, KH, G, bs, MB, scale);
+  if ((size_t)B * tiles > 65535) return (int)cudaErrorInvalidValue;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_split, KH, B * tiles);
+  cfg.blockDim = dim3(warps * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, paged_attn_kernel<T, DPL, RPW>, q, static_cast<const T*>(k),
+      static_cast<const T*>(v), tables, lens, kvl, out, C, H, KH, G, bs, MB,
+      per, tiles, scale);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
+}
+
+// Up to 8 query rows: one row per warp; more: 8 warps of 4 rows each.
+template <typename T, int DPL>
+int launch_rows(const float* q, const void* k, const void* v,
+                const int* tables, const int* lens, const int* kvl,
+                float* out, int B, int C, int H, int KH, int bs, int MB,
+                int n_split, int per, float scale, cudaStream_t stream) {
+  const int rows = C * (H / KH);
+  if (rows <= kMaxWarps)
+    return launch_attn<T, DPL, 1>(q, k, v, tables, lens, kvl, out, B, C, H,
+                                  KH, bs, MB, n_split, per, rows, scale,
+                                  stream);
+  return launch_attn<T, DPL, 4>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
+                                bs, MB, n_split, per, kMaxWarps, scale,
+                                stream);
 }
 
 template <typename T>
 int dispatch_dh(const float* q, const void* k, const void* v,
                 const int* tables, const int* lens, const int* kvl,
                 float* out, int B, int C, int H, int KH, int dh, int bs,
-                int MB, float scale, cudaStream_t stream) {
+                int MB, int n_split, int per, float scale,
+                cudaStream_t stream) {
   switch (dh) {
     case 32:
-      return launch_attn<T, 1>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, scale, stream);
+      return launch_rows<T, 1>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
+                               bs, MB, n_split, per, scale, stream);
     case 64:
-      return launch_attn<T, 2>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, scale, stream);
+      return launch_rows<T, 2>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
+                               bs, MB, n_split, per, scale, stream);
     case 128:
-      return launch_attn<T, 4>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, scale, stream);
+      return launch_rows<T, 4>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
+                               bs, MB, n_split, per, scale, stream);
     case 256:
-      return launch_attn<T, 8>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, scale, stream);
+      return launch_rows<T, 8>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
+                               bs, MB, n_split, per, scale, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -219,19 +426,24 @@ __global__ void fused_write_kernel(W* __restrict__ kpool,
 
 extern "C" {
 
-// B3. pool_bf16: 1 for bf16 pools, 0 for f32 pools.
+// B3. pool_bf16: 1 for bf16 pools, 0 for f32 pools. The table columns
+// split over n_split cluster ranks of `per` columns each (the wrapper's
+// attn_splits, which the plain version follows).
 int paged_attn_launch(int pool_bf16, const float* q, const void* k,
                       const void* v, const int* tables, const int* lens,
                       const int* kvl, float* out, int B, int C, int H,
-                      int KH, int dh, int bs, int MB, float scale,
-                      cudaStream_t stream) {
+                      int KH, int dh, int bs, int MB, int n_split, int per,
+                      float scale, cudaStream_t stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (bs < 1 || bs > 32 || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
+  if (bs < 1 || bs > 32 || KH <= 0 || H % KH || MB < 1 || n_split < 1 ||
+      n_split > kMaxSplit || per < 1 || n_split * per < MB)
+    return (int)cudaErrorInvalidValue;
   if (pool_bf16)
     return dispatch_dh<__nv_bfloat16>(q, k, v, tables, lens, kvl, out, B, C,
-                                      H, KH, dh, bs, MB, scale, stream);
+                                      H, KH, dh, bs, MB, n_split, per, scale,
+                                      stream);
   return dispatch_dh<float>(q, k, v, tables, lens, kvl, out, B, C, H, KH, dh,
-                            bs, MB, scale, stream);
+                            bs, MB, n_split, per, scale, stream);
 }
 
 // B4. elem_bytes: 2 (bf16) or 4 (f32); row_elems = KH * dh; flat [B] i32.

@@ -118,13 +118,28 @@ def _butterfly(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
+def attn_splits(mb: int) -> tuple[int, int]:
+    """(S, per): B3 splits a slot's MB table columns over S = min(8, MB)
+    ranks of a thread-block cluster, rank r taking the contiguous columns
+    [r·per, min((r+1)·per, MB)), per = ceil(MB / S). S depends on the table
+    width only, never on the device-side kv_len."""
+    s = max(1, min(8, mb))
+    return s, -(-mb // s)
+
+
 def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
-    """Plain version of B3, in the kernel's exact operation order: one pass
-    over the logical blocks with an online softmax; each score is the
+    """Plain version of B3, in the kernel's exact operation order.
+
+    The table columns split over S ranks (`attn_splits`); each rank runs an
+    online softmax over its own blocks in order: each score is the
     lane-strided partial dot products (dh/32 per lane, in order) summed by
-    the warp butterfly; the PV sum runs in token order. All math is f32
-    with separate multiplies and adds, so on the card it matches the
-    kernel bit for bit.
+    the warp butterfly; the PV sum runs in token order. The ranks' states
+    (m_r, l_r, acc_r) then combine in rank order: m* = max_r m_r,
+    l* = Σ_r l_r·exp(m_r − m*) and acc* = Σ_r acc_r·exp(m_r − m*), each
+    added in r order from 0, and out = acc* / max(l*, 1e−30). All math is
+    f32 with separate multiplies and adds, so on the card it matches the
+    kernel bit for bit. A rank's columns past kv_len (and the padding of
+    the last rank) are exact no-ops: all weights 0, alpha 1.
 
     q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB]; lens [B] (the
     chunk's base position); kv_len [B]. Returns f32 [B, C, H, dh].
@@ -138,31 +153,38 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
     cg = c * g
     dpl = dh // 32
     dev = q.device
+    mb = tables.shape[1]
+    n_split, per = attn_splits(mb)
     f32 = dict(dtype=torch.float32, device=dev)
+    # [B, KH, 1 (rank), CG, 1 (token), dpl, 32]
     q3 = q.float().reshape(b, c, kh, g, dh).permute(0, 2, 1, 3, 4) \
-        .reshape(b, kh, cg, 1, dpl, 32)
+        .reshape(b, kh, 1, cg, 1, dpl, 32)
     scale = 1.0 / math.sqrt(dh)      # multiplied as its f32 value
-    m = torch.full((b, kh, cg), -1e30, **f32)
-    l_sum = torch.zeros((b, kh, cg), **f32)
-    acc = torch.zeros((b, kh, cg, dh), **f32)
+    m = torch.full((b, kh, n_split, cg), -1e30, **f32)
+    l_sum = torch.zeros((b, kh, n_split, cg), **f32)
+    acc = torch.zeros((b, kh, n_split, cg, dh), **f32)
     pos_q = lens.long()[:, None] + (torch.arange(cg, device=dev) // g)
-    kvl = kv_len.long()
-    # every table column: past a slot's kv_len the update is an exact
-    # no-op (all weights 0, alpha 1), and no host sync is needed
-    for j in range(tables.shape[1]):
-        blk = tables[:, j].long()
-        k = k_pool[blk].float().permute(0, 2, 1, 3)       # [B, KH, bs, dh]
-        v = v_pool[blk].float().permute(0, 2, 1, 3)
-        pos_s = j * bs + torch.arange(bs, device=dev)     # [bs]
-        v = torch.where((pos_s[None, :] < kvl[:, None])[:, None, :, None],
-                        v, 0.0)                           # select, never x0
-        prod = q3 * k.reshape(b, kh, 1, bs, dpl, 32)      # [B,KH,CG,bs,dpl,32]
-        part = prod[..., 0, :]
+    kvl = kv_len.long()[:, None, None, None]                # [B,1,1,1]
+    # pad the last rank's columns with the trash block: their positions lie
+    # past the window, so they are masked like columns past kv_len
+    tab = F.pad(tables.long(), (0, n_split * per - mb)).reshape(
+        b, n_split, per)
+    col0 = torch.arange(n_split, device=dev) * per          # [S]
+    tok = torch.arange(bs, device=dev)
+    for jj in range(per):
+        blk = tab[:, :, jj]                                 # [B, S]
+        k = k_pool[blk].float().permute(0, 3, 1, 2, 4)      # [B,KH,S,bs,dh]
+        v = v_pool[blk].float().permute(0, 3, 1, 2, 4)
+        pos_s = (col0 + jj)[:, None] * bs + tok             # [S, bs]
+        v = torch.where((pos_s[None, None, :, :, None] < kvl[..., None]),
+                        v, 0.0)                             # select, never x0
+        k6 = k.reshape(b, kh, n_split, 1, bs, dpl, 32)
+        part = q3[..., 0, :] * k6[..., 0, :]                # [B,KH,S,CG,bs,32]
         for i in range(1, dpl):
-            part = part + prod[..., i, :]
-        s = _butterfly(part) * scale                      # [B, KH, CG, bs]
-        ok = ((pos_s[None, None, :] <= pos_q[:, :, None])
-              & (pos_s[None, None, :] < kvl[:, None, None]))[:, None]
+            part = part + q3[..., i, :] * k6[..., i, :]
+        s = _butterfly(part) * scale                        # [B,KH,S,CG,bs]
+        ok = ((pos_s[None, :, None, :] <= pos_q[:, None, :, None])
+              & (pos_s[None, :, None, :] < kvl))[:, None]
         s = torch.where(ok, s, -1e30)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
@@ -170,10 +192,18 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
         l_sum = l_sum * alpha + _butterfly(F.pad(p, (0, 32 - bs)))
         pv = torch.zeros_like(acc)
         for t in range(bs):
-            pv = pv + p[..., t:t + 1] * v[:, :, None, t, :]
+            pv = pv + p[..., t:t + 1] * v[:, :, :, None, t, :]
         acc = acc * alpha[..., None] + pv
         m = m_new
-    out = acc / torch.clamp(l_sum, min=1e-30)[..., None]
+    # combine the ranks in rank order
+    m_star = m.amax(dim=2)                                  # [B, KH, CG]
+    l_star = torch.zeros_like(m_star)
+    a_star = torch.zeros((b, kh, cg, dh), **f32)
+    for r in range(n_split):
+        e = torch.exp(m[:, :, r] - m_star)
+        l_star = l_star + l_sum[:, :, r] * e
+        a_star = a_star + acc[:, :, r] * e[..., None]
+    out = a_star / torch.clamp(l_star, min=1e-30)[..., None]
     return out.reshape(b, kh, c, g, dh).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, h, dh)
 
@@ -200,17 +230,21 @@ def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len):
             raise ValueError("all operands must lie on q's CUDA device")
     if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
         raise ValueError("pools must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError("pools must be 16-byte aligned (copied in 16-byte "
+                         "chunks)")
     q32 = q.to(torch.float32).contiguous()
     tables = tables.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
     out = torch.empty(b, c, h, dh, dtype=torch.float32, device=q.device)
+    mb = tables.shape[1]
     lib = build.load("paged_attention")
     rc = lib.paged_attn_launch(
         int(k_pool.dtype == torch.bfloat16), q32.data_ptr(),
         k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
         lens.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, c, h, kh, dh,
-        bs, tables.shape[1], 1.0 / math.sqrt(dh),
+        bs, mb, *attn_splits(mb), 1.0 / math.sqrt(dh),
         torch.cuda.current_stream(q.device).cuda_stream)
     paged_attn_call.launches += 1
     if rc != 0:
@@ -308,6 +342,6 @@ def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 build.declare("paged_attention", {
     "paged_attn_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _F, _P],
+                          _I, _I, _I, _I, _I, _F, _P],
     "fused_write_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
 })

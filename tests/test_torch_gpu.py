@@ -27,8 +27,13 @@ def _codes(seed, shape):
         0, 16, shape).astype(np.float32))
 
 
+# the last four: group counts that are no multiple of the packed MVM's
+# cluster size (G = 15, 11, 11, 63 over clusters of 4, 6, 2, 8 CTAs) and K
+# no multiple of the 144-row group (2047 is odd: its last byte row holds
+# one code)
 SHAPES = [(1, 1, 1), (3, 301, 70), (5, 288, 129), (130, 145, 257),
-          (4, 2048, 2048), (64, 2048, 1024), (4, 8192, 2048)]
+          (4, 2048, 2048), (64, 2048, 1024), (4, 8192, 2048),
+          (1, 2047, 1024), (8, 1500, 96), (64, 1441, 160), (4, 9000, 48)]
 NOISY = dict(KW, sigma=0.277)
 FULL = dict(KW, sigma=0.277, inl_amp=1.1, apply_inl=True)
 
@@ -68,6 +73,26 @@ def test_b5_b6_bit_exact_vs_plain(m, k, n, level):
         assert torch.equal(y6, y5)
 
 
+@pytest.mark.parametrize("level", ["ideal", "noisy"])
+def test_b1_b6_groups_of_rows_not_a_multiple_of_four(level):
+    """146-row groups split a four-row int8 word across two groups, so the
+    packed MVM takes the one-block-per-32-columns body there; it stays
+    bit-exact against the plain versions."""
+    dev = gpu_device()
+    kw = dict(KW, n_rows=146)
+    x = _codes(11, (4, 700)).to(dev)
+    wp = ops.pack_codes(_codes(12, (700, 96)).to(dev)).contiguous()
+    if level == "ideal":
+        assert torch.equal(cim_mvm.cim_mvm_grouped_packed(x, wp, **kw),
+                           cim_mvm.cim_mvm_grouped_packed_plain(x, wp, **kw))
+        return
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    kw = dict(kw, sigma=0.277)
+    assert torch.equal(
+        cim_mvm.cim_mvm_grouped_noisy_packed(x, wp, s, **kw),
+        cim_mvm.cim_mvm_grouped_noisy_packed_plain(x, wp, s, **kw))
+
+
 def test_b5_seed_is_read_on_the_card():
     """A new seed value in the same tensor changes the draws (no rebuild,
     no host copy), and inl_seed salts them."""
@@ -97,8 +122,13 @@ def test_b1_rejects_bad_operands():
 
 
 def _attn_case(seed, c, dtype, dev, b=4, kh=8, g=2, dh=128, bs=16, mb=16):
+    """Mixed depths: slot 0 idle, slot 1 ending on a split boundary (the
+    later ranks read nothing), slot 2 mid-window, slot 3 the whole window;
+    the trash block (block 0) is NaN."""
     rng = np.random.RandomState(seed)
     nb = b * mb + 1
+    w = mb * bs
+    per = pa.attn_splits(mb)[1]
     q = torch.from_numpy(rng.standard_normal((b, c, kh * g, dh))
                          .astype(np.float32)).to(dev)
     kp = torch.from_numpy(rng.standard_normal((nb, bs, kh, dh))
@@ -107,7 +137,8 @@ def _attn_case(seed, c, dtype, dev, b=4, kh=8, g=2, dh=128, bs=16, mb=16):
                           .astype(np.float32)).to(dev, dtype)
     kp[0] = float("nan")
     vp[0] = float("nan")
-    lens = torch.tensor([0, 37, 130, 224 - c], dtype=torch.int32, device=dev)
+    lens = torch.tensor([0, max(0, per * bs - c), min(w // 2 + 3, w - c),
+                         w - c], dtype=torch.int32, device=dev)
     kvl = lens + torch.tensor([0, c, c, c], dtype=torch.int32, device=dev)
     tables = torch.from_numpy(rng.permutation(np.arange(1, nb))
                               .astype(np.int32).reshape(b, mb)).to(dev)
@@ -115,12 +146,17 @@ def _attn_case(seed, c, dtype, dev, b=4, kh=8, g=2, dh=128, bs=16, mb=16):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("mb", [5, 16, 17])
 @pytest.mark.parametrize("c", [1, 16])
-def test_b3_bit_exact_vs_plain(c, dtype):
+def test_b3_bit_exact_vs_plain(c, mb, bs, dh, dtype):
     dev = gpu_device()
-    case = _attn_case(7, c, dtype, dev)
+    case = _attn_case(7, c, dtype, dev, dh=dh, bs=bs, mb=mb)
+    before = pa.paged_attn_call.launches
     out = pa.paged_attn_call(*case)
     ref = pa.paged_attn_plain(*case)
+    assert pa.paged_attn_call.launches == before + 1
     assert torch.isfinite(out).all()
     assert torch.equal(out, ref)
     assert (out[0] == 0).all()

@@ -1,9 +1,11 @@
 """Kernels B3/B4 and the attention registry: the port against the
 reference.
 
-The plain B3 runs the kernel's online softmax in f32 with another
-summation order than the Pallas kernel, so it is held within atol/rtol
-2e-5 (f32 rounding over windows of <= 80 positions of unit-scale scores);
+The plain B3 runs the kernel's split-KV online softmax in f32 (each of
+S = min(8, MB) ranks over its own table columns, then the ranks combined
+in rank order) with another summation order than the Pallas kernel, so it
+is held within atol/rtol 2e-5 (f32 rounding over windows of <= 136
+positions of unit-scale scores);
 the "exact" backend likewise against the reference "exact". Every case
 uses mixed lengths, an idle lane and a NaN-filled trash block, and the
 outputs must be finite. The plain B4 is bit-exact. Inputs come from numpy
@@ -24,9 +26,10 @@ from repro_torch.models import common  # noqa: E402
 TOL = dict(rtol=2e-5, atol=2e-5)
 
 
-def _case(seed, *, b=4, kh=2, g=2, dh=32, bs=8, mb=5, c=1):
+def _case(seed, *, b=4, kh=2, g=2, dh=32, bs=8, mb=5, c=1, kv_ends=None):
     """Pool + tables + mixed per-slot depths, lane 0 idle, trash block NaN.
-    Returns numpy arrays (q, kp, vp, tables, lens, kv_len)."""
+    `kv_ends` fixes kv_len of slots 1.. (random otherwise). Returns numpy
+    arrays (q, kp, vp, tables, lens, kv_len)."""
     rng = np.random.RandomState(seed)
     w = mb * bs
     nb = b * mb + 1
@@ -35,8 +38,12 @@ def _case(seed, *, b=4, kh=2, g=2, dh=32, bs=8, mb=5, c=1):
     vp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
     kp[0] = np.nan
     vp[0] = np.nan
-    lens = np.array([0] + [rng.randint(0, w - c + 1) for _ in range(b - 1)])
     valid = np.array([0] + [c] * (b - 1))
+    if kv_ends is None:
+        lens = np.array([0] + [rng.randint(0, w - c + 1)
+                               for _ in range(b - 1)])
+    else:
+        lens = np.array([0] + list(kv_ends)) - valid
     kvl = lens + valid
     free = list(range(1, nb))
     rng.shuffle(free)
@@ -55,11 +62,30 @@ def _positions(lens, c):
     return lens[:, None] + np.arange(c, dtype=np.int32)[None, :]
 
 
+# How each case lays kv_len over the S = min(8, MB) split ranks of B3
+# (table width, kv_len of slots 1-3 at block size 8; slot 0 is idle):
+LAYOUTS = {
+    # MB 5 or 6 (S = MB, one column per rank), random depths
+    "mixed": None,
+    # MB 16: S = 8 ranks of 2 columns; kv_len 16 and 48 end exactly on a
+    # split boundary, so ranks 1-7 (and 3-7) read nothing
+    "split-boundary": (16, (16, 48, 128)),
+    # MB 17 is no multiple of S = 8: ranks of 3 columns, rank 5 holds 2
+    # and ranks 6-7 lie wholly past the table; kv_len 24 ends on a boundary
+    "ragged-splits": (17, (77, 24, 136)),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
 @pytest.mark.parametrize("c", [1, 16])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_plain_b3_vs_pallas_interpret(c, seed):
-    q, kp, vp, tables, lens, kvl = case = _case(seed, c=c,
-                                               mb=5 if c == 1 else 6)
+def test_plain_b3_vs_pallas_interpret(c, seed, layout):
+    if LAYOUTS[layout] is None:
+        mb, kv_ends = (5 if c == 1 else 6), None
+    else:
+        mb, kv_ends = LAYOUTS[layout]
+    q, kp, vp, tables, lens, kvl = case = _case(seed, c=c, mb=mb,
+                                               kv_ends=kv_ends)
     ref = np.asarray(ref_pa.paged_flash_attention(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
         jnp.asarray(tables), jnp.asarray(lens), jnp.asarray(kvl),
@@ -136,6 +162,13 @@ def test_paged_write_and_gather_vs_reference():
         common.paged_gather(tp, torch.from_numpy(tables)).numpy()[:, 4:])
 
 
+@pytest.mark.parametrize("mb,splits", [(1, (1, 1)), (5, (5, 1)),
+                                       (16, (8, 2)), (17, (8, 3))])
+def test_attn_splits(mb, splits):
+    """S = min(8, MB) ranks of ceil(MB / S) table columns each."""
+    assert pa.attn_splits(mb) == splits
+
+
 def test_registry():
     assert set(pa.available_attn_backends()) == {"exact", "kernel", "plain"}
     assert pa.choose_attn_backend("auto") == "kernel"
@@ -151,3 +184,22 @@ def test_cpu_calls_launch_nothing():
     pa.paged_attn_call(*case)
     assert (pa.paged_attn_call.launches,
             pa.fused_write_call.launches) == before
+
+
+if __name__ == "__main__":
+    # the measured distance behind TOL: plain B3 against the Pallas kernel
+    # in interpret mode over the cases of test_plain_b3_vs_pallas_interpret
+    worst = 0.0
+    for name, spec in sorted(LAYOUTS.items()):
+        for c in (1, 16):
+            for seed in (0, 1):
+                mb, ends = ((5 if c == 1 else 6), None) if spec is None \
+                    else spec
+                case = _case(seed, c=c, mb=mb, kv_ends=ends)
+                ref = np.asarray(ref_pa.paged_flash_attention(
+                    *(jnp.asarray(a) for a in case), interpret=True,
+                    kblocks=1, row_tile=None))
+                out = pa.paged_attn_call(*_torch(case)).numpy()
+                worst = max(worst, float(np.abs(out - ref).max()))
+    print(f"plain B3 vs Pallas interpret: max |diff| {worst:.3g} "
+          f"(TOL {TOL['atol']})")
