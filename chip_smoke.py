@@ -21,8 +21,8 @@ of which fails the run when it fails:
      finite; B4 (fused decode write) bit-exact. Each is timed with CUDA
      events beside its plain version, a bound and, where one exists, a
      PyTorch library call (the MVM kernels over one decode step's 169
-     MVMs, logged per shape; B1 and B6 also over a prefill chunk's 168
-     layer MVMs at M=64; B3 at decode and at the prefill chunk);
+     MVMs and over a prefill chunk's 168 layer MVMs at M=64, logged per
+     shape; B3 at decode and at the prefill chunk);
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
@@ -31,13 +31,16 @@ of which fails the run when it fails:
      prefill and one decode `paged_step` with the kernels and with their
      plain versions, which must give identical logits, and where one
      decode step's time goes (CUDA graph vs eager, profiler rows);
-  4. a short --cim bp serve, which must launch B2;
+  4. a short --cim bp serve, which must launch B2, and the decode step
+     breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
      full width: phase 3's serve with nibble-packed prequant weights (B6,
      B3, B4 must launch), the kernel-vs-plain step check and the decode
      step breakdown again, then a short --cim bp-noisy serve with weights
      quantized on the fly, which must launch B5;
-  5. a `kernels` JSON line, then the result line.
+  5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
+     against their plain versions, B1/B6 equal to them at the even depth;
+  6. a `kernels` JSON line, then the result line.
 """
 from __future__ import annotations
 
@@ -71,6 +74,7 @@ DECODE_MVMS = [("wq+wo", 2048, 2048, 48), ("wk+wv", 2048, 1024, 48),
                ("head", 2048, 92544, 1)]
 PARITY_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
              (2048, 92544)]
+DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 
 
 def log(msg: str) -> None:
@@ -333,21 +337,22 @@ def main() -> int:
             f"{tot['plain_ms']:.3f} ms, bound {max(b_bytes, b_ops):.3f} ms "
             f"(weight bytes / 3.35 TB/s: {b_bytes:.3f} ms; operations: "
             f"{b_ops:.3f} ms, hash {tot['hash_ops'] / 1e9:.3f} G int32 ops)")
-        if not packed:
-            continue
-        # the packed (serving) kernels at a prefill chunk: 4 slots x 16
-        # tokens = 64 rows through the 168 layer MVMs (the head sees only
-        # each lane's last row, M = 4, timed above)
+        # a prefill chunk: 4 slots x 16 tokens = 64 rows through the 168
+        # layer MVMs (the head sees only each lane's last row, M = 4, timed
+        # above)
         pre = {"ms": 0.0, "bytes": 0.0, "ops": 0.0, "hash_ops": 0.0}
         for label, k, n, count in DECODE_MVMS[:-1]:
             x = codes((64, k))
-            w = ops.pack_codes(codes((k, n))).contiguous()
+            w = codes((k, n))
+            w = ops.pack_codes(w).contiguous() if packed else w
             ws = copies(w)
             t_k = graph_ms(torch, run_k, [(x, wi) for wi in ws])
+            wbytes = w.numel() * w.element_size()
             log(f"  {name} {label:12s} M=64 K={k} N={n} x{count}/chunk: "
-                f"kernel {t_k * 1e3:.2f} us on the card")
+                f"kernel {t_k * 1e3:.2f} us on the card "
+                f"({wbytes / (t_k * 1e-3) / 1e12:.3f} TB/s of weights)")
             pre["ms"] += count * t_k
-            pre["bytes"] += count * (w.numel() + 64 * k * 4 + 64 * n * 4)
+            pre["bytes"] += count * (wbytes + 64 * k * 4 + 64 * n * 4)
             pre["ops"] += count * 2 * 64 * k * n
             if nkw:
                 pre["hash_ops"] += count * 64 * n * (
@@ -692,6 +697,7 @@ def main() -> int:
     counts = short_serve(server, prompts, "phase 4: --cim bp")
     main_launches["B2"] = counts["cim_mvm_grouped"]
     check(main_launches["B2"] > 0, "B2 was not launched on the --cim bp path")
+    decode_breakdown(server, "phase 4: --cim bp")
     del server
 
     # ---- phase 4b: the seeded NOISY converter (B6, then B5) --------------
@@ -719,7 +725,36 @@ def main() -> int:
           "B5 was not launched on the --cim bp-noisy path")
     del server
 
-    # ---- phase 5: report -------------------------------------------------
+    # ---- phase 5: macro depths other than 144 -----------------------------
+    # B2/B5 take every depth the reference takes, B1/B6 every even one;
+    # each against its plain version at a layer width
+    for n_rows in DEPTHS:
+        dkw = dict(n_rows=n_rows, levels=362, gain=1.0,
+                   full_scale=225.0 * n_rows)
+        dnkw = dict(dkw, sigma=noisy_kw["sigma"])
+        for m in (4, 64):
+            x, w = codes((m, 2048)), codes((2048, 2048))
+            where = f"at n_rows={n_rows} M={m} K=N=2048"
+            y2 = cm.cim_mvm_grouped(x, w, **dkw)
+            y5 = cm.cim_mvm_grouped_noisy(x, w, seeds[7], **dnkw)
+            check(torch.equal(y2, cm.cim_mvm_grouped_plain(x, w, **dkw)),
+                  f"B2 differs from its plain version {where}")
+            check(torch.equal(y5, cm.cim_mvm_grouped_noisy_plain(
+                x, w, seeds[7], **dnkw)),
+                f"B5 differs from its plain version {where}")
+            if n_rows % 2 == 0:
+                wp = ops.pack_codes(w).contiguous()
+                check(torch.equal(cm.cim_mvm_grouped_packed(x, wp, **dkw),
+                                  y2), f"B1 differs from B2 {where}")
+                y6 = cm.cim_mvm_grouped_noisy_packed(x, wp, seeds[7], **dnkw)
+                check(torch.equal(y6, y5), f"B6 differs from B5 {where}")
+            torch.cuda.synchronize()
+            del x, w, y2, y5
+    log(f"phase 5: B2, B5 bit-exact vs plain at n_rows {DEPTHS}, M in "
+        "{4, 64}, K=N=2048 (NOISY seed 7; tolerance 0); B1 == B2 and B6 == "
+        "B5 at the even depths")
+
+    # ---- phase 6: report -------------------------------------------------
     meta = {
         "B1": ("cim_mvm_grouped_packed", "src/repro_torch/kernels/csrc/"
                "cim_mvm.cu", "src/repro/kernels/cim_mvm.py:331"),

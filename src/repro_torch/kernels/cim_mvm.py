@@ -1,7 +1,8 @@
 """Grouped ADC MVM: kernels B1/B2 (IDEAL transfer) and B5/B6 (NOISY/FULL).
 
-    y[M, N] = Σ_g lsb · clip(round(T(Σ_{r<144} x[m, 144g+r] · w[144g+r, n])), 0, L−1)
+    y[M, N] = Σ_g lsb · clip(round(T(Σ_{r<R} x[m, Rg+r] · w[Rg+r, n])), 0, L−1)
 
+with R = n_rows rows per macro group (144 by default).
 x holds f32 DAC codes 0..15 and w stored codes 0..15: dense f32 [K, N] for
 B2/B5, or nibble-packed uint8 [ceil(K/2), N] for B1/B6 (row 2i in the low
 nibble, 2i+1 in the high). K pads with zero codes to a multiple of the
@@ -33,7 +34,10 @@ product through a 16-bit split, so no int64 product overflows.
 Each function has a plain PyTorch version here (`*_plain`) and a wrapper
 that launches the Hopper kernel in `csrc/cim_mvm.cu` on a CUDA tensor and
 runs the plain version on a CPU tensor. The wrappers count their launches
-(`<wrapper>.launches`).
+(`<wrapper>.launches`). The macro depth n_rows may be any depth >= 1 for
+the dense kernels B2/B5, as in the reference; the packed B1/B6 need an
+even depth (the reference's packed kernels assert it) of at most
+PACKED_MAX_ROWS (`check_depth`).
 """
 from __future__ import annotations
 
@@ -250,6 +254,30 @@ def _check_launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+# The packed kernels' fallback body stages one macro group of activation
+# codes for 8 rows, plus 32 columns of codes, in a CTA's 227 KB of shared
+# memory: 8 * (n_rows + 32) f32 values.
+PACKED_MAX_ROWS = 227 * 1024 // (4 * 8) - 32
+
+
+def check_depth(n_rows: int, packed: bool) -> None:
+    """Raise for a macro depth the CUDA kernels do not take: the dense
+    kernels (B2/B5) take every n_rows >= 1, as the reference's do; the
+    packed ones (B1/B6) an even n_rows up to PACKED_MAX_ROWS."""
+    if n_rows < 1:
+        raise ValueError(f"n_rows={n_rows}: a macro group has at least one "
+                         "row")
+    if packed and n_rows % 2:
+        raise ValueError(f"n_rows={n_rows} unsupported by the packed "
+                         "kernels: nibble packing needs an even macro depth "
+                         "(as the reference's packed kernels assert)")
+    if packed and n_rows > PACKED_MAX_ROWS:
+        raise ValueError(f"n_rows={n_rows} unsupported by the packed "
+                         f"kernels: at most {PACKED_MAX_ROWS} rows, one "
+                         "macro group of activation codes being staged in "
+                         "a CTA's shared memory")
+
+
 def _check_mvm_operands(x: torch.Tensor, w: torch.Tensor, wdtype,
                         n_rows: int) -> None:
     if not w.is_cuda or w.device != x.device:
@@ -258,9 +286,7 @@ def _check_mvm_operands(x: torch.Tensor, w: torch.Tensor, wdtype,
         raise ValueError("x must be a contiguous 2-D float32 tensor")
     if w.dtype != wdtype or w.ndim != 2 or not w.is_contiguous():
         raise ValueError(f"w must be a contiguous 2-D {wdtype} tensor")
-    if n_rows % 2 or n_rows > 512:
-        raise ValueError(f"n_rows={n_rows} unsupported by the kernel "
-                         "(even and at most 512)")
+    check_depth(n_rows, packed=wdtype == torch.uint8)
 
 
 def cim_mvm_grouped(x: torch.Tensor, w: torch.Tensor, *, n_rows: int,

@@ -32,16 +32,17 @@
 //
 // What bounds it on the H100: at decode M is the number of serving slots
 // (4), so every weight byte feeds 4 multiply-adds. B1/B2 are bound by the
-// bytes of weights they read (K/2 * N for B1), far below the card's compute
-// roofline. B5/B6 add ~120 integer operations per conversion (13 murmur3
-// finalizers): B6 is bound by that hash work on the INT32 lanes, B5 still by
-// its 4-byte dense weight codes.
+// bytes of weights they read (K/2 * N bytes for B1, K * N * 4 for B2), far
+// below the card's compute roofline. B5/B6 add ~120 integer operations per
+// conversion (13 murmur3 finalizers): B6 is bound by that hash work on the
+// INT32 lanes, B5 still by its 4-byte dense weight codes. At a prefill
+// chunk (M = 64) B2/B5 do 64 f32 multiply-adds per weight instead of 4.
 //
-// What the design does about that. B1 and B6 (the packed kernel,
-// cim_mvm_packed_kernel below) and B2/B5 (cim_mvm_kernel) share these:
-//  * a group's MAC is an exact integer <= 144 * 15 * 15 = 32400, so it may
-//    be formed in any order and anywhere (f32 fused multiply-adds in
-//    B2/B5, int8 dot products in B1/B6): the codes are the same.
+// What every kernel here does about it:
+//  * a group's MAC is an exact integer <= n_rows * 15 * 15 (32400 at 144
+//    rows; below 2^24 up to 74565 rows), so it may be formed in any order
+//    and anywhere (f32 fused multiply-adds in B2/B5, int8 dot products in
+//    B1/B6), and split over lanes: the codes are the same.
 //  * the ADC happens in registers: rint (round half to even, as
 //    jnp.round) of an explicitly rounded product with inv_lsb, then the
 //    clip. The codes are parked in shared memory, and code * lsb is added
@@ -50,33 +51,59 @@
 //    evaluates as a fused multiply-add (checked against the Pallas kernel
 //    in interpret mode; a separate multiply and add differ in the last
 //    bit). Only this digital accumulation has an order that matters.
-//  * stochastic kernels: the row and column stay fixed for a thread across
+//  * stochastic kernels: the row and column stay fixed for a lane across
 //    all groups, so their two hash absorptions are computed once before
 //    the group loop; each conversion then costs one finalizer for its
 //    group and twelve for its uniforms.
-// B1/B6 (redesigned): at decode the one-block-per-32-columns design left
-// most SMs idle on the 1024- and 2048-wide matrices and kept ~4 KB of
-// weights in flight per block. Now every lane loads 16 bytes (16 columns
-// of one byte row) at a time, all of its rows of a group at once; the
-// nibbles are rearranged in registers into int8x4 words and multiplied by
-// __dp4a (four exact multiply-adds per instruction, against six
-// instructions per weight for unpack-to-f32 and fmaf); and the group axis
-// is split over a thread-block cluster (cudaLaunchKernelEx with a cluster
-// dimension) wherever the column tiles alone would give the card fewer
-// than 64 CTAs: at M = 4 the 2048-wide MVMs (wq, wo, w_down) take clusters
-// of 2 and the 1024-wide ones (wk, wv) clusters of 4, each CTA converting
-// its own groups and the cluster finalising the outputs over distributed
-// shared memory. Wide matrices (the head, and prefill-sized M) instead put
-// up to 8 warps side by side along the columns, so that one CTA's staged
-// activation codes serve more columns. B2/B5 keep the one-block-per-32-
-// columns body (16 warps over 16 groups at a time); it is also the
-// fallback where the packed kernel's shared memory would not fit.
-// Later work: a TMA/cp.async weight pipeline (the head reaches ~1/3 of the
-// HBM rate), and int8 MMA for prefill-sized M.
+//  * 16-byte weight loads, several rows in flight per lane, the first
+//    ones issued before the activation staging and its barrier, the next
+//    group's before the current group's ADC; the group axis split over a
+//    thread-block cluster (cudaLaunchKernelEx with a cluster dimension)
+//    wherever the column tiles alone would leave SMs idle, each rank
+//    converting its own groups and the cluster finalising the outputs over
+//    distributed shared memory; wide matrices (the head, prefill-sized M)
+//    put up to 8 warps side by side along the columns instead, so that
+//    one CTA's staged activation codes serve more columns.
+//
+// B1/B6 (cim_mvm_packed_kernel): every lane loads 16 bytes (16 columns of
+// one byte row) at a time; the nibbles are rearranged in registers into
+// int8x4 words and multiplied by __dp4a (four exact multiply-adds per
+// instruction). The split aims at ~64 CTAs: at M = 4 the 2048-wide MVMs
+// take clusters of 2 and the 1024-wide ones clusters of 4.
+//
+// B2/B5 (cim_mvm_dense_kernel): a lane loads a float4 (4 columns of one
+// f32 weight row) for each of U = 9 rows at once (144 bytes in flight per
+// lane, at both tile heights). The f32 container carries 8x the bytes of
+// the packed one per weight, so the split aims at ~2048 warps (two 8-warp
+// CTAs per SM) over the fewest ranks: at M = 4 wq/wo, wk/wv and w_down
+// take clusters of 2, w_gate/w_up and the head none; at a prefill chunk a
+// larger cluster keeps each CTA within half an SM's shared memory (two
+// CTAs per SM). The MAC stays in f32 FMAs (no F2I into int8 words: F2I runs at a quarter
+// rate, and a decode step's 6.8 G FMAs are ~0.2 ms at 67 TFLOP/s, far
+// under its 2 ms of weight bytes). The activations are staged once per
+// CTA, by cp.async copies that are all in flight at once (a loop of
+// dependent loads cost more than the weights at decode), with a row's BM
+// values side by side, so one 16-byte shared load feeds 4 x BM FMAs. It
+// takes every macro depth n_rows >= 1: a lane takes every S-th row of its
+// group (any remainder), and where a cluster rank's groups do not fit in
+// shared memory even over 8 ranks the CTA runs without a cluster and
+// stages its groups in passes (adding each pass's codes to its outputs in
+// ascending group order), or a single group's rows in windows when one
+// group alone does not fit.
+//
+// cim_mvm_kernel, the first design's body (one block per 32 columns, 16
+// warps over up to 16 groups at a time), is kept only for B1/B6 where the
+// packed kernel cannot take the shape: groups of rows that are no multiple
+// of four (an int8x4 word would straddle two groups), or more shared
+// memory than a CTA has. It stages fewer groups per pass where 16 do not
+// fit. Later work: a TMA/cp.async weight pipeline, and tensor-core MMA for
+// prefill-sized M.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
 
 namespace cg = cooperative_groups;
 
@@ -85,6 +112,7 @@ namespace {
 constexpr int kWarps = 16;           // groups in flight per block
 constexpr int kCols = 32;            // output columns per block (one per lane)
 constexpr int kThreads = kWarps * 32;
+constexpr size_t kSmemMax = 227 * 1024;   // dynamic shared memory of a CTA
 
 enum Mode { kIdeal = 0, kNoisy = 1, kFull = 2 };
 
@@ -134,15 +162,17 @@ __device__ __forceinline__ float inl_curve(float cf, const Stochastic& s) {
   return __fmaf_rn(__fmul_rn(j1, s.jitter), j2, __fmul_rn(curve, s.bow));
 }
 
-template <int BM, bool PACKED, int MODE>
+// The packed fallback: one block per 32 columns x BM rows, `gpp` warps (at
+// most kWarps) each converting one group of a pass.
+template <int BM, int MODE>
 __global__ void __launch_bounds__(kThreads)
-cim_mvm_kernel(const float* __restrict__ x, const void* __restrict__ w,
+cim_mvm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                float* __restrict__ out, int M, int N, int K, int KW,
-               int n_rows, int G, float inv_lsb, float lsb, float code_max,
-               Stochastic st) {
+               int n_rows, int G, int gpp, float inv_lsb, float lsb,
+               float code_max, Stochastic st) {
   extern __shared__ float smem[];
-  float* xs = smem;                                // [kWarps][BM][n_rows]
-  float* cs = smem + kWarps * BM * n_rows;         // [kWarps][BM][kCols]
+  float* xs = smem;                                // [gpp][BM][n_rows]
+  float* cs = smem + gpp * BM * n_rows;            // [gpp][BM][kCols]
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int n = blockIdx.x * kCols + lane;
@@ -160,10 +190,10 @@ cim_mvm_kernel(const float* __restrict__ x, const void* __restrict__ w,
       hrc[mm] = mix32(mix32(h0 ^ (uint32_t)(m0 + mm)) ^ (uint32_t)n);
   }
 
-  for (int g0 = 0; g0 < G; g0 += kWarps) {
-    // stage the activation codes of groups g0 .. g0+kWarps-1
+  for (int g0 = 0; g0 < G; g0 += gpp) {
+    // stage the activation codes of groups g0 .. g0+gpp-1
     const int tile = BM * n_rows;
-    for (int idx = threadIdx.x; idx < kWarps * tile; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < gpp * tile; idx += kThreads) {
       const int wg = idx / tile;
       const int rem = idx - wg * tile;
       const int mm = rem / n_rows;
@@ -174,38 +204,24 @@ cim_mvm_kernel(const float* __restrict__ x, const void* __restrict__ w,
     __syncthreads();
 
     const int g = g0 + warp;
-    if (g < G) {
+    if (warp < gpp && g < G) {
       float acc[BM];
 #pragma unroll
       for (int mm = 0; mm < BM; ++mm) acc[mm] = 0.f;
       const float* xw = xs + warp * tile;
       if (n < N) {
-        if (PACKED) {
-          const uint8_t* wp = static_cast<const uint8_t*>(w);
-          const int half = n_rows >> 1;
-          const int row0 = g * half;
+        const int half = n_rows >> 1;
+        const int row0 = g * half;
 #pragma unroll 8
-          for (int rr = 0; rr < half; ++rr) {
-            const int row = row0 + rr;
-            const int b = row < KW ? wp[(size_t)row * N + n] : 0;
-            const float lo = (float)(b & 15);
-            const float hi = (float)(b >> 4);
+        for (int rr = 0; rr < half; ++rr) {
+          const int row = row0 + rr;
+          const int b = row < KW ? w[(size_t)row * N + n] : 0;
+          const float lo = (float)(b & 15);
+          const float hi = (float)(b >> 4);
 #pragma unroll
-            for (int mm = 0; mm < BM; ++mm) {
-              acc[mm] = fmaf(xw[mm * n_rows + 2 * rr], lo, acc[mm]);
-              acc[mm] = fmaf(xw[mm * n_rows + 2 * rr + 1], hi, acc[mm]);
-            }
-          }
-        } else {
-          const float* wf = static_cast<const float*>(w);
-          const int row0 = g * n_rows;
-#pragma unroll 8
-          for (int r = 0; r < n_rows; ++r) {
-            const int row = row0 + r;
-            const float wv = row < KW ? wf[(size_t)row * N + n] : 0.f;
-#pragma unroll
-            for (int mm = 0; mm < BM; ++mm)
-              acc[mm] = fmaf(xw[mm * n_rows + r], wv, acc[mm]);
+          for (int mm = 0; mm < BM; ++mm) {
+            acc[mm] = fmaf(xw[mm * n_rows + 2 * rr], lo, acc[mm]);
+            acc[mm] = fmaf(xw[mm * n_rows + 2 * rr + 1], hi, acc[mm]);
           }
         }
       }
@@ -234,7 +250,7 @@ cim_mvm_kernel(const float* __restrict__ x, const void* __restrict__ w,
     for (int i = 0; i < kOwn; ++i) {
       const int e = threadIdx.x + i * kThreads;
       if (e < BM * kCols) {
-        for (int wg = 0; wg < kWarps && g0 + wg < G; ++wg)
+        for (int wg = 0; wg < gpp && g0 + wg < G; ++wg)
           o[i] = __fmaf_rn(cs[wg * BM * kCols + e], lsb, o[i]);
       }
     }
@@ -252,24 +268,30 @@ cim_mvm_kernel(const float* __restrict__ x, const void* __restrict__ w,
   }
 }
 
-template <int BM, bool PACKED, int MODE>
-int launch(const float* x, const void* w, float* out, int M, int N, int K,
-           int KW, int n_rows, int G, float inv_lsb, float lsb,
-           float code_max, const Stochastic& st, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (size_t)kWarps * BM * (n_rows + kCols);
+// Launches the fallback with as many groups per pass (up to kWarps) as
+// the CTA's shared memory holds; an error where not even one group fits.
+template <int BM, int MODE>
+int launch_fallback(const float* x, const uint8_t* w, float* out, int M,
+                    int N, int K, int KW, int n_rows, int G, float inv_lsb,
+                    float lsb, float code_max, const Stochastic& st,
+                    cudaStream_t stream) {
+  const size_t per_group = sizeof(float) * (size_t)BM * (n_rows + kCols);
+  const int gpp = (int)std::min<size_t>(kWarps, kSmemMax / per_group);
+  if (gpp < 1) return (int)cudaErrorInvalidValue;
+  const size_t smem = per_group * gpp;
   // raise the dynamic shared-memory cap once per instantiation and size
   // (not on every launch: a launch may be captured into a CUDA graph)
   static size_t cap = 48 * 1024;
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        cim_mvm_kernel<BM, PACKED, MODE>,
+        cim_mvm_kernel<BM, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
   }
   dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
-  cim_mvm_kernel<BM, PACKED, MODE><<<grid, kThreads, smem, stream>>>(
-      x, w, out, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st);
+  cim_mvm_kernel<BM, MODE><<<grid, kThreads, smem, stream>>>(
+      x, w, out, M, N, K, KW, n_rows, G, gpp, inv_lsb, lsb, code_max, st);
   return (int)cudaGetLastError();
 }
 
@@ -547,8 +569,7 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
 
 // The cluster launch of the packed kernel; returns -1 for shapes it does
 // not take (groups of rows that are no multiple of four, or more shared
-// memory than a CTA has): the caller then takes the one-block-per-32-
-// columns body.
+// memory than a CTA has): the caller then takes the fallback body.
 template <int BM, int VB, int MODE>
 int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
                   int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
@@ -575,7 +596,7 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
   if (wgs > gpc) wgs = gpc;
   const size_t smem =
       sizeof(float) * (size_t)gpc * BM * (n_rows / 4 + wcols * NC);
-  if (smem > 227 * 1024 || n_rows % 4) return -1;
+  if (smem > kSmemMax || n_rows % 4) return -1;
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -604,11 +625,395 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
   return (int)cudaGetLastError();
 }
 
+// ---- B2 / B5: the dense kernel, group axis split over a cluster --------
+//
+// A warp owns 4 * C output columns x BM rows (C float4 chunks: lane % C is
+// the chunk, lane / C = S the row slice, S = 32 / C); a CTA holds `wcols`
+// such warps side by side and `wgs` rows of them that take the groups of a
+// pass in turn; the cluster's CTAs (grid y, cluster dims (1, CS, 1)) own
+// `gpc` consecutive groups each. The activation codes of a pass's groups
+// are staged in shared memory as [group][row][BM] (a row's BM values side
+// by side) by 4-byte cp.async copies, all in flight at once. For each of
+// its groups a lane loads a float4 (its chunk's 4 columns) of the rows
+// slice, slice + S, ..., U of them at once, and multiplies each with the
+// row's BM activation codes (one or two 16-byte shared loads) in f32 FMAs.
+// The S slices are summed by a reduce-scatter over the lanes (two steps
+// over the columns, and at S = 8 one over the rows; exact integers), which
+// leaves each lane one column x BM * 4 / S rows of group sums; the ADC
+// converts them in registers (at NOISY/FULL with noise drawn before the
+// group's MAC, while its rows are in flight) and the codes go to this
+// CTA's shared memory. After cluster.sync() every CTA finalises a slice of
+// the tile's outputs, reading every group's code through distributed
+// shared memory in ascending group order, one __fmaf_rn(code, lsb, o) per
+// group.
+//
+// Without a cluster the groups may be staged in passes of `gpp` (each
+// pass's codes added to the outputs before the next), and a lone group's
+// rows in windows of `rpp` (its sums kept in registers across windows);
+// with a cluster the host guarantees one pass and one window.
+//
+// C = 4 (S = 8) at BM = 4, C = 8 (S = 4) at BM = 8: each measured the
+// faster at its tile height on the H100.
+__host__ __device__ constexpr int dense_chunks(int bm) {
+  return bm == 4 ? 4 : 8;
+}
+constexpr int kDenseWarps = 8;        // warps per CTA at most
+constexpr long kDenseWarpTarget = 2048;  // warps the split aims for
+constexpr int kDenseWideTiles = 256;  // CTA tiles left after widening
+
+// Four columns of one f32 weight row: a 16-byte load where `vec` (N % 4 ==
+// 0 and w 16-byte aligned), else scalar loads of the columns left; zeros
+// past N (and for rows the caller masks with cols_left = 0).
+__device__ __forceinline__ float4 load_cols(const float* __restrict__ w,
+                                            size_t off, int cols_left,
+                                            bool vec) {
+  float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (cols_left <= 0) return v;
+  if (vec) return __ldg(reinterpret_cast<const float4*>(w + off));
+  v.x = __ldg(w + off);
+  if (cols_left > 1) v.y = __ldg(w + off + 1);
+  if (cols_left > 2) v.z = __ldg(w + off + 2);
+  if (cols_left > 3) v.w = __ldg(w + off + 3);
+  return v;
+}
+
+// A 4-byte asynchronous copy from global to shared memory, zero-filled
+// where !ok (no bytes are read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// One step of the dense reduce-scatter: lanes `mask` apart swap halves of
+// their first 2W columns; the lane with `upper` set keeps the upper half.
+template <int W, int BM>
+__device__ __forceinline__ void reduce_cols(float (&acc)[4][BM], int upper,
+                                            int mask) {
+#pragma unroll
+  for (int c = 0; c < W; ++c)
+#pragma unroll
+    for (int mm = 0; mm < BM; ++mm) {
+      const float send = upper ? acc[c][mm] : acc[c + W][mm];
+      const float keep = upper ? acc[c + W][mm] : acc[c][mm];
+      acc[c][mm] = keep + __shfl_xor_sync(0xffffffffu, send, mask);
+    }
+}
+
+template <int BM, int MODE>
+__global__ void __launch_bounds__(kDenseWarps * 32, 2)
+cim_mvm_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                     float* __restrict__ out, int M, int N, int K,
+                     int n_rows, int G, int gpc, int gpp, int rpp, int wcols,
+                     int vec, float inv_lsb, float lsb, float code_max,
+                     Stochastic st) {
+  constexpr int kChunks = dense_chunks(BM);
+  constexpr int kCols = 4 * kChunks;                // columns per warp
+  constexpr int kSlices = 32 / kChunks;             // row slices per group
+  constexpr int U = 9;                              // rows a lane loads
+  constexpr int HB = kSlices == 8 ? BM / 2 : BM;    // its rows of outputs
+  extern __shared__ float smem[];
+  const int nct = wcols * kCols;                    // columns per CTA
+  float* xs = smem;                                 // [gpp][rpp][BM]
+  float* cs = smem + (size_t)gpp * rpp * BM;        // [gpp][BM][nct] codes
+  cg::cluster_group cluster = cg::this_cluster();
+  const int rank = (int)cluster.block_rank();
+  const int n_rank = (int)cluster.num_blocks();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wc = warp % wcols;                      // the warp's column tile
+  const int wg = warp / wcols;                      // ... and group lane
+  const int wgs = (blockDim.x >> 5) / wcols;
+  const int n0 = blockIdx.x * nct + wc * kCols;
+  const int m0 = blockIdx.z * BM;
+  const int g0 = rank * gpc;
+  const int ng = max(0, min(gpc, G - g0));
+  const int chunk = lane % kChunks;
+  const int slice = lane / kChunks;
+  const int col = n0 + 4 * chunk;                   // first column loaded
+
+  float4 wv[U];
+  // rows rb, rb + kSlices, ... (U of them, those below rend) of group g
+  auto load_rows = [&](int g, int rb, int rend) {
+#pragma unroll
+    for (int i = 0; i < U; ++i) {
+      const int r = rb + i * kSlices;
+      const int row = g * n_rows + r;
+      const bool ok = r < rend && row < K;
+      wv[i] = load_cols(w, (size_t)row * N + col, ok ? N - col : 0, vec);
+    }
+  };
+  // the first rows of the warp's first group: issued before anything waits
+  bool pre = false;
+  if (wg < min(gpp, ng)) {
+    load_rows(g0 + wg, slice, min(rpp, n_rows));
+    pre = true;
+  }
+
+  // the lane's column and rows after the reduce-scatter
+  const int cc = 4 * chunk + ((slice & 1) ? 2 : 0) + ((slice & 2) ? 1 : 0);
+  const int mh = (kSlices == 8 && (slice & 4)) ? HB : 0;
+  uint32_t hrc[MODE == kIdeal ? 1 : HB];
+  if constexpr (MODE != kIdeal) {
+    const uint32_t h0 = mix32(((uint32_t)__ldg(st.seed) ^ st.salt) ^ kGolden);
+#pragma unroll
+    for (int j = 0; j < HB; ++j)
+      hrc[j] =
+          mix32(mix32(h0 ^ (uint32_t)(m0 + mh + j)) ^ (uint32_t)(n0 + cc));
+  }
+
+  float acc[4][BM];
+  float o[HB];                        // the outputs this thread finalises
+#pragma unroll
+  for (int i = 0; i < HB; ++i) o[i] = 0.f;
+  for (int p0 = 0; p0 < gpc; p0 += gpp) {
+    const int np = max(0, min(gpp, ng - p0));      // this pass's groups
+    for (int r0 = 0; r0 < n_rows; r0 += rpp) {
+      const int rend = min(r0 + rpp, n_rows);
+      const int rw = rend - r0;
+      if (p0 | r0) __syncthreads();   // the last pass is done with xs, cs
+      // the pass's activation codes (zero past M and K): its rows are the
+      // `len` consecutive k from k0 (one window, or whole groups), staged
+      // as [k - k0][BM] by asynchronous copies that are all in flight at
+      // once
+      const int k0 = (g0 + p0) * n_rows + r0;
+      const int len = np * rw;
+      for (int idx = threadIdx.x; idx < len * BM; idx += blockDim.x) {
+        const int mm = idx / len;
+        const int i = idx - mm * len;
+        const int m = m0 + mm;
+        const bool ok = m < M && k0 + i < K;
+        cp_async4(xs + i * BM + mm, ok ? x + (size_t)m * K + k0 + i : x, ok);
+      }
+      cp_async_wait_all();
+      __syncthreads();
+
+      for (int gl = wg; gl < np; gl += wgs) {
+        const int g = g0 + p0 + gl;
+        if (r0 == 0) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+#pragma unroll
+            for (int mm = 0; mm < BM; ++mm) acc[c][mm] = 0.f;
+        }
+        // the group's noise draws depend on no data: drawn while its
+        // first rows are in flight
+        float nz[MODE == kIdeal ? 1 : HB];
+        if constexpr (MODE != kIdeal) {
+          if (rend == n_rows) {
+#pragma unroll
+            for (int j = 0; j < HB; ++j)
+              nz[j] = normal12(mix32(hrc[j] ^ ((uint32_t)g * 0x01000193u)));
+          }
+        }
+        const float* xg = xs + (size_t)gl * rw * BM;
+        for (int rb = r0 + slice; rb < rend; rb += U * kSlices) {
+          if (!pre) load_rows(g, rb, rend);
+          pre = false;
+#pragma unroll
+          for (int i = 0; i < U; ++i) {
+            const int r = rb + i * kSlices;
+            if (r >= rend) break;
+            float xv[BM];
+#pragma unroll
+            for (int q = 0; q < BM / 4; ++q) {
+              const float4 t =
+                  *reinterpret_cast<const float4*>(xg + (r - r0) * BM + 4 * q);
+              xv[4 * q] = t.x; xv[4 * q + 1] = t.y;
+              xv[4 * q + 2] = t.z; xv[4 * q + 3] = t.w;
+            }
+#pragma unroll
+            for (int mm = 0; mm < BM; ++mm) {
+              acc[0][mm] = fmaf(wv[i].x, xv[mm], acc[0][mm]);
+              acc[1][mm] = fmaf(wv[i].y, xv[mm], acc[1][mm]);
+              acc[2][mm] = fmaf(wv[i].z, xv[mm], acc[2][mm]);
+              acc[3][mm] = fmaf(wv[i].w, xv[mm], acc[3][mm]);
+            }
+          }
+        }
+        pre = false;                  // a lane with no rows here left it unused
+        if (gl + wgs < np) {          // the next group's first rows
+          load_rows(g + wgs, r0 + slice, rend);
+          pre = true;
+        }
+        if (rend < n_rows) continue;  // the group's sums are not complete
+        // reduce-scatter over the slices (the lane bits above the chunk)
+        reduce_cols<2, BM>(acc, slice & 1, kChunks);
+        reduce_cols<1, BM>(acc, slice & 2, 2 * kChunks);
+        if constexpr (kSlices == 8) {
+#pragma unroll
+          for (int j = 0; j < HB; ++j) {
+            const float send = (slice & 4) ? acc[0][j] : acc[0][j + HB];
+            const float keep = (slice & 4) ? acc[0][j + HB] : acc[0][j];
+            acc[0][j] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+          }
+        }
+        // TD-ADC transfer in registers
+#pragma unroll
+        for (int j = 0; j < HB; ++j) {
+          const float part = acc[0][j];             // exact: < 2^24
+          float v = __fmul_rn(part, inv_lsb);
+          if constexpr (MODE == kFull) {
+            const float cf =
+                fminf(fmaxf(__fmul_rn(part, st.frac_scale), 0.f), 1.f);
+            v = __fmaf_rn(part, inv_lsb, inl_curve(cf, st));
+          }
+          if constexpr (MODE != kIdeal) v = __fmaf_rn(st.sigma, nz[j], v);
+          float c = rintf(v);
+          c = fminf(fmaxf(c, 0.f), code_max);
+          cs[(gl * BM + mh + j) * nct + wc * kCols + cc] = c;
+        }
+      }
+    }
+    if (n_rank > 1) cluster.sync(); else __syncthreads();
+
+    // digital partial-sum accumulation over the cluster (or this pass),
+    // ascending group order; the codes of a rank are fetched eight at a
+    // time before the dependent chain of multiply-adds
+#pragma unroll
+    for (int i = 0; i < HB; ++i) {
+      const int e = (rank + i * n_rank) * blockDim.x + threadIdx.x;
+      if (e >= BM * nct) continue;
+      const int mm = e / nct;
+      const int c = e - mm * nct;
+      float oi = o[i];
+      for (int r = 0; r < n_rank; ++r) {
+        const float* rc =
+            (r == rank ? cs : cluster.map_shared_rank(cs, r)) + mm * nct + c;
+        const int gn = max(0, min(gpp, min(gpc, G - r * gpc) - p0));
+        for (int gb = 0; gb < gn; gb += 8) {
+          float v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = gb + q < gn ? rc[(gb + q) * BM * nct] : 0.f;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (gb + q < gn) oi = __fmaf_rn(v[q], lsb, oi);
+        }
+      }
+      o[i] = oi;
+    }
+  }
+  if (n_rank > 1) cluster.sync();     // peers may still read this CTA's codes
+
+#pragma unroll
+  for (int i = 0; i < HB; ++i) {
+    const int e = (rank + i * n_rank) * blockDim.x + threadIdx.x;
+    if (e >= BM * nct) continue;
+    const int mm = e / nct;
+    const int m = m0 + mm;
+    const int n = blockIdx.x * nct + e - mm * nct;
+    if (m < M && n < N) out[(size_t)m * N + n] = o[i];
+  }
+}
+
+// The cluster launch of the dense kernel; takes every shape.
+template <int BM, int MODE>
+int launch_dense(const float* x, const float* w, float* out, int M, int N,
+                 int K, int n_rows, int G, float inv_lsb, float lsb,
+                 float code_max, const Stochastic& st, cudaStream_t stream) {
+  // Wide matrices: up to 8 warps side by side along the columns share one
+  // CTA's staged activations. Then the groups split over the fewest
+  // cluster ranks that give the most warps, up to ~kDenseWarpTarget (two
+  // 8-warp CTAs per SM): each rank more costs barrier and DSMEM latency.
+  constexpr int kCols = 4 * dense_chunks(BM);       // columns per warp
+  const long mt = (M + BM - 1) / BM;
+  const long warp_tiles = (long)((N + kCols - 1) / kCols) * mt;
+  int wcols = 1;
+  while (wcols < kDenseWarps && warp_tiles >= 2L * wcols * kDenseWideTiles)
+    wcols *= 2;
+  const int nct = wcols * kCols;
+  const long tiles = (long)((N + nct - 1) / nct) * mt;
+  int req = 1;                              // cluster size asked for
+  int cs, gpc;
+  auto split = [&]() {
+    gpc = (G + std::min(req, G) - 1) / std::min(req, G);
+    cs = (G + gpc - 1) / gpc;               // no rank without a group
+  };
+  auto warps = [&]() {
+    return tiles * cs * wcols * std::min(kDenseWarps / wcols, gpc);
+  };
+  split();
+  long most = warps();
+  for (int r = 2; r <= kMaxCluster && most < kDenseWarpTarget; r *= 2) {
+    const int keep = req;
+    req = r;
+    split();
+    if (warps() > most) {
+      most = warps();
+    } else {
+      req = keep;
+      split();
+    }
+  }
+  auto smem_of = [&](long groups, long rows) {
+    return sizeof(float) * (size_t)groups * BM * (rows + nct);
+  };
+  // fewer groups per rank where a rank's would keep two CTAs from
+  // sharing an SM (or do not fit at all)
+  while (smem_of(gpc, n_rows) > kSmemMax / 2 && req < kMaxCluster) {
+    req *= 2;
+    split();
+  }
+  int gpp = gpc, rpp = n_rows;
+  if (smem_of(gpc, n_rows) > kSmemMax) {
+    // a rank's codes must stay resident until its peers have read them:
+    // where they do not fit even over 8 ranks, no cluster, and the groups
+    // go in passes (or a lone group's rows in windows)
+    cs = 1;
+    gpc = G;
+    gpp = (int)std::min<size_t>(G, kSmemMax / smem_of(1, n_rows));
+    if (gpp < 1) {
+      gpp = 1;
+      rpp = (int)(kSmemMax / (sizeof(float) * BM)) - nct;
+    }
+  }
+  const int wgs = std::min(kDenseWarps / wcols, gpp);
+  const size_t smem = smem_of(gpp, rpp);
+  static size_t cap = 48 * 1024;   // raised once per instantiation and size
+  if (smem > cap) {
+    cudaError_t e = cudaFuncSetAttribute(
+        cim_mvm_dense_kernel<BM, MODE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cap = smem;
+  }
+  const int vec = (N % 4 == 0) && ((uintptr_t)w % 16 == 0);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + nct - 1) / nct, cs, (int)mt);
+  cfg.blockDim = dim3(wgs * wcols * 32);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = 1;
+  attr[0].val.clusterDim.y = cs;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t e = cudaLaunchKernelEx(&cfg, cim_mvm_dense_kernel<BM, MODE>,
+                                     x, w, out, M, N, K, n_rows, G, gpc, gpp,
+                                     rpp, wcols, vec, inv_lsb, lsb, code_max,
+                                     st);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <bool PACKED, int MODE>
 int dispatch_rows(const float* x, const void* w, float* out, int M, int N,
                   int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
                   float code_max, const Stochastic& st, cudaStream_t stream) {
-  if constexpr (PACKED) {
+  if constexpr (!PACKED) {
+    const float* wf = static_cast<const float*>(w);
+    return M <= 4 ? launch_dense<4, MODE>(x, wf, out, M, N, K, n_rows, G,
+                                          inv_lsb, lsb, code_max, st, stream)
+                  : launch_dense<8, MODE>(x, wf, out, M, N, K, n_rows, G,
+                                          inv_lsb, lsb, code_max, st, stream);
+  } else {
     const uint8_t* wp = static_cast<const uint8_t*>(w);
     const int rc =
         M <= 4 ? launch_packed<4, 16, MODE>(x, wp, out, M, N, K, KW, n_rows,
@@ -618,12 +1023,12 @@ int dispatch_rows(const float* x, const void* w, float* out, int M, int N,
                                            G, inv_lsb, lsb, code_max, st,
                                            stream);
     if (rc != -1) return rc;
+    return M <= 4
+               ? launch_fallback<4, MODE>(x, wp, out, M, N, K, KW, n_rows, G,
+                                          inv_lsb, lsb, code_max, st, stream)
+               : launch_fallback<8, MODE>(x, wp, out, M, N, K, KW, n_rows, G,
+                                          inv_lsb, lsb, code_max, st, stream);
   }
-  if (M <= 4)
-    return launch<4, PACKED, MODE>(x, w, out, M, N, K, KW, n_rows, G,
-                                   inv_lsb, lsb, code_max, st, stream);
-  return launch<8, PACKED, MODE>(x, w, out, M, N, K, KW, n_rows, G, inv_lsb,
-                                 lsb, code_max, st, stream);
 }
 
 template <bool PACKED>

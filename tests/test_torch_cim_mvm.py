@@ -66,6 +66,47 @@ def test_plain_b2_bit_exact_vs_pallas(m, k, n):
     assert np.array_equal(yr, yt)
 
 
+# macro depths other than the default 144 (the reference's own tests run
+# n_rows=9, tests/test_sqnr.py): (n_rows, M, K, N) at the decode and the
+# prefill row counts
+DEPTH_SHAPES = [(9, 4, 100, 40), (9, 64, 90, 20), (145, 4, 300, 33),
+                (145, 64, 200, 18), (1024, 4, 2100, 24),
+                (1024, 64, 1500, 17)]
+
+
+@pytest.mark.parametrize("n_rows,m,k,n", DEPTH_SHAPES)
+def test_plain_b2_bit_exact_vs_pallas_other_depths(n_rows, m, k, n):
+    x, w = _codes(m + k, (m, k)), _codes(n + k, (k, n))
+    yr = np.asarray(ref_ops.cim_mvm_pallas(
+        jnp.asarray(x), jnp.asarray(w), RefMacro(n_rows=n_rows),
+        interpret=True))
+    yt = ops.cim_mvm_dense(torch.from_numpy(x), torch.from_numpy(w),
+                           MacroConfig(n_rows=n_rows)).numpy()
+    assert np.array_equal(yr, yt)
+    if n_rows % 2 == 0:
+        wp = ops.pack_codes(torch.from_numpy(w))
+        assert np.array_equal(ops.cim_mvm_packed(
+            torch.from_numpy(x), wp, MacroConfig(n_rows=n_rows)).numpy(), yr)
+
+
+@pytest.mark.parametrize("n_rows,packed,error", [
+    (1, False, None), (9, False, None), (145, False, None),
+    (7400, False, None), (0, False, "at least one row"),
+    (2, True, None), (1024, True, None),
+    (cim_mvm.PACKED_MAX_ROWS, True, None), (9, True, "even macro depth"),
+    (145, True, "even macro depth"),
+    (cim_mvm.PACKED_MAX_ROWS + 2, True, "at most")])
+def test_kernel_depth_check(n_rows, packed, error):
+    """The dense kernels take every depth >= 1, as the reference's do; the
+    packed ones only even depths (the reference's packed kernels assert
+    it), up to what their shared memory holds."""
+    if error is None:
+        cim_mvm.check_depth(n_rows, packed)
+        return
+    with pytest.raises(ValueError, match=error):
+        cim_mvm.check_depth(n_rows, packed)
+
+
 @pytest.mark.parametrize("m,k,n", SHAPES)
 def test_plain_b1_bit_exact_vs_pallas(m, k, n):
     x, w = _codes(m + 7, (m, k)), _codes(n + 9, (k, n))

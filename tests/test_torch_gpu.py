@@ -3,7 +3,8 @@ card (marker `gpu`; each test skips without a CUDA device). Run there with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
 
-B1, B2, B4, B5 and B6 must be bit-exact (B5/B6 at NOISY and at FULL: the
+B1, B2, B4, B5 and B6 must be bit-exact (B2/B5 at every macro depth,
+B1/B6 at every even one) (B5/B6 at NOISY and at FULL: the
 kernel's sinf and torch.sin on the card are the same CUDA sinf); B3 too,
 since its plain version follows the kernel's operation order on the same
 device. Inputs come from numpy seeds. This file needs no JAX.
@@ -91,6 +92,119 @@ def test_b1_b6_groups_of_rows_not_a_multiple_of_four(level):
     assert torch.equal(
         cim_mvm.cim_mvm_grouped_noisy_packed(x, wp, s, **kw),
         cim_mvm.cim_mvm_grouped_noisy_packed_plain(x, wp, s, **kw))
+
+
+# Shapes that reach each path of the dense MVM's dispatch (B2/B5), as
+# (M, K, N, n_rows): clusters of 1 (w_gate/w_up, the head, most prefill
+# shapes), 2 (wq/wo, wk/wv, w_down), 4 and 8 CTAs (small N; prefill
+# w_down, where a CTA must stay within half an SM's shared memory; 228
+# groups of 9 rows), with group counts that are no multiple of the
+# cluster size (15 over 2, 57 over 4, 10 over 4, 63 over 8); N % 4 != 0
+# (scalar weight loads); warps side by side (N = 4096 and 8192 at M > 4);
+# M from 1 to 130; the macro depths 9, 145 and 1024; groups staged in
+# passes where no cluster holds them (n_rows = 1, K = 12000) and one
+# group's rows in windows (n_rows = 7400). SHAPES above reach clusters of
+# 2 to 8 as well.
+DENSE_SHAPES = [
+    (4, 2048, 2048, 144), (4, 2048, 1024, 144), (4, 2048, 8192, 144),
+    (4, 8192, 2048, 144), (64, 2048, 2048, 144), (64, 8192, 2048, 144),
+    (65, 2048, 4096, 144), (2, 1300, 300, 144), (4, 2048, 18, 144),
+    (4, 2048, 2050, 144), (9, 3000, 514, 144), (17, 700, 1026, 144),
+    (3, 301, 70, 144), (1, 2047, 1024, 144), (130, 145, 257, 144),
+    (4, 2048, 2048, 9), (64, 2048, 2048, 9), (4, 2048, 2048, 145),
+    (64, 2048, 2048, 145), (4, 2048, 2048, 1024), (64, 2048, 2048, 1024),
+    (64, 2048, 1024, 9), (4, 9000, 48, 144), (4, 12000, 16, 1),
+    (9, 14800, 40, 7400), (5, 1500, 520, 144), (8, 1500, 520, 144),
+    (16, 1500, 520, 144), (33, 1500, 520, 144), (100, 1500, 520, 144)]
+
+
+def _depth_kw(n_rows, level):
+    kw = dict(KW, n_rows=n_rows, full_scale=225.0 * n_rows)
+    if level == "ideal":
+        return kw
+    return dict(kw, **{k: v for k, v in (NOISY if level == "noisy"
+                                         else FULL).items() if k not in KW})
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
+@pytest.mark.parametrize("m,k,n,n_rows", DENSE_SHAPES)
+def test_b2_b5_dense_paths_bit_exact_vs_plain(m, k, n, n_rows, level):
+    """B2 (IDEAL) and B5 (NOISY, FULL) against their plain versions on
+    every path of the dense dispatch; B6 equal to B5 where the depth is
+    one the packed kernels take."""
+    dev = gpu_device()
+    x = _codes(m + 2, (m, k)).to(dev)
+    w = _codes(n + 2, (k, n)).to(dev)
+    kw = _depth_kw(n_rows, level)
+    if level == "ideal":
+        before = cim_mvm.cim_mvm_grouped.launches
+        assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **kw),
+                           cim_mvm.cim_mvm_grouped_plain(x, w, **kw))
+        assert cim_mvm.cim_mvm_grouped.launches == before + 1
+        return
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    y5 = cim_mvm.cim_mvm_grouped_noisy(x, w, s, inl_seed=3, **kw)
+    assert torch.isfinite(y5).all()
+    assert torch.equal(y5, cim_mvm.cim_mvm_grouped_noisy_plain(
+        x, w, s, inl_seed=3, **kw))
+    if n_rows % 2 == 0 and n_rows <= cim_mvm.PACKED_MAX_ROWS:
+        wp = ops.pack_codes(w).contiguous()
+        assert torch.equal(cim_mvm.cim_mvm_grouped_noisy_packed(
+            x, wp, s, inl_seed=3, **kw), y5)
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy"])
+@pytest.mark.parametrize("m", [4, 64])
+def test_b2_b5_weights_not_16_byte_aligned(m, level):
+    """A contiguous w at a storage offset of one element: the dense
+    kernel takes scalar loads instead of 16-byte ones."""
+    dev = gpu_device()
+    k, n = 2048, 1024
+    x = _codes(5, (m, k)).to(dev)
+    store = torch.zeros(k * n + 1, device=dev)
+    w = store[1:].view(k, n)
+    w.copy_(_codes(6, (k, n)).to(dev))
+    assert w.is_contiguous() and w.data_ptr() % 16 != 0
+    if level == "ideal":
+        assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **KW),
+                           cim_mvm.cim_mvm_grouped_plain(x, w, **KW))
+        return
+    s = torch.tensor([0], dtype=torch.int32, device=dev)
+    assert torch.equal(cim_mvm.cim_mvm_grouped_noisy(x, w, s, **NOISY),
+                       cim_mvm.cim_mvm_grouped_noisy_plain(x, w, s, **NOISY))
+
+
+@pytest.mark.parametrize("n_rows", [426, 1024])
+@pytest.mark.parametrize("m", [4, 64])
+def test_b1_b6_deep_groups(m, n_rows):
+    """Deep even groups: 1024 rows take the packed cluster kernel, 426
+    rows (no multiple of four) the fallback body, which at M > 4 stages
+    fewer than 16 groups per pass to fit its shared memory."""
+    dev = gpu_device()
+    kw = _depth_kw(n_rows, "ideal")
+    x = _codes(m + 50, (m, 3000)).to(dev)
+    w = _codes(51, (3000, 200)).to(dev)
+    wp = ops.pack_codes(w).contiguous()
+    y2 = cim_mvm.cim_mvm_grouped(x, w, **kw)
+    assert torch.equal(cim_mvm.cim_mvm_grouped_packed(x, wp, **kw), y2)
+    assert torch.equal(y2, cim_mvm.cim_mvm_grouped_plain(x, w, **kw))
+    nkw = _depth_kw(n_rows, "noisy")
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    assert torch.equal(
+        cim_mvm.cim_mvm_grouped_noisy_packed(x, wp, s, **nkw),
+        cim_mvm.cim_mvm_grouped_noisy(x, w, s, **nkw))
+
+
+def test_dense_takes_odd_depths_packed_rejects_them():
+    dev = gpu_device()
+    kw = _depth_kw(9, "ideal")
+    x = _codes(60, (4, 300)).to(dev)
+    w = _codes(61, (300, 40)).to(dev)
+    assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **kw),
+                       cim_mvm.cim_mvm_grouped_plain(x, w, **kw))
+    with pytest.raises(ValueError, match="even macro depth"):
+        cim_mvm.cim_mvm_grouped_packed(x, ops.pack_codes(w).contiguous(),
+                                       **kw)
 
 
 def test_b5_seed_is_read_on_the_card():

@@ -183,6 +183,28 @@ def test_plain_b5_bit_exact_vs_pallas(m, k, n):
         assert np.array_equal(yr, yt)
 
 
+@pytest.mark.parametrize("n_rows,m,k,n", [
+    (9, 4, 100, 40), (9, 64, 90, 20), (145, 4, 300, 33), (145, 64, 200, 18),
+    (1024, 4, 2100, 24), (1024, 64, 1500, 17)])
+def test_plain_b5_bit_exact_vs_pallas_other_depths(n_rows, m, k, n):
+    """Macro depths other than 144 (odd, one past it, and deep groups);
+    B6 equals B5 at the even depth."""
+    x, w = _codes(m + k + 1, (m, k)), _codes(n + k + 1, (k, n))
+    rmac = RefMacro(n_rows=n_rows, sim_level=RefLevel.NOISY)
+    tmac = MacroConfig(n_rows=n_rows, sim_level=SimLevel.NOISY)
+    for inl_seed, seed in ((0, 0), (3, 7)):
+        yr = _ref_b5(x, w, rmac, seed, inl_seed)
+        yt = ops.cim_mvm_noisy(torch.from_numpy(x), torch.from_numpy(w),
+                               tmac, noise_seed=_seed(seed),
+                               inl_seed=inl_seed).numpy()
+        assert np.array_equal(yr, yt), (seed, inl_seed)
+        if n_rows % 2 == 0:
+            y6 = ops.cim_mvm_noisy_packed(
+                torch.from_numpy(x), ops.pack_codes(torch.from_numpy(w)),
+                tmac, noise_seed=_seed(seed), inl_seed=inl_seed).numpy()
+            assert np.array_equal(y6, yt), (seed, inl_seed)
+
+
 @pytest.mark.parametrize("n", [24, 130])
 @pytest.mark.parametrize("k", [288, 433])
 @pytest.mark.parametrize("m", [4, 16])
