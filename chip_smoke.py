@@ -18,24 +18,29 @@ of which fails the run when it fails:
      inl_seed salt changing the draws, and FULL (INL curve) at one layer
      shape; B3 (paged flash attention) at decode C=1 and prefill C=16 with
      mixed lengths, an idle lane and a NaN trash block, bit-exact and
-     finite; B4 (fused decode write) bit-exact. Each is timed with CUDA
-     events beside its plain version, a bound and, where one exists, a
-     PyTorch library call (the MVM kernels over one decode step's 169
+     finite; B4 (the decode K/V write), which runs inside B3's decode
+     launch: that launch bit-exact against B4's plain version then B3's
+     (outputs and both pools, f32 and bf16 q/output). Each is timed with
+     CUDA events beside its plain version, a bound and, where one exists,
+     a PyTorch library call (the MVM kernels over one decode step's 169
      MVMs and over a prefill chunk's 168 layer MVMs at M=64, logged per
-     shape; B3 at decode and at the prefill chunk);
+     shape; B3 at decode and at the prefill chunk; B4 as the decode
+     launch's time less B3's alone at the same shapes);
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
      sharing a 32-token prefix. Launch counts are reset just before and
-     read just after; B1, B3 and B4 must each have launched. Then one
-     prefill and one decode `paged_step` with the kernels and with their
-     plain versions, which must give identical logits, and where one
-     decode step's time goes (CUDA graph vs eager, profiler rows);
+     read just after; B1, B3 (prefill) and the B3+B4 decode launch must
+     each have launched. Then one prefill and one decode `paged_step`
+     with the kernels and with their plain versions, which must give
+     identical logits, and where one decode step's time goes (CUDA graph
+     vs eager, launches per step, profiler rows);
   4. a short --cim bp serve, which must launch B2, and the decode step
      breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
      full width: phase 3's serve with nibble-packed prequant weights (B6,
-     B3, B4 must launch), the kernel-vs-plain step check and the decode
+     B3 and the B3+B4 decode launch must launch), the kernel-vs-plain step
+     check and the decode
      step breakdown again, then a short --cim bp-noisy serve with weights
      quantized on the fly, which must launch B5;
   5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
@@ -471,42 +476,80 @@ def main() -> int:
         f"({'bytes' if pb_bytes >= pb_ops else 'operations'})")
     del vwp, mask_p, qp
 
-    # B4: fused decode write
+    # B4: the decode K/V write, inside B3's decode launch. Slot s writes
+    # its new row at its position lens[s] (slot 0 idle: flat 0), as
+    # paged_step builds the targets
     nk = torch.from_numpy(rng.standard_normal((b, 1, kh, dh),
                                               dtype=np.float32)).to(dev)
     nv = torch.from_numpy(rng.standard_normal((b, 1, kh, dh),
                                               dtype=np.float32)).to(dev)
     nk, nv = nk.bfloat16(), nv.bfloat16()
-    flat = torch.tensor([[0], [17 * bs + 5], [40 * bs], [63 * bs + 15]],
-                        dtype=torch.int32, device=dev)
-    k2, v2, k3, v3 = (t.clone() for t in (k_pool, v_pool, k_pool, v_pool))
-    pa.fused_write_call(k2, v2, nk, nv, flat)
-    pa.fused_write_plain(k3, v3, nk, nv, flat)
-    torch.cuda.synchronize()
-    same = torch.equal(k2.view(torch.int16), k3.view(torch.int16)) and \
-        torch.equal(v2.view(torch.int16), v3.view(torch.int16))
-    check(same, "B4 pools differ from its plain version")
-    log("phase 2: B4 bit-exact vs plain (tolerance 0)")
-    t_k = graph_ms(torch, lambda: pa.fused_write_call(k2, v2, nk, nv, flat),
-                   [()], min_iters=100)
-    t_call = time_ms(torch, lambda: pa.fused_write_call(k2, v2, nk, nv,
-                                                        flat), [()],
-                     min_iters=100)
+    col = (lens // bs).long()
+    flat = (tables.gather(1, col[:, None])[:, 0] * bs + lens % bs).int()
+    flat[0] = 0
+    b4_err = 0.0
+    for qx, out_dtype in ((q_dec, torch.float32),
+                          (q_dec.bfloat16(), torch.bfloat16)):
+        k2, v2, k3, v3 = (t.clone() for t in (k_pool, v_pool, k_pool,
+                                              v_pool))
+        o = pa.decode_write_attend_call(qx, k2, v2, nk, nv, flat, tables,
+                                        lens, kvl_dec, out_dtype=out_dtype)
+        op = pa.decode_write_attend_plain(qx, k3, v3, nk, nv, flat, tables,
+                                          lens, kvl_dec).to(out_dtype)
+        torch.cuda.synchronize()
+        same = torch.equal(k2.view(torch.int16), k3.view(torch.int16)) and \
+            torch.equal(v2.view(torch.int16), v3.view(torch.int16))
+        check(same, "the decode launch's pools differ from B4's plain "
+              "version")
+        check(not torch.equal(k2.view(torch.int16), k_pool.view(torch.int16)),
+              "the decode launch wrote no row")
+        e = (o.float() - op.float()).abs().max().item()
+        b4_err = max(b4_err, e)
+        check(bool(torch.isfinite(o).all()) and torch.equal(o, op),
+              f"the decode launch ({out_dtype}) differs from B4 then B3 "
+              f"plain: max |err| {e} (tolerance 0)")
+    log("phase 2: B3+B4 decode launch bit-exact vs B4 then B3 plain "
+        "(outputs at f32 and bf16, both pools; tolerance 0)")
+    del k3, v3
+
+    # B4's time: the decode launch less B3 alone, same shapes, as the model
+    # calls them (bf16 q and output), in turns (fused, B3, B3, fused)
+    q16 = q_dec.bfloat16()
+
+    def fused(kp, vp):
+        return pa.decode_write_attend_call(q16, kp, vp, nk, nv, flat, tables,
+                                           lens, kvl_dec,
+                                           out_dtype=torch.bfloat16)
+
+    def b3_alone(kp, vp):
+        return pa.paged_attn_call(q16, kp, vp, tables, lens, kvl_dec,
+                                  out_dtype=torch.bfloat16)
+
+    t_f = [graph_ms(torch, fused, pool_copies)]
+    t_b = [graph_ms(torch, b3_alone, pool_copies),
+           graph_ms(torch, b3_alone, pool_copies)]
+    t_f.append(graph_ms(torch, fused, pool_copies))
+    t_fused, t_b3 = statistics.mean(t_f), statistics.mean(t_b)
+    t_call = time_ms(torch, fused, pool_copies)
+    k3, v3 = k_pool.clone(), v_pool.clone()
     t_p = graph_ms(torch, lambda: pa.fused_write_plain(k3, v3, nk, nv, flat),
                    [()], min_iters=20)
-    rows = flat.reshape(-1).long()
+    rows = flat.long()
     kflat = k3.view(nb * bs, kh, dh)
     nk2 = nk.reshape(b, kh, dh)
     t_lib = graph_ms(torch, lambda: kflat.index_copy_(0, rows, nk2), [()],
                      min_iters=100)
     b4_bytes = 4 * b * kh * dh * 2       # K and V rows, read once, written once
-    report["B4"] = dict(ms=t_k, plain_ms=t_p,
+    report["B4"] = dict(ms=t_fused - t_b3, plain_ms=t_p,
                         bound_ms=b4_bytes / HBM_BYTES_S * 1e3,
                         bound_by="bytes", library_ms=2 * t_lib,
-                        max_abs_err=0.0)
-    log(f"  B4 B={b} rows of KH={kh} x dh={dh} bf16: kernel {t_k * 1e3:.2f} "
-        f"us on the card, {t_call * 1e3:.2f} us per eager call, plain "
-        f"{t_p * 1e3:.2f} us, 2x index_copy_ {2 * t_lib * 1e3:.2f} us")
+                        max_abs_err=b4_err)
+    log(f"  B4 B={b} rows of KH={kh} x dh={dh} bf16 inside the decode "
+        f"launch: decode launch {' / '.join(f'{t * 1e3:.3f}' for t in t_f)} "
+        f"us, B3 alone {' / '.join(f'{t * 1e3:.3f}' for t in t_b)} us "
+        f"(bf16 q and output) -> B4 {(t_fused - t_b3) * 1e3:.3f} us; "
+        f"{t_call * 1e3:.2f} us per eager call of the decode launch; plain "
+        f"B4 {t_p * 1e3:.2f} us, 2x index_copy_ {2 * t_lib * 1e3:.2f} us")
     del k_pool, v_pool, k2, v2, k3, v3, pool_copies, kw_, vw_
 
     # ---- shared by phases 3, 4 and 4b ------------------------------------
@@ -635,7 +678,8 @@ def main() -> int:
             log(f"{tag}: profiler recorded no device time (not measured)")
         else:
             log(f"{tag}: profiled decode step: {total_us / 1e3:.3f} ms of "
-                f"kernel time in {sum(e.count for e in rows_)} launches")
+                f"kernel time in {sum(e.count for e in rows_)} launches "
+                "(7,987 with B4 launched alone and the casts around B3)")
         for e in rows_[:12] if total_us > 0 else []:
             log(f"  profile: {dev_us(e) / 1e3:8.3f} ms "
                 f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<5d} "
@@ -681,9 +725,12 @@ def main() -> int:
     for i in (0, 6):
         prompts[i] = prefix + prompts[i][32:]
     counts = serve_mix(server, prompts, "phase 3")
+    # B3 runs alone at prefill and with B4 folded in at decode
+    check(counts["paged_attn_call"] > 0, "B3 was not launched at prefill")
     main_launches = {"B1": counts["cim_mvm_grouped_packed"],
-                     "B3": counts["paged_attn_call"],
-                     "B4": counts["fused_write_call"]}
+                     "B3": counts["paged_attn_call"]
+                     + counts["decode_write_attend_call"],
+                     "B4": counts["decode_write_attend_call"]}
     for name, n in main_launches.items():
         check(n > 0, f"{name} was not launched on the main path")
     check_steps(server, "phase 3")
@@ -710,7 +757,7 @@ def main() -> int:
     counts = serve_mix(server, prompts, "phase 4b: NOISY prequant")
     for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
                     ("B3", counts["paged_attn_call"]),
-                    ("B4", counts["fused_write_call"])):
+                    ("B3+B4", counts["decode_write_attend_call"])):
         check(n > 0, f"{name} was not launched on the NOISY prequant serve")
     main_launches["B6"] = counts["cim_mvm_grouped_noisy_packed"]
     check_steps(server, "phase 4b: NOISY prequant")
@@ -762,7 +809,7 @@ def main() -> int:
                "src/repro/kernels/cim_mvm.py:366"),
         "B3": ("paged_attn_call", "src/repro_torch/kernels/csrc/"
                "paged_attention.cu", "src/repro/kernels/paged_attention.py:257"),
-        "B4": ("fused_write_call", "src/repro_torch/kernels/csrc/"
+        "B4": ("decode_write_attend_call", "src/repro_torch/kernels/csrc/"
                "paged_attention.cu", "src/repro/kernels/paged_attention.py:420"),
         "B5": ("cim_mvm_grouped_noisy", "src/repro_torch/kernels/csrc/"
                "cim_mvm.cu", "src/repro/kernels/cim_mvm.py:210"),

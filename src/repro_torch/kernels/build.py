@@ -116,4 +116,4 @@ def _wrappers(cim_mvm, paged_attention):
             cim_mvm.cim_mvm_grouped_noisy,
             cim_mvm.cim_mvm_grouped_noisy_packed,
             paged_attention.paged_attn_call,
-            paged_attention.fused_write_call)
+            paged_attention.decode_write_attend_call)

@@ -1,10 +1,13 @@
-// Paged attention for Hopper (sm_90a): kernels B3 and B4 of the port.
+// Paged attention for Hopper (sm_90a): kernels B3 and B4 of the port, one
+// kernel. B4 has no launch of its own: it rides in B3's decode launch.
 //
 // B3 replaces kernels/paged_attention.py:_paged_attn_call of the JAX
 // package (_paged_attn_kernel): flash attention of the queries of one
 // serving step over K/V block pools, read through per-slot block tables.
-//   q [B, C, H, dh] f32; pools [NB, bs, KH, dh] bf16 or f32;
-//   tables [B, MB] i32; lens, kv_len [B] i32; out [B, C, H, dh] f32.
+//   q [B, C, H, dh] bf16 or f32 (read as it is, upcast exactly to f32);
+//   pools [NB, bs, KH, dh] bf16 or f32; tables [B, MB] i32; lens, kv_len
+//   [B] i32; out [B, C, H, dh] f32, or bf16 rounded once to nearest even
+//   (__float2bfloat16_rn, as torch's .to(torch.bfloat16) rounds).
 // GQA folds the G = H / KH query heads of a KV head and the C chunk
 // positions into C*G rows: row r is chunk offset r / G, head h*G + r % G.
 // Masks: pos_s <= lens + r / G (causal in the chunk) and pos_s < kv_len.
@@ -22,9 +25,10 @@
 //    of S = min(8, MB) CTAs (the wrapper's attn_splits; launched with
 //    cudaLaunchKernelEx and a cluster-dimension attribute). S is fixed by
 //    the table width MB, never by the device-side kv_len, so the launch
-//    stays capturable in a CUDA graph. Rank r takes the contiguous table columns [r*per, (r+1)*per),
-//    per = ceil(MB / S), and walks only those below kv_len; a rank with
-//    nothing to read publishes the empty state (m = -1e30, l = 0, acc = 0).
+//    stays capturable in a CUDA graph. Rank r takes the contiguous table
+//    columns [r*per, (r+1)*per), per = ceil(MB / S), and walks only those
+//    below kv_len; a rank with nothing to read publishes the empty state
+//    (m = -1e30, l = 0, acc = 0).
 //    At decode (4 slots x 8 KV heads, MB = 16) that is 256 CTAs, not 32.
 //  * all query rows of the tile share each staged K/V block: the block is
 //    copied with 16-byte cp.async into shared memory, double-buffered, so
@@ -49,9 +53,25 @@
 //
 // B4 replaces kernels/paged_attention.py:_fused_write_call
 // (_fused_write_kernel): the decode step's K/V row of each slot is copied
-// in place into pool row flat_idx (block flat/bs, offset flat%bs); a lane
-// with flat_idx 0 writes nothing. Bound by launch latency: it moves
-// 2 * B * KH * dh elements. One block per slot; 16-bit or 32-bit words.
+// in place into pool row flat (block flat/bs, offset flat%bs); a lane with
+// flat 0 writes nothing. It moves 2 * B * KH * dh elements (16 KB at
+// decode), far below what a launch of its own costs (~1.9 us on the H100).
+// So it is folded into B3's decode launch (C = 1), which already stages
+// the block the row lands in:
+//  * each CTA of a writing slot copies its KV head's slices of the new K
+//    and V rows into shared memory with its first cp.async group;
+//  * the CTA that stages the block holding pool row flat[b] overwrites
+//    that row of the staged block from there once the block has landed,
+//    so the attention sees the bytes that write-then-attend would read.
+//    The staging loop itself stays as it was: choosing each chunk's
+//    source there made every launch slower, B3's own ones too;
+//  * after the first cluster.sync(), when every CTA of the cluster has
+//    staged its blocks, rank 0 of row tile 0 stores the slices into pool
+//    row flat[b]. Only that cluster reads slot b's head-h slices (a
+//    second row tile, at G > 32, may stage either bytes of that row and
+//    replaces them anyway), and under the copy-on-write contract (the JAX
+//    package's fused_paged_write) no other slot maps the block, so no CTA
+//    waits on another.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -103,6 +123,9 @@ __device__ __forceinline__ void cp_async_commit() {
 __device__ __forceinline__ void cp_async_wait1() {
   asm volatile("cp.async.wait_group 1;\n" ::);
 }
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
 
 // 16 bytes of pool elements -> f32
 template <typename T>
@@ -127,7 +150,8 @@ __device__ __forceinline__ void chunk_f32<__nv_bfloat16>(
 
 // Shared-memory layout of one CTA (bytes), for T, dh, bs, TR query rows.
 struct AttnSmem {
-  int row_bytes, stage_bytes, kv_bytes, q_off, m_off, l_off, acc_off, total;
+  int row_bytes, stage_bytes, kv_bytes, q_off, m_off, l_off, acc_off, w_off,
+      total;
 };
 template <typename T>
 __host__ __device__ inline AttnSmem attn_smem(int dh, int bs, int tr) {
@@ -139,20 +163,44 @@ __host__ __device__ inline AttnSmem attn_smem(int dh, int bs, int tr) {
   s.m_off = s.q_off + tr * dh * 4;
   s.l_off = s.m_off + tr * 4;
   s.acc_off = s.l_off + tr * 4;
-  s.total = s.acc_off + tr * dh * 4;
+  s.w_off = (s.acc_off + tr * dh * 4 + 15) & ~15;   // B4's new K, V rows
+  s.total = s.w_off + 2 * dh * (int)sizeof(T);
   return s;
 }
 
+// The operands of one launch: B3 alone (flat null), or B3 with B4's decode
+// write folded in (C = 1; nk, nv, flat set). Host side only: the kernel
+// takes them as separate __restrict__ parameters.
+struct AttnArgs {
+  const void* q;        // [B, C, H, dh], bf16 if q_bf16 else f32
+  void* k;              // pools [NB, bs, KH, dh] of T
+  void* v;
+  const void* nk;       // B4's new rows [B, 1, KH, dh] of T
+  const void* nv;
+  const int* flat;      // [B] pool row of each slot's new row, 0: none
+  const int* tables;    // [B, MB]
+  const int* lens;      // [B] chunk base
+  const int* kvl;       // [B]
+  void* out;            // [B, C, H, dh], bf16 if out_bf16 else f32
+  int q_bf16, out_bf16, B, C, H, KH, G, bs, MB, per;
+  float scale;
+};
+
 // One CTA: query rows [tile*TR, tile*TR + TR) of (slot b, KV head h),
 // table columns of cluster rank `rank`. RPW rows per warp, TR = warps*RPW.
-template <typename T, int DPL, int RPW>
+// WRITE: the decode launch with B4's write folded in. B3's own launches
+// compile without that code: with it, nvcc allots the kernel about half
+// the registers and B3 alone ran slower on the H100.
+template <typename T, int DPL, int RPW, bool WRITE>
 __global__ void __launch_bounds__(kMaxWarps * 32)
-paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
-                  const T* __restrict__ vpool,
+paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
+                  T* __restrict__ vpool, const T* __restrict__ nk,
+                  const T* __restrict__ nv, const int* __restrict__ flat,
                   const int* __restrict__ tables,
                   const int* __restrict__ lens, const int* __restrict__ kvl,
-                  float* __restrict__ out, int C, int H, int KH, int G,
-                  int bs, int MB, int per, int tiles, float scale) {
+                  void* __restrict__ out, int q_bf16, int out_bf16, int C,
+                  int H, int KH, int G, int bs, int MB, int per, int tiles,
+                  float scale) {
   constexpr int dh = DPL * 32;
   constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
   constexpr int CPR = dh / EPC;              // chunks per row
@@ -167,6 +215,7 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
   float* sm_m = reinterpret_cast<float*>(smem + L.m_off);   // [tr]
   float* sm_l = reinterpret_cast<float*>(smem + L.l_off);   // [tr]
   float* sm_acc = reinterpret_cast<float*>(smem + L.acc_off);  // [tr][dh]
+  unsigned char* wsm = smem + L.w_off;   // [2][dh] of T: new K, V rows
 
   const int h = blockIdx.y;
   const int b = blockIdx.z / tiles;
@@ -185,10 +234,15 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
     float v = 0.f;
     if (row < rows) {
       const int head = h * G + row % G;
-      v = q[(((size_t)b * C + row / G) * H + head) * dh + d];
+      const size_t i = (((size_t)b * C + row / G) * H + head) * dh + d;
+      v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
+                 : static_cast<const float*>(q)[i];
     }
     qs[idx] = v;
   }
+
+  // B4: the pool row slot b's new K/V rows go to (0: none)
+  const int fl = WRITE ? flat[b] : 0;
 
   int nblk = (kv + bs - 1) / bs;           // blocks holding attendable rows
   if (nblk > MB) nblk = MB;
@@ -218,6 +272,14 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
     for (int i = 0; i < DPL; ++i) acc[k][i] = 0.f;
   }
 
+  if (WRITE && fl != 0) {         // B4's rows of head h, in the first group
+    for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+      const int which = idx / CPR;               // 0 = K, 1 = V
+      const int c = idx - which * CPR;
+      cp_async16(wsm + idx * 16,
+                 (which ? nv : nk) + ((size_t)b * KH + h) * dh + c * EPC);
+    }
+  }
   if (j0 < j1) issue(j0, 0);
   cp_async_commit();
   for (int j = j0; j < j1; ++j) {
@@ -226,8 +288,21 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
     cp_async_commit();
     cp_async_wait1();             // block j's copies (this thread's) landed
     __syncthreads();              // ... and everyone else's
-    const unsigned char* ks = smem + st * L.stage_bytes;
+    unsigned char* ks = smem + st * L.stage_bytes;
     const unsigned char* vs = ks + bs * L.row_bytes;
+    if (WRITE && fl != 0) {
+      const int wrow = fl - tables[(size_t)b * MB + j] * bs;
+      if (wrow >= 0 && wrow < bs) {   // B4's row: the new one replaces it
+        for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+          const int which = idx / CPR;
+          const int c = idx - which * CPR;
+          *reinterpret_cast<uint4*>(ks + (which * bs + wrow) * L.row_bytes
+                                    + c * 16) =
+              *reinterpret_cast<const uint4*>(wsm + idx * 16);
+        }
+        __syncthreads();
+      }
+    }
     const int tt = lane < bs ? lane : bs - 1;
     const int pos_s = j * bs + lane;
 #pragma unroll
@@ -300,6 +375,22 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
   }
   cluster.sync();
 
+  // B4: every CTA of the cluster has staged its blocks; rank 0 stores the
+  // new rows, each thread the chunks it copied (so no barrier). A rank
+  // that staged no block has not waited for its copies yet.
+  if (WRITE && fl != 0) {
+    cp_async_wait_all();
+    if (rank == 0 && row0 == 0) {
+      for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+        const int which = idx / CPR;
+        const int c = idx - which * CPR;
+        *reinterpret_cast<uint4*>((which ? vpool : kpool)
+                                  + ((size_t)fl * KH + h) * dh + c * EPC) =
+            *reinterpret_cast<const uint4*>(wsm + idx * 16);
+      }
+    }
+  }
+
   // combine in rank order; this CTA takes every n_split-th output
   for (int e = rank * blockDim.x + threadIdx.x; e < tr * dh;
        e += n_split * blockDim.x) {
@@ -319,33 +410,33 @@ paged_attn_kernel(const float* __restrict__ q, const T* __restrict__ kpool,
           *cluster.map_shared_rank(sm_acc + lr * dh + d, r), w));
     }
     const int head = h * G + row % G;
-    out[(((size_t)b * C + row / G) * H + head) * dh + d] =
-        __fdiv_rn(as, fmaxf(ls, 1e-30f));
+    const size_t o = (((size_t)b * C + row / G) * H + head) * dh + d;
+    const float y = __fdiv_rn(as, fmaxf(ls, 1e-30f));
+    if (out_bf16)
+      static_cast<__nv_bfloat16*>(out)[o] = __float2bfloat16_rn(y);
+    else
+      static_cast<float*>(out)[o] = y;
   }
   cluster.sync();                 // peers may still read this CTA's state
 }
 
-template <typename T, int DPL, int RPW>
-int launch_attn(const float* q, const void* k, const void* v,
-                const int* tables, const int* lens, const int* kvl,
-                float* out, int B, int C, int H, int KH, int bs, int MB,
-                int n_split, int per, int warps, float scale,
+template <typename T, int DPL, int RPW, bool WRITE>
+int launch_attn(const AttnArgs& a, int n_split, int warps,
                 cudaStream_t stream) {
-  const int G = H / KH;
   const int tr = warps * RPW;
-  const int tiles = (C * G + tr - 1) / tr;
-  const size_t smem = (size_t)attn_smem<T>(DPL * 32, bs, tr).total;
+  const int tiles = (a.C * a.G + tr - 1) / tr;
+  const size_t smem = (size_t)attn_smem<T>(DPL * 32, a.bs, tr).total;
   static size_t cap = 48 * 1024;   // raised once, not per (captured) launch
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, DPL, RPW>,
+        paged_attn_kernel<T, DPL, RPW, WRITE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
   }
-  if ((size_t)B * tiles > 65535) return (int)cudaErrorInvalidValue;
+  if ((size_t)a.B * tiles > 65535) return (int)cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(n_split, KH, B * tiles);
+  cfg.gridDim = dim3(n_split, a.KH, a.B * tiles);
   cfg.blockDim = dim3(warps * 32);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -357,68 +448,38 @@ int launch_attn(const float* q, const void* k, const void* v,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_attn_kernel<T, DPL, RPW>, q, static_cast<const T*>(k),
-      static_cast<const T*>(v), tables, lens, kvl, out, C, H, KH, G, bs, MB,
-      per, tiles, scale);
+      &cfg, paged_attn_kernel<T, DPL, RPW, WRITE>, a.q, static_cast<T*>(a.k),
+      static_cast<T*>(a.v), static_cast<const T*>(a.nk),
+      static_cast<const T*>(a.nv), a.flat, a.tables, a.lens, a.kvl, a.out,
+      a.q_bf16, a.out_bf16, a.C, a.H, a.KH, a.G, a.bs, a.MB, a.per, tiles,
+      a.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // Up to 8 query rows: one row per warp; more: 8 warps of 4 rows each.
-template <typename T, int DPL>
-int launch_rows(const float* q, const void* k, const void* v,
-                const int* tables, const int* lens, const int* kvl,
-                float* out, int B, int C, int H, int KH, int bs, int MB,
-                int n_split, int per, float scale, cudaStream_t stream) {
-  const int rows = C * (H / KH);
+template <typename T, int DPL, bool WRITE>
+int launch_rows(const AttnArgs& a, int n_split, cudaStream_t stream) {
+  const int rows = a.C * a.G;
   if (rows <= kMaxWarps)
-    return launch_attn<T, DPL, 1>(q, k, v, tables, lens, kvl, out, B, C, H,
-                                  KH, bs, MB, n_split, per, rows, scale,
-                                  stream);
-  return launch_attn<T, DPL, 4>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                                bs, MB, n_split, per, kMaxWarps, scale,
-                                stream);
+    return launch_attn<T, DPL, 1, WRITE>(a, n_split, rows, stream);
+  return launch_attn<T, DPL, 4, WRITE>(a, n_split, kMaxWarps, stream);
+}
+
+template <typename T, int DPL>
+int launch_write(const AttnArgs& a, int n_split, cudaStream_t stream) {
+  return a.flat ? launch_rows<T, DPL, true>(a, n_split, stream)
+                : launch_rows<T, DPL, false>(a, n_split, stream);
 }
 
 template <typename T>
-int dispatch_dh(const float* q, const void* k, const void* v,
-                const int* tables, const int* lens, const int* kvl,
-                float* out, int B, int C, int H, int KH, int dh, int bs,
-                int MB, int n_split, int per, float scale,
-                cudaStream_t stream) {
+int dispatch_dh(const AttnArgs& a, int dh, int n_split, cudaStream_t stream) {
   switch (dh) {
-    case 32:
-      return launch_rows<T, 1>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, n_split, per, scale, stream);
-    case 64:
-      return launch_rows<T, 2>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, n_split, per, scale, stream);
-    case 128:
-      return launch_rows<T, 4>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, n_split, per, scale, stream);
-    case 256:
-      return launch_rows<T, 8>(q, k, v, tables, lens, kvl, out, B, C, H, KH,
-                               bs, MB, n_split, per, scale, stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-}
-
-template <typename W>
-__global__ void fused_write_kernel(W* __restrict__ kpool,
-                                   W* __restrict__ vpool,
-                                   const W* __restrict__ nk,
-                                   const W* __restrict__ nv,
-                                   const int* __restrict__ flat,
-                                   int row_elems) {
-  const int b = blockIdx.x;
-  const int f = flat[b];
-  if (f == 0) return;   // invalid lane: no write (the trash block keeps its bits)
-  const size_t dst = (size_t)f * row_elems;
-  const size_t src = (size_t)b * row_elems;
-  for (int i = threadIdx.x; i < row_elems; i += blockDim.x) {
-    kpool[dst + i] = nk[src + i];
-    vpool[dst + i] = nv[src + i];
+    case 32: return launch_write<T, 1>(a, n_split, stream);
+    case 64: return launch_write<T, 2>(a, n_split, stream);
+    case 128: return launch_write<T, 4>(a, n_split, stream);
+    case 256: return launch_write<T, 8>(a, n_split, stream);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 
@@ -426,45 +487,27 @@ __global__ void fused_write_kernel(W* __restrict__ kpool,
 
 extern "C" {
 
-// B3. pool_bf16: 1 for bf16 pools, 0 for f32 pools. The table columns
-// split over n_split cluster ranks of `per` columns each (the wrapper's
-// attn_splits, which the plain version follows).
-int paged_attn_launch(int pool_bf16, const float* q, const void* k,
-                      const void* v, const int* tables, const int* lens,
-                      const int* kvl, float* out, int B, int C, int H,
-                      int KH, int dh, int bs, int MB, int n_split, int per,
+// B3, and B4 folded into it. pool_bf16 / q_bf16 / out_bf16: 1 for bf16,
+// 0 for f32. The table columns split over n_split cluster ranks of `per`
+// columns each (the wrapper's attn_splits, which the plain version
+// follows). flat null: B3 alone; else (C = 1 only) slot b's new rows nk,
+// nv [B, 1, KH, dh] (pool dtype, 16-byte aligned) go to pool row flat[b]
+// unless it is 0, and the attention reads them there.
+int paged_attn_launch(int pool_bf16, int q_bf16, int out_bf16, const void* q,
+                      void* k, void* v, const void* nk, const void* nv,
+                      const int* flat, const int* tables, const int* lens,
+                      const int* kvl, void* out, int B, int C, int H, int KH,
+                      int dh, int bs, int MB, int n_split, int per,
                       float scale, cudaStream_t stream) {
   if (B <= 0 || C <= 0) return 0;
   if (bs < 1 || bs > 32 || KH <= 0 || H % KH || MB < 1 || n_split < 1 ||
-      n_split > kMaxSplit || per < 1 || n_split * per < MB)
+      n_split > kMaxSplit || per < 1 || n_split * per < MB ||
+      (flat && (C != 1 || !nk || !nv)))
     return (int)cudaErrorInvalidValue;
-  if (pool_bf16)
-    return dispatch_dh<__nv_bfloat16>(q, k, v, tables, lens, kvl, out, B, C,
-                                      H, KH, dh, bs, MB, n_split, per, scale,
-                                      stream);
-  return dispatch_dh<float>(q, k, v, tables, lens, kvl, out, B, C, H, KH, dh,
-                            bs, MB, n_split, per, scale, stream);
-}
-
-// B4. elem_bytes: 2 (bf16) or 4 (f32); row_elems = KH * dh; flat [B] i32.
-int fused_write_launch(int elem_bytes, void* k, void* v, const void* nk,
-                       const void* nv, const int* flat, int B, int row_elems,
-                       cudaStream_t stream) {
-  if (B <= 0) return 0;
-  const int threads = row_elems < 256 ? 128 : 256;
-  if (elem_bytes == 2)
-    fused_write_kernel<uint16_t><<<B, threads, 0, stream>>>(
-        static_cast<uint16_t*>(k), static_cast<uint16_t*>(v),
-        static_cast<const uint16_t*>(nk), static_cast<const uint16_t*>(nv),
-        flat, row_elems);
-  else if (elem_bytes == 4)
-    fused_write_kernel<uint32_t><<<B, threads, 0, stream>>>(
-        static_cast<uint32_t*>(k), static_cast<uint32_t*>(v),
-        static_cast<const uint32_t*>(nk), static_cast<const uint32_t*>(nv),
-        flat, row_elems);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  const AttnArgs a = {q, k, v, nk, nv, flat, tables, lens, kvl, out, q_bf16,
+                      out_bf16, B, C, H, KH, H / KH, bs, MB, per, scale};
+  if (pool_bf16) return dispatch_dh<__nv_bfloat16>(a, dh, n_split, stream);
+  return dispatch_dh<float>(a, dh, n_split, stream);
 }
 
 }  // extern "C"

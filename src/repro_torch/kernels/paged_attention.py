@@ -9,8 +9,9 @@ and the per-slot block tables directly:
             softmax over the whole window (models.common
             decode_attention / paged_prefill_attention)
   "kernel"  the Hopper flash kernel B3 (csrc/paged_attention.cu)    CUDA;
-            over the tables, plus the fused decode write B4; on a   plain
-            CPU tensor their plain versions run                     on CPU
+            over the tables; at decode (C = 1) one launch that      plain
+            also does B4's K/V write; on a CPU tensor the plain     on CPU
+            versions run
   "plain"   the plain PyTorch versions of B3 and B4, on any device  any
             (the card-side yardstick the kernels are held against)
   "auto"    "kernel"
@@ -42,26 +43,31 @@ from . import build
 class AttnBackendSpec:
     """One paged-attention evaluation strategy.
 
-    fn(q, k_pool, v_pool, tables, positions, kv_len) -> o
+    fn(q, k_pool, v_pool, tables, positions, kv_len, lens) -> o
       q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB] physical
       block ids; positions [B, C] absolute query positions; kv_len [B]
-      tokens valid INCLUDING this step's writes. Returns [B, C, H, dh].
-    `fused_write`, when set, is the decode-step (C = 1) K/V write that
-    replaces `models.common.paged_write` on this backend.
+      tokens valid INCLUDING this step's writes; lens [B] the chunk base
+      positions[:, 0]. Returns [B, C, H, dh] in q's dtype.
+    `decode_write_attend`, when set, is the decode step (C = 1) in one
+    call: write each slot's new K/V row into the pools in place (flat
+    target 0: no write), then attend.
+      decode_write_attend(q, k_pool, v_pool, new_k, new_v, flat_idx,
+                          tables, lens, kv_len) -> o
+    It replaces `models.common.paged_write` + `fn` on this backend.
     """
 
     name: str
     fn: Callable
-    fused_write: Callable | None = None
+    decode_write_attend: Callable | None = None
 
 
 _ATTN_REGISTRY: dict[str, AttnBackendSpec] = {}
 
 
-def register_attn_backend(name: str, *, fused_write=None):
+def register_attn_backend(name: str, *, decode_write_attend=None):
     """Register a paged-attention backend under `name` (decorator)."""
     def deco(fn):
-        _ATTN_REGISTRY[name] = AttnBackendSpec(name, fn, fused_write)
+        _ATTN_REGISTRY[name] = AttnBackendSpec(name, fn, decode_write_attend)
         return fn
     return deco
 
@@ -89,7 +95,7 @@ def choose_attn_backend(backend: str) -> str:
 # "exact" backend: window gather + one-pass softmax
 # ---------------------------------------------------------------------------
 @register_attn_backend("exact")
-def _exact_attention(q, k_pool, v_pool, tables, positions, kv_len):
+def _exact_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
     """Window gather through the table + the dense-cache attention math,
     with V rows at positions >= kv_len zeroed (by `where`: 0 · NaN is NaN)
     before the PV contraction."""
@@ -208,20 +214,24 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
         .reshape(b, c, h, dh)
 
 
-def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len):
-    """B3 wrapper: q [B, C, H, dh] × pools [NB, bs, KH, dh] through tables
-    [B, MB] → f32 [B, C, H, dh]. Replaces
-    `kernels/paged_attention.py:_paged_attn_call` of the JAX package."""
-    if not q.is_cuda:
-        return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len)
+_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write):
+    """One launch of the B3 kernel on q's CUDA device; `write` is None (B3
+    alone) or (new_k, new_v, flat), B4's decode write folded in. Returns
+    (the CUDA status, the output)."""
     b, c, h, dh = q.shape
     nb, bs, kh, dh_p = k_pool.shape
     if (v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype
             or dh_p != dh or h % kh):
         raise ValueError(f"shape mismatch q {tuple(q.shape)} pools "
                          f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}")
-    if k_pool.dtype not in (torch.bfloat16, torch.float32):
+    if k_pool.dtype not in _DTYPES:
         raise ValueError(f"pool dtype {k_pool.dtype} unsupported")
+    if q.dtype not in _DTYPES or out_dtype not in _DTYPES:
+        raise ValueError(f"q dtype {q.dtype} / out_dtype {out_dtype}: the "
+                         "kernel reads and writes bfloat16 or float32")
     if dh not in (32, 64, 128, 256) or not 1 <= bs <= 32:
         raise ValueError(f"head_dim {dh} / block_size {bs} unsupported by "
                          "the kernel")
@@ -233,19 +243,60 @@ def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len):
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
         raise ValueError("pools must be 16-byte aligned (copied in 16-byte "
                          "chunks)")
-    q32 = q.to(torch.float32).contiguous()
+    nk = nv = flat = None
+    if write is not None:
+        new_k, new_v, flat_idx = write
+        if c != 1:
+            raise ValueError(f"the folded K/V write is a decode step (C = "
+                             f"1), got C = {c}")
+        if (new_k.shape != (b, 1, kh, dh) or new_v.shape != new_k.shape
+                or flat_idx.numel() != b):
+            raise ValueError(f"shape mismatch pools {tuple(k_pool.shape)} "
+                             f"new {tuple(new_k.shape)} / "
+                             f"{tuple(new_v.shape)} flat "
+                             f"{tuple(flat_idx.shape)}")
+        for t in (new_k, new_v):
+            if t.dtype != k_pool.dtype or t.device != q.device:
+                raise ValueError(f"new K/V rows must be {k_pool.dtype} on "
+                                 "q's device")
+            if not t.is_contiguous() or t.data_ptr() % 16:
+                raise ValueError("new K/V rows must be contiguous and "
+                                 "16-byte aligned (copied in 16-byte "
+                                 "chunks)")
+        if flat_idx.device != q.device:
+            raise ValueError("all operands must lie on q's CUDA device")
+        nk, nv = new_k.data_ptr(), new_v.data_ptr()
+        flat = flat_idx.reshape(-1).to(torch.int32).contiguous()
+    # each a no-op when the caller hands them over as contiguous int32
+    q = q.contiguous()
     tables = tables.to(torch.int32).contiguous()
     lens = lens.to(torch.int32).contiguous()
     kv_len = kv_len.to(torch.int32).contiguous()
-    out = torch.empty(b, c, h, dh, dtype=torch.float32, device=q.device)
+    out = torch.empty(b, c, h, dh, dtype=out_dtype, device=q.device)
     mb = tables.shape[1]
-    lib = build.load("paged_attention")
-    rc = lib.paged_attn_launch(
-        int(k_pool.dtype == torch.bfloat16), q32.data_ptr(),
-        k_pool.data_ptr(), v_pool.data_ptr(), tables.data_ptr(),
-        lens.data_ptr(), kv_len.data_ptr(), out.data_ptr(), b, c, h, kh, dh,
-        bs, mb, *attn_splits(mb), 1.0 / math.sqrt(dh),
-        torch.cuda.current_stream(q.device).cuda_stream)
+    bf16 = torch.bfloat16
+    rc = build.load("paged_attention").paged_attn_launch(
+        int(k_pool.dtype == bf16), int(q.dtype == bf16),
+        int(out_dtype == bf16), q.data_ptr(), k_pool.data_ptr(),
+        v_pool.data_ptr(), nk, nv, None if flat is None else flat.data_ptr(),
+        tables.data_ptr(), lens.data_ptr(), kv_len.data_ptr(),
+        out.data_ptr(), b, c, h, kh, dh, bs, mb, *attn_splits(mb),
+        1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
+    return rc, out
+
+
+def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len, *,
+                    out_dtype=torch.float32):
+    """B3 wrapper: q [B, C, H, dh] (bfloat16 or float32, read as it is) ×
+    pools [NB, bs, KH, dh] through tables [B, MB] → [B, C, H, dh] in
+    `out_dtype` (float32, or bfloat16 rounded once from the f32 result as
+    `.to(torch.bfloat16)` rounds). Replaces
+    `kernels/paged_attention.py:_paged_attn_call` of the JAX package."""
+    if not q.is_cuda:
+        return paged_attn_plain(q, k_pool, v_pool, tables, lens,
+                                kv_len).to(out_dtype)
+    rc, out = _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype,
+                      None)
     paged_attn_call.launches += 1
     if rc != 0:
         raise RuntimeError(f"paged_attn_call kernel launch failed: CUDA "
@@ -254,7 +305,7 @@ def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len):
 
 
 # ---------------------------------------------------------------------------
-# B4: fused decode write, in place
+# B4: the decode K/V write, in place, folded into B3's decode launch
 # ---------------------------------------------------------------------------
 def fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx):
     """Plain version of B4: each lane's K/V row goes to pool row flat_idx
@@ -273,75 +324,87 @@ def fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx):
     return k_pool, v_pool
 
 
-def fused_write_call(k_pool, v_pool, new_k, new_v, flat_idx):
-    """B4 wrapper, the decode-step (C = 1) K/V write: each slot's new row
-    goes into its pool block IN PLACE (the TPU kernel aliased the pools to
-    its outputs), and the pools are returned. new_k / new_v [B, 1, KH, dh];
-    flat_idx [B, 1], where 0 marks an invalid lane that writes nothing
-    (`paged_write` would park it in the trash block; only never-attended
-    bits differ). The scheduler copy-on-writes shared blocks before the
-    step, so no write target is shared. Replaces
-    `kernels/paged_attention.py:_fused_write_call` of the JAX package."""
-    if not k_pool.is_cuda:
-        return fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx)
-    b = new_k.shape[0]
-    row = k_pool.shape[2] * k_pool.shape[3]
-    if (new_k.shape[0] * new_k.shape[1] != b or new_k.shape != new_v.shape
-            or new_k[0].numel() != row or v_pool.shape != k_pool.shape
-            or flat_idx.numel() != b):
-        raise ValueError(f"shape mismatch pools {tuple(k_pool.shape)} new "
-                         f"{tuple(new_k.shape)} flat {tuple(flat_idx.shape)}")
-    if k_pool.dtype not in (torch.bfloat16, torch.float32) \
-            or v_pool.dtype != k_pool.dtype:
-        raise ValueError(f"pool dtype {k_pool.dtype} unsupported")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous (written in place)")
-    nk = new_k.to(k_pool.dtype).contiguous()
-    nv = new_v.to(v_pool.dtype).contiguous()
-    fi = flat_idx.reshape(-1).to(torch.int32).contiguous()
-    lib = build.load("paged_attention")
-    rc = lib.fused_write_launch(
-        k_pool.element_size(), k_pool.data_ptr(), v_pool.data_ptr(),
-        nk.data_ptr(), nv.data_ptr(), fi.data_ptr(), b, row,
-        torch.cuda.current_stream(k_pool.device).cuda_stream)
-    fused_write_call.launches += 1
+def decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v, flat_idx,
+                              tables, lens, kv_len):
+    """Plain version of the fused decode launch: B4's write, then B3.
+    Returns f32 [B, 1, H, dh]."""
+    fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx)
+    return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len)
+
+
+def decode_write_attend_call(q, k_pool, v_pool, new_k, new_v, flat_idx,
+                             tables, lens, kv_len, *,
+                             out_dtype=torch.float32):
+    """The decode step (C = 1) of one layer in one launch: B4 writes each
+    slot's new row new_k / new_v [B, 1, KH, dh] (the pools' dtype) into
+    pool row flat_idx [B] or [B, 1] IN PLACE (the TPU kernel aliased the
+    pools to its outputs; 0 marks an invalid lane, which writes nothing,
+    where `paged_write` would park it in the trash block), and B3 attends
+    over the written pools, reading the new rows where they land. Same
+    output as `paged_attn_call`. The scheduler copy-on-writes shared
+    blocks before the step, so no other slot maps a write target.
+    Replaces `kernels/paged_attention.py:_fused_write_call` then
+    `_paged_attn_call` of the JAX package."""
+    if not q.is_cuda:
+        return decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v,
+                                         flat_idx, tables, lens,
+                                         kv_len).to(out_dtype)
+    rc, out = _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype,
+                      (new_k, new_v, flat_idx))
+    decode_write_attend_call.launches += 1
     if rc != 0:
-        raise RuntimeError(f"fused_write_call kernel launch failed: CUDA "
-                           f"error {rc}")
-    return k_pool, v_pool
+        raise RuntimeError(f"decode_write_attend_call kernel launch failed: "
+                           f"CUDA error {rc}")
+    return out
 
 
-@register_attn_backend("kernel", fused_write=fused_write_call)
-def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len):
-    lens = positions[:, 0]   # chunk base = first query position
-    return paged_attn_call(q, k_pool, v_pool, tables, lens,
-                           kv_len).to(q.dtype)
+def _kernel_decode(q, k_pool, v_pool, new_k, new_v, flat_idx, tables, lens,
+                   kv_len):
+    return decode_write_attend_call(q, k_pool, v_pool, new_k, new_v,
+                                    flat_idx, tables, lens, kv_len,
+                                    out_dtype=q.dtype)
 
 
-@register_attn_backend("plain", fused_write=fused_write_plain)
-def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len):
-    return paged_attn_plain(q, k_pool, v_pool, tables, positions[:, 0],
+def _plain_decode(q, k_pool, v_pool, new_k, new_v, flat_idx, tables, lens,
+                  kv_len):
+    return decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v,
+                                     flat_idx, tables, lens,
+                                     kv_len).to(q.dtype)
+
+
+@register_attn_backend("kernel", decode_write_attend=_kernel_decode)
+def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
+    return paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len,
+                           out_dtype=q.dtype)
+
+
+@register_attn_backend("plain", decode_write_attend=_plain_decode)
+def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
+    return paged_attn_plain(q, k_pool, v_pool, tables, lens,
                             kv_len).to(q.dtype)
 
 
 paged_attn_call.launches = 0
-fused_write_call.launches = 0
+decode_write_attend_call.launches = 0
 
 
 # ---------------------------------------------------------------------------
 # dispatch (the single entry point models.common calls)
 # ---------------------------------------------------------------------------
 def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
-                    backend: str = "auto"):
+                    lens=None, backend: str = "auto"):
     """Attend q [B, C, H, dh] over a paged KV pool through per-slot block
-    tables; positions [B, C]; kv_len [B]. Returns [B, C, H, dh]."""
+    tables; positions [B, C]; kv_len [B]; lens [B] the chunk base
+    positions[:, 0], where the caller holds it (as int32 the kernel reads
+    it without a copy). Returns [B, C, H, dh]."""
     spec = get_attn_backend(choose_attn_backend(backend))
-    return spec.fn(q, k_pool, v_pool, tables, positions, kv_len)
+    if lens is None:
+        lens = positions[:, 0]
+    return spec.fn(q, k_pool, v_pool, tables, positions, kv_len, lens)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 build.declare("paged_attention", {
-    "paged_attn_launch": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                          _I, _I, _I, _I, _I, _F, _P],
-    "fused_write_launch": [_I, _P, _P, _P, _P, _P, _I, _I, _P],
+    "paged_attn_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 })

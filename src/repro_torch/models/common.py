@@ -9,6 +9,7 @@ tensors; layouts follow the reference package ([d_in, d_out] weights,
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -253,15 +254,35 @@ def paged_prefill_attention(q: torch.Tensor, k_win: torch.Tensor,
     return o.reshape(b, cq, h, dh).to(q.dtype)
 
 
+class PagedIndex(NamedTuple):
+    """Where one paged step writes and reads, made once per step
+    (`transformer.paged_step`) and handed to every layer.
+
+    positions [B, C] and flat_idx [B, C] (the flattened NB·bs row each new
+    token goes to, 0 for a masked lane) are int64: RoPE reads positions,
+    and `paged_write`'s index_put would convert any other index type with
+    a launch of its own. tables [B, MB], lens [B] (the chunk base
+    positions[:, 0]), kv_len [B] and flat [B, C] (flat_idx) are int32, as
+    the attention kernel reads them, so no layer casts them.
+    """
+
+    positions: torch.Tensor
+    flat_idx: torch.Tensor
+    tables: torch.Tensor
+    lens: torch.Tensor
+    kv_len: torch.Tensor
+    flat: torch.Tensor
+
+
 def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                          positions: torch.Tensor, cache: dict,
-                          flat_idx: torch.Tensor, tables: torch.Tensor,
-                          kv_len: torch.Tensor):
+                          cache: dict, index: PagedIndex):
     """Self-attention over one layer's paged pool {"k", "v"} [NB, bs, KH,
     dh]: project and RoPE this step's tokens at their per-slot positions,
-    write them into the pool in place (at C = 1 through the backend's
-    fused write, B4 on the kernel backend; else `paged_write`), and attend
-    through the attention-backend registry. Returns (y, the layer pool).
+    write them into the pool in place and attend through the
+    attention-backend registry. At C = 1 on a backend with a decode entry
+    that is one call (on the kernel backend one launch, B4 folded into
+    B3); otherwise `paged_write`, then the attention. Returns (y, the layer
+    pool).
     """
     from repro_torch.kernels.paged_attention import (choose_attn_backend,
                                                      get_attn_backend,
@@ -272,16 +293,18 @@ def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     k1 = dense(p, x, cfg, w="wk", b="bk").reshape(b, c, cfg.n_kv_heads, dh)
     v1 = dense(p, x, cfg, w="wv", b="bv").reshape(b, c, cfg.n_kv_heads, dh)
     if cfg.pos_embed == "rope":
-        q = rope(q, positions, cfg.rope_theta, _rope_dims(cfg))
-        k1 = rope(k1, positions, cfg.rope_theta, _rope_dims(cfg))
+        q = rope(q, index.positions, cfg.rope_theta, _rope_dims(cfg))
+        k1 = rope(k1, index.positions, cfg.rope_theta, _rope_dims(cfg))
     spec = get_attn_backend(choose_attn_backend(cfg.attn_backend))
-    if c == 1 and spec.fused_write is not None:
-        spec.fused_write(cache["k"], cache["v"], k1, v1, flat_idx)
+    if c == 1 and spec.decode_write_attend is not None:
+        o = spec.decode_write_attend(q, cache["k"], cache["v"], k1, v1,
+                                     index.flat, index.tables, index.lens,
+                                     index.kv_len)
     else:
-        paged_write(cache["k"], k1, flat_idx)
-        paged_write(cache["v"], v1, flat_idx)
-    o = paged_attention(q, cache["k"], cache["v"], tables,
-                        positions=positions, kv_len=kv_len,
-                        backend=cfg.attn_backend)
+        paged_write(cache["k"], k1, index.flat_idx)
+        paged_write(cache["v"], v1, index.flat_idx)
+        o = paged_attention(q, cache["k"], cache["v"], index.tables,
+                            positions=index.positions, kv_len=index.kv_len,
+                            lens=index.lens, backend=cfg.attn_backend)
     y = dense(p, o.reshape(b, c, cfg.n_heads * dh), cfg, w="wo", b="bo")
     return y, cache

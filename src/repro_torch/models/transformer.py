@@ -81,10 +81,10 @@ def cow_copy_block(cache: dict, src: int, dst: int) -> dict:
 
 
 def _layer_paged(lp: dict, h, layer_pool: dict, cfg: ModelConfig, *,
-                 positions, flat_idx, tables, kv_len):
+                 index: common.PagedIndex):
     a, _ = common.paged_attention_apply(
-        lp["attn"], norm(lp["norm1"], h, cfg), cfg, positions=positions,
-        cache=layer_pool, flat_idx=flat_idx, tables=tables, kv_len=kv_len)
+        lp["attn"], norm(lp["norm1"], h, cfg), cfg, cache=layer_pool,
+        index=index)
     h = h + a
     return h + mlp_apply(lp["ffn"], norm(lp["norm2"], h, cfg), cfg)
 
@@ -105,6 +105,10 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     b, c = tokens.shape
     block_size = cache["layers"]["k"].shape[2]
     window = tables.shape[1] * block_size
+    # the attention kernel's operands are int32 (no copy when the server
+    # hands them over as such); torch.gather and index_put take int64
+    tables32 = tables.to(torch.int32).contiguous()
+    lens32 = lens.to(torch.int32).contiguous()
     tables = tables.long()
     lens = lens.long()
     valid = valid.long()
@@ -119,12 +123,14 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
                            torch.zeros((), dtype=flat_idx.dtype,
                                        device=tokens.device))
     kv_len = lens + valid
+    index = common.PagedIndex(positions, flat_idx, tables32, lens32,
+                              kv_len.to(torch.int32),
+                              flat_idx.to(torch.int32))
 
     pools = cache["layers"]
     for i, lp in enumerate(params["layers"]):
         x = _layer_paged(lp, x, {"k": pools["k"][i], "v": pools["v"][i]},
-                         cfg, positions=positions, flat_idx=flat_idx,
-                         tables=tables, kv_len=kv_len)
+                         cfg, index=index)
     x = norm(params["final_norm"], x, cfg)
     if all_logits:
         return unembed(params["tok"], x, cfg), cache          # [B, C, V]

@@ -7,7 +7,11 @@ B1, B2, B4, B5 and B6 must be bit-exact (B2/B5 at every macro depth,
 B1/B6 at every even one) (B5/B6 at NOISY and at FULL: the
 kernel's sinf and torch.sin on the card are the same CUDA sinf); B3 too,
 since its plain version follows the kernel's operation order on the same
-device. Inputs come from numpy seeds. This file needs no JAX.
+device, with a bfloat16 output equal to the plain f32 output rounded by
+`.to(torch.bfloat16)`. B4 runs inside B3's decode launch: that launch
+must equal B4's plain version followed by B3's, on the outputs and on
+every byte of both pools. Inputs come from numpy seeds. This file needs
+no JAX.
 """
 import numpy as np
 import pytest
@@ -259,6 +263,13 @@ def _attn_case(seed, c, dtype, dev, b=4, kh=8, g=2, dh=128, bs=16, mb=16):
     return q, kp, vp, tables, lens, kvl
 
 
+def _same_bits(a, b):
+    """Equal bit for bit (NaN included)."""
+    ints = {2: torch.int16, 4: torch.int32}
+    return a.dtype == b.dtype and torch.equal(
+        a.view(ints[a.element_size()]), b.view(ints[b.element_size()]))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("bs", [8, 16])
@@ -274,19 +285,102 @@ def test_b3_bit_exact_vs_plain(c, mb, bs, dh, dtype):
     assert torch.isfinite(out).all()
     assert torch.equal(out, ref)
     assert (out[0] == 0).all()
+    # q read as bfloat16, the output written as bfloat16
+    q16 = case[0].bfloat16()
+    out16 = pa.paged_attn_call(q16, *case[1:], out_dtype=torch.bfloat16)
+    ref16 = pa.paged_attn_plain(q16, *case[1:])
+    assert out16.dtype == torch.bfloat16
+    assert _same_bits(out16, ref16.to(torch.bfloat16))
+
+
+def _decode_writes(case, dtype, dev):
+    """New K/V rows (pool dtype) and the flat write targets of a C = 1
+    `_attn_case`: slot s writes at its position lens[s] (slot 0 idle:
+    flat 0)."""
+    q, kp, _, tables, lens, _ = case
+    b = q.shape[0]
+    _, bs, kh, dh = kp.shape
+    rng = np.random.RandomState(b * dh + bs)
+    nk = torch.from_numpy(rng.standard_normal((b, 1, kh, dh))
+                          .astype(np.float32)).to(dev, dtype)
+    nv = torch.from_numpy(rng.standard_normal((b, 1, kh, dh))
+                          .astype(np.float32)).to(dev, dtype)
+    col = (lens // bs).long()
+    flat = (tables.gather(1, col[:, None])[:, 0] * bs + lens % bs).int()
+    flat[0] = 0
+    return nk, nv, flat
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("bs", [8, 16])
+@pytest.mark.parametrize("mb", [5, 16, 17])
+def test_b3_b4_decode_launch_bit_exact_vs_plain(mb, bs, dh, dtype):
+    """The fused decode launch against fused_write_plain + paged_attn_plain:
+    slot 1 writes at offset bs - 1 of rank 0's last column, slots 2 and 3
+    into blocks of ranks > 0; slot 0 is idle (flat 0); the trash block is
+    NaN. Outputs and both pools bit-exact, at f32 and at bf16 q/output."""
+    dev = gpu_device()
+    case = _attn_case(8, 1, dtype, dev, dh=dh, bs=bs, mb=mb)
+    q, kp, vp, tables, lens, kvl = case
+    nk, nv, flat = _decode_writes(case, dtype, dev)
+    per = pa.attn_splits(mb)[1]
+    assert (lens[2:] // bs // per > 0).all()     # write blocks of ranks > 0
+    for qx, out_dtype in ((q, torch.float32),
+                          (q.bfloat16(), torch.bfloat16)):
+        k2, v2, k3, v3 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        before = pa.decode_write_attend_call.launches
+        out = pa.decode_write_attend_call(qx, k2, v2, nk, nv, flat, tables,
+                                          lens, kvl, out_dtype=out_dtype)
+        ref = pa.decode_write_attend_plain(qx, k3, v3, nk, nv, flat, tables,
+                                           lens, kvl).to(out_dtype)
+        assert pa.decode_write_attend_call.launches == before + 1
+        assert torch.isfinite(out).all() and (out[0] == 0).all()
+        assert _same_bits(out, ref)
+        assert _same_bits(k2, k3) and _same_bits(v2, v3)
+        assert not _same_bits(k2, kp)               # the rows were written
+        assert _same_bits(k2[0], kp[0])             # flat 0: no write
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_b4_bit_exact_vs_plain(dtype):
+    """B4 inside the decode launch: three writes, one invalid lane, new
+    rows and tables given as the caller holds them (int64 indices)."""
     dev = gpu_device()
     g = torch.Generator(device="cpu").manual_seed(8)
     kp = torch.randn(9, 16, 8, 128, generator=g).to(dev, dtype)
     vp = torch.randn(9, 16, 8, 128, generator=g).to(dev, dtype)
-    nk = torch.randn(4, 1, 8, 128, generator=g).to(dev)
-    nv = torch.randn(4, 1, 8, 128, generator=g).to(dev)
+    nk = torch.randn(4, 1, 8, 128, generator=g).to(dev, dtype)
+    nv = torch.randn(4, 1, 8, 128, generator=g).to(dev, dtype)
+    q = torch.randn(4, 1, 16, 128, generator=g).to(dev)
     flat = torch.tensor([[17], [0], [40], [143]], device=dev)
+    # each slot's table maps its write block at its position
+    tables = torch.tensor([[1, 0], [0, 0], [2, 0], [7, 8]], device=dev)
+    lens = torch.tensor([1, 0, 8, 31], device=dev)
+    kvl = lens + torch.tensor([1, 0, 1, 1], device=dev)
     k2, v2, k3, v3 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-    pa.fused_write_call(k2, v2, nk, nv, flat)
-    pa.fused_write_plain(k3, v3, nk, nv, flat)
+    out = pa.decode_write_attend_call(q, k2, v2, nk, nv, flat, tables, lens,
+                                      kvl)
+    ref = pa.decode_write_attend_plain(q, k3, v3, nk, nv, flat, tables, lens,
+                                       kvl)
     assert torch.equal(k2, k3) and torch.equal(v2, v3)
     assert torch.equal(k2[0], kp[0])       # flat 0: no write
+    assert torch.equal(out, ref)
+
+
+def test_decode_launch_rejects_bad_operands():
+    dev = gpu_device()
+    case = _attn_case(9, 1, torch.bfloat16, dev, dh=128, bs=16, mb=16)
+    q, kp, vp, tables, lens, kvl = case
+    nk, nv, flat = _decode_writes(case, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="bfloat16"):     # pool dtype
+        pa.decode_write_attend_call(q, kp, vp, nk.float(), nv, flat, tables,
+                                    lens, kvl)
+    strided = nk.transpose(2, 3).contiguous().transpose(2, 3)
+    with pytest.raises(ValueError, match="contiguous"):
+        pa.decode_write_attend_call(q, kp, vp, strided, nv, flat, tables,
+                                    lens, kvl)
+    q16 = torch.cat([q, q], 1)
+    with pytest.raises(ValueError, match="C = 1"):
+        pa.decode_write_attend_call(q16, kp, vp, nk, nv, flat, tables, lens,
+                                    kvl)

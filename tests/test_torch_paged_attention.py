@@ -8,9 +8,15 @@ is held within atol/rtol 2e-5 (f32 rounding over windows of <= 136
 positions of unit-scale scores);
 the "exact" backend likewise against the reference "exact". Every case
 uses mixed lengths, an idle lane and a NaN-filled trash block, and the
-outputs must be finite. The plain B4 is bit-exact. Inputs come from numpy
-seeds; the card-side tests are in test_torch_gpu.py.
+outputs must be finite. The plain B4 is bit-exact. The decode entry (B4's
+write folded into B3's launch on the card; on CPU tensors the plain
+pair) is held against the reference's fused write then flash attention:
+pools bit-exact, outputs within TOL. Inputs come from numpy seeds; the
+card-side tests are in test_torch_gpu.py.
 """
+import dataclasses
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -20,8 +26,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import paged_attention as ref_pa  # noqa: E402
 from repro.models import common as ref_common  # noqa: E402
+from repro_torch.configs.registry import SMOKES  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
-from repro_torch.models import common  # noqa: E402
+from repro_torch.models import common, registry, transformer  # noqa: E402
 
 TOL = dict(rtol=2e-5, atol=2e-5)
 
@@ -124,23 +131,137 @@ def test_kernel_and_plain_backends_agree_with_exact(c):
 
 
 def test_plain_b4_bit_exact_vs_fused_write():
+    """B4 through the decode entry: pools bit-exact against the reference's
+    fused write, written in place, the invalid lane (flat 0) writing
+    nothing."""
     rng = np.random.RandomState(4)
-    nb, bs, kh, dh = 9, 8, 2, 16
+    nb, bs, kh, dh = 9, 8, 2, 32
     kp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
     vp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
     nk = rng.standard_normal((4, 1, kh, dh)).astype(np.float32)
     nv = rng.standard_normal((4, 1, kh, dh)).astype(np.float32)
+    q = rng.standard_normal((4, 1, 2 * kh, dh)).astype(np.float32)
     flat = np.array([[13], [0], [40], [71]], np.int32)   # lane 1 invalid
+    # each lane's table maps the block its write lands in at its position
+    tables = np.array([[1, 0], [0, 0], [4, 5], [7, 8]], np.int32)
+    lens = np.array([5, 0, 8, 15], np.int32)
+    kvl = lens + np.array([1, 0, 1, 1], np.int32)
     rk, rv = ref_pa.fused_paged_write(jnp.asarray(kp), jnp.asarray(vp),
                                       jnp.asarray(nk), jnp.asarray(nv),
                                       jnp.asarray(flat), interpret=True)
     tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
-    ok, ov = pa.fused_write_call(tk, tv, torch.from_numpy(nk),
-                                  torch.from_numpy(nv), torch.from_numpy(flat))
-    assert ok is tk and ov is tv                     # written in place
-    assert np.array_equal(np.asarray(rk), tk.numpy())
+    out = pa.decode_write_attend_call(
+        torch.from_numpy(q), tk, tv, torch.from_numpy(nk),
+        torch.from_numpy(nv), torch.from_numpy(flat),
+        *(torch.from_numpy(a) for a in (tables, lens, kvl)))
+    assert out.shape == (4, 1, 2 * kh, dh) and out.dtype == torch.float32
+    assert np.array_equal(np.asarray(rk), tk.numpy())   # written in place
     assert np.array_equal(np.asarray(rv), tv.numpy())
     assert np.array_equal(tk[0].numpy(), kp[0])      # trash block untouched
+
+
+# The decode entry's cases, by table width MB (S = min(8, MB) split ranks
+# of B3): the table column of the write of slots 1-3 (slot 0 is idle:
+# flat 0, kv_len 0). Slot 1 writes at offset bs - 1, slot 2 opens a new
+# block (offset 0), slot 3 writes mid-block. At MB 5 (5 ranks of 1
+# column) and MB 17 (8 ranks of 3) every write block is owned by a rank
+# > 0: columns 2, 4, 1 (ranks 2, 4, 1) and 7, 16, 10 (ranks 2, 5, 3).
+DECODE_WRITES = {1: (0, 0, 0), 5: (2, 4, 1), 17: (7, 16, 10)}
+
+
+@functools.lru_cache(maxsize=None)
+def _decode_case(mb, seed=9, b=4, kh=2, g=2, dh=32, bs=8):
+    """Numpy inputs of one decode write + attend, and the reference's
+    pools and output (fused_paged_write, then paged_flash_attention in
+    interpret mode)."""
+    rng = np.random.RandomState(seed + mb)
+    nb = b * mb + 1
+    q = rng.standard_normal((b, 1, kh * g, dh)).astype(np.float32)
+    kp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
+    nk = rng.standard_normal((b, 1, kh, dh)).astype(np.float32)
+    nv = rng.standard_normal((b, 1, kh, dh)).astype(np.float32)
+    kp[0] = np.nan
+    vp[0] = np.nan
+    free = list(range(1, nb))
+    rng.shuffle(free)
+    tables = np.zeros((b, mb), np.int32)
+    lens = np.zeros(b, np.int32)
+    flat = np.zeros((b, 1), np.int32)
+    for s, (col, off) in enumerate(zip(DECODE_WRITES[mb],
+                                       (bs - 1, 0, 3)), start=1):
+        for j in range(col + 1):
+            tables[s, j] = free.pop()
+        lens[s] = col * bs + off
+        flat[s, 0] = tables[s, col] * bs + off
+    kvl = lens + np.array([0] + [1] * (b - 1), np.int32)
+    rk, rv = ref_pa.fused_paged_write(jnp.asarray(kp), jnp.asarray(vp),
+                                      jnp.asarray(nk), jnp.asarray(nv),
+                                      jnp.asarray(flat), interpret=True)
+    ref = ref_pa.paged_flash_attention(
+        jnp.asarray(q), rk, rv, jnp.asarray(tables), jnp.asarray(lens),
+        jnp.asarray(kvl), interpret=True, kblocks=1, row_tile=None)
+    inputs = (q, kp, vp, nk, nv, flat, tables, lens, kvl)
+    return inputs, (np.asarray(rk), np.asarray(rv), np.asarray(ref))
+
+
+@pytest.mark.parametrize("backend", ["kernel", "plain"])
+@pytest.mark.parametrize("mb", sorted(DECODE_WRITES))
+def test_decode_entry_vs_reference_write_then_attend(mb, backend):
+    (q, kp, vp, nk, nv, flat, tables, lens, kvl), (rk, rv, ref) = \
+        _decode_case(mb)
+    per = pa.attn_splits(mb)[1]
+    assert mb == 1 or min(col // per for col in DECODE_WRITES[mb]) > 0
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    out = pa.get_attn_backend(backend).decode_write_attend(
+        torch.from_numpy(q), tk, tv,
+        *(torch.from_numpy(a) for a in (nk, nv, flat, tables, lens, kvl)))
+    assert np.array_equal(tk.numpy(), rk, equal_nan=True)
+    assert np.array_equal(tv.numpy(), rv, equal_nan=True)
+    assert np.isnan(tk[0].numpy()).all()             # idle lane: no write
+    out = out.numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **TOL)
+    assert np.all(out[0] == 0.0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("backend", ["kernel", "plain"])
+def test_paged_step_decode_entry_same_as_write_then_attend(backend, dtype,
+                                                            monkeypatch):
+    """A decode step (C = 1) through the backend's decode entry gives the
+    same logits and pools as through paged_write + paged_attention (the
+    entry removed from the registry); only the trash block differs, where
+    paged_write parks the idle lane's row."""
+    cfg = SMOKES["internlm2-1.8b"].replace(dtype=dtype, attn_backend=backend)
+    params = registry.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(11)
+    tables = torch.tensor([[0, 0, 0], [1, 2, 3], [4, 5, 0], [6, 0, 0]],
+                          dtype=torch.int32)
+    cache = transformer.init_paged_cache(cfg, 7, 4, device="cpu")
+    _, cache = transformer.paged_step(
+        params, torch.from_numpy(rng.randint(0, cfg.vocab, (4, 6))), cache,
+        tables, torch.zeros(4, dtype=torch.int32),
+        torch.tensor([0, 6, 6, 3], dtype=torch.int32), cfg)
+    tok = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 1)))
+    lens = torch.tensor([0, 6, 6, 3], dtype=torch.int32)
+    valid = torch.tensor([0, 1, 1, 1], dtype=torch.int32)
+    runs = []
+    for entry in (True, False):
+        if not entry:
+            spec = dataclasses.replace(pa.get_attn_backend(backend),
+                                       decode_write_attend=None)
+            monkeypatch.setitem(pa._ATTN_REGISTRY, backend, spec)
+        c = {"layers": {k: v.clone() for k, v in cache["layers"].items()}}
+        logits, c = transformer.paged_step(params, tok, c, tables, lens,
+                                           valid, cfg)
+        runs.append((logits, c["layers"]))
+    (l_e, p_e), (l_w, p_w) = runs
+    assert torch.isfinite(l_e[1:]).all()
+    assert torch.equal(l_e, l_w)
+    for name in ("k", "v"):
+        assert torch.equal(p_e[name][:, 1:], p_w[name][:, 1:])
+        assert torch.equal(p_e[name][:, 0], cache["layers"][name][:, 0])
 
 
 def test_paged_write_and_gather_vs_reference():
@@ -172,18 +293,25 @@ def test_attn_splits(mb, splits):
 def test_registry():
     assert set(pa.available_attn_backends()) == {"exact", "kernel", "plain"}
     assert pa.choose_attn_backend("auto") == "kernel"
-    assert pa.get_attn_backend("kernel").fused_write is not None
-    assert pa.get_attn_backend("exact").fused_write is None
+    assert pa.get_attn_backend("kernel").decode_write_attend is not None
+    assert pa.get_attn_backend("plain").decode_write_attend is not None
+    assert pa.get_attn_backend("exact").decode_write_attend is None
     with pytest.raises(ValueError, match="unknown attention backend"):
         pa.choose_attn_backend("nope")
 
 
 def test_cpu_calls_launch_nothing():
     case = _torch(_case(6))
-    before = (pa.paged_attn_call.launches, pa.fused_write_call.launches)
+    before = (pa.paged_attn_call.launches,
+              pa.decode_write_attend_call.launches)
     pa.paged_attn_call(*case)
+    q, kp, vp, tables, lens, kvl = case
+    new = torch.zeros(q.shape[0], 1, kp.shape[2], kp.shape[3])
+    pa.decode_write_attend_call(q, kp, vp, new, new,
+                                torch.zeros(q.shape[0], dtype=torch.int32),
+                                tables, lens, kvl)
     assert (pa.paged_attn_call.launches,
-            pa.fused_write_call.launches) == before
+            pa.decode_write_attend_call.launches) == before
 
 
 if __name__ == "__main__":
