@@ -25,7 +25,12 @@ of which fails the run when it fails:
      a PyTorch library call (the MVM kernels over one decode step's 169
      MVMs and over a prefill chunk's 168 layer MVMs at M=64, logged per
      shape; B3 at decode and at the prefill chunk; B4 as the decode
-     launch's time less B3's alone at the same shapes);
+     launch's time less B3's alone at the same shapes); B3 alone and the
+     B3+B4 decode launch at the head dims and block sizes past the fast
+     case (dh 16, 20, 56, 80, 128 x bs 16, 48, 64, 128; bf16 and f32 pools)
+     bit-exact against their plain versions; B3 timed at decode at dh 80 /
+     bs 16 and dh 128 / bs 64 and at a verify step (C = 5), and B1 over a
+     verify step's MVMs (M = 20);
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
@@ -35,6 +40,12 @@ of which fails the run when it fails:
      with the kernels and with their plain versions, which must give
      identical logits, and where one decode step's time goes (CUDA graph
      vs eager, launches per step, profiler rows);
+  3s. speculative decoding at phase 3's width and settings: one verify
+     step (C = 5, every position's logits) with the kernels and with their
+     plain versions, identical logits and pools; phase 3's 8 requests
+     served greedily with the ngram drafter at spec_k 4 (accept statistics
+     printed), then twice sampled (temperature 0.7, top-k 8, seeds 0-7),
+     which must give identical streams;
   4. a short --cim bp serve, which must launch B2, and the decode step
      breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
@@ -80,6 +91,12 @@ DECODE_MVMS = [("wq+wo", 2048, 2048, 48), ("wk+wv", 2048, 1024, 48),
 PARITY_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
              (2048, 92544)]
 DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
+# B3's head dims and block sizes past its fast case (dh in {32, 64, 128,
+# 256}, bs <= 32): bf16 rows of dh 20 are 40 bytes; dh 56 is deepseek-v3's
+# MLA head dim, dh 80 stablelm-3b's
+C1_SHAPES = ((16, 16), (80, 16), (56, 16), (20, 16), (128, 48), (128, 64),
+             (80, 128))
+SPEC_K = 4
 
 
 def log(msg: str) -> None:
@@ -170,6 +187,7 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.models import common, registry, transformer
     from repro_torch.runtime.server import Request, Server, ServingConfig
+    from repro_torch.runtime.speculative import SamplingParams
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls stay f32
     dev = torch.device("cuda")
@@ -372,6 +390,31 @@ def main() -> int:
             f"{max(pb_bytes, pb_ops):.3f} ms (bytes {pb_bytes:.3f} ms, "
             f"operations {pb_ops:.3f} ms, hash "
             f"{pre['hash_ops'] / 1e9:.3f} G int32 ops)")
+        if name != "B1":
+            continue
+        # a speculative verify step: 4 slots x (spec_k + 1) positions, the
+        # head included (every position's logits)
+        m_v = 4 * (SPEC_K + 1)
+        ver = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0}
+        for label, k, n, count in DECODE_MVMS:
+            x = codes((m_v, k))
+            ws = copies(ops.pack_codes(codes((k, n))).contiguous())
+            args = [(x, wi) for wi in ws]
+            t_k = graph_ms(torch, run_k, args)
+            t_p = graph_ms(torch, run_p, args[:4], reps=3, min_iters=4)
+            wbytes = ws[0].numel()
+            log(f"  B1 {label:12s} M={m_v} K={k} N={n} x{count}/verify "
+                f"step: kernel {t_k * 1e3:.2f} us on the card, plain "
+                f"{t_p * 1e3:.2f} us")
+            ver["ms"] += count * t_k
+            ver["plain_ms"] += count * t_p
+            ver["bytes"] += count * (wbytes + m_v * k * 4 + m_v * n * 4)
+            ver["ops"] += count * 2 * m_v * k * n
+            del x, ws
+        vb = max(ver["bytes"] / HBM_BYTES_S, ver["ops"] / INT_OP_S) * 1e3
+        log(f"  B1 one verify step (169 MVMs at M={m_v}): kernel "
+            f"{ver['ms']:.3f} ms on the card, plain {ver['plain_ms']:.3f} "
+            f"ms, bound {vb:.3f} ms")
 
     # B3: paged flash attention at the main path's shapes
     b, kh, g, dh, bs, mb = 4, 8, 2, 128, 16, 16
@@ -445,36 +488,43 @@ def main() -> int:
         f"{t_p * 1e3:.2f} us, SDPA on the gathered window "
         f"{t_lib * 1e3:.2f} us")
 
-    # B3 at a prefill chunk (C = 16: 32 query rows per KV head), beside
-    # SDPA on the pre-gathered window with the same causal and length masks
-    t_kp = graph_ms(torch, lambda kp, vp: pa.paged_attn_call(
-        q_pre, kp, vp, tables, lens, kvl_pre), pool_copies)
-    t_pp = graph_ms(torch, lambda kp, vp: pa.paged_attn_plain(
-        q_pre, kp, vp, tables, lens, kvl_pre), pool_copies[:2], reps=3,
-        min_iters=2)
-    pos_q = lens[:, None].long() + torch.arange(16, device=dev)[None, :]
-    pos_s = torch.arange(win, device=dev)
-    vwp = torch.where((pos_s[None, :] < kvl_pre[:, None].long())[
-        :, None, :, None], common.paged_gather(v_pool, tables).permute(
-            0, 2, 1, 3), 0)
-    mask_p = ((pos_s[None, None, :] <= pos_q[:, :, None])
-              & (pos_s[None, None, :] < kvl_pre[:, None, None].long())
-              )[:, None]
-    qp = q_pre.permute(0, 2, 1, 3).bfloat16()
-    t_libp = graph_ms(torch, lambda: sdpa(qp, kw_, vwp, attn_mask=mask_p,
-                                          enable_gqa=True), [()])
-    # bound: each slot's K/V rows read once, q read and out written once;
-    # each query row attends its causal prefix (lens + offset + 1 tokens)
-    att = torch.minimum(pos_q + 1, kvl_pre[:, None].long()).sum().item()
-    pb_bytes = (int(kvl_pre.sum()) * kh * dh * 2 * 2
-                + 2 * q_pre.numel() * 4) / HBM_BYTES_S * 1e3
-    pb_ops = att * g * kh * dh * 4 / F32_FLOP_S * 1e3
-    log(f"  B3 prefill C=16 kv_len={kvl_pre.tolist()}: kernel "
-        f"{t_kp * 1e3:.2f} us on the card, plain {t_pp * 1e3:.2f} us, SDPA "
-        f"on the gathered window {t_libp * 1e3:.2f} us, bound "
-        f"{max(pb_bytes, pb_ops) * 1e3:.2f} us "
-        f"({'bytes' if pb_bytes >= pb_ops else 'operations'})")
-    del vwp, mask_p, qp
+    def b3_row(tag, q, kp, vp, tb, ln, kvl, pc=None):
+        """Time B3 (CUDA-graph replays over pool copies `pc`) beside its
+        plain version, SDPA on the pre-gathered window with the same causal
+        and length masks (the gather is not timed) and its bound; log one
+        row."""
+        pc = pc or list(zip(copies(kp), copies(vp)))
+        t_k = graph_ms(torch, lambda a, v: pa.paged_attn_call(
+            q, a, v, tb, ln, kvl), pc)
+        t_p = graph_ms(torch, lambda a, v: pa.paged_attn_plain(
+            q, a, v, tb, ln, kvl), pc[:2], reps=3, min_iters=2)
+        kh_, dh_ = kp.shape[2], kp.shape[3]
+        pos_q = ln[:, None].long() + torch.arange(q.shape[1],
+                                                  device=dev)[None, :]
+        pos_s = torch.arange(tb.shape[1] * kp.shape[1], device=dev)
+        kw = common.paged_gather(kp, tb).permute(0, 2, 1, 3)
+        vw = torch.where((pos_s[None, :] < kvl[:, None].long())[
+            :, None, :, None], common.paged_gather(vp, tb).permute(
+                0, 2, 1, 3), 0)
+        mask = ((pos_s[None, None, :] <= pos_q[:, :, None])
+                & (pos_s[None, None, :] < kvl[:, None, None].long()))[:, None]
+        qs = q.permute(0, 2, 1, 3).to(kp.dtype)
+        t_lib = graph_ms(torch, lambda: sdpa(qs, kw, vw, attn_mask=mask,
+                                             enable_gqa=True), [()])
+        # bound: each slot's K/V rows read once, q read and out written
+        # once; each query row attends its causal prefix
+        att = torch.minimum(pos_q + 1, kvl[:, None].long()).sum().item()
+        bb = (int(kvl.sum()) * kh_ * dh_ * kp.element_size() * 2
+              + 2 * q.numel() * 4) / HBM_BYTES_S * 1e3
+        bo = att * (q.shape[2] // kh_) * kh_ * dh_ * 4 / F32_FLOP_S * 1e3
+        log(f"  B3 {tag} kv_len={kvl.tolist()}: kernel {t_k * 1e3:.2f} us "
+            f"on the card, plain {t_p * 1e3:.2f} us, SDPA on the gathered "
+            f"window {t_lib * 1e3:.2f} us, bound {max(bb, bo) * 1e3:.2f} us "
+            f"({'bytes' if bb >= bo else 'operations'})")
+
+    # B3 at a prefill chunk (C = 16: 32 query rows per KV head)
+    b3_row("prefill C=16", q_pre, k_pool, v_pool, tables, lens, kvl_pre,
+           pool_copies)
 
     # B4: the decode K/V write, inside B3's decode launch. Slot s writes
     # its new row at its position lens[s] (slot 0 idle: flat 0), as
@@ -550,13 +600,110 @@ def main() -> int:
         f"(bf16 q and output) -> B4 {(t_fused - t_b3) * 1e3:.3f} us; "
         f"{t_call * 1e3:.2f} us per eager call of the decode launch; plain "
         f"B4 {t_p * 1e3:.2f} us, 2x index_copy_ {2 * t_lib * 1e3:.2f} us")
+    # B3 at a speculative verify step: C = spec_k + 1 query positions per
+    # slot at decode depth (the new K/V already written)
+    c_v = SPEC_K + 1
+    kvl_v = lens + torch.tensor([0, c_v, c_v, c_v], dtype=torch.int32,
+                                  device=dev)
+    q_v = torch.from_numpy(rng.standard_normal((b, c_v, kh * g, dh),
+                                               dtype=np.float32)).to(dev)
+    o = pa.paged_attn_call(q_v, k_pool, v_pool, tables, lens, kvl_v)
+    check(torch.equal(o, pa.paged_attn_plain(q_v, k_pool, v_pool, tables,
+                                             lens, kvl_v)),
+          "B3 differs from its plain version at the verify step C=5")
+    b3_row(f"verify step C={c_v}", q_v, k_pool, v_pool, tables, lens, kvl_v,
+           pool_copies)
     del k_pool, v_pool, k2, v2, k3, v3, pool_copies, kw_, vw_
 
+    # B3 and the B3+B4 decode launch at every head dim and block size the
+    # reference takes (C1 shapes), both pool dtypes, against the plain pair
+    def c1_case(dh_, bs_, dtype):
+        mb_ = max(2, 256 // bs_)
+        nb_ = b * mb_ + 1
+        kp_ = torch.from_numpy(rng.standard_normal(
+            (nb_, bs_, kh, dh_), dtype=np.float32)).to(dev, dtype)
+        vp_ = torch.from_numpy(rng.standard_normal(
+            (nb_, bs_, kh, dh_), dtype=np.float32)).to(dev, dtype)
+        kp_[0] = float("nan")
+        vp_[0] = float("nan")
+        tb_ = torch.from_numpy(rng.permutation(np.arange(1, nb_)).astype(
+            np.int32)[:b * mb_].reshape(b, mb_)).to(dev)
+        w_ = mb_ * bs_
+        ln_ = torch.tensor([0, 37, w_ // 2 + 5, w_ - 17], dtype=torch.int32,
+                           device=dev)
+        return kp_, vp_, tb_, ln_
+
+    for dh_, bs_ in C1_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            kp_, vp_, tb_, ln_ = c1_case(dh_, bs_, dtype)
+            where = f"at dh={dh_} bs={bs_} {dtype}"
+            for c in (1, SPEC_K + 1, 16):
+                kvl_ = ln_ + torch.tensor([0, c, c, c], dtype=torch.int32,
+                                          device=dev)
+                q_ = torch.from_numpy(rng.standard_normal(
+                    (b, c, kh * g, dh_), dtype=np.float32)).to(dev)
+                o = pa.paged_attn_call(q_, kp_, vp_, tb_, ln_, kvl_)
+                op = pa.paged_attn_plain(q_, kp_, vp_, tb_, ln_, kvl_)
+                torch.cuda.synchronize()
+                e = (o - op).abs().max().item()
+                b3_err = max(b3_err, e)
+                check(bool(torch.isfinite(o).all()) and torch.equal(o, op),
+                      f"B3 differs from its plain version {where} C={c}: "
+                      f"max |err| {e}")
+            kvl_ = ln_ + torch.tensor([0, 1, 1, 1], dtype=torch.int32,
+                                      device=dev)
+            nk_ = torch.from_numpy(rng.standard_normal(
+                (b, 1, kh, dh_), dtype=np.float32)).to(dev, dtype)
+            nv_ = torch.from_numpy(rng.standard_normal(
+                (b, 1, kh, dh_), dtype=np.float32)).to(dev, dtype)
+            fl_ = (tb_.gather(1, (ln_ // bs_).long()[:, None])[:, 0] * bs_
+                   + ln_ % bs_).int()
+            fl_[0] = 0
+            q_ = torch.from_numpy(rng.standard_normal(
+                (b, 1, kh * g, dh_), dtype=np.float32)).to(dev)
+            k2, v2, k3, v3 = (t.clone() for t in (kp_, vp_, kp_, vp_))
+            o = pa.decode_write_attend_call(q_, k2, v2, nk_, nv_, fl_, tb_,
+                                            ln_, kvl_)
+            op = pa.decode_write_attend_plain(q_, k3, v3, nk_, nv_, fl_,
+                                              tb_, ln_, kvl_)
+            torch.cuda.synchronize()
+            ints = torch.int16 if dtype == torch.bfloat16 else torch.int32
+            check(torch.equal(k2.view(ints), k3.view(ints))
+                  and torch.equal(v2.view(ints), v3.view(ints))
+                  and not torch.equal(k2.view(ints), kp_.view(ints)),
+                  f"the decode launch's pools differ from B4's plain "
+                  f"version {where}")
+            e = (o - op).abs().max().item()
+            b4_err = max(b4_err, e)
+            check(torch.equal(o, op), f"the decode launch differs from B4 "
+                  f"then B3 plain {where}: max |err| {e}")
+            del kp_, vp_, k2, v2, k3, v3
+    report["B3"]["max_abs_err"] = b3_err
+    report["B4"]["max_abs_err"] = b4_err
+    log(f"phase 2: B3 (C in 1, {SPEC_K + 1}, 16) and the B3+B4 decode "
+        f"launch bit-exact vs plain at (dh, bs) in {list(C1_SHAPES)}, bf16 "
+        "and f32 pools (tolerance 0)")
+    # B3 alone at decode (f32 q, bf16 pools, as the dh 128 / bs 16 row
+    # above) at dh 80 / bs 16 and dh 128 / bs 64
+    for dh_, bs_ in ((80, 16), (128, 64)):
+        kp_, vp_, tb_, ln_ = c1_case(dh_, bs_, torch.bfloat16)
+        kvl_ = ln_ + torch.tensor([0, 1, 1, 1], dtype=torch.int32, device=dev)
+        q_ = torch.from_numpy(rng.standard_normal(
+            (b, 1, kh * g, dh_), dtype=np.float32)).to(dev)
+        b3_row(f"decode C=1 dh={dh_} bs={bs_} MB={tb_.shape[1]}", q_, kp_,
+               vp_, tb_, ln_, kvl_)
+        del kp_, vp_
+
     # ---- shared by phases 3, 4 and 4b ------------------------------------
-    def serve_mix(server, prompts, tag):
-        """Phase 3's 8-request mix, 16 new tokens each; launch counts are
-        reset just before and read just after."""
-        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+    def serve_mix(server, prompts, tag, sampling=None):
+        """Phase 3's 8-request mix, 16 new tokens each (request i sampled
+        with `sampling` and seed i, greedy without); launch counts are
+        reset just before and read just after. Returns (the counts, the
+        token streams)."""
+        reqs = [Request(prompt=p, max_new_tokens=16) if sampling is None
+                else Request(prompt=p, max_new_tokens=16,
+                             sampling=SamplingParams(**sampling, seed=i))
+                for i, p in enumerate(prompts)]
         # host wall time of each scheduler step (each ends by reading the
         # sampled tokens back), split by whether it prefilled
         step_s = {"prefill": [], "decode": []}
@@ -597,8 +744,14 @@ def main() -> int:
             f"GiB, prefix_hit_tokens={m['prefix_hit_tokens']} "
             f"cow_forks={m['cow_forks']} preemptions={m['preemptions']}")
         log(f"{tag}: launches {counts}")
+        if server.drafter is not None:
+            log(f"{tag}: speculative drafter={server.serving.drafter} "
+                f"spec_k={server.spec_k} spec_steps={m['spec_steps']} "
+                f"draft_tokens={m['draft_tokens']} accept_rate="
+                f"{m['accept_rate']:.4f} mean_accept_len="
+                f"{m['mean_accept_len']:.4f} accept_hist={m['accept_hist']}")
         check(m["prefix_hit_tokens"] >= 32, "the shared prefix was not reused")
-        return counts
+        return counts, [r.output for r in reqs]
 
     def two_steps(server, step_cfg):
         """One prefill (C=16) and one decode step from an empty pool."""
@@ -724,7 +877,7 @@ def main() -> int:
                for n in lengths]
     for i in (0, 6):
         prompts[i] = prefix + prompts[i][32:]
-    counts = serve_mix(server, prompts, "phase 3")
+    counts, _ = serve_mix(server, prompts, "phase 3")
     # B3 runs alone at prefill and with B4 folded in at decode
     check(counts["paged_attn_call"] > 0, "B3 was not launched at prefill")
     main_launches = {"B1": counts["cim_mvm_grouped_packed"],
@@ -735,7 +888,68 @@ def main() -> int:
         check(n > 0, f"{name} was not launched on the main path")
     check_steps(server, "phase 3")
     decode_breakdown(server, "phase 3")
-    del server
+
+    # ---- phase 3s: speculative decoding at phase 3's width ---------------
+    # (a) one verify step (C = spec_k + 1, every position's logits) after a
+    # prefill chunk, with the kernels and with their plain versions
+    def verify_step(step_cfg):
+        cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
+                                             device=dev)
+        tb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
+        srng = np.random.RandomState(9)
+        toks = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        valid = torch.tensor([16, 16, 9, 0], device=dev)
+        _, cache = transformer.paged_step(
+            server.params, toks, cache, tb,
+            torch.zeros(4, device=dev, dtype=torch.long), valid, step_cfg)
+        draft = torch.from_numpy(srng.randint(0, cfg.vocab,
+                                              (4, SPEC_K + 1))).to(dev)
+        logits, cache = transformer.paged_step(
+            server.params, draft, cache, tb, valid,
+            torch.tensor([SPEC_K + 1, 3, 1, 0], device=dev), step_cfg,
+            all_logits=True)
+        return logits, cache["layers"]
+
+    build.reset_launch_counts()
+    l_k, pools_k = verify_step(server.cfg)
+    torch.cuda.synchronize()
+    v_counts = build.launch_counts()
+    l_p, pools_p = verify_step(server.cfg.replace(
+        attn_backend="plain",
+        cim=dataclasses.replace(server.cfg.cim, backend="plain")))
+    torch.cuda.synchronize()
+    check(l_k.shape == (4, SPEC_K + 1, cfg.vocab)
+          and bool(torch.isfinite(l_k[:3]).all()),
+          "phase 3s: verify-step logits malformed")
+    v_err = (l_k[:3] - l_p[:3]).abs().max().item()
+    same_pools = all(torch.equal(pools_k[n][:, 1:].view(torch.int16),
+                                 pools_p[n][:, 1:].view(torch.int16))
+                     for n in ("k", "v"))
+    log(f"phase 3s: verify step C={SPEC_K + 1} (all logits), kernels vs "
+        f"plain versions: max |dlogit| = {v_err}, pools identical: "
+        f"{same_pools} (tolerance 0); launches {v_counts}")
+    check(v_err == 0.0 and same_pools, "phase 3s: kernel and plain verify "
+          "steps differ")
+    check(v_counts["cim_mvm_grouped_packed"] > 0
+          and v_counts["paged_attn_call"] > 0,
+          "phase 3s: the verify step did not launch B1 and B3")
+    del server, l_k, l_p, pools_k, pools_p
+    # (b) the greedy spec serve, (c) the sampled spec serve, twice
+    spec_serving = dataclasses.replace(serving, drafter="ngram",
+                                       spec_k=SPEC_K)
+    counts, _ = serve_mix(Server(params, cfg, spec_serving, device=dev),
+                          prompts, "phase 3s: greedy ngram")
+    check(counts["cim_mvm_grouped_packed"] > 0
+          and counts["paged_attn_call"] > 0,
+          "phase 3s: the spec serve did not launch B1 and B3")
+    sampled = dict(temperature=0.7, top_k=8)
+    streams = [serve_mix(Server(params, cfg, spec_serving, device=dev),
+                         prompts, f"phase 3s: sampled ngram run {i}",
+                         sampling=sampled)[1] for i in (1, 2)]
+    check(streams[0] == streams[1], "phase 3s: two sampled spec serves gave "
+          "different streams")
+    log("phase 3s: the two sampled spec serves (temperature 0.7, top-k 8, "
+        "seeds 0-7) gave identical streams")
 
     # ---- phase 4: --cim bp serve (B2) ------------------------------------
     server = Server(params, cfg, ServingConfig(
@@ -754,7 +968,7 @@ def main() -> int:
         noisy.macro, sim_level=SimLevel.NOISY))
     ncfg = cfg.replace(cim=noisy)
     server = Server(params, ncfg, serving, device=dev)
-    counts = serve_mix(server, prompts, "phase 4b: NOISY prequant")
+    counts, _ = serve_mix(server, prompts, "phase 4b: NOISY prequant")
     for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
                     ("B3", counts["paged_attn_call"]),
                     ("B3+B4", counts["decode_write_attend_call"])):

@@ -15,7 +15,9 @@
 // rows at or past kv_len are zeroed by selection before the PV sum (the
 // trash block may hold NaN, and 0 * NaN is NaN); the output is
 // acc / max(l, 1e-30), so idle lanes (kv_len 0) emit 0. Math is f32 with
-// scale = 1/sqrt(dh); the pools are upcast as they are read.
+// scale = 1/sqrt(dh); the pools are upcast as they are read. Any head dim
+// 1 <= dh <= 256 and any block size bs >= 1 (the GEN instances below; the
+// JAX kernel takes any dh and bs too).
 //
 // What bounds B3 on the H100: the bytes of K/V it reads (each slot's
 // kv_len rows of one KV head), a few hundred KB at decode, so in practice
@@ -127,6 +129,38 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
+// Copy one unit of w in {16, 8, 4, 2} bytes from global to shared memory:
+// cp.async for 16, 8 and 4 bytes, a plain load and store for 2 (cp.async
+// moves no fewer than 4). Rows of dh * sizeof(T) bytes that are no
+// multiple of 16 (bf16 dh 20: 40 bytes) lie only w-aligned in the pools.
+__device__ __forceinline__ void copy_unit_async(void* dst, const void* src,
+                                                int w) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  if (w == 16) {
+    cp_async16(dst, src);
+  } else if (w == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s),
+                 "l"(src));
+  } else if (w == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+                 "l"(src));
+  } else {
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+  }
+}
+
+// The same unit, a plain load and store (shared -> shared or global).
+__device__ __forceinline__ void copy_unit(void* dst, const void* src, int w) {
+  if (w == 16)
+    *static_cast<uint4*>(dst) = *static_cast<const uint4*>(src);
+  else if (w == 8)
+    *static_cast<uint2*>(dst) = *static_cast<const uint2*>(src);
+  else if (w == 4)
+    *static_cast<uint32_t*>(dst) = *static_cast<const uint32_t*>(src);
+  else
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+}
+
 // 16 bytes of pool elements -> f32
 template <typename T>
 __device__ __forceinline__ void chunk_f32(const unsigned char* p, float* f);
@@ -148,23 +182,24 @@ __device__ __forceinline__ void chunk_f32<__nv_bfloat16>(
   }
 }
 
-// Shared-memory layout of one CTA (bytes), for T, dh, bs, TR query rows.
+// Shared-memory layout of one CTA (bytes), for T, the head dim padded to
+// whole lanes dhp = 32 * DPL, sb tokens per staged K/V piece, tr query rows.
 struct AttnSmem {
   int row_bytes, stage_bytes, kv_bytes, q_off, m_off, l_off, acc_off, w_off,
       total;
 };
 template <typename T>
-__host__ __device__ inline AttnSmem attn_smem(int dh, int bs, int tr) {
+__host__ __device__ inline AttnSmem attn_smem(int dhp, int sb, int tr) {
   AttnSmem s;
-  s.row_bytes = dh * (int)sizeof(T) + 16;   // one pad chunk per row
-  s.stage_bytes = 2 * bs * s.row_bytes;     // K then V
+  s.row_bytes = dhp * (int)sizeof(T) + 16;  // one pad chunk per row
+  s.stage_bytes = 2 * sb * s.row_bytes;     // K then V
   s.kv_bytes = 2 * s.stage_bytes;           // double buffer
   s.q_off = s.kv_bytes;
-  s.m_off = s.q_off + tr * dh * 4;
+  s.m_off = s.q_off + tr * dhp * 4;
   s.l_off = s.m_off + tr * 4;
   s.acc_off = s.l_off + tr * 4;
-  s.w_off = (s.acc_off + tr * dh * 4 + 15) & ~15;   // B4's new K, V rows
-  s.total = s.w_off + 2 * dh * (int)sizeof(T);
+  s.w_off = (s.acc_off + tr * dhp * 4 + 15) & ~15;  // B4's new K, V rows
+  s.total = s.w_off + 2 * dhp * (int)sizeof(T);
   return s;
 }
 
@@ -182,16 +217,97 @@ struct AttnArgs {
   const int* lens;      // [B] chunk base
   const int* kvl;       // [B]
   void* out;            // [B, C, H, dh], bf16 if out_bf16 else f32
-  int q_bf16, out_bf16, B, C, H, KH, G, bs, MB, per;
+  int q_bf16, out_bf16, B, C, H, KH, G, dh, bs, MB, per;
   float scale;
 };
+
+// The online-softmax update of one query-row set over one staged piece of
+// cnt <= 32 tokens at positions pos0.. (K rows at ks, V rows at vs, row_bytes
+// apart): lane t scores token t.
+template <typename T, int DPL, int RPW>
+__device__ __forceinline__ void attend_piece(
+    const unsigned char* ks, const unsigned char* vs, int row_bytes,
+    const float* qs, int pos0, int cnt, int kv, int base, int row0,
+    int rows, int G, int nwarps, int warp, int lane, float scale,
+    float (&m)[RPW], float (&l)[RPW], float (&acc)[RPW][DPL]) {
+  constexpr int DHP = DPL * 32;
+  constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
+  const int tt = lane < cnt ? lane : cnt - 1;
+  const int pos_s = pos0 + lane;
+#pragma unroll
+  for (int k = 0; k < RPW; ++k) {
+    const int lr = warp + k * nwarps;
+    if (row0 + lr >= rows) break;              // warp-uniform
+    const int pos_q = base + (row0 + lr) / G;
+    const float* qr = qs + lr * DHP;
+    // score of token `lane`: 32 lane-strided partials, butterfly order
+    float part[32];
+#pragma unroll
+    for (int u = 0; u < 32; ++u) part[u] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+#pragma unroll
+      for (int c = 0; c < 32 / EPC; ++c) {
+        float kf[EPC];
+        chunk_f32<T>(ks + tt * row_bytes + (i * 32 + c * EPC) *
+                     (int)sizeof(T), kf);
+#pragma unroll
+        for (int u = 0; u < EPC; ++u)
+          part[c * EPC + u] = __fadd_rn(
+              part[c * EPC + u],
+              __fmul_rn(qr[i * 32 + c * EPC + u], kf[u]));
+      }
+    }
+    butterfly<16>(part);
+    butterfly<8>(part);
+    butterfly<4>(part);
+    butterfly<2>(part);
+    butterfly<1>(part);
+    const float s = __fmul_rn(part[0], scale);
+    const bool ok = lane < cnt && pos_s <= pos_q && pos_s < kv;
+    const float my_s = ok ? s : -1e30f;
+    const float m_new = fmaxf(m[k], warp_max(my_s));
+    const float p = ok ? expf(__fsub_rn(my_s, m_new)) : 0.f;
+    const float alpha = expf(__fsub_rn(m[k], m_new));
+    l[k] = __fadd_rn(__fmul_rn(l[k], alpha), warp_sum(p));
+    float pv[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
+    for (int t = 0; t < cnt; ++t) {
+      const float pt = __shfl_sync(0xffffffffu, p, t);
+      const bool vok = pos0 + t < kv;
+      const T* vrow = reinterpret_cast<const T*>(vs + t * row_bytes);
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const float vv = vok ? to_f32(vrow[lane + 32 * i]) : 0.f;  // select
+        pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, vv));
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i)
+      acc[k][i] = __fadd_rn(__fmul_rn(acc[k][i], alpha), pv[i]);
+    m[k] = m_new;
+  }
+}
 
 // One CTA: query rows [tile*TR, tile*TR + TR) of (slot b, KV head h),
 // table columns of cluster rank `rank`. RPW rows per warp, TR = warps*RPW.
 // WRITE: the decode launch with B4's write folded in. B3's own launches
 // compile without that code: with it, nvcc allots the kernel about half
 // the registers and B3 alone ran slower on the H100.
-template <typename T, int DPL, int RPW, bool WRITE>
+// GEN: the shapes past the fast case (dh a multiple of 32 in {32, 64, 128,
+// 256} with bs <= 32), which compiles exactly as it did before GEN came:
+//  * any head dim 1 <= dh <= 256: rows are padded to DHP = 32 * DPL in
+//    shared memory (q with zeros, the staged K/V tails zeroed once), so a
+//    lane past dh adds 0 * 0 to its partial and publishes nothing;
+//  * rows of dh * sizeof(T) bytes that are no multiple of 16 are copied in
+//    the widest unit of 8, 4 or 2 bytes that divides them;
+//  * any block size: a block is staged and scored in pieces of at most 32
+//    tokens (lane t scores token t of the piece), each piece its own
+//    online-softmax update, so shared memory holds 2 x 2 x min(bs, 32)
+//    rows whatever bs is. Pieces that start at or past kv_len are not read:
+//    like columns past kv_len they would be exact no-ops.
+template <typename T, int DPL, int RPW, bool WRITE, bool GEN>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
                   T* __restrict__ vpool, const T* __restrict__ nk,
@@ -199,23 +315,25 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
                   const int* __restrict__ tables,
                   const int* __restrict__ lens, const int* __restrict__ kvl,
                   void* __restrict__ out, int q_bf16, int out_bf16, int C,
-                  int H, int KH, int G, int bs, int MB, int per, int tiles,
-                  float scale) {
-  constexpr int dh = DPL * 32;
+                  int H, int KH, int G, int dh_arg, int bs, int MB, int per,
+                  int tiles, float scale) {
+  constexpr int DHP = DPL * 32;
   constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
-  constexpr int CPR = dh / EPC;              // chunks per row
+  constexpr int CPR = DHP / EPC;             // chunks per row
+  const int dh = GEN ? dh_arg : DHP;
+  const int sb = GEN ? min(bs, 32) : bs;     // tokens per staged piece
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
   const int n_split = (int)cluster.num_blocks();
   const int nwarps = blockDim.x >> 5;
   const int tr = nwarps * RPW;
-  const AttnSmem L = attn_smem<T>(dh, bs, tr);
-  float* qs = reinterpret_cast<float*>(smem + L.q_off);     // [tr][dh]
+  const AttnSmem L = attn_smem<T>(DHP, sb, tr);
+  float* qs = reinterpret_cast<float*>(smem + L.q_off);     // [tr][DHP]
   float* sm_m = reinterpret_cast<float*>(smem + L.m_off);   // [tr]
   float* sm_l = reinterpret_cast<float*>(smem + L.l_off);   // [tr]
-  float* sm_acc = reinterpret_cast<float*>(smem + L.acc_off);  // [tr][dh]
-  unsigned char* wsm = smem + L.w_off;   // [2][dh] of T: new K, V rows
+  float* sm_acc = reinterpret_cast<float*>(smem + L.acc_off);  // [tr][DHP]
+  unsigned char* wsm = smem + L.w_off;   // [2][DHP] of T: new K, V rows
 
   const int h = blockIdx.y;
   const int b = blockIdx.z / tiles;
@@ -226,13 +344,13 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
   const int kv = kvl[b];
   const int base = lens[b];
 
-  // the tile's query rows, f32, zero past the last row
-  for (int idx = threadIdx.x; idx < tr * dh; idx += blockDim.x) {
-    const int lr = idx / dh;
-    const int d = idx - lr * dh;
+  // the tile's query rows, f32, zero past the last row (and past dh)
+  for (int idx = threadIdx.x; idx < tr * DHP; idx += blockDim.x) {
+    const int lr = idx / DHP;
+    const int d = idx - lr * DHP;
     const int row = row0 + lr;
     float v = 0.f;
-    if (row < rows) {
+    if (row < rows && (!GEN || d < dh)) {
       const int head = h * G + row % G;
       const size_t i = (((size_t)b * C + row / G) * H + head) * dh + d;
       v = q_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(q)[i])
@@ -240,28 +358,25 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
     }
     qs[idx] = v;
   }
+  // GEN, dh < DHP: the staged rows' tails stay zero (copies write only
+  // the first dh elements of a row)
+  if (GEN && dh < DHP) {
+    for (int idx = threadIdx.x; idx < L.kv_bytes / 16; idx += blockDim.x)
+      reinterpret_cast<uint4*>(smem)[idx] = make_uint4(0, 0, 0, 0);
+    __syncthreads();
+  }
 
   // B4: the pool row slot b's new K/V rows go to (0: none)
   const int fl = WRITE ? flat[b] : 0;
+  // GEN: a row is rb bytes, copied in units of wu bytes, upr per row
+  const int rb = dh * (int)sizeof(T);
+  const int wu = rb % 16 == 0 ? 16 : rb % 8 == 0 ? 8 : rb % 4 == 0 ? 4 : 2;
+  const int upr = rb / wu;
 
   int nblk = (kv + bs - 1) / bs;           // blocks holding attendable rows
   if (nblk > MB) nblk = MB;
   const int j0 = rank * per;
   const int j1 = min(j0 + per, nblk);
-
-  auto issue = [&](int j, int st) {
-    const int blk = tables[(size_t)b * MB + j];
-    unsigned char* dst = smem + st * L.stage_bytes;
-    for (int idx = threadIdx.x; idx < 2 * bs * CPR; idx += blockDim.x) {
-      const int which = idx / (bs * CPR);        // 0 = K, 1 = V
-      const int rem = idx - which * bs * CPR;
-      const int t = rem / CPR;
-      const int c = rem - t * CPR;
-      const T* pool = which ? vpool : kpool;
-      const T* src = pool + (((size_t)blk * bs + t) * KH + h) * dh + c * EPC;
-      cp_async16(dst + (which * bs + t) * L.row_bytes + c * 16, src);
-    }
-  };
 
   float m[RPW], l[RPW], acc[RPW][DPL];
 #pragma unroll
@@ -272,94 +387,123 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
     for (int i = 0; i < DPL; ++i) acc[k][i] = 0.f;
   }
 
-  if (WRITE && fl != 0) {         // B4's rows of head h, in the first group
-    for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
-      const int which = idx / CPR;               // 0 = K, 1 = V
-      const int c = idx - which * CPR;
-      cp_async16(wsm + idx * 16,
-                 (which ? nv : nk) + ((size_t)b * KH + h) * dh + c * EPC);
+  if constexpr (!GEN) {
+    auto issue = [&](int j, int st) {
+      const int blk = tables[(size_t)b * MB + j];
+      unsigned char* dst = smem + st * L.stage_bytes;
+      for (int idx = threadIdx.x; idx < 2 * bs * CPR; idx += blockDim.x) {
+        const int which = idx / (bs * CPR);        // 0 = K, 1 = V
+        const int rem = idx - which * bs * CPR;
+        const int t = rem / CPR;
+        const int c = rem - t * CPR;
+        const T* pool = which ? vpool : kpool;
+        const T* src = pool + (((size_t)blk * bs + t) * KH + h) * dh +
+                       c * EPC;
+        cp_async16(dst + (which * bs + t) * L.row_bytes + c * 16, src);
+      }
+    };
+
+    if (WRITE && fl != 0) {       // B4's rows of head h, in the first group
+      for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+        const int which = idx / CPR;               // 0 = K, 1 = V
+        const int c = idx - which * CPR;
+        cp_async16(wsm + idx * 16,
+                   (which ? nv : nk) + ((size_t)b * KH + h) * dh + c * EPC);
+      }
     }
-  }
-  if (j0 < j1) issue(j0, 0);
-  cp_async_commit();
-  for (int j = j0; j < j1; ++j) {
-    const int st = (j - j0) & 1;
-    if (j + 1 < j1) issue(j + 1, st ^ 1);
+    if (j0 < j1) issue(j0, 0);
     cp_async_commit();
-    cp_async_wait1();             // block j's copies (this thread's) landed
-    __syncthreads();              // ... and everyone else's
-    unsigned char* ks = smem + st * L.stage_bytes;
-    const unsigned char* vs = ks + bs * L.row_bytes;
-    if (WRITE && fl != 0) {
-      const int wrow = fl - tables[(size_t)b * MB + j] * bs;
-      if (wrow >= 0 && wrow < bs) {   // B4's row: the new one replaces it
-        for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
-          const int which = idx / CPR;
-          const int c = idx - which * CPR;
-          *reinterpret_cast<uint4*>(ks + (which * bs + wrow) * L.row_bytes
-                                    + c * 16) =
-              *reinterpret_cast<const uint4*>(wsm + idx * 16);
+    for (int j = j0; j < j1; ++j) {
+      const int st = (j - j0) & 1;
+      if (j + 1 < j1) issue(j + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait1();           // block j's copies (this thread's) landed
+      __syncthreads();            // ... and everyone else's
+      unsigned char* ks = smem + st * L.stage_bytes;
+      const unsigned char* vs = ks + bs * L.row_bytes;
+      if (WRITE && fl != 0) {
+        const int wrow = fl - tables[(size_t)b * MB + j] * bs;
+        if (wrow >= 0 && wrow < bs) {   // B4's row: the new one replaces it
+          for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+            const int which = idx / CPR;
+            const int c = idx - which * CPR;
+            *reinterpret_cast<uint4*>(ks + (which * bs + wrow) * L.row_bytes
+                                      + c * 16) =
+                *reinterpret_cast<const uint4*>(wsm + idx * 16);
+          }
+          __syncthreads();
         }
-        __syncthreads();
+      }
+      attend_piece<T, DPL, RPW>(ks, vs, L.row_bytes, qs, j * bs, bs, kv,
+                                base, row0, rows, G, nwarps, warp, lane,
+                                scale, m, l, acc);
+      __syncthreads();            // stage st is refilled next iteration
+    }
+  } else {
+    // pieces: it -> (column j0 + it / npc, tokens [t0, t0 + cnt) of it);
+    // the last column's pieces that start at or past kv are not read
+    const int npc = (bs + 31) / 32;
+    int n_it = j1 > j0 ? (j1 - j0) * npc : 0;
+    if (n_it) n_it -= npc - (min(kv, j1 * bs) - (j1 - 1) * bs + 31) / 32;
+    auto issue = [&](int it, int st) {
+      const int j = j0 + it / npc;
+      const int t0 = (it - (j - j0) * npc) * 32;
+      const int cnt = min(sb, bs - t0);
+      const int blk = tables[(size_t)b * MB + j];
+      unsigned char* dst = smem + st * L.stage_bytes;
+      for (int idx = threadIdx.x; idx < 2 * cnt * upr; idx += blockDim.x) {
+        const int which = idx / (cnt * upr);       // 0 = K, 1 = V
+        const int rem = idx - which * cnt * upr;
+        const int t = rem / upr;
+        const int u = rem - t * upr;
+        const T* pool = which ? vpool : kpool;
+        const unsigned char* src = reinterpret_cast<const unsigned char*>(
+            pool + (((size_t)blk * bs + t0 + t) * KH + h) * dh) + u * wu;
+        copy_unit_async(dst + (which * sb + t) * L.row_bytes + u * wu, src,
+                        wu);
+      }
+    };
+
+    if (WRITE && fl != 0) {       // B4's rows of head h, in the first group
+      for (int idx = threadIdx.x; idx < 2 * upr; idx += blockDim.x) {
+        const int which = idx / upr;               // 0 = K, 1 = V
+        const int u = idx - which * upr;
+        copy_unit_async(wsm + which * DHP * (int)sizeof(T) + u * wu,
+                        reinterpret_cast<const unsigned char*>(
+                            (which ? nv : nk) + ((size_t)b * KH + h) * dh)
+                            + u * wu, wu);
       }
     }
-    const int tt = lane < bs ? lane : bs - 1;
-    const int pos_s = j * bs + lane;
-#pragma unroll
-    for (int k = 0; k < RPW; ++k) {
-      const int lr = warp + k * nwarps;
-      if (row0 + lr >= rows) break;              // warp-uniform
-      const int pos_q = base + (row0 + lr) / G;
-      const float* qr = qs + lr * dh;
-      // score of token `lane`: 32 lane-strided partials, butterfly order
-      float part[32];
-#pragma unroll
-      for (int u = 0; u < 32; ++u) part[u] = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-#pragma unroll
-        for (int c = 0; c < 32 / EPC; ++c) {
-          float kf[EPC];
-          chunk_f32<T>(ks + tt * L.row_bytes + (i * 32 + c * EPC) *
-                       (int)sizeof(T), kf);
-#pragma unroll
-          for (int u = 0; u < EPC; ++u)
-            part[c * EPC + u] = __fadd_rn(
-                part[c * EPC + u],
-                __fmul_rn(qr[i * 32 + c * EPC + u], kf[u]));
+    if (n_it) issue(0, 0);
+    cp_async_commit();
+    for (int it = 0; it < n_it; ++it) {
+      const int st = it & 1;
+      if (it + 1 < n_it) issue(it + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait1();           // piece it's copies (this thread's) landed
+      __syncthreads();            // ... and everyone else's
+      const int j = j0 + it / npc;
+      const int t0 = (it - (j - j0) * npc) * 32;
+      const int cnt = min(sb, bs - t0);
+      unsigned char* ks = smem + st * L.stage_bytes;
+      const unsigned char* vs = ks + sb * L.row_bytes;
+      if (WRITE && fl != 0) {
+        const int wrow = fl - tables[(size_t)b * MB + j] * bs - t0;
+        if (wrow >= 0 && wrow < cnt) {  // B4's row: the new one replaces it
+          for (int idx = threadIdx.x; idx < 2 * upr; idx += blockDim.x) {
+            const int which = idx / upr;
+            const int u = idx - which * upr;
+            copy_unit(ks + (which * sb + wrow) * L.row_bytes + u * wu,
+                      wsm + which * DHP * (int)sizeof(T) + u * wu, wu);
+          }
+          __syncthreads();
         }
       }
-      butterfly<16>(part);
-      butterfly<8>(part);
-      butterfly<4>(part);
-      butterfly<2>(part);
-      butterfly<1>(part);
-      const float s = __fmul_rn(part[0], scale);
-      const bool ok = lane < bs && pos_s <= pos_q && pos_s < kv;
-      const float my_s = ok ? s : -1e30f;
-      const float m_new = fmaxf(m[k], warp_max(my_s));
-      const float p = ok ? expf(__fsub_rn(my_s, m_new)) : 0.f;
-      const float alpha = expf(__fsub_rn(m[k], m_new));
-      l[k] = __fadd_rn(__fmul_rn(l[k], alpha), warp_sum(p));
-      float pv[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
-      for (int t = 0; t < bs; ++t) {
-        const float pt = __shfl_sync(0xffffffffu, p, t);
-        const bool vok = j * bs + t < kv;
-        const T* vrow = reinterpret_cast<const T*>(vs + t * L.row_bytes);
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          const float vv = vok ? to_f32(vrow[lane + 32 * i]) : 0.f;  // select
-          pv[i] = __fadd_rn(pv[i], __fmul_rn(pt, vv));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i)
-        acc[k][i] = __fadd_rn(__fmul_rn(acc[k][i], alpha), pv[i]);
-      m[k] = m_new;
+      attend_piece<T, DPL, RPW>(ks, vs, L.row_bytes, qs, j * bs + t0, cnt,
+                                kv, base, row0, rows, G, nwarps, warp, lane,
+                                scale, m, l, acc);
+      __syncthreads();            // stage st is refilled next iteration
     }
-    __syncthreads();              // stage st is refilled next iteration
   }
 
   // publish this rank's state (the empty state if it read nothing)
@@ -371,22 +515,35 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
       sm_l[lr] = l[k];
     }
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_acc[lr * dh + lane + 32 * i] = acc[k][i];
+    for (int i = 0; i < DPL; ++i)
+      if (!GEN || lane + 32 * i < dh)
+        sm_acc[lr * DHP + lane + 32 * i] = acc[k][i];
   }
   cluster.sync();
 
   // B4: every CTA of the cluster has staged its blocks; rank 0 stores the
-  // new rows, each thread the chunks it copied (so no barrier). A rank
+  // new rows, each thread the units it copied (so no barrier). A rank
   // that staged no block has not waited for its copies yet.
   if (WRITE && fl != 0) {
     cp_async_wait_all();
     if (rank == 0 && row0 == 0) {
-      for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
-        const int which = idx / CPR;
-        const int c = idx - which * CPR;
-        *reinterpret_cast<uint4*>((which ? vpool : kpool)
-                                  + ((size_t)fl * KH + h) * dh + c * EPC) =
-            *reinterpret_cast<const uint4*>(wsm + idx * 16);
+      if constexpr (!GEN) {
+        for (int idx = threadIdx.x; idx < 2 * CPR; idx += blockDim.x) {
+          const int which = idx / CPR;
+          const int c = idx - which * CPR;
+          *reinterpret_cast<uint4*>((which ? vpool : kpool)
+                                    + ((size_t)fl * KH + h) * dh + c * EPC) =
+              *reinterpret_cast<const uint4*>(wsm + idx * 16);
+        }
+      } else {
+        for (int idx = threadIdx.x; idx < 2 * upr; idx += blockDim.x) {
+          const int which = idx / upr;
+          const int u = idx - which * upr;
+          copy_unit(reinterpret_cast<unsigned char*>(
+                        (which ? vpool : kpool) + ((size_t)fl * KH + h) * dh)
+                        + u * wu,
+                    wsm + which * DHP * (int)sizeof(T) + u * wu, wu);
+        }
       }
     }
   }
@@ -407,7 +564,7 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
                                      ms));
       ls = __fadd_rn(ls, __fmul_rn(*cluster.map_shared_rank(sm_l + lr, r), w));
       as = __fadd_rn(as, __fmul_rn(
-          *cluster.map_shared_rank(sm_acc + lr * dh + d, r), w));
+          *cluster.map_shared_rank(sm_acc + lr * DHP + d, r), w));
     }
     const int head = h * G + row % G;
     const size_t o = (((size_t)b * C + row / G) * H + head) * dh + d;
@@ -420,16 +577,17 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
   cluster.sync();                 // peers may still read this CTA's state
 }
 
-template <typename T, int DPL, int RPW, bool WRITE>
+template <typename T, int DPL, int RPW, bool WRITE, bool GEN>
 int launch_attn(const AttnArgs& a, int n_split, int warps,
                 cudaStream_t stream) {
   const int tr = warps * RPW;
   const int tiles = (a.C * a.G + tr - 1) / tr;
-  const size_t smem = (size_t)attn_smem<T>(DPL * 32, a.bs, tr).total;
+  const int sb = GEN ? (a.bs < 32 ? a.bs : 32) : a.bs;
+  const size_t smem = (size_t)attn_smem<T>(DPL * 32, sb, tr).total;
   static size_t cap = 48 * 1024;   // raised once, not per (captured) launch
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, DPL, RPW, WRITE>,
+        paged_attn_kernel<T, DPL, RPW, WRITE, GEN>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
@@ -448,37 +606,52 @@ int launch_attn(const AttnArgs& a, int n_split, int warps,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_attn_kernel<T, DPL, RPW, WRITE>, a.q, static_cast<T*>(a.k),
-      static_cast<T*>(a.v), static_cast<const T*>(a.nk),
-      static_cast<const T*>(a.nv), a.flat, a.tables, a.lens, a.kvl, a.out,
-      a.q_bf16, a.out_bf16, a.C, a.H, a.KH, a.G, a.bs, a.MB, a.per, tiles,
-      a.scale);
+      &cfg, paged_attn_kernel<T, DPL, RPW, WRITE, GEN>, a.q,
+      static_cast<T*>(a.k), static_cast<T*>(a.v),
+      static_cast<const T*>(a.nk), static_cast<const T*>(a.nv), a.flat,
+      a.tables, a.lens, a.kvl, a.out, a.q_bf16, a.out_bf16, a.C, a.H, a.KH,
+      a.G, a.dh, a.bs, a.MB, a.per, tiles, a.scale);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // Up to 8 query rows: one row per warp; more: 8 warps of 4 rows each.
-template <typename T, int DPL, bool WRITE>
+template <typename T, int DPL, bool WRITE, bool GEN>
 int launch_rows(const AttnArgs& a, int n_split, cudaStream_t stream) {
   const int rows = a.C * a.G;
   if (rows <= kMaxWarps)
-    return launch_attn<T, DPL, 1, WRITE>(a, n_split, rows, stream);
-  return launch_attn<T, DPL, 4, WRITE>(a, n_split, kMaxWarps, stream);
+    return launch_attn<T, DPL, 1, WRITE, GEN>(a, n_split, rows, stream);
+  return launch_attn<T, DPL, 4, WRITE, GEN>(a, n_split, kMaxWarps, stream);
 }
 
-template <typename T, int DPL>
+template <typename T, int DPL, bool GEN>
 int launch_write(const AttnArgs& a, int n_split, cudaStream_t stream) {
-  return a.flat ? launch_rows<T, DPL, true>(a, n_split, stream)
-                : launch_rows<T, DPL, false>(a, n_split, stream);
+  return a.flat ? launch_rows<T, DPL, true, GEN>(a, n_split, stream)
+                : launch_rows<T, DPL, false, GEN>(a, n_split, stream);
 }
 
+// The fast case (dh in {32, 64, 128, 256}, bs <= 32) and the GEN instances
+// of every other 1 <= dh <= 256 and bs >= 1, DPL = ceil(dh / 32).
 template <typename T>
-int dispatch_dh(const AttnArgs& a, int dh, int n_split, cudaStream_t stream) {
-  switch (dh) {
-    case 32: return launch_write<T, 1>(a, n_split, stream);
-    case 64: return launch_write<T, 2>(a, n_split, stream);
-    case 128: return launch_write<T, 4>(a, n_split, stream);
-    case 256: return launch_write<T, 8>(a, n_split, stream);
+int dispatch_dh(const AttnArgs& a, int n_split, cudaStream_t stream) {
+  if (a.bs <= 32) {
+    switch (a.dh) {
+      case 32: return launch_write<T, 1, false>(a, n_split, stream);
+      case 64: return launch_write<T, 2, false>(a, n_split, stream);
+      case 128: return launch_write<T, 4, false>(a, n_split, stream);
+      case 256: return launch_write<T, 8, false>(a, n_split, stream);
+      default: break;
+    }
+  }
+  switch ((a.dh + 31) / 32) {
+    case 1: return launch_write<T, 1, true>(a, n_split, stream);
+    case 2: return launch_write<T, 2, true>(a, n_split, stream);
+    case 3: return launch_write<T, 3, true>(a, n_split, stream);
+    case 4: return launch_write<T, 4, true>(a, n_split, stream);
+    case 5: return launch_write<T, 5, true>(a, n_split, stream);
+    case 6: return launch_write<T, 6, true>(a, n_split, stream);
+    case 7: return launch_write<T, 7, true>(a, n_split, stream);
+    case 8: return launch_write<T, 8, true>(a, n_split, stream);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -488,11 +661,12 @@ int dispatch_dh(const AttnArgs& a, int dh, int n_split, cudaStream_t stream) {
 extern "C" {
 
 // B3, and B4 folded into it. pool_bf16 / q_bf16 / out_bf16: 1 for bf16,
-// 0 for f32. The table columns split over n_split cluster ranks of `per`
-// columns each (the wrapper's attn_splits, which the plain version
-// follows). flat null: B3 alone; else (C = 1 only) slot b's new rows nk,
-// nv [B, 1, KH, dh] (pool dtype, 16-byte aligned) go to pool row flat[b]
-// unless it is 0, and the attention reads them there.
+// 0 for f32. Any 1 <= dh <= 256 and bs >= 1. The table columns split over
+// n_split cluster ranks of `per` columns each (the wrapper's attn_splits,
+// which the plain version follows). flat null: B3 alone; else (C = 1
+// only) slot b's new rows nk, nv [B, 1, KH, dh] (pool dtype, 16-byte
+// aligned) go to pool row flat[b] unless it is 0, and the attention reads
+// them there.
 int paged_attn_launch(int pool_bf16, int q_bf16, int out_bf16, const void* q,
                       void* k, void* v, const void* nk, const void* nv,
                       const int* flat, const int* tables, const int* lens,
@@ -500,14 +674,14 @@ int paged_attn_launch(int pool_bf16, int q_bf16, int out_bf16, const void* q,
                       int dh, int bs, int MB, int n_split, int per,
                       float scale, cudaStream_t stream) {
   if (B <= 0 || C <= 0) return 0;
-  if (bs < 1 || bs > 32 || KH <= 0 || H % KH || MB < 1 || n_split < 1 ||
-      n_split > kMaxSplit || per < 1 || n_split * per < MB ||
+  if (bs < 1 || dh < 1 || dh > 256 || KH <= 0 || H % KH || MB < 1 ||
+      n_split < 1 || n_split > kMaxSplit || per < 1 || n_split * per < MB ||
       (flat && (C != 1 || !nk || !nv)))
     return (int)cudaErrorInvalidValue;
   const AttnArgs a = {q, k, v, nk, nv, flat, tables, lens, kvl, out, q_bf16,
-                      out_bf16, B, C, H, KH, H / KH, bs, MB, per, scale};
-  if (pool_bf16) return dispatch_dh<__nv_bfloat16>(a, dh, n_split, stream);
-  return dispatch_dh<float>(a, dh, n_split, stream);
+                      out_bf16, B, C, H, KH, H / KH, dh, bs, MB, per, scale};
+  if (pool_bf16) return dispatch_dh<__nv_bfloat16>(a, n_split, stream);
+  return dispatch_dh<float>(a, n_split, stream);
 }
 
 }  // extern "C"

@@ -137,38 +137,39 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
     """Plain version of B3, in the kernel's exact operation order.
 
     The table columns split over S ranks (`attn_splits`); each rank runs an
-    online softmax over its own blocks in order: each score is the
-    lane-strided partial dot products (dh/32 per lane, in order) summed by
-    the warp butterfly; the PV sum runs in token order. The ranks' states
+    online softmax over its own blocks in order, each block in pieces of
+    at most 32 tokens (one piece when bs <= 32), one update per piece: each
+    score is the lane-strided partial dot products (ceil(dh/32) per lane,
+    in order; q and k padded with zeros to whole lanes) summed by the warp
+    butterfly; the PV sum runs in token order. The ranks' states
     (m_r, l_r, acc_r) then combine in rank order: m* = max_r m_r,
     l* = Σ_r l_r·exp(m_r − m*) and acc* = Σ_r acc_r·exp(m_r − m*), each
     added in r order from 0, and out = acc* / max(l*, 1e−30). All math is
     f32 with separate multiplies and adds, so on the card it matches the
-    kernel bit for bit. A rank's columns past kv_len (and the padding of
-    the last rank) are exact no-ops: all weights 0, alpha 1.
+    kernel bit for bit. A rank's columns and pieces past kv_len (and the
+    padding of the last rank) are exact no-ops: all weights 0, alpha 1.
 
     q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB]; lens [B] (the
-    chunk's base position); kv_len [B]. Returns f32 [B, C, H, dh].
+    chunk's base position); kv_len [B]. Any dh and bs. Returns f32
+    [B, C, H, dh].
     """
     b, c, h, dh = q.shape
     bs, kh = k_pool.shape[1], k_pool.shape[2]
-    if dh % 32 or bs > 32:
-        raise ValueError(f"head_dim {dh} must be a multiple of 32 and "
-                         f"block_size {bs} at most 32")
     g = h // kh
     cg = c * g
-    dpl = dh // 32
+    dpl = -(-dh // 32)
+    dhp = 32 * dpl                   # the head dim padded to whole lanes
     dev = q.device
     mb = tables.shape[1]
     n_split, per = attn_splits(mb)
     f32 = dict(dtype=torch.float32, device=dev)
     # [B, KH, 1 (rank), CG, 1 (token), dpl, 32]
-    q3 = q.float().reshape(b, c, kh, g, dh).permute(0, 2, 1, 3, 4) \
-        .reshape(b, kh, 1, cg, 1, dpl, 32)
+    q3 = F.pad(q.float(), (0, dhp - dh)).reshape(b, c, kh, g, dhp) \
+        .permute(0, 2, 1, 3, 4).reshape(b, kh, 1, cg, 1, dpl, 32)
     scale = 1.0 / math.sqrt(dh)      # multiplied as its f32 value
     m = torch.full((b, kh, n_split, cg), -1e30, **f32)
     l_sum = torch.zeros((b, kh, n_split, cg), **f32)
-    acc = torch.zeros((b, kh, n_split, cg, dh), **f32)
+    acc = torch.zeros((b, kh, n_split, cg, dhp), **f32)
     pos_q = lens.long()[:, None] + (torch.arange(cg, device=dev) // g)
     kvl = kv_len.long()[:, None, None, None]                # [B,1,1,1]
     # pad the last rank's columns with the trash block: their positions lie
@@ -176,40 +177,44 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
     tab = F.pad(tables.long(), (0, n_split * per - mb)).reshape(
         b, n_split, per)
     col0 = torch.arange(n_split, device=dev) * per          # [S]
-    tok = torch.arange(bs, device=dev)
     for jj in range(per):
         blk = tab[:, :, jj]                                 # [B, S]
-        k = k_pool[blk].float().permute(0, 3, 1, 2, 4)      # [B,KH,S,bs,dh]
-        v = v_pool[blk].float().permute(0, 3, 1, 2, 4)
-        pos_s = (col0 + jj)[:, None] * bs + tok             # [S, bs]
-        v = torch.where((pos_s[None, None, :, :, None] < kvl[..., None]),
-                        v, 0.0)                             # select, never x0
-        k6 = k.reshape(b, kh, n_split, 1, bs, dpl, 32)
-        part = q3[..., 0, :] * k6[..., 0, :]                # [B,KH,S,CG,bs,32]
-        for i in range(1, dpl):
-            part = part + q3[..., i, :] * k6[..., i, :]
-        s = _butterfly(part) * scale                        # [B,KH,S,CG,bs]
-        ok = ((pos_s[None, :, None, :] <= pos_q[:, None, :, None])
-              & (pos_s[None, :, None, :] < kvl))[:, None]
-        s = torch.where(ok, s, -1e30)
-        m_new = torch.maximum(m, s.amax(dim=-1))
-        p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
-        alpha = torch.exp(m - m_new)
-        l_sum = l_sum * alpha + _butterfly(F.pad(p, (0, 32 - bs)))
-        pv = torch.zeros_like(acc)
-        for t in range(bs):
-            pv = pv + p[..., t:t + 1] * v[:, :, :, None, t, :]
-        acc = acc * alpha[..., None] + pv
-        m = m_new
+        for t0 in range(0, bs, 32):                         # the pieces
+            cnt = min(32, bs - t0)
+            k = F.pad(k_pool[blk, t0:t0 + cnt].float(), (0, dhp - dh)) \
+                .permute(0, 3, 1, 2, 4)                     # [B,KH,S,cnt,dhp]
+            v = F.pad(v_pool[blk, t0:t0 + cnt].float(), (0, dhp - dh)) \
+                .permute(0, 3, 1, 2, 4)
+            pos_s = (col0 + jj)[:, None] * bs + t0 + torch.arange(
+                cnt, device=dev)                            # [S, cnt]
+            v = torch.where((pos_s[None, None, :, :, None] < kvl[..., None]),
+                            v, 0.0)                         # select, never x0
+            k6 = k.reshape(b, kh, n_split, 1, cnt, dpl, 32)
+            part = q3[..., 0, :] * k6[..., 0, :]            # [B,KH,S,CG,cnt,32]
+            for i in range(1, dpl):
+                part = part + q3[..., i, :] * k6[..., i, :]
+            s = _butterfly(part) * scale                    # [B,KH,S,CG,cnt]
+            ok = ((pos_s[None, :, None, :] <= pos_q[:, None, :, None])
+                  & (pos_s[None, :, None, :] < kvl))[:, None]
+            s = torch.where(ok, s, -1e30)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.where(ok, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m - m_new)
+            l_sum = l_sum * alpha + _butterfly(F.pad(p, (0, 32 - cnt)))
+            pv = torch.zeros_like(acc)
+            for t in range(cnt):
+                pv = pv + p[..., t:t + 1] * v[:, :, :, None, t, :]
+            acc = acc * alpha[..., None] + pv
+            m = m_new
     # combine the ranks in rank order
     m_star = m.amax(dim=2)                                  # [B, KH, CG]
     l_star = torch.zeros_like(m_star)
-    a_star = torch.zeros((b, kh, cg, dh), **f32)
+    a_star = torch.zeros((b, kh, cg, dhp), **f32)
     for r in range(n_split):
         e = torch.exp(m[:, :, r] - m_star)
         l_star = l_star + l_sum[:, :, r] * e
         a_star = a_star + acc[:, :, r] * e[..., None]
-    out = a_star / torch.clamp(l_star, min=1e-30)[..., None]
+    out = a_star[..., :dh] / torch.clamp(l_star, min=1e-30)[..., None]
     return out.reshape(b, kh, c, g, dh).permute(0, 2, 1, 3, 4) \
         .reshape(b, c, h, dh)
 
@@ -232,9 +237,8 @@ def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write):
     if q.dtype not in _DTYPES or out_dtype not in _DTYPES:
         raise ValueError(f"q dtype {q.dtype} / out_dtype {out_dtype}: the "
                          "kernel reads and writes bfloat16 or float32")
-    if dh not in (32, 64, 128, 256) or not 1 <= bs <= 32:
-        raise ValueError(f"head_dim {dh} / block_size {bs} unsupported by "
-                         "the kernel")
+    if not 1 <= dh <= 256:
+        raise ValueError(f"head_dim {dh}: the kernel takes 1 <= dh <= 256")
     for t in (k_pool, v_pool, tables, lens, kv_len):
         if t.device != q.device:
             raise ValueError("all operands must lie on q's CUDA device")

@@ -12,6 +12,11 @@ requests, on the card by default.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
       --cim bp-noisy --device cpu
 
+  # speculative decoding: the ngram drafter proposes --spec-k tokens per
+  # decode lane, verified in one C = spec_k + 1 step; seeded sampling
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --device cpu --drafter ngram --spec-k 3 --temperature 0.7 --top-k 8
+
 Weights are random, drawn from a torch.Generator seeded with --seed.
 Prints each request's generated token ids and the tokens per second.
 """
@@ -30,6 +35,7 @@ from repro_torch.core.macro import SimLevel
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.runtime.server import Request, Server, ServingConfig
+from repro_torch.runtime.speculative import SamplingParams
 
 
 def main(argv=None):
@@ -53,6 +59,24 @@ def main(argv=None):
     ap.add_argument("--token-budget", type=int, default=None)
     ap.add_argument("--no-prefix-sharing", action="store_true")
     ap.add_argument("--watermark", type=float, default=None)
+    ap.add_argument("--drafter", default="off", metavar="SPEC",
+                    help="speculative-decoding drafter (runtime.speculative "
+                         "registry): off = plain decode, ngram = "
+                         "prompt-lookup self-speculation (model:<name> is "
+                         "not ported yet) — the target verifies all drafts "
+                         "in one C=spec-k+1 step")
+    ap.add_argument("--spec-k", type=int, default=None,
+                    help="drafted tokens per decode lane per verify step "
+                         "(default 4; only meaningful with --drafter)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature for the synthetic requests "
+                         "(0 = greedy; >0 samples the softmax with a "
+                         "per-request seeded PRNG)")
+    ap.add_argument("--top-k", type=int, default=0,
+                    help="restrict sampling to the k highest logits "
+                         "(0 = full vocab; needs --temperature > 0)")
+    ap.add_argument("--sample-seed", type=int, default=0,
+                    help="base sampling seed; request i uses seed + i")
     ap.add_argument("--attn", choices=("auto", "exact", "kernel"),
                     default="auto",
                     help="paged attention backend: kernel = Hopper kernels "
@@ -89,10 +113,14 @@ def main(argv=None):
 
     rng = np.random.RandomState(0)
     reqs = []
-    for _ in range(args.requests):
+    for i in range(args.requests):
         plen = int(rng.randint(4, 17))
         prompt = rng.randint(0, cfg.vocab, size=plen).tolist()
-        reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new))
+        reqs.append(Request(prompt=prompt, max_new_tokens=args.max_new,
+                            sampling=SamplingParams(
+                                temperature=args.temperature,
+                                top_k=args.top_k,
+                                seed=args.sample_seed + i)))
     t0 = time.monotonic()
     for r in reqs:
         server.submit(r)
@@ -112,6 +140,14 @@ def main(argv=None):
           f"pool={st.num_blocks} peak={st.peak_in_use} | sharing: "
           f"prefix_hit_tokens={m['prefix_hit_tokens']} "
           f"cow_forks={m['cow_forks']} preemptions={m['preemptions']}")
+    if args.drafter != "off":
+        hist = ",".join(f"{a}:{n}" for a, n in m["accept_hist"].items())
+        print(f"speculative: drafter={args.drafter} "
+              f"spec_k={server.serving.spec_k} "
+              f"verify_steps={m['spec_steps']} "
+              f"accept_rate={m['accept_rate']:.2f} "
+              f"mean_accept_len={m['mean_accept_len']:.2f} "
+              f"accept_hist=[{hist}]")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 """Continuous-batching serving loop over the paged KV cache: chunked
 prefill, watermark admission with preemption, prefix sharing with
-copy-on-write, greedy decoding.
+copy-on-write, seeded per-request sampling and speculative decoding.
 
     from repro_torch.runtime.server import Request, Server, ServingConfig
     server = Server(params, cfg, ServingConfig(paged=True, n_slots=4,
@@ -17,15 +17,23 @@ write into a block another holder maps first forks it (`_write_plan` →
 `cow_copy_block`); when decode growth outruns the pool the newest-admitted
 lane is preempted and re-queued with prompt + generated-so-far.
 
-Every step runs all `n_slots` lanes at one chunk width (1, or the prefill
-chunk), idle lanes included, exactly as the reference engine does: the
-dynamic activation scale of the CIM path spans the whole [B, C, D] tensor,
-so dropping idle lanes or changing C would change the quantization grid.
+Tokens are drawn by `runtime.speculative.sample_token` (greedy argmax at
+temperature 0, else a top-k softmax draw keyed by (request seed, emission
+index)). With a drafter (`ServingConfig.drafter`), each decode lane's K
+drafted tokens are verified in one C = K + 1 `paged_step(all_logits=True)`
+under exact rejection sampling, and rollback is `tables.lens[s] =
+committed`.
+
+Every step runs all `n_slots` lanes at one chunk width (1, the prefill
+chunk, or spec_k + 1 when a lane drafts), idle lanes included, exactly as
+the reference engine does: the dynamic activation scale of the CIM path
+spans the whole [B, C, D] tensor, so dropping idle lanes or changing C
+would change the quantization grid.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-sampling at temperature > 0 and speculative decoding (A4a), parallel
-samples (A4b), telemetry (A4c), static activation grids and precision
-manifests (A7), the trie watermark sweep (A4d) and the slot engine (A4e).
+parallel samples (A4b), telemetry (A4c), static activation grids and
+precision manifests (A7), the trie watermark sweep (A4d), the slot engine
+and the model drafter (A4e).
 """
 from __future__ import annotations
 
@@ -40,6 +48,9 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
 from repro_torch.runtime.paging import BlockAllocator, PrefixTrie, SlotTables
+from repro_torch.runtime.speculative import (SamplingParams, make_drafter,
+                                             parse_drafter, sample_token,
+                                             verify_token)
 
 
 def _not_ported(what: str, item: str):
@@ -49,9 +60,12 @@ def _not_ported(what: str, item: str):
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Everything the Server needs beyond (params, model cfg); the fields
-    of the reference's ServingConfig (`spec_k` comes with the drafter).
-    `paged` defaults to True here because the slot engine is not ported;
-    `telemetry` defaults to False because telemetry is not ported."""
+    of the reference's ServingConfig. `paged` defaults to True here because
+    the slot engine is not ported; `telemetry` defaults to False because
+    telemetry is not ported. Speculative decoding: `drafter` picks a
+    proposer from the runtime.speculative registry ("off" / "ngram" /
+    "model:<name>") and `spec_k` caps drafted tokens per lane per verify
+    step."""
     n_slots: int = 4
     max_len: int = 128
     prequant: bool = False
@@ -68,6 +82,7 @@ class ServingConfig:
     prefix_sharing: bool = True
     watermark: float = 1 / 16
     drafter: str = "off"
+    spec_k: int = 4
     trie_watermark: Optional[float] = None
     telemetry: bool = False
 
@@ -88,13 +103,17 @@ class ServingConfig:
             raise ValueError("num_blocks must be >= 1")
         if not 0.0 <= self.watermark < 1.0:
             raise ValueError("watermark is a pool fraction in [0, 1)")
+        if self.spec_k < 1:
+            raise ValueError("spec_k must be >= 1 (tokens drafted per "
+                             "verify step)")
         from repro_torch.kernels.paged_attention import choose_attn_backend
         choose_attn_backend(self.attn)   # validate the name up front
+        name, _ = parse_drafter(self.drafter)   # validate like attn
+        if name != "off" and not self.paged:
+            raise ValueError("speculative decoding (drafter != 'off') "
+                             "needs the paged engine (paged=True)")
         if not self.paged:
             raise _not_ported("the slot-based engine (paged=False)", "A4e")
-        if self.drafter != "off":
-            raise _not_ported("speculative decoding (drafter != 'off')",
-                              "A4a")
         if self.act_scale is not None or self.act_zero_point is not None:
             raise _not_ported("static activation grids (act_scale)", "A7")
         if self.precision_manifest is not None:
@@ -113,7 +132,8 @@ class ServingConfig:
                  ("num_blocks", "num_blocks"),
                  ("prefill_chunk", "prefill_chunk"),
                  ("token_budget", "token_budget"), ("attn", "attn"),
-                 ("watermark", "watermark")]
+                 ("watermark", "watermark"), ("drafter", "drafter"),
+                 ("spec_k", "spec_k")]
         for field, flag in pairs:
             v = getattr(args, flag, None)
             if v is not None:
@@ -132,7 +152,10 @@ class Request:
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
     n_samples: int = 1
-    temperature: float = 0.0   # greedy only (> 0: ROADMAP A4a)
+    # per-request sampling policy (runtime.speculative): greedy default;
+    # temperature/top-k draws are keyed by (sampling.seed, emission index)
+    sampling: SamplingParams = dataclasses.field(
+        default_factory=SamplingParams)
     # filled by the server:
     rid: int = -1
     output: list[int] = dataclasses.field(default_factory=list)
@@ -160,6 +183,11 @@ class ServerMetrics:
     preemptions: int = 0
     prefix_hit_tokens: int = 0
     cow_forks: int = 0
+    spec_steps: int = 0        # speculative verify steps run
+    draft_tokens: int = 0      # tokens proposed by the drafter
+    draft_accepted: int = 0    # proposed tokens accepted by verification
+    # accept-length histogram: {accepted drafts per verify step: count}
+    accept_hist: dict = dataclasses.field(default_factory=dict)
     peak_active: int = 0
     peak_decode_lanes: int = 0
     wall_s: float = 0.0
@@ -176,6 +204,16 @@ class ServerMetrics:
                 "preemptions": self.preemptions,
                 "prefix_hit_tokens": self.prefix_hit_tokens,
                 "cow_forks": self.cow_forks,
+                "spec_steps": self.spec_steps,
+                "draft_tokens": self.draft_tokens,
+                "draft_accepted": self.draft_accepted,
+                "accept_rate": self.draft_accepted / self.draft_tokens
+                if self.draft_tokens else 0.0,
+                # mean emissions per verify step (accepted drafts + the
+                # correction/bonus token)
+                "mean_accept_len": 1.0 + self.draft_accepted
+                / self.spec_steps if self.spec_steps else 0.0,
+                "accept_hist": dict(sorted(self.accept_hist.items())),
                 "peak_active": self.peak_active,
                 "peak_decode_lanes": self.peak_decode_lanes,
                 "wall_s": self.wall_s}
@@ -226,6 +264,10 @@ class Server:
         self.cache = self.mod.init_paged_cache(cfg, num_blocks + 1,
                                                self.block_size,
                                                device=self.device)
+        # speculative decoding: the drafter instance (None = off); its
+        # verify steps score every drafted token in one C=spec_k+1 step
+        self.spec_k = serving.spec_k
+        self.drafter = make_drafter(serving.drafter, cfg, self.max_len)
         self._pf_done = np.zeros(self.n_slots, np.int64)
         self._pf_src: list[Optional[list[int]]] = [None] * self.n_slots
         self._slot_seq = np.zeros(self.n_slots, np.int64)
@@ -236,10 +278,12 @@ class Server:
     def submit(self, req: Request) -> int:
         if not req.prompt:
             raise ValueError("empty prompt")
+        if not isinstance(req.sampling, SamplingParams):
+            raise ValueError("Request.sampling must be a SamplingParams "
+                             f"(runtime.speculative), got "
+                             f"{type(req.sampling).__name__}")
         if req.n_samples != 1:
             raise _not_ported("parallel samples (n_samples > 1)", "A4b")
-        if req.temperature != 0.0:
-            raise _not_ported("sampling at temperature > 0", "A4a")
         if len(req.prompt) >= self.max_len - 1:
             raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
                              f"max_len={self.max_len}")
@@ -363,7 +407,8 @@ class Server:
             if not active:
                 return
             decode_lanes, dropped, takes, starved = self._schedule(active)
-            valid_map = {s: 1 for s in decode_lanes}
+            spec = self._plan_spec(decode_lanes)
+            valid_map = {s: 1 + len(spec.get(s, ())) for s in decode_lanes}
             valid_map.update(takes)
             need, copies = self._write_plan(valid_map)
             if need <= self._available() or len(active) == 1:
@@ -391,26 +436,33 @@ class Server:
         for s, v in valid_map.items():
             if v:
                 self.tables.grow(s, int(self.tables.lens[s]) + v, self.alloc)
-        # steps whose prefill lanes are all budget-starved run C = 1
+        # steps whose prefill lanes are all budget-starved run C = 1; spec
+        # verify lanes always stamp C = spec_k + 1 (per-lane clamps shrink
+        # `valid`, never the chunk width)
         c = self.prefill_chunk if takes else 1
+        if spec:
+            c = max(c, self.spec_k + 1)
         toks = np.zeros((self.n_slots, c), np.int32)
         valid = np.zeros(self.n_slots, np.int32)
         for s in decode_lanes:
             toks[s, 0] = self.slot_req[s].output[-1]
-            valid[s] = 1
+            drafts = spec.get(s, ())
+            toks[s, 1:1 + len(drafts)] = drafts
+            valid[s] = 1 + len(drafts)
         for s, take in takes.items():
             done = int(self._pf_done[s])
             toks[s, :take] = self._pf_src[s][done:done + take]
             valid[s] = take
         dev = self.device
+        # verify steps need the logits at every chunk position (one row per
+        # drafted token plus the bonus)
         logits, self.cache = self.mod.paged_step(
             self.params, torch.from_numpy(toks).to(dev), self.cache,
             torch.from_numpy(self.tables.tables).to(dev),
             torch.from_numpy(self.tables.lens).to(dev),
-            torch.from_numpy(valid).to(dev), self.cfg)
-        # greedy argmax on the host, as the reference's sample_token does
-        # at temperature 0
-        rows = logits.float().cpu().numpy()              # [B, V]
+            torch.from_numpy(valid).to(dev), self.cfg,
+            all_logits=bool(spec))
+        rows = logits.float().cpu().numpy()              # [B, V] or [B, C, V]
         now = time.monotonic()
         retires = []
         for s in active:
@@ -422,7 +474,12 @@ class Server:
                 self._pf_done[s] += int(valid[s])
                 self.metrics.prefill_tokens += int(valid[s])
                 if self._pf_done[s] == len(self._pf_src[s]):
-                    req.output.append(int(np.argmax(rows[s])))
+                    row = rows[s, int(valid[s]) - 1] if rows.ndim == 3 \
+                        else rows[s]
+                    # emission index = len(output): 0 for a fresh prompt,
+                    # the resume index after preemption
+                    req.output.append(
+                        sample_token(row, req.sampling, len(req.output)))
                     if not req.t_first:
                         req.t_first = now
                     self._register_prefix(s)
@@ -431,8 +488,12 @@ class Server:
                                 and req.output[-1] == req.eos_id)):
                         self._retire(s, now)
                 continue
+            if s in spec:
+                self._apply_verify(s, rows[s], spec[s], now)
+                continue
             self.tables.lens[s] += 1
-            nxt = int(np.argmax(rows[s]))
+            row = rows[s, 0] if rows.ndim == 3 else rows[s]
+            nxt = sample_token(row, req.sampling, len(req.output))
             req.output.append(nxt)
             self.metrics.decode_tokens += 1
             exhausted = len(req.output) >= req.max_new_tokens
@@ -445,6 +506,77 @@ class Server:
         self.steps_run += 1
         self.metrics.steps += 1
         self._admit()
+
+    def _plan_spec(self, decode_lanes) -> dict[int, list[int]]:
+        """Draft proposals for this step's decode lanes: {slot: tokens}.
+
+        Per-lane k is clamped so the verify step never proposes past the
+        request's remaining allowance (the correction/bonus token always
+        fits) nor writes past the slot window. Both clamps and the
+        proposals are functions of the lane's own state, so a lane drafts
+        the same tokens whether it serves alone or in a full batch. Lanes
+        clamped to k=0 fall back to plain 1-token decode."""
+        if self.drafter is None:
+            return {}
+        spec = {}
+        for s in decode_lanes:
+            req = self.slot_req[s]
+            lens0 = int(self.tables.lens[s])
+            k = min(self.spec_k,
+                    req.max_new_tokens - len(req.output) - 1,
+                    self.max_len - 2 - lens0)
+            if k > 0:
+                drafts = self.drafter.propose(req.prompt + req.output, k)
+                spec[s] = [int(t) for t in drafts]
+        return spec
+
+    def _apply_verify(self, s: int, rows, drafts: list[int], now: float):
+        """Commit one lane's verify-step results.
+
+        Walks the per-position target rows in plain-decode order (emission
+        index = len(output)): each drafted token is accepted or replaced by
+        exact rejection sampling (runtime.speculative.verify_token); the
+        first rejection's row yields the replacement, and a fully accepted
+        run earns the bonus token from the last row. Retirement checks
+        (exhaustion / EOS / window full) run after every emission as the
+        plain decode loop would. Rollback is truncation: kv_len becomes the
+        committed prefix (prev token + matched drafts); rejected positions
+        stay past kv_len, masked, until later writes overwrite them."""
+        req = self.slot_req[s]
+        lens0 = int(self.tables.lens[s])
+        matched = emitted = 0
+        retire = False
+        self.metrics.spec_steps += 1
+        self.metrics.draft_tokens += len(drafts)
+        for i in range(len(drafts) + 1):
+            idx = len(req.output)
+            if i < len(drafts):
+                tok, ok = verify_token(rows[i], drafts[i], req.sampling,
+                                       idx)
+            else:   # every draft matched: the bonus row is a free token
+                tok, ok = sample_token(rows[i], req.sampling, idx), False
+            req.output.append(int(tok))
+            emitted += 1
+            if ok:
+                matched += 1
+            self.metrics.decode_tokens += 1
+            exhausted = len(req.output) >= req.max_new_tokens
+            hit_eos = req.eos_id is not None and int(tok) == req.eos_id
+            # plain-decode parity: before this emission the plain loop
+            # would have written lens0 + emitted tokens and checked
+            # lens + 1 against max_len - 1
+            full = lens0 + emitted + 1 >= self.max_len - 1
+            if exhausted or hit_eos or full:
+                retire = True
+                break
+            if not ok:
+                break
+        self.metrics.draft_accepted += matched
+        self.metrics.accept_hist[matched] = \
+            self.metrics.accept_hist.get(matched, 0) + 1
+        self.tables.lens[s] = lens0 + 1 + matched
+        if retire:
+            self._retire(s, now)
 
     def _register_prefix(self, slot: int):
         """Cache the completed prefill's full prompt blocks in the trie."""

@@ -10,8 +10,11 @@ since its plain version follows the kernel's operation order on the same
 device, with a bfloat16 output equal to the plain f32 output rounded by
 `.to(torch.bfloat16)`. B4 runs inside B3's decode launch: that launch
 must equal B4's plain version followed by B3's, on the outputs and on
-every byte of both pools. Inputs come from numpy seeds. This file needs
-no JAX.
+every byte of both pools. B3 and that launch are held so at head dims and
+block sizes past their fast case too (dh 16, 20, 21, 56, 80, 96; bs 48,
+64, 128), and a speculative verify step (C = 5, every position's logits)
+of the smoke model is identical with the kernels and with their plain
+versions. Inputs come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -274,7 +277,7 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("bs", [8, 16])
 @pytest.mark.parametrize("mb", [5, 16, 17])
-@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("c", [1, 5, 16])
 def test_b3_bit_exact_vs_plain(c, mb, bs, dh, dtype):
     dev = gpu_device()
     case = _attn_case(7, c, dtype, dev, dh=dh, bs=bs, mb=mb)
@@ -366,6 +369,100 @@ def test_b4_bit_exact_vs_plain(dtype):
     assert torch.equal(k2, k3) and torch.equal(v2, v3)
     assert torch.equal(k2[0], kp[0])       # flat 0: no write
     assert torch.equal(out, ref)
+
+
+# Head dims and block sizes past B3's fast case (dh in {32, 64, 128, 256},
+# bs <= 32): rows of bf16 dh 20 are 40 bytes (8-byte copies), of dh 21 42
+# bytes in bf16 (2-byte copies) and 84 in f32 (4-byte copies); dh 56 is
+# deepseek-v3's MLA head dim, dh 80 stablelm-3b's; bs > 32 is scored in
+# pieces of 32 tokens.
+C1_SHAPES = [(16, 16), (20, 16), (21, 8), (56, 16), (80, 16), (96, 8),
+             (128, 48), (128, 64), (80, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,bs", C1_SHAPES)
+@pytest.mark.parametrize("c", [1, 5, 16])
+def test_b3_any_head_dim_and_block_size_bit_exact(c, dh, bs, dtype):
+    dev = gpu_device()
+    case = _attn_case(10, c, dtype, dev, dh=dh, bs=bs, mb=16)
+    out = pa.paged_attn_call(*case)
+    ref = pa.paged_attn_plain(*case)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert torch.equal(out, ref)
+    q16 = case[0].bfloat16()
+    out16 = pa.paged_attn_call(q16, *case[1:], out_dtype=torch.bfloat16)
+    assert _same_bits(out16, pa.paged_attn_plain(q16, *case[1:])
+                      .to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,bs", C1_SHAPES)
+@pytest.mark.parametrize("mb", [5, 16])
+def test_b3_b4_decode_launch_any_head_dim_and_block_size(mb, dh, bs, dtype):
+    dev = gpu_device()
+    case = _attn_case(11, 1, dtype, dev, dh=dh, bs=bs, mb=mb)
+    q, kp, vp, tables, lens, kvl = case
+    nk, nv, flat = _decode_writes(case, dtype, dev)
+    k2, v2, k3, v3 = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    out = pa.decode_write_attend_call(q, k2, v2, nk, nv, flat, tables, lens,
+                                      kvl)
+    ref = pa.decode_write_attend_plain(q, k3, v3, nk, nv, flat, tables, lens,
+                                       kvl)
+    assert torch.isfinite(out).all() and (out[0] == 0).all()
+    assert _same_bits(out, ref)
+    assert _same_bits(k2, k3) and _same_bits(v2, v3)
+    assert not _same_bits(k2, kp) and _same_bits(k2[0], kp[0])
+
+
+def test_b3_rejects_what_the_reference_rejects():
+    dev = gpu_device()
+    q, kp, vp, tables, lens, kvl = _attn_case(12, 1, torch.float32, dev,
+                                              dh=80, bs=16, mb=5)
+    with pytest.raises(ValueError, match="shape mismatch"):   # KH ∤ H
+        pa.paged_attn_call(q[:, :, :15], kp, vp, tables, lens, kvl)
+    wide = torch.zeros(*kp.shape[:3], 257, device=dev)
+    with pytest.raises(ValueError, match="1 <= dh <= 256"):
+        pa.paged_attn_call(torch.zeros(*q.shape[:3], 257, device=dev), wide,
+                           wide, tables, lens, kvl)
+
+
+def test_verify_step_kernels_bit_exact_vs_plain():
+    """A speculative verify step (C = spec_k + 1 = 5, all positions'
+    logits) at decode depth on the smoke model under --cim bp-prequant:
+    the kernels (B1, B3 after paged_write) against their plain versions,
+    logits and pools identical."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.models import quantize, registry, transformer
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
+    params = quantize.quantize_params(
+        registry.init_params(cfg, seed=0, device=dev), cfg, packed=True)
+    rng = np.random.RandomState(13)
+    tables = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(4, 4)
+    runs = []
+    for step_cfg in (cfg, cfg.replace(attn_backend="plain", cim=dataclasses
+                                      .replace(cfg.cim, backend="plain"))):
+        cache = transformer.init_paged_cache(step_cfg, 17, 16, device=dev)
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        lens = torch.zeros(4, dtype=torch.int32, device=dev)
+        valid = torch.tensor([16, 16, 9, 0], dtype=torch.int32, device=dev)
+        _, cache = transformer.paged_step(params, toks, cache, tables, lens,
+                                          valid, step_cfg)
+        draft = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 5))).to(dev)
+        logits, cache = transformer.paged_step(
+            params, draft, cache, tables, valid,
+            torch.tensor([5, 3, 1, 0], dtype=torch.int32, device=dev),
+            step_cfg, all_logits=True)
+        runs.append((logits, cache["layers"]))
+        rng = np.random.RandomState(13)
+    (lk, pk), (lp, pp) = runs
+    assert lk.shape == (4, 5, cfg.vocab) and torch.isfinite(lk[:3]).all()
+    assert torch.equal(lk[:3], lp[:3])
+    assert _same_bits(pk["k"][:, 1:], pp["k"][:, 1:])
+    assert _same_bits(pk["v"][:, 1:], pp["v"][:, 1:])
 
 
 def test_decode_launch_rejects_bad_operands():

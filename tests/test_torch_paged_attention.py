@@ -8,7 +8,9 @@ is held within atol/rtol 2e-5 (f32 rounding over windows of <= 136
 positions of unit-scale scores);
 the "exact" backend likewise against the reference "exact". Every case
 uses mixed lengths, an idle lane and a NaN-filled trash block, and the
-outputs must be finite. The plain B4 is bit-exact. The decode entry (B4's
+outputs must be finite. Head dims and block sizes past the kernel's fast
+case (dh 16, 20, 56, 80; bs 48, 64, 128, which B3 scores in pieces of 32
+tokens) are held likewise. The plain B4 is bit-exact. The decode entry (B4's
 write folded into B3's launch on the card; on CPU tensors the plain
 pair) is held against the reference's fused write then flash attention:
 pools bit-exact, outputs within TOL. Inputs come from numpy seeds; the
@@ -101,6 +103,49 @@ def test_plain_b3_vs_pallas_interpret(c, seed, layout):
     assert np.isfinite(out).all()
     np.testing.assert_allclose(out, ref, **TOL)
     assert np.all(out[0] == 0.0)     # idle lane emits exactly 0
+
+
+# (head dim, block size, table width): dh not a multiple of 32 (bf16 rows
+# of dh 20 are 40 bytes), blocks of more than 32 tokens
+C1_SHAPES = [(16, 8, 5), (20, 16, 5), (56, 16, 4), (80, 16, 5), (32, 48, 3),
+             (32, 64, 3), (80, 128, 2)]
+
+
+@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("dh,bs,mb", C1_SHAPES)
+def test_plain_b3_any_head_dim_and_block_size_vs_pallas(dh, bs, mb, c):
+    q, kp, vp, tables, lens, kvl = case = _case(c + dh, c=c, mb=mb, dh=dh,
+                                               bs=bs)
+    ref = np.asarray(ref_pa.paged_flash_attention(
+        *(jnp.asarray(a) for a in case), interpret=True, kblocks=1,
+        row_tile=None))
+    out = pa.paged_attn_call(*_torch(case)).numpy()
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **TOL)
+    assert np.all(out[0] == 0.0)
+
+
+@pytest.mark.parametrize("dh,bs,mb", C1_SHAPES)
+def test_plain_b4_any_head_dim_and_block_size_vs_fused_write(dh, bs, mb):
+    """The write at every shape, bit-exact against the reference's fused
+    write (lane 0 idle, the others at offsets 0, bs - 1 and mid-block)."""
+    rng = np.random.RandomState(dh + bs)
+    nb = 4 * mb + 1
+    kp = rng.standard_normal((nb, bs, 2, dh)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, 2, dh)).astype(np.float32)
+    nk = rng.standard_normal((4, 1, 2, dh)).astype(np.float32)
+    nv = rng.standard_normal((4, 1, 2, dh)).astype(np.float32)
+    flat = np.array([[0], [3 * bs], [5 * bs - 1], [7 * bs + bs // 2]],
+                    np.int32)
+    rk, rv = ref_pa.fused_paged_write(jnp.asarray(kp), jnp.asarray(vp),
+                                      jnp.asarray(nk), jnp.asarray(nv),
+                                      jnp.asarray(flat), interpret=True)
+    tk, tv = torch.from_numpy(kp.copy()), torch.from_numpy(vp.copy())
+    pa.fused_write_plain(tk, tv, torch.from_numpy(nk), torch.from_numpy(nv),
+                         torch.from_numpy(flat))
+    assert np.array_equal(np.asarray(rk), tk.numpy())
+    assert np.array_equal(np.asarray(rv), tv.numpy())
+    assert np.array_equal(tk[0].numpy(), kp[0])
 
 
 @pytest.mark.parametrize("c", [1, 16])

@@ -8,7 +8,9 @@ prefix hit), in the float32 model, on the same weights carried across by
 with the exact attention; nibble-packed prequant (B1) with the kernel
 attention; and the seeded NOISY converter chain (noise_seed 0, as
 `serve.py --cim bp-noisy` builds it) with weights quantized on the fly
-(B5) and with nibble-packed prequant weights (B6).
+(B5) and with nibble-packed prequant weights (B6). A block size of 64
+(B3 scores it in pieces of 32 tokens) and `eos_id` retirement at prefill
+and at decode are held to the reference too.
 """
 import dataclasses
 import os
@@ -137,6 +139,57 @@ def test_preemption_schedule_matches_reference(ref_weights, leg):
     assert port.alloc.stats.in_use == 0
 
 
+def test_block_size_64_matches_reference(ref_weights):
+    """Blocks of 64 tokens under the kernel attention: prompts of 20-90
+    tokens span both pieces of a block and a second block."""
+    (ref, RReq), (port, TReq) = _servers(
+        ref_weights, "prequant-kernel", block_size=64, max_len=128,
+        prefill_chunk=16)
+    outs = []
+    for srv, Req in ((ref, RReq), (port, TReq)):
+        rng = np.random.RandomState(64)
+        reqs = [Req(prompt=rng.randint(0, 512, size=n).tolist(),
+                    max_new_tokens=int(rng.randint(3, 7)))
+                for n in (90, 20, 45, 70)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+    assert max(len(r.prompt) + len(r.output) for r in reqs) > 64
+    _same_metrics(ref, port)
+
+
+@pytest.mark.parametrize("where", ["prefill", "decode"])
+@pytest.mark.parametrize("leg", ["off-exact", "prequant-kernel"])
+def test_eos_retirement_matches_reference(ref_weights, leg, where):
+    """eos_id taken from the reference Server's own greedy stream at a
+    step whose token did not occur earlier in it (the first token for a
+    prefill-time EOS): the reference and the port both retire there, with
+    the same stream."""
+    (ref, RReq), (port, TReq) = _servers(ref_weights, leg)
+    prompt = np.random.RandomState(5).randint(0, 512, size=5).tolist()
+    free = RReq(prompt=list(prompt), max_new_tokens=8)
+    ref.submit(free)
+    ref.run_until_drained()
+    stream = free.output
+    if where == "prefill":
+        i = 0
+    else:
+        i = next(i for i in range(2, len(stream))
+                 if stream[i] not in stream[:i])
+    outs = []
+    for srv, Req in ((ref, RReq), (port, TReq)):
+        r = Req(prompt=list(prompt), max_new_tokens=8, eos_id=stream[i])
+        srv.submit(r)
+        srv.run_until_drained()
+        assert r.done
+        outs.append(r.output)
+    assert outs[0] == outs[1] == stream[:i + 1]
+    port.flush_prefix_cache()
+    assert port.alloc.stats.in_use == 0
+
+
 def test_prefix_hit_schedule_matches_reference(ref_weights):
     (ref, RReq), (port, TReq) = _servers(ref_weights, "prequant-kernel")
     outs = []
@@ -198,7 +251,7 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("drafter", "ngram", "A4a"), ("telemetry", True, "A4c"),
+    ("telemetry", True, "A4c"),
     ("trie_watermark", 0.5, "A4d"), ("paged", False, "A4e"),
     ("act_scale", 0.1, "A7"), ("precision_manifest", "m.json", "A7")])
 def test_serving_config_unported_options_raise(field, value, item):
@@ -206,8 +259,14 @@ def test_serving_config_unported_options_raise(field, value, item):
         tserver.ServingConfig(**{field: value})
 
 
-@pytest.mark.parametrize("kw,item", [({"temperature": 0.7}, "A4a"),
-                                     ({"n_samples": 2}, "A4b")])
+def test_model_drafter_not_ported():
+    from repro_torch.runtime.speculative import make_drafter
+    cfg, _ = _smoke_params()
+    with pytest.raises(NotImplementedError, match="A4e"):
+        make_drafter("model:internlm2-1.8b", cfg, 64)
+
+
+@pytest.mark.parametrize("kw,item", [({"n_samples": 2}, "A4b")])
 def test_request_unported_options_raise(kw, item):
     cfg, params = _smoke_params()
     srv = tserver.Server(params, cfg, tserver.ServingConfig(max_len=64),

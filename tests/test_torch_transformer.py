@@ -2,8 +2,10 @@
 weights carried across by `params_from_numpy`.
 
 A step sequence runs from an empty pool: a prefill chunk (C = 8, mixed
-lanes, one idle), a decode step (C = 1) and an all-positions step
-(C = 3, `all_logits`), each compared on logits and on the pools (blocks
+lanes, one idle), a decode step (C = 1), an all-positions step
+(C = 3, `all_logits`) and a speculative verify step at spec_k 3 (C = 4,
+`all_logits`, lanes clamped to 2 drafts), each compared on logits and on
+the pools (blocks
 >= 1; the trash block takes masked writes by design). Legs: --cim off,
 bp and bp-prequant, and the seeded NOISY converter chain (noise_seed 0)
 on the fly (bp-noisy, B5) and prequant (noisy-prequant, B6), in a float32
@@ -86,10 +88,11 @@ def _schedule(rng, vocab):
     tables[3] = [6, 7, 8, 9]
     steps = []
     lens = np.array([0, 0, 0, 0], np.int32)
-    for c, valid in ((8, [0, 8, 5, 8]), (1, [0, 1, 1, 1]), (3, [0, 3, 2, 3])):
+    for c, valid in ((8, [0, 8, 5, 8]), (1, [0, 1, 1, 1]), (3, [0, 3, 2, 3]),
+                     (4, [0, 4, 2, 4])):
         valid = np.array(valid, np.int32)
         toks = rng.randint(0, vocab, (B, c)).astype(np.int32)
-        steps.append((toks, lens.copy(), valid, c == 3))
+        steps.append((toks, lens.copy(), valid, c in (3, 4)))
         lens = lens + valid
     return tables, steps
 
