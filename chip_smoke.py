@@ -46,6 +46,22 @@ of which fails the run when it fails:
      served greedily with the ngram drafter at spec_k 4 (accept statistics
      printed), then twice sampled (temperature 0.7, top-k 8, seeds 0-7),
      which must give identical streams;
+  3t. telemetry, parallel samples and the trie watermark sweep at phase
+     3's width and settings (`telemetry=True`, `trie_watermark=0.25`):
+     phase 3's 8 requests, 0 and 1 at n_samples 2 (submitted first, so
+     their clones install the step their parent's prefill completes and
+     decode in lockstep with it), greedy, 16 new tokens each; three
+     drains with telemetry on and two with it off, in turns. Each clone
+     must equal its parent, cow_forks and trie_sweep_freed must be > 0,
+     the off drains must give the on drains' streams, the Chrome trace
+     must validate, KERNEL_COUNTERS' per-call counts must equal the
+     kernels' launch counts (cuda_packed = B1; kernel = B3 + the decode
+     launch), and the recording hooks (timed on the instance, as the
+     reference's serve_slo bench times them) must take under 3 % of the
+     step() wall (median of the on drains). Prints TTFT / ITL p50 / p99,
+     the event counts, the Prometheus line count, the host cost of the
+     169 per-call KERNEL_COUNTERS updates of one decode step and tok/s
+     with telemetry on and off;
   4. a short --cim bp serve, which must launch B2, and the decode step
      breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
@@ -56,7 +72,9 @@ of which fails the run when it fails:
      quantized on the fly, which must launch B5;
   5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
      against their plain versions, B1/B6 equal to them at the even depth;
-  6. a `kernels` JSON line, then the result line.
+  6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
+     phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b),
+     then the result line.
 """
 from __future__ import annotations
 
@@ -97,6 +115,12 @@ DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 C1_SHAPES = ((16, 16), (80, 16), (56, 16), (20, 16), (128, 48), (128, 64),
              (80, 128))
 SPEC_K = 4
+# the Telemetry hooks the Server calls (event() is the shared internal
+# path of cow_fork and preempt, so it is not wrapped); now() is not a hook
+TEL_HOOKS = ("submit", "admit", "prefill_chunk", "first_token", "emission",
+             "decode_step", "spec_verify", "cow_fork", "preempt", "retire",
+             "step_snapshot")
+HOOK_LIMIT = 0.03              # hook time / step() wall, the reference's
 
 
 def log(msg: str) -> None:
@@ -185,9 +209,14 @@ def main() -> int:
     from repro_torch.core.macro import MacroConfig, SimLevel
     from repro_torch.kernels import build, cim_mvm as cm, ops
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.core import engine
+    from repro_torch.core.engine import PackedCodes
     from repro_torch.models import common, registry, transformer
-    from repro_torch.runtime.server import Request, Server, ServingConfig
+    from repro_torch.runtime import obs
+    from repro_torch.runtime.server import (Request, Server, ServerMetrics,
+                                            ServingConfig)
     from repro_torch.runtime.speculative import SamplingParams
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls stay f32
     dev = torch.device("cuda")
@@ -880,11 +909,8 @@ def main() -> int:
     counts, _ = serve_mix(server, prompts, "phase 3")
     # B3 runs alone at prefill and with B4 folded in at decode
     check(counts["paged_attn_call"] > 0, "B3 was not launched at prefill")
-    main_launches = {"B1": counts["cim_mvm_grouped_packed"],
-                     "B3": counts["paged_attn_call"]
-                     + counts["decode_write_attend_call"],
-                     "B4": counts["decode_write_attend_call"]}
-    for name, n in main_launches.items():
+    for name, n in (("B1", counts["cim_mvm_grouped_packed"]),
+                    ("B3+B4", counts["decode_write_attend_call"])):
         check(n > 0, f"{name} was not launched on the main path")
     check_steps(server, "phase 3")
     decode_breakdown(server, "phase 3")
@@ -950,6 +976,202 @@ def main() -> int:
           "different streams")
     log("phase 3s: the two sampled spec serves (temperature 0.7, top-k 8, "
         "seeds 0-7) gave identical streams")
+
+    # ---- phase 3t: telemetry, parallel samples, trie watermark -----------
+    tel_serving = dataclasses.replace(serving, telemetry=True,
+                                      trie_watermark=0.25)
+
+    def drain_3t(server, hook_s):
+        """One drain of phase 3t's mix on a reused server (prefix cache
+        flushed, metrics and telemetry reset): the forked requests 0 and 1
+        first, stepping until both clones are installed, then the rest.
+        Returns (requests, launch counts, KERNEL_COUNTERS snapshot, drain
+        seconds, step() wall seconds, hook seconds, seconds the host
+        spent enqueueing the model steps)."""
+        server.flush_prefix_cache()
+        server.metrics = ServerMetrics()
+        server.telemetry.reset()
+        reqs = [Request(prompt=p, max_new_tokens=16,
+                        n_samples=2 if i < 2 else 1)
+                for i, p in enumerate(prompts)]
+        wall, enqueue = [0.0], [0.0]
+        inner, model_step = server.step, transformer.paged_step
+
+        def timed_step():
+            t = time.perf_counter()
+            inner()
+            wall[0] += time.perf_counter() - t
+
+        def timed_model_step(*a, **kw):
+            t = time.perf_counter()
+            out = model_step(*a, **kw)
+            enqueue[0] += time.perf_counter() - t
+            return out
+
+        server.step = timed_step
+        transformer.paged_step = timed_model_step
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        KERNEL_COUNTERS.reset()
+        hook_s[0] = 0.0
+        t0 = time.monotonic()
+        for r in reqs[:2]:
+            server.submit(r)
+        kids = [c for r in reqs[:2] for c in r.samples]
+        for _ in range(64):
+            if all(any(x is c for x in server.slot_req) for c in kids):
+                break
+            server.step()
+        check(all(any(x is c for x in server.slot_req) for c in kids),
+              "phase 3t: the clones were not installed")
+        for r in reqs[2:]:
+            server.submit(r)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        del server.step
+        transformer.paged_step = model_step
+        return (reqs, build.launch_counts(), KERNEL_COUNTERS.snapshot(), dt,
+                wall[0], hook_s[0], enqueue[0])
+
+    def instrument(tel):
+        """Shadow each recording hook on the instance with a self-timing
+        wrapper; returns the accumulator."""
+        acc = [0.0]
+        for name in TEL_HOOKS:
+            def timed(*a, _base=getattr(tel, name), **kw):
+                t = time.perf_counter()
+                r = _base(*a, **kw)
+                acc[0] += time.perf_counter() - t
+                return r
+            setattr(tel, name, timed)
+        return acc
+
+    # one server drains with its telemetry switched on and off in turns
+    # (on and off timed on the same instance); a second one, built with
+    # ServingConfig(telemetry=False), drains once more
+    srv_on = Server(params, cfg, tel_serving, device=dev)
+    srv_off = Server(params, cfg, dataclasses.replace(tel_serving,
+                                                      telemetry=False),
+                     device=dev)
+    check((srv_on._trie_hi, srv_on._trie_lo) == (16, 8),
+          f"phase 3t: trie watermarks {srv_on._trie_hi}/{srv_on._trie_lo} "
+          "blocks, expected 16/8 of 64")
+    hooks_on, hooks_off = instrument(srv_on.telemetry), [0.0]
+    ratios, streams_3t = [], []
+    tok_s = {"on": [], "off": [], "config off": []}
+    for i, leg in enumerate(("on", "off", "on", "off", "on", "config off")):
+        srv = srv_off if leg == "config off" else srv_on
+        srv.telemetry.enabled = leg == "on"
+        reqs, counts, kc, dt, wall, hook, enq = drain_3t(
+            srv, hooks_on if leg == "on" else hooks_off)
+        m = srv.metrics.to_dict()
+        done = [x for r in reqs for x in (r, *r.samples)]
+        total = sum(len(x.output) for x in done)
+        tok_s[leg].append(total / dt)
+        streams_3t.append([x.output for x in done])
+        tag = f"phase 3t ({card}): telemetry {leg} drain {i + 1}"
+        for x in done:
+            check(len(x.output) == 16 and all(0 <= t < cfg.vocab
+                                              for t in x.output),
+                  f"{tag} req{x.rid}: bad output {x.output}")
+        for r in reqs[:2]:
+            check(r.samples[0].output == r.output,
+                  f"{tag}: clone req{r.samples[0].rid} {r.samples[0].output}"
+                  f" differs from its parent req{r.rid} {r.output}")
+        check(m["cow_forks"] > 0 and m["trie_sweep_freed"] > 0,
+              f"{tag}: cow_forks {m['cow_forks']}, trie_sweep_freed "
+              f"{m['trie_sweep_freed']}")
+        b1 = counts["cim_mvm_grouped_packed"]
+        b3 = counts["paged_attn_call"] + counts["decode_write_attend_call"]
+        check(kc["backend_dispatch"] == {"cuda_packed": b1} and b1 > 0,
+              f"{tag}: backend_dispatch {kc['backend_dispatch']} against "
+              f"{b1} B1 launches")
+        check(kc["attn_dispatch"] == {"kernel": b3}
+              and counts["paged_attn_call"] > 0
+              and counts["decode_write_attend_call"] > 0,
+              f"{tag}: attn_dispatch {kc['attn_dispatch']} against B3 "
+              f"{counts['paged_attn_call']} + decode launch "
+              f"{counts['decode_write_attend_call']}")
+        log(f"{tag}: {total} tokens in {m['steps']} steps, {dt:.2f} s "
+            f"({total / dt:.1f} tok/s); step() wall {wall:.3f} s, of it "
+            f"{enq:.3f} s enqueueing paged_step; "
+            f"cow_forks={m['cow_forks']} trie_sweep_freed="
+            f"{m['trie_sweep_freed']} prefix_hit_tokens="
+            f"{m['prefix_hit_tokens']}; launches {counts}; "
+            f"KERNEL_COUNTERS backend {kc['backend_dispatch']} attn "
+            f"{kc['attn_dispatch']}")
+        if leg != "on":
+            check(not srv.telemetry.events, f"{tag}: recorded events")
+            continue
+        ratios.append(hook / wall)
+        log(f"{tag}: recording hooks {hook * 1e3:.3f} ms = "
+            f"{100 * hook / wall:.4f} % of step() wall")
+        if len(ratios) == 1:
+            main_launches = {"B1": b1, "B3": b3,
+                             "B4": counts["decode_write_attend_call"]}
+            log(f"phase 3t ({card}): launches of the first drain, the "
+                f"kernels line's B1/B3/B4: {main_launches}")
+    check(all(st == streams_3t[0] for st in streams_3t),
+          "phase 3t: the drains gave different streams (telemetry on vs "
+          "off, or drain to drain)")
+    tel = srv_on.telemetry
+    doc = obs.chrome_trace(tel)
+    problems = obs.validate_chrome_trace(doc)
+    check(problems == [], f"phase 3t: Chrome trace invalid: {problems[:5]}")
+    prom = obs.prometheus_text(tel, srv_on)
+    overhead = statistics.median(ratios)
+    log(f"phase 3t ({card}): ttft p50 {tel.ttft.percentile(50) * 1e3:.3f} "
+        f"ms p99 {tel.ttft.percentile(99) * 1e3:.3f} ms | itl p50 "
+        f"{tel.itl.percentile(50) * 1e3:.3f} ms p99 "
+        f"{tel.itl.percentile(99) * 1e3:.3f} ms | step_wall p50 "
+        f"{tel.step_wall.percentile(50) * 1e3:.3f} ms (last on drain)")
+    log(f"phase 3t ({card}): events by kind {dict(sorted(tel.counters.items()))}"
+        f"; Chrome trace {len(doc['traceEvents'])} events, valid; "
+        f"Prometheus {len(prom.splitlines())} lines")
+    log(f"phase 3t ({card}): tok/s " + "; ".join(
+        f"telemetry {k} {', '.join(f'{v:.2f}' for v in vs)}"
+        for k, vs in tok_s.items()) + f"; hook overhead per on drain "
+        f"{[f'{100 * r:.4f} %' for r in ratios]}, median "
+        f"{100 * overhead:.4f} % (limit {100 * HOOK_LIMIT:.0f} %)")
+    check(overhead < HOOK_LIMIT, f"phase 3t: telemetry hooks take "
+          f"{100 * overhead:.3f} % of step() wall (limit 3 %)")
+    # the host cost of KERNEL_COUNTERS per decode step: the engine hook
+    # alone, on the 169 packed weights (`<name>_q`, K = 2 x byte rows) of
+    # one decode step (4 slots, C = 1)
+    packed_ws = []
+
+    def walk(t):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                if k.endswith("_q"):
+                    packed_ws.append(PackedCodes(v, 2 * v.shape[0]))
+                else:
+                    walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+
+    walk(srv_on.params)
+    check(len(packed_ws) == 169, f"phase 3t: {len(packed_ws)} packed "
+          "weights, expected 169")
+    xs = {k: torch.zeros(4, 1, k, device=dev)
+          for k in {w.k for w in packed_ws}}
+    macro = cfg.cim.macro
+    KERNEL_COUNTERS.reset()
+    per_step = []
+    for _ in range(7):
+        t = time.perf_counter()
+        for w in packed_ws:
+            engine._record_dispatch("cuda_packed", xs[w.k], w, macro)
+        per_step.append(time.perf_counter() - t)
+    KERNEL_COUNTERS.reset()
+    kc_us = statistics.median(per_step[2:]) * 1e6
+    kc_share = kc_us / (tel.step_wall.percentile(50) * 1e6)
+    log(f"phase 3t ({card}): KERNEL_COUNTERS host cost {kc_us:.1f} us per "
+        f"decode step (169 count_backend + add_site_energy calls, median "
+        f"of 5 steps), {100 * kc_share:.4f} % of the median step wall")
+    del srv_on, srv_off, srv, packed_ws, xs
 
     # ---- phase 4: --cim bp serve (B2) ------------------------------------
     server = Server(params, cfg, ServingConfig(

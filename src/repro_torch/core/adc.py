@@ -13,8 +13,9 @@ fused multiply-adds when it runs the reference kernel are fused here too
 (`fma_f32`). `sin` is each framework's own, so FULL agrees with the
 reference only to a stated tolerance (tests/test_torch_noisy.py).
 
-The straight-through estimators of QAT wait for training (ROADMAP A10), and
-`adc_energy_j` for the energy model (ROADMAP A7).
+`adc_energy_j` is the converter's share of the Eq. 4 energy model
+(`core/energy.py`), pure float64 arithmetic as in the reference. The
+straight-through estimators of QAT wait for training (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -29,6 +30,9 @@ from .macro import MacroConfig, SimLevel
 from .quant import _f32
 
 # --- measured ADC constants (the reference's single source of truth) -------
+# Every consumer (adc_energy_j below, energy._solve_e_mac_ref's absolute
+# anchor) derives from THESE.
+#
 # Dual-threshold comparator power-gating probability (§IV, measured): the
 # main conversion path is off 55.8 % of the time.
 DUAL_THRESHOLD_GATING = 0.558
@@ -163,3 +167,21 @@ def adc_quantize(v_analog: torch.Tensor, cfg: MacroConfig, *,
                 x.shape, generator=key, dtype=x.dtype, device=x.device)
     code = torch.clamp(torch.round(x), 0.0, float(levels - 1))
     return code * _f32(lsb, code)
+
+
+def adc_energy_j(cfg: MacroConfig, *, dual_threshold: bool = True) -> float:
+    """Energy of one TD-ADC conversion (behavioural, calibrated).
+
+    TD-ADC energy scales ~linearly with quantization levels (paper §II-C /
+    Walden). The dual-threshold comparator power-gates the main path for a
+    measured 55.8 % reduction (§IV). Absolute scale is anchored so that the
+    full Eq. 4 macro model reproduces 40.2 TOPS/W @ 0.65 V (see energy.py).
+    """
+    from .energy import E_MAC_REF_J, VOLT_REF, energy_voltage_scale
+
+    e_adc_7b = ADC_RATIO_E_ADC_OVER_N_E_MAC * ADC_RATIO_N_ROWS * E_MAC_REF_J
+    levels = cfg.effective_adc_levels()
+    e = e_adc_7b * (levels / ADC_RATIO_LEVELS)
+    if dual_threshold:
+        e *= (1.0 - DUAL_THRESHOLD_GATING)
+    return e * energy_voltage_scale(cfg.op.vdd) / energy_voltage_scale(VOLT_REF)

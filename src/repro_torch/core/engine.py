@@ -62,9 +62,12 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import cim_mvm, ops
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 from .adc import adc_quantize
+from .energy import mvm_energy
 from .macro import MacroConfig, Scheme, SimLevel
+from .quant import current_site
 from .schemes import cim_mvm_codes, pad_and_group, signed_correction
 
 
@@ -295,6 +298,33 @@ def choose_backend(cfg, x_codes: torch.Tensor, weights) -> str:
     return "scan" if (big and macro.scheme == Scheme.BP) else "einsum"
 
 
+_ENERGY_CACHE: dict = {}    # (macro, k) -> e_mvm_j, see _record_dispatch
+
+
+def _record_dispatch(name: str, x_codes: torch.Tensor, weights,
+                     macro: MacroConfig) -> None:
+    """Observability hook: count the backend pick and accumulate the
+    paper-model CIM energy of this MVM under the active `act_site` name.
+
+    Runs on every call (the port is eager), so KERNEL_COUNTERS counts
+    calls; see telemetry.KernelCounters. Energy is Eq. 4 per K-deep dot
+    product (energy.mvm_energy, cached per (macro, K)) times the call's
+    dot count (rows x output columns). Reads shapes only: no tensor value
+    reaches the host."""
+    if isinstance(weights, PackedCodes):
+        k, m = weights.k, weights.data.shape[-1]
+    else:
+        k, m = weights.shape[-2], weights.shape[-1]
+    rows = math.prod(x_codes.shape[:-1])
+    key = (macro, k)
+    e_dot = _ENERGY_CACHE.get(key)
+    if e_dot is None:
+        e_dot = _ENERGY_CACHE[key] = mvm_energy(macro, k).e_mvm_j
+    KERNEL_COUNTERS.count_backend(name)
+    KERNEL_COUNTERS.add_site_energy(current_site() or "<unsited>",
+                                    e_dot * rows * m, rows * m)
+
+
 def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
                 s_w: torch.Tensor | None, x_zero_point: torch.Tensor,
                 key: torch.Generator | None = None, inl_seed: int = 0,
@@ -315,6 +345,7 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
         key = None          # no stochastic terms at the ideal sim level
         noise_seed = None
     name = backend or choose_backend(cfg, x_codes, weights)
+    _record_dispatch(name, x_codes, weights, macro)
     spec = get_backend(name)
     if macro.scheme not in spec.schemes:
         raise ValueError(f"backend {name!r} does not implement scheme "

@@ -33,6 +33,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+
 from . import build
 
 
@@ -400,8 +402,11 @@ def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
     """Attend q [B, C, H, dh] over a paged KV pool through per-slot block
     tables; positions [B, C]; kv_len [B]; lens [B] the chunk base
     positions[:, 0], where the caller holds it (as int32 the kernel reads
-    it without a copy). Returns [B, C, H, dh]."""
+    it without a copy). Returns [B, C, H, dh]. Counts one call under the
+    backend's name (`KERNEL_COUNTERS.attn_dispatch`; the one-launch decode
+    of `models.common.paged_attention_apply` counts its own)."""
     spec = get_attn_backend(choose_attn_backend(backend))
+    KERNEL_COUNTERS.count_attn(spec.name)
     if lens is None:
         lens = positions[:, 0]
     return spec.fn(q, k_pool, v_pool, tables, positions, kv_len, lens)

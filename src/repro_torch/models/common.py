@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.cim_matmul import cim_matmul, cim_matmul_prequant
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 Params = dict
 
@@ -297,6 +298,8 @@ def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         k1 = rope(k1, index.positions, cfg.rope_theta, _rope_dims(cfg))
     spec = get_attn_backend(choose_attn_backend(cfg.attn_backend))
     if c == 1 and spec.decode_write_attend is not None:
+        # this route bypasses `paged_attention`, which counts the others
+        KERNEL_COUNTERS.count_attn(spec.name)
         o = spec.decode_write_attend(q, cache["k"], cache["v"], k1, v1,
                                      index.flat, index.tables, index.lens,
                                      index.kv_len)

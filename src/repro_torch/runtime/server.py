@@ -17,6 +17,15 @@ write into a block another holder maps first forks it (`_write_plan` →
 `cow_copy_block`); when decode growth outruns the pool the newest-admitted
 lane is preempted and re-queued with prompt + generated-so-far.
 
+`Request(n_samples=N)` decodes N continuations off ONE prefill: the N − 1
+clone requests are made at submit (`req.samples`, clone i sampling with
+seed + i + 1) and installed, prefill-free, at the front of the queue when
+the parent's prefill completes (`_stash_forks` / `_install_fork`); they
+map the parent's whole block chain and copy-on-write its partial tail on
+their first write. With `ServingConfig.trie_watermark` set, every `step()`
+(idle ones included) sweeps the prefix trie back down to half the
+watermark once it caches more than the watermark's share of the pool.
+
 Tokens are drawn by `runtime.speculative.sample_token` (greedy argmax at
 temperature 0, else a top-k softmax draw keyed by (request seed, emission
 index)). With a drafter (`ServingConfig.drafter`), each decode lane's K
@@ -30,15 +39,19 @@ the reference engine does: the dynamic activation scale of the CIM path
 spans the whole [B, C, D] tensor, so dropping idle lanes or changing C
 would change the quantization grid.
 
+Every Server carries a `runtime.telemetry.Telemetry` (on by default;
+`Server(telemetry=...)` injects one, with a fake clock in the tests): the
+hooks below append to it at the reference's places, and every timestamp
+and `ServerMetrics.wall_s` comes from its clock, so two servers driven by
+one fake clock record the same trace.
+
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-parallel samples (A4b), telemetry (A4c), static activation grids and
-precision manifests (A7), the trie watermark sweep (A4d), the slot engine
-and the model drafter (A4e).
+static activation grids and precision manifests (A7), the slot engine and
+the model drafter (A4e).
 """
 from __future__ import annotations
 
 import dataclasses
-import time
 from typing import Optional
 
 import numpy as np
@@ -51,6 +64,7 @@ from repro_torch.runtime.paging import BlockAllocator, PrefixTrie, SlotTables
 from repro_torch.runtime.speculative import (SamplingParams, make_drafter,
                                              parse_drafter, sample_token,
                                              verify_token)
+from repro_torch.runtime.telemetry import Telemetry
 
 
 def _not_ported(what: str, item: str):
@@ -61,11 +75,15 @@ def _not_ported(what: str, item: str):
 class ServingConfig:
     """Everything the Server needs beyond (params, model cfg); the fields
     of the reference's ServingConfig. `paged` defaults to True here because
-    the slot engine is not ported; `telemetry` defaults to False because
-    telemetry is not ported. Speculative decoding: `drafter` picks a
+    the slot engine is not ported. Speculative decoding: `drafter` picks a
     proposer from the runtime.speculative registry ("off" / "ngram" /
     "model:<name>") and `spec_k` caps drafted tokens per lane per verify
-    step."""
+    step. Trie capacity (needs prefix_sharing): `trie_watermark` is a pool
+    fraction; when the prefix cache exceeds it, an LRU sweep drains it to
+    half that (None: eviction only under admission pressure).
+    Observability: `telemetry` enables the per-request event trace, step
+    snapshots and latency histograms (runtime.telemetry); the
+    Server(telemetry=...) keyword overrides it."""
     n_slots: int = 4
     max_len: int = 128
     prequant: bool = False
@@ -84,7 +102,7 @@ class ServingConfig:
     drafter: str = "off"
     spec_k: int = 4
     trie_watermark: Optional[float] = None
-    telemetry: bool = False
+    telemetry: bool = True
 
     def __post_init__(self):
         if self.n_slots < 1:
@@ -119,9 +137,12 @@ class ServingConfig:
         if self.precision_manifest is not None:
             raise _not_ported("precision manifests", "A7")
         if self.trie_watermark is not None:
-            raise _not_ported("the trie watermark sweep", "A4d")
-        if self.telemetry:
-            raise _not_ported("serving telemetry", "A4c")
+            if not 0.0 < self.trie_watermark <= 1.0:
+                raise ValueError("trie_watermark is a pool fraction in "
+                                 "(0, 1]")
+            if not (self.paged and self.prefix_sharing):
+                raise ValueError("trie_watermark needs the paged engine "
+                                 "with prefix_sharing enabled")
 
     @classmethod
     def from_flags(cls, args, **overrides) -> "ServingConfig":
@@ -133,7 +154,8 @@ class ServingConfig:
                  ("prefill_chunk", "prefill_chunk"),
                  ("token_budget", "token_budget"), ("attn", "attn"),
                  ("watermark", "watermark"), ("drafter", "drafter"),
-                 ("spec_k", "spec_k")]
+                 ("spec_k", "spec_k"),
+                 ("trie_watermark", "trie_watermark")]
         for field, flag in pairs:
             v = getattr(args, flag, None)
             if v is not None:
@@ -151,7 +173,7 @@ class Request:
     prompt: list[int]
     max_new_tokens: int = 16
     eos_id: Optional[int] = None
-    n_samples: int = 1
+    n_samples: int = 1       # continuations off one prefill
     # per-request sampling policy (runtime.speculative): greedy default;
     # temperature/top-k draws are keyed by (sampling.seed, emission index)
     sampling: SamplingParams = dataclasses.field(
@@ -160,6 +182,8 @@ class Request:
     rid: int = -1
     output: list[int] = dataclasses.field(default_factory=list)
     done: bool = False
+    samples: list["Request"] = dataclasses.field(default_factory=list)
+    # latency timestamps from the Server's telemetry clock
     t_submit: float = 0.0
     t_first: float = 0.0
     t_done: float = 0.0
@@ -188,9 +212,13 @@ class ServerMetrics:
     draft_accepted: int = 0    # proposed tokens accepted by verification
     # accept-length histogram: {accepted drafts per verify step: count}
     accept_hist: dict = dataclasses.field(default_factory=dict)
+    trie_sweep_freed: int = 0  # blocks freed by trie watermark sweeps
     peak_active: int = 0
     peak_decode_lanes: int = 0
-    wall_s: float = 0.0
+    wall_s: float = 0.0       # time inside step() + admission at submit
+    # pool composition sampled at the end of each step (and at
+    # construction); see Server._pool_stats
+    pool: dict = dataclasses.field(default_factory=dict)
 
     def summary(self) -> dict:
         w = max(self.wall_s, 1e-9)
@@ -214,17 +242,28 @@ class ServerMetrics:
                 "mean_accept_len": 1.0 + self.draft_accepted
                 / self.spec_steps if self.spec_steps else 0.0,
                 "accept_hist": dict(sorted(self.accept_hist.items())),
+                "trie_sweep_freed": self.trie_sweep_freed,
                 "peak_active": self.peak_active,
                 "peak_decode_lanes": self.peak_decode_lanes,
                 "wall_s": self.wall_s}
 
+    def to_dict(self) -> dict:
+        """summary() plus the KV-pool composition (shared / private /
+        cached-cold block split and prefix-trie entry count)."""
+        return {**self.summary(), **self.pool}
+
 
 class Server:
     def __init__(self, params, cfg: ModelConfig,
-                 serving: ServingConfig | None = None, *, device=None):
+                 serving: ServingConfig | None = None, *,
+                 telemetry: Telemetry | None = None, device=None):
         serving = serving or ServingConfig()
         self.serving = serving
         self.device = resolve_device(device)
+        # a caller-provided sink (tests pass a fake clock) wins over the
+        # ServingConfig.telemetry on/off flag
+        self.telemetry = telemetry if telemetry is not None \
+            else Telemetry(enabled=serving.telemetry)
         cfg = cfg.replace(attn_backend=serving.attn)
         if serving.prequant:
             if not cfg.cim.enabled:
@@ -268,44 +307,81 @@ class Server:
         # verify steps score every drafted token in one C=spec_k+1 step
         self.spec_k = serving.spec_k
         self.drafter = make_drafter(serving.drafter, cfg, self.max_len)
+        # trie capacity watermarks (block counts; 0 = sweep disabled)
+        self._trie_hi = self._trie_lo = 0
+        if self.trie is not None and serving.trie_watermark is not None:
+            self._trie_hi = max(1, int(num_blocks * serving.trie_watermark))
+            self._trie_lo = self._trie_hi // 2
         self._pf_done = np.zeros(self.n_slots, np.int64)
         self._pf_src: list[Optional[list[int]]] = [None] * self.n_slots
         self._slot_seq = np.zeros(self.n_slots, np.int64)
         self._adm_seq = 0
+        self._fork_children: dict[int, list[Request]] = {}
+        self._fork_ready: dict[int, dict] = {}
         self._rr = 0   # round-robin offset for budget-capped decode
+        self._preempted_rids: set[int] = set()
+        self.metrics.pool = self._pool_stats()
 
     # -- request lifecycle ---------------------------------------------------
     def submit(self, req: Request) -> int:
         if not req.prompt:
             raise ValueError("empty prompt")
+        if req.n_samples < 1:
+            raise ValueError("n_samples must be >= 1")
         if not isinstance(req.sampling, SamplingParams):
             raise ValueError("Request.sampling must be a SamplingParams "
                              f"(runtime.speculative), got "
                              f"{type(req.sampling).__name__}")
-        if req.n_samples != 1:
-            raise _not_ported("parallel samples (n_samples > 1)", "A4b")
         if len(req.prompt) >= self.max_len - 1:
             raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
                              f"max_len={self.max_len}")
         need = self._blocks_worst_case(req)
+        if req.n_samples > 1:
+            # a sibling's CoW fork keeps the shared original alive in the
+            # stash while the private copy grows
+            need += 1
         if need > self.alloc.stats.num_blocks:
             raise ValueError(f"request needs {need} KV blocks worst-case but "
                              f"the pool only has "
                              f"{self.alloc.stats.num_blocks}")
+        tel = self.telemetry
         req.rid = self._next_rid
+        req.t_submit = tel.now()
         self._next_rid += 1
-        req.t_submit = time.monotonic()
+        tel.submit(req.rid, req.t_submit, len(req.prompt), req.n_samples)
+        if req.n_samples > 1:
+            kids = []
+            for i in range(req.n_samples - 1):
+                # distinct sampling streams (seed + sibling index); greedy
+                # clones stay identical to the parent
+                c = Request(prompt=list(req.prompt),
+                            max_new_tokens=req.max_new_tokens,
+                            eos_id=req.eos_id,
+                            sampling=dataclasses.replace(
+                                req.sampling, seed=req.sampling.seed + i + 1))
+                c.rid = self._next_rid
+                self._next_rid += 1
+                c.t_submit = req.t_submit
+                tel.submit(c.rid, c.t_submit, len(c.prompt), 1)
+                kids.append(c)
+            req.samples = list(kids)
+            self._fork_children[req.rid] = kids
         self.queue.append(req)
-        t0 = time.monotonic()
+        t0 = tel.now()
         self._admit()
-        self.metrics.wall_s += time.monotonic() - t0
+        self.metrics.wall_s += tel.now() - t0
         return req.rid
 
     def step(self):
         """One serving step; retires finished requests and re-admits."""
-        t0 = time.monotonic()
+        t0 = self.telemetry.now()
         self._step_paged()
-        self.metrics.wall_s += time.monotonic() - t0
+        # the watermark sweep runs every step, idle ones included (where
+        # _step_paged returns early), so a cold prefix cache drains
+        if self._trie_hi:
+            self.metrics.trie_sweep_freed += self.trie.sweep(
+                self.alloc, self._trie_hi, self._trie_lo)
+        self.metrics.wall_s += self.telemetry.now() - t0
 
     def _blocks_worst_case(self, req: Request) -> int:
         need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
@@ -325,6 +401,12 @@ class Server:
             except ValueError:
                 return
             req = self.queue[0]
+            if req.rid in self._fork_ready:
+                # fork clones map already-referenced blocks: no new
+                # blocks, no prefill, no watermark
+                self.queue.pop(0)
+                self._install_fork(slot, req)
+                continue
             # effective prompt: prompt + anything generated before a
             # preemption (resume is a prefill of the longer prompt; the trie
             # turns most of it into a free match)
@@ -348,6 +430,37 @@ class Server:
                     len(matched) * self.block_size
             self._pf_src[slot] = eff
             self._pf_done[slot] = len(matched) * self.block_size
+            # a preempted rid re-admitting is a resume (even if it was
+            # preempted mid-prefill, before emitting anything)
+            resume = req.rid in self._preempted_rids
+            self._preempted_rids.discard(req.rid)
+            self.telemetry.admit(
+                req.rid, slot, self.telemetry.now(),
+                prefix_hit_blocks=len(matched),
+                prefill_tokens=len(eff) - len(matched) * self.block_size,
+                resume=resume)
+
+    def _install_fork(self, slot: int, req: Request):
+        info = self._fork_ready.pop(req.rid)
+        self.slot_req[slot] = req
+        self._slot_seq[slot] = self._adm_seq
+        self._adm_seq += 1
+        self.tables.assign(slot, info["blocks"], info["lens"])
+        self._pf_src[slot] = []          # nothing to prefill: pure decode
+        self._pf_done[slot] = 0
+        req.output = list(info["output"])
+        now = self.telemetry.now()
+        self.telemetry.admit(req.rid, slot, now,
+                             prefix_hit_blocks=len(info["blocks"]),
+                             prefill_tokens=0, fork=True)
+        if not req.t_first:
+            req.t_first = now
+            self.telemetry.first_token(req.rid, slot, now, req.t_submit)
+        self.metrics.prefix_hit_tokens += info["lens"]
+        if (len(req.output) >= req.max_new_tokens
+                or (req.eos_id is not None
+                    and req.output[-1] == req.eos_id)):
+            self._retire(slot, now)
 
     def _schedule(self, active):
         """Pick this step's lanes under the token budget: decode first
@@ -400,6 +513,8 @@ class Server:
     def _step_paged(self):
         if not any(r is not None for r in self.slot_req):
             return
+        tel = self.telemetry
+        t_begin = tel.now()
         # plan the step; preempt the newest-admitted lane while the pool
         # cannot back every write
         while True:
@@ -433,6 +548,7 @@ class Server:
             self.cache = self.mod.cow_copy_block(self.cache, b, nb)
             self.tables.replace(s, j, nb, self.alloc)
             self.metrics.cow_forks += 1
+            tel.cow_fork(self.slot_req[s].rid, s, tel.now(), b, nb)
         for s, v in valid_map.items():
             if v:
                 self.tables.grow(s, int(self.tables.lens[s]) + v, self.alloc)
@@ -463,7 +579,8 @@ class Server:
             torch.from_numpy(valid).to(dev), self.cfg,
             all_logits=bool(spec))
         rows = logits.float().cpu().numpy()              # [B, V] or [B, C, V]
-        now = time.monotonic()
+        now = tel.now()
+        dec_lanes = []      # plain-decode emissions, one batched event
         retires = []
         for s in active:
             if not valid[s]:
@@ -473,6 +590,8 @@ class Server:
                 self.tables.lens[s] += int(valid[s])
                 self._pf_done[s] += int(valid[s])
                 self.metrics.prefill_tokens += int(valid[s])
+                tel.prefill_chunk(req.rid, s, now, int(valid[s]),
+                                  int(self._pf_done[s]), len(self._pf_src[s]))
                 if self._pf_done[s] == len(self._pf_src[s]):
                     row = rows[s, int(valid[s]) - 1] if rows.ndim == 3 \
                         else rows[s]
@@ -482,7 +601,13 @@ class Server:
                         sample_token(row, req.sampling, len(req.output)))
                     if not req.t_first:
                         req.t_first = now
+                        tel.first_token(req.rid, s, now, req.t_submit)
+                    else:
+                        # a resume re-emits: its ITL sample spans the
+                        # preemption gap on purpose
+                        tel.emission(req.rid, s, now)
                     self._register_prefix(s)
+                    self._stash_forks(s)
                     if (len(req.output) >= req.max_new_tokens
                             or (req.eos_id is not None
                                 and req.output[-1] == req.eos_id)):
@@ -496,15 +621,32 @@ class Server:
             nxt = sample_token(row, req.sampling, len(req.output))
             req.output.append(nxt)
             self.metrics.decode_tokens += 1
+            dec_lanes.append((req.rid, s))
             exhausted = len(req.output) >= req.max_new_tokens
             hit_eos = req.eos_id is not None and nxt == req.eos_id
             full = int(self.tables.lens[s]) + 1 >= self.max_len - 1
             if exhausted or hit_eos or full:
                 retires.append(s)
+        # the step's plain emissions as one event, THEN the retires, so
+        # each rid's events end with its retire
+        tel.decode_step(dec_lanes, now)
         for s in retires:
             self._retire(s, now)
         self.steps_run += 1
         self.metrics.steps += 1
+        t_end = tel.now()
+        pool = self._pool_stats()
+        self.metrics.pool = pool
+        # positional, in StepSnapshot's field order (the reference's
+        # binding; both telemetry legs pay it)
+        tel.step_snapshot(
+            self.steps_run, t_end, t_end - t_begin,
+            len(active), len(decode_lanes), len(takes),
+            len(spec), c, bool(spec),
+            int(valid.sum()), self.token_budget,
+            pool["blocks_free"], pool["blocks_private"],
+            pool["blocks_shared"], pool["blocks_cached_cold"],
+            pool["trie_entries"])
         self._admit()
 
     def _plan_spec(self, decode_lanes) -> dict[int, list[int]]:
@@ -574,6 +716,9 @@ class Server:
         self.metrics.draft_accepted += matched
         self.metrics.accept_hist[matched] = \
             self.metrics.accept_hist.get(matched, 0) + 1
+        self.telemetry.spec_verify(req.rid, s, now, drafted=len(drafts),
+                                   accepted=matched, emitted=emitted)
+        self.telemetry.emission(req.rid, s, now, tokens=emitted)
         self.tables.lens[s] = lens0 + 1 + matched
         if retire:
             self._retire(s, now)
@@ -587,6 +732,23 @@ class Server:
         if nfull:
             self.trie.insert(src[:nfull * self.block_size],
                              self.tables.held(slot)[:nfull], self.alloc)
+
+    def _stash_forks(self, slot: int):
+        """The parent's prefill just completed: reference its whole block
+        chain once per clone and queue the clones at the front (they need
+        no new blocks, so they never wait on the watermark)."""
+        req = self.slot_req[slot]
+        kids = self._fork_children.pop(req.rid, None)
+        if not kids:
+            return
+        held = self.tables.held(slot)
+        for c_req in reversed(kids):
+            self.alloc.incref(held)
+            self._fork_ready[c_req.rid] = {
+                "blocks": list(held),
+                "lens": int(self.tables.lens[slot]),
+                "output": list(req.output)}
+            self.queue.insert(0, c_req)
 
     def _preempt(self, slot: int):
         """Evict a running lane under pool pressure: register its full
@@ -605,11 +767,16 @@ class Server:
         self._pf_done[slot] = 0
         self.queue.insert(0, req)
         self.metrics.preemptions += 1
+        self._preempted_rids.add(req.rid)
+        self.telemetry.preempt(req.rid, slot, self.telemetry.now(),
+                               tokens_done=len(req.output))
 
     def _retire(self, slot: int, now: float):
         req = self.slot_req[slot]
         req.done = True
         req.t_done = now
+        self.telemetry.retire(req.rid, slot, now, tokens=len(req.output),
+                              latency_s=req.latency_s)
         self.tables.release(slot, self.alloc)
         self.slot_req[slot] = None
         self._pf_src[slot] = None
@@ -627,6 +794,33 @@ class Server:
             if self.steps_run > max_steps:
                 raise RuntimeError("serving loop did not drain")
 
+    # -- capacity / reporting -------------------------------------------------
+    def _pool_stats(self) -> dict:
+        """KV-pool composition: `blocks_shared` counts blocks of refcount
+        >= 2, `blocks_cached_cold` blocks whose only reference is the trie,
+        `blocks_private` the rest of the blocks in use (one live lane
+        each); shared + cached_cold + private + free == blocks_total."""
+        st = self.alloc.stats
+        cold = self.trie.cached_cold(self.alloc) \
+            if self.trie is not None else 0
+        return {"blocks_total": st.num_blocks,
+                "blocks_free": st.free,
+                "blocks_shared": st.shared,
+                "blocks_cached_cold": cold,
+                "blocks_private": st.private - cold,
+                "trie_entries": self.trie.cached_blocks
+                if self.trie is not None else 0}
+
     def flush_prefix_cache(self) -> int:
         """Drop every trie entry; returns blocks freed to the pool."""
         return self.trie.flush(self.alloc) if self.trie is not None else 0
+
+    def kv_cache_bytes(self) -> dict:
+        """Resident KV bytes on the device: {"total": the pool tensors'
+        bytes, "in_use": the bytes of the blocks referenced now, by live
+        requests or by the trie}. Reads sizes only."""
+        pools = self.cache["layers"].values()
+        total = sum(t.numel() * t.element_size() for t in pools)
+        per_block = total // (self.alloc.stats.num_blocks + 1)   # + trash
+        return {"total": total,
+                "in_use": per_block * self.alloc.stats.in_use}

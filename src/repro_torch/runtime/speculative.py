@@ -27,9 +27,10 @@ exactly `p`, and under greedy verification is an argmax prefix match, so
 spec-decode streams are bit-identical to plain decode. Both draws for
 emission index j come from the same `(seed, j)` Philox key.
 
-Not ported yet: the model drafter (`model:<name>` parses, but building it
-raises NotImplementedError naming ROADMAP A4e, the slot engine whose
-padded `forward` it runs) and the drafter's telemetry counters (A4c).
+The ngram drafter counts each proposed token as a match or a fallback
+(`runtime.telemetry.KERNEL_COUNTERS.drafter`). Not ported yet: the model
+drafter (`model:<name>` parses, but building it raises NotImplementedError
+naming ROADMAP A4e, the slot engine whose padded `forward` it runs).
 """
 from __future__ import annotations
 
@@ -38,6 +39,8 @@ import math
 from typing import Callable, Optional, Sequence
 
 import numpy as np
+
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +243,9 @@ class NGramDrafter:
             suffix = tuple(work[-n:])
             for i in range(top - n, -1, -1):
                 if tuple(work[i:i + n]) == suffix:
+                    KERNEL_COUNTERS.count_drafter("ngram_match")
                     return int(work[i + n])
+        KERNEL_COUNTERS.count_drafter("ngram_fallback")
         return int(work[-1])
 
     def propose(self, tokens: Sequence[int], k: int) -> list[int]:

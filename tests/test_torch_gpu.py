@@ -14,7 +14,9 @@ every byte of both pools. B3 and that launch are held so at head dims and
 block sizes past their fast case too (dh 16, 20, 21, 56, 80, 96; bs 48,
 64, 128), and a speculative verify step (C = 5, every position's logits)
 of the smoke model is identical with the kernels and with their plain
-versions. Inputs come from numpy seeds. This file needs no JAX.
+versions, as is a telemetry-on serve with parallel samples and the trie
+watermark sweep (streams, metrics and event kinds). Inputs come from
+numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -481,3 +483,50 @@ def test_decode_launch_rejects_bad_operands():
     with pytest.raises(ValueError, match="C = 1"):
         pa.decode_write_attend_call(q16, kp, vp, nk, nv, flat, tables, lens,
                                     kvl)
+
+
+def _telemetry_serve(cfg, dev):
+    """The smoke model served with telemetry on (a unit-step fake clock),
+    requests 0 and 1 at n_samples 2, trie_watermark 0.5 over a 24-block
+    pool: (streams, ServerMetrics.to_dict(), event kinds in order)."""
+    from repro_torch.models import registry
+    from repro_torch.runtime.server import Request, Server, ServingConfig
+    from repro_torch.runtime.telemetry import Telemetry
+    ticks = iter(range(1, 1 << 30))
+    params = registry.init_params(cfg, seed=0, device=dev)
+    srv = Server(params, cfg, ServingConfig(
+        n_slots=4, max_len=64, block_size=8, num_blocks=24,
+        prefill_chunk=8, prequant=True, attn=cfg.attn_backend,
+        trie_watermark=0.5), telemetry=Telemetry(
+            clock=lambda: float(next(ticks))), device=dev)
+    rng = np.random.RandomState(17)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab, size=int(n)).tolist(),
+                    max_new_tokens=6, n_samples=2 if i < 2 else 1)
+            for i, n in enumerate(rng.randint(17, 41, size=6))]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    streams = [x.output for r in reqs for x in (r, *r.samples)]
+    return streams, srv.metrics.to_dict(), [e.kind for e in
+                                            srv.telemetry.events]
+
+
+def test_telemetry_serve_kernels_match_plain():
+    """Telemetry on, parallel samples and the trie sweep: the kernel
+    backends (B1, B3, the B3+B4 decode launch) and their plain versions
+    serve identical streams, metrics and event kinds."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True),
+                                           attn_backend="kernel")
+    kern = _telemetry_serve(cfg, dev)
+    plain = _telemetry_serve(cfg.replace(
+        attn_backend="plain", cim=dataclasses.replace(cfg.cim,
+                                                      backend="plain")), dev)
+    assert kern == plain
+    streams, metrics, kinds = kern
+    assert len(streams) == 8 and all(len(s) == 6 for s in streams)
+    assert metrics["cow_forks"] > 0 and metrics["trie_sweep_freed"] > 0
+    assert {"cow_fork", "first_token", "decode", "retire"} <= set(kinds)

@@ -219,7 +219,9 @@ def test_port_imports_no_jax_and_no_reference():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
-        "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops'):\n"
+        "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
+        "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
+        "          'repro_torch.core.energy'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -251,8 +253,7 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("telemetry", True, "A4c"),
-    ("trie_watermark", 0.5, "A4d"), ("paged", False, "A4e"),
+    ("paged", False, "A4e"),
     ("act_scale", 0.1, "A7"), ("precision_manifest", "m.json", "A7")])
 def test_serving_config_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -264,15 +265,6 @@ def test_model_drafter_not_ported():
     cfg, _ = _smoke_params()
     with pytest.raises(NotImplementedError, match="A4e"):
         make_drafter("model:internlm2-1.8b", cfg, 64)
-
-
-@pytest.mark.parametrize("kw,item", [({"n_samples": 2}, "A4b")])
-def test_request_unported_options_raise(kw, item):
-    cfg, params = _smoke_params()
-    srv = tserver.Server(params, cfg, tserver.ServingConfig(max_len=64),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        srv.submit(tserver.Request(prompt=[1, 2, 3], **kw))
 
 
 def test_serve_launcher_on_cpu(capsys):

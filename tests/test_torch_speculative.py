@@ -229,6 +229,27 @@ def test_sampled_matches_reference_and_is_composition_invariant(weights,
     assert alone == [ts[probe]]
 
 
+@pytest.mark.parametrize("sampling", [None, SAMPLED])
+def test_drafter_counters_match_reference(weights, sampling):
+    """KERNEL_COUNTERS.drafter (ngram matches and fallbacks, one per
+    proposed token) equals the reference's over the mixed schedule."""
+    from repro.runtime.server import Request as RReq
+    from repro.runtime.telemetry import KERNEL_COUNTERS as RKC
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS as TKC
+    kw = dict(drafter="ngram", spec_k=3)
+    counts = []
+    for srv, Req, SP, kc in ((_ref(weights, **kw), RReq, rspec.SamplingParams,
+                              RKC),
+                             (_port(weights, **kw), tserver.Request,
+                              tspec.SamplingParams, TKC)):
+        kc.reset()
+        _drain(srv, _mixed_requests(Req, SP, 512, sampling))
+        counts.append(dict(kc.drafter))
+        kc.reset()
+    assert counts[1] == counts[0]
+    assert counts[1]["ngram_match"] > 0 and counts[1]["ngram_fallback"] > 0
+
+
 def test_submit_rejects_non_sampling_params(weights):
     port = _port(weights)
     with pytest.raises(ValueError, match="SamplingParams"):
