@@ -62,6 +62,20 @@ of which fails the run when it fails:
      the event counts, the Prometheus line count, the host cost of the
      169 per-call KERNEL_COUNTERS updates of one decode step and tok/s
      with telemetry on and off;
+  3l. the slot engine (`ServingConfig()`, paged=False) at phase 3's
+     width with --cim bp-prequant, 4 slots, max_len 256: phase 3's 8
+     requests served twice on fresh servers, which must give identical
+     streams, with launch counts reset just before and read just after
+     the first (B1 must launch 169 times per decode step and per
+     prefill; the paged attention kernel never); one per-request prefill
+     (the 96-token prompt, B1 at M = 96) and one decode step with the
+     kernels and with their plain versions, which must give identical
+     logits and caches; the slot decode step on the card (CUDA graph) vs
+     eager and its launches; B1 over a 96-token prefill's 168 layer MVMs
+     timed against its bound. Then, at smoke size and --cim off, the
+     paged spec Server with the model drafter (spec_k 4) sharing the
+     target's weights against plain greedy: a draft must be accepted;
+     accept rate, mean accept length and target steps are printed;
   4. a short --cim bp serve, which must launch B2, and the decode step
      breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
@@ -203,7 +217,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     import numpy as np
 
-    from repro_torch.configs.registry import ARCHS
+    from repro_torch.configs.registry import ARCHS, SMOKES
     from repro_torch.core.adc import stochastic_transfer_params
     from repro_torch.core.cim_matmul import CIMConfig
     from repro_torch.core.macro import MacroConfig, SimLevel
@@ -215,7 +229,8 @@ def main() -> int:
     from repro_torch.runtime import obs
     from repro_torch.runtime.server import (Request, Server, ServerMetrics,
                                             ServingConfig)
-    from repro_torch.runtime.speculative import SamplingParams
+    from repro_torch.runtime.server import _splice as splice
+    from repro_torch.runtime.speculative import ModelDrafter, SamplingParams
     from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
     torch.backends.cuda.matmul.allow_tf32 = False   # f32 matmuls stay f32
@@ -819,22 +834,26 @@ def main() -> int:
         check(step_err == 0.0, f"{tag}: kernel and plain paged_step logits "
               "differ")
 
-    def decode_breakdown(server, tag):
+    def decode_breakdown(server, tag, decode_step=None):
         """Where a decode step's time goes: the whole C=1 step captured
         into a CUDA graph gives the card's time; the eager step adds the
-        host's; torch.profiler gives device time by kernel name."""
-        dcache = transformer.init_paged_cache(server.cfg, 4 * 16 + 1, 16,
-                                              device=dev)
-        dtb = torch.arange(1, 65, dtype=torch.int32,
-                           device=dev).reshape(4, 16)
-        dlens = torch.tensor([40, 100, 17, 0], device=dev)
-        dvalid = torch.tensor([1, 1, 1, 0], device=dev)
+        host's; torch.profiler gives device time by kernel name. The step
+        is a paged one unless `decode_step` is given."""
         dtok = torch.from_numpy(np.random.RandomState(8).randint(
             0, cfg.vocab, (4, 1))).to(dev)
+        note = ""
+        if decode_step is None:
+            note = " (7,987 with B4 launched alone and the casts around B3)"
+            dcache = transformer.init_paged_cache(server.cfg, 4 * 16 + 1, 16,
+                                                  device=dev)
+            dtb = torch.arange(1, 65, dtype=torch.int32,
+                               device=dev).reshape(4, 16)
+            dlens = torch.tensor([40, 100, 17, 0], device=dev)
+            dvalid = torch.tensor([1, 1, 1, 0], device=dev)
 
-        def decode_step():
-            transformer.paged_step(server.params, dtok, dcache, dtb, dlens,
-                                   dvalid, server.cfg)
+            def decode_step():
+                transformer.paged_step(server.params, dtok, dcache, dtb,
+                                       dlens, dvalid, server.cfg)
 
         t_dev = graph_ms(torch, decode_step, [()], reps=3, min_iters=3)
         t_eager = time_ms(torch, decode_step, [()], reps=3, min_iters=3)
@@ -860,8 +879,8 @@ def main() -> int:
             log(f"{tag}: profiler recorded no device time (not measured)")
         else:
             log(f"{tag}: profiled decode step: {total_us / 1e3:.3f} ms of "
-                f"kernel time in {sum(e.count for e in rows_)} launches "
-                "(7,987 with B4 launched alone and the casts around B3)")
+                f"kernel time in {sum(e.count for e in rows_)} launches"
+                + note)
         for e in rows_[:12] if total_us > 0 else []:
             log(f"  profile: {dev_us(e) / 1e3:8.3f} ms "
                 f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<5d} "
@@ -1172,6 +1191,189 @@ def main() -> int:
         f"decode step (169 count_backend + add_site_energy calls, median "
         f"of 5 steps), {100 * kc_share:.4f} % of the median step wall")
     del srv_on, srv_off, srv, packed_ws, xs
+
+    # ---- phase 3l: the slot engine (paged=False) at phase 3's width ------
+    slot_serving = ServingConfig(prequant=True, packed=True, n_slots=4,
+                                 max_len=256)
+
+    def serve_slots(tag):
+        """Phase 3's 8 requests, 16 new tokens each, greedy, through a
+        fresh slot-engine Server; launch counts are reset just before and
+        read just after. Returns (the server, the counts, the streams)."""
+        server = Server(params, cfg, slot_serving, device=dev)
+        check(not server.paged, f"{tag}: ServingConfig() did not pick the "
+              "slot engine")
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        for r in reqs:
+            server.submit(r)
+        server.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        counts = build.launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        for r in reqs:
+            log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
+            check(len(r.output) == 16 and all(0 <= t < cfg.vocab
+                                              for t in r.output),
+                  f"{tag} req{r.rid}: bad output {r.output}")
+        m = server.metrics.summary()
+        total = sum(len(r.output) for r in reqs)
+        log(f"{tag}: 8 requests, {total} tokens, {server.steps_run} decode "
+            f"steps and 8 prefills, {dt:.2f} s ({total / dt:.1f} tok/s), "
+            f"peak memory {peak:.2f} GiB, prefill_tokens="
+            f"{m['prefill_tokens']} decode_tokens={m['decode_tokens']} "
+            f"wall_s={m['wall_s']:.3f}; launches {counts}")
+        b1 = counts["cim_mvm_grouped_packed"]
+        check(b1 == 169 * (server.steps_run + len(reqs)),
+              f"{tag}: {b1} B1 launches, expected 169 per decode step and "
+              f"per prefill ({server.steps_run} + {len(reqs)})")
+        check(counts["paged_attn_call"] == 0
+              and counts["decode_write_attend_call"] == 0,
+              f"{tag}: the slot engine launched the paged attention kernel")
+        return server, counts, [r.output for r in reqs]
+
+    server, counts_3l, streams_l = serve_slots("phase 3l: slot engine run 1")
+    log(f"phase 3l ({card}): B1 launches on the slot path "
+        f"{counts_3l['cim_mvm_grouped_packed']}")
+
+    # one per-request prefill (the 96-token prompt, spliced into slot 1)
+    # and one decode step at the shared position, kernels vs plain
+    def slot_steps(step_cfg):
+        toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+        l1, rcache = transformer.prefill(server.params, {"tokens": toks},
+                                         step_cfg, max_len=256)
+        cache = splice(transformer.init_cache(step_cfg, 4, 256, device=dev),
+                       rcache, 1)
+        nxt = torch.from_numpy(np.random.RandomState(10).randint(
+            0, cfg.vocab, (4, 1))).to(dev)
+        l2, cache = transformer.decode_step(server.params, nxt, cache,
+                                            step_cfg)
+        return (l1, l2), cache
+
+    build.reset_launch_counts()
+    l_k, c_k = slot_steps(server.cfg)
+    torch.cuda.synchronize()
+    s_counts = build.launch_counts()
+    l_p, c_p = slot_steps(server.cfg.replace(cim=dataclasses.replace(
+        server.cfg.cim, backend="plain")))
+    torch.cuda.synchronize()
+    check(l_k[0].shape == (1, cfg.vocab) and l_k[1].shape == (4, cfg.vocab)
+          and all(bool(torch.isfinite(a).all()) for a in l_k),
+          "phase 3l: slot prefill / decode logits malformed")
+    s_err = max((a - b).abs().max().item() for a, b in zip(l_k, l_p))
+    same_cache = int(c_k["pos"]) == int(c_p["pos"]) == len(prompts[0]) + 1 \
+        and all(
+            torch.equal(c_k["layers"][n].view(torch.int16),
+                        c_p["layers"][n].view(torch.int16))
+            for n in ("k", "v"))
+    log(f"phase 3l: slot prefill T={len(prompts[0])} + decode step, CIM "
+        f"backend cuda_packed vs plain: max |dlogit| = {s_err}, caches "
+        f"identical: {same_cache} (tolerance 0); launches {s_counts}")
+    check(s_err == 0.0 and same_cache, "phase 3l: kernel and plain slot "
+          "prefill / decode steps differ")
+    check(s_counts["cim_mvm_grouped_packed"] == 2 * 169,
+          f"phase 3l: the two steps launched B1 "
+          f"{s_counts['cim_mvm_grouped_packed']} times, expected 338")
+    del l_k, l_p, c_k, c_p
+
+    # the slot decode step on the card vs eager (4 slots at pos 100)
+    scache = transformer.init_cache(server.cfg, 4, 256, device=dev)
+    scache["pos"].fill_(100)
+    stok = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab, (4, 1))).to(dev)
+
+    def slot_decode_step():
+        transformer.decode_step(server.params, stok, scache, server.cfg)
+
+    decode_breakdown(server, f"phase 3l ({card}): slot engine",
+                     slot_decode_step)
+    build.reset_launch_counts()
+    slot_decode_step()
+    torch.cuda.synchronize()
+    log(f"phase 3l: launches of one slot decode step "
+        f"{build.launch_counts()}")
+    del scache
+
+    # B1 at M = 96: a 96-token per-request prefill's 168 layer MVMs
+    pre96 = {"ms": 0.0, "bytes": 0.0, "ops": 0.0}
+    m96 = len(prompts[0])
+    for label, k, n, count in DECODE_MVMS[:-1]:
+        x = codes((m96, k))
+        ws = copies(ops.pack_codes(codes((k, n))).contiguous())
+        t_k = graph_ms(torch, lambda a, b_: cm.cim_mvm_grouped_packed(
+            a, b_, **kw), [(x, wi) for wi in ws])
+        log(f"  B1 {label:12s} M={m96} K={k} N={n} x{count}/prefill: "
+            f"kernel {t_k * 1e3:.2f} us on the card")
+        pre96["ms"] += count * t_k
+        pre96["bytes"] += count * (ws[0].numel() + m96 * k * 4
+                                   + m96 * n * 4)
+        pre96["ops"] += count * 2 * m96 * k * n
+        del x, ws
+    b96 = (pre96["bytes"] / HBM_BYTES_S * 1e3, pre96["ops"] / INT_OP_S * 1e3)
+    log(f"phase 3l ({card}): B1 one {m96}-token prefill's 168 layer MVMs at "
+        f"M={m96}: kernel {pre96['ms']:.3f} ms on the card, bound "
+        f"{max(b96):.3f} ms (bytes {b96[0]:.3f} ms, operations "
+        f"{b96[1]:.3f} ms)")
+    del server
+    _, _, streams_l2 = serve_slots("phase 3l: slot engine run 2")
+    check(streams_l2 == streams_l, "phase 3l: two same-seed slot serves "
+          "gave different streams")
+    log("phase 3l: the two slot serves gave identical streams")
+
+    # the model drafter sharing the target's weights, smoke size, --cim off:
+    # the paged spec Server against plain greedy on the same requests
+    scfg = SMOKES["internlm2-1.8b"].replace(dtype="float32")
+    sparams = registry.init_params(scfg, seed=0, device=dev)
+    srng = np.random.RandomState(77)
+    sprompts = [srng.randint(0, scfg.vocab, size=int(n)).tolist()
+                for n in srng.randint(8, 49, size=8)]
+    spec_out = {}
+    for leg, kw_ in (("plain", {}), ("model drafter",
+                                     dict(drafter="model:internlm2-1.8b",
+                                          spec_k=SPEC_K))):
+        srv = Server(sparams, scfg, ServingConfig(
+            paged=True, attn="kernel", n_slots=4, max_len=128, **kw_),
+            device=dev)
+        if srv.drafter is not None:
+            check(isinstance(srv.drafter, ModelDrafter),
+                  "phase 3l: model:internlm2-1.8b built no ModelDrafter")
+            srv.drafter.params = sparams      # share the target's weights
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in sprompts]
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        for r in reqs:
+            check(len(r.output) == 16 and all(0 <= t < scfg.vocab
+                                              for t in r.output),
+                  f"phase 3l: {leg} req{r.rid}: bad output {r.output}")
+        m = srv.metrics.summary()
+        spec_out[leg] = [r.output for r in reqs]
+        log(f"phase 3l ({card}): smoke-size paged serve, {leg}: 128 tokens "
+            f"in {m['steps']} steps, {dt:.2f} s ({128 / dt:.1f} tok/s); "
+            f"spec_steps={m['spec_steps']} draft_tokens={m['draft_tokens']} "
+            f"accept_rate={m['accept_rate']:.4f} mean_accept_len="
+            f"{m['mean_accept_len']:.4f} accept_hist={m['accept_hist']}")
+        if leg == "plain":
+            plain_steps = m["steps"]
+        else:
+            check(m["draft_accepted"] > 0, "phase 3l: the model drafter "
+                  "sharing the target's weights had no draft accepted")
+            same = sum(a == b for a, b in zip(spec_out["plain"],
+                                              spec_out[leg]))
+            log(f"phase 3l ({card}): target steps plain / spec = "
+                f"{plain_steps} / {m['steps']} = "
+                f"{plain_steps / m['steps']:.3f}; streams equal to plain "
+                f"greedy in {same} of 8 requests")
+        del srv
+    del sparams
 
     # ---- phase 4: --cim bp serve (B2) ------------------------------------
     server = Server(params, cfg, ServingConfig(

@@ -1,6 +1,13 @@
-"""Serving launcher: continuous-batching paged decode over synthetic
-requests, on the card by default.
+"""Serving launcher: continuous-batching decode over synthetic requests,
+on the card by default. Without --paged it serves through the slot engine
+(one prefill per request, a shared [slots, max-len] cache), as the
+reference's launcher does.
 
+  # the slot engine on the smoke-size model on the CPU
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
+      [--cim bp-prequant]
+
+  # the paged-KV engine at full width on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \
       --cim bp-prequant
 
@@ -63,10 +70,10 @@ def main(argv=None):
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--max-len", type=int, default=128)
-    ap.add_argument("--paged", action="store_true", default=True,
-                    help="paged-KV engine (the only engine ported; the "
-                         "flag is accepted for the reference's command "
-                         "lines)")
+    ap.add_argument("--paged", action="store_true",
+                    help="paged-KV engine: block-pool cache + chunked "
+                         "prefill through the unified step (decode is "
+                         "C = 1); without it the slot engine serves")
     ap.add_argument("--block-size", type=int, default=16)
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=16)
@@ -84,10 +91,11 @@ def main(argv=None):
                          "drains it to half that (default: no sweep)")
     ap.add_argument("--drafter", default="off", metavar="SPEC",
                     help="speculative-decoding drafter (runtime.speculative "
-                         "registry): off = plain decode, ngram = "
-                         "prompt-lookup self-speculation (model:<name> is "
-                         "not ported yet) — the target verifies all drafts "
-                         "in one C=spec-k+1 step")
+                         "registry; paged engine): off = plain decode, "
+                         "ngram = prompt-lookup self-speculation, "
+                         "model:<name> = a small draft model from "
+                         "configs.registry — the target verifies all "
+                         "drafts in one C=spec-k+1 step")
     ap.add_argument("--spec-k", type=int, default=None,
                     help="drafted tokens per decode lane per verify step "
                          "(default 4; only meaningful with --drafter)")
@@ -202,8 +210,8 @@ def main(argv=None):
           f"({total_new / max(dt, 1e-9):.1f} tok/s) on {device}")
     m = server.metrics.summary()
     kv = server.kv_cache_bytes()
-    st = server.alloc.stats
-    print(f"attn={args.attn} cim={args.cim} "
+    print(f"engine={'paged' if args.paged else 'slots'} "
+          f"attn={args.attn if args.paged else '-'} cim={args.cim} "
           f"decode={m['decode_tok_s']:.1f} tok/s "
           f"prefill={m['prefill_tok_s']:.1f} tok/s "
           f"kv_bytes total={kv['total']} in_use={kv['in_use']}")
@@ -212,21 +220,23 @@ def main(argv=None):
     print(f"ttft p50={np.median(ttft) * 1e3:.1f}ms "
           f"max={max(ttft) * 1e3:.1f}ms | latency "
           f"p50={np.median(lat) * 1e3:.1f}ms max={max(lat) * 1e3:.1f}ms")
-    print(f"blocks: pool={st.num_blocks} peak={st.peak_in_use} "
-          f"shared={st.shared} allocs={st.total_allocs} "
-          f"frees={st.total_frees}")
-    print(f"sharing: prefix_hit_tokens={m['prefix_hit_tokens']} "
-          f"cow_forks={m['cow_forks']} preemptions={m['preemptions']} "
-          f"peak_active={m['peak_active']} "
-          f"trie_sweep_freed={m['trie_sweep_freed']}")
-    if args.drafter != "off":
-        hist = ",".join(f"{a}:{n}" for a, n in m["accept_hist"].items())
-        print(f"speculative: drafter={args.drafter} "
-              f"spec_k={server.serving.spec_k} "
-              f"verify_steps={m['spec_steps']} "
-              f"accept_rate={m['accept_rate']:.2f} "
-              f"mean_accept_len={m['mean_accept_len']:.2f} "
-              f"accept_hist=[{hist}]")
+    if args.paged:
+        st = server.alloc.stats
+        print(f"blocks: pool={st.num_blocks} peak={st.peak_in_use} "
+              f"shared={st.shared} allocs={st.total_allocs} "
+              f"frees={st.total_frees}")
+        print(f"sharing: prefix_hit_tokens={m['prefix_hit_tokens']} "
+              f"cow_forks={m['cow_forks']} preemptions={m['preemptions']} "
+              f"peak_active={m['peak_active']} "
+              f"trie_sweep_freed={m['trie_sweep_freed']}")
+        if args.drafter != "off":
+            hist = ",".join(f"{a}:{n}" for a, n in m["accept_hist"].items())
+            print(f"speculative: drafter={args.drafter} "
+                  f"spec_k={server.serving.spec_k} "
+                  f"verify_steps={m['spec_steps']} "
+                  f"accept_rate={m['accept_rate']:.2f} "
+                  f"mean_accept_len={m['mean_accept_len']:.2f} "
+                  f"accept_hist=[{hist}]")
 
     tel = server.telemetry
     if tel.enabled and tel.ttft.n:

@@ -1,5 +1,6 @@
 """Shared model components: CIM-switchable dense layers, norms, RoPE, MLPs,
-embeddings and the paged-KV attention step.
+embeddings, the slot engine's chunked attention and the paged-KV attention
+step.
 
 Every weight matmul routes through `dense()`, so the analog-CIM execution
 mode (core.cim_matmul) is one config switch. Parameters are plain dicts of
@@ -188,6 +189,140 @@ def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         else:
             logits = h @ w
     return logits.float()
+
+
+# ---------------------------------------------------------------------------
+# chunked (flash-style) attention: the slot engine's prefill and `forward`
+# ---------------------------------------------------------------------------
+def _attn_block(q, k, v, mask, scale):
+    """One (q-chunk × kv-chunk) block. q [B,Cq,KH,G,dh], k/v [B,Ckv,KH,dh];
+    scores and the PV sum in f32 (the reference's preferred_element_type)."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", q.float(), k.float()) * scale
+    s = torch.where(mask[:, :, None, None, :], s, -1e30)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    l = p.sum(-1)
+    o = torch.einsum("bqkgc,bckd->bqkgd", p.to(v.dtype).float(), v.float())
+    return m, l, o
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int,
+                      q_offset: torch.Tensor | int = 0,
+                      kv_valid: torch.Tensor | int | None = None,
+                      triangular_max: int = 8) -> torch.Tensor:
+    """Online-softmax attention: q [B,Tq,H,dh] × k,v [B,Tk,KH,dh] →
+    [B,Tq,H,dh], GQA folded as H = KH × G.
+
+    The reference's loops op by op: kv chunks combined from a −inf start
+    with exp(m_acc − m_new); a triangular unroll (q chunk i visits only kv
+    chunks below (i + 1)·cq) when causal, with at most `triangular_max` q
+    chunks, an int q_offset of 0 and cq a multiple of ckv; else every q
+    chunk over every kv chunk. Keys at or past `kv_valid` (or past the
+    query's own position when causal) score −1e30.
+    """
+    b, tq, h, dh = q.shape
+    tk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    scale = 1.0 / math.sqrt(dh)
+    ckv = min(chunk, tk)
+    cq = min(chunk, tq)
+    pad_kv = (-tk) % ckv
+    if pad_kv:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad_kv))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad_kv))
+    pad_q = (-tq) % cq
+    if pad_q:
+        q = F.pad(q, (0, 0, 0, 0, 0, pad_q))
+    nkv = (tk + pad_kv) // ckv
+    nq = (tq + pad_q) // cq
+    dev = q.device
+    kv_valid = tk if kv_valid is None else kv_valid
+    qs = q.reshape(b, nq, cq, kh, g, dh)
+    ks = k.reshape(b, nkv, ckv, kh, dh)
+    vs = v.reshape(b, nkv, ckv, kh, dh)
+    q_idx_base = q_offset + torch.arange(cq, device=dev)
+
+    def kv_scan(qi_abs, q_blk, j_hi):
+        """Online softmax over kv chunks j in [0, j_hi)."""
+        m_acc = torch.full((b, cq, kh, g), -math.inf, device=dev)
+        l_acc = torch.zeros((b, cq, kh, g), device=dev)
+        o_acc = torch.zeros((b, cq, kh, g, dh), device=dev)
+        lim = torch.clamp(qi_abs[:, None] + 1, max=kv_valid) if causal \
+            else kv_valid
+        for j in range(j_hi):
+            kj = j * ckv + torch.arange(ckv, device=dev)
+            mask = (kj[None, :] < lim).expand(b, cq, ckv)
+            m, l, o = _attn_block(q_blk, ks[:, j], vs[:, j], mask, scale)
+            m_new = torch.maximum(m_acc, m)
+            a_old = torch.exp(m_acc - m_new)
+            a_new = torch.exp(m - m_new)
+            l_acc = l_acc * a_old + l * a_new
+            o_acc = o_acc * a_old[..., None] + o * a_new[..., None]
+            m_acc = m_new
+        return o_acc / torch.clamp(l_acc, min=1e-30)[..., None]
+
+    triangular = causal and nq <= triangular_max \
+        and isinstance(q_offset, int) and q_offset == 0 and cq % ckv == 0
+    outs = [kv_scan(i * cq + q_idx_base, qs[:, i],
+                    (i + 1) * cq // ckv if triangular else nkv)
+            for i in range(nq)]
+    out = torch.stack(outs, 1).reshape(b, nq * cq, h, dh)[:, :tq]
+    return out.to(q.dtype)
+
+
+def k_cache_dtype(x: torch.Tensor, cache: dict) -> torch.Tensor:
+    return x.to(cache["k"].dtype)
+
+
+def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+                    positions: torch.Tensor,
+                    kv_x: torch.Tensor | None = None,
+                    cache: dict | None = None,
+                    cache_index: torch.Tensor | int = 0):
+    """Causal self-attention over the slot cache. Returns (y, cache entries
+    | None).
+
+    Decode (T = 1 with a cache {"k", "v": [B, S, KH, dh]}): the new token's
+    K/V are written IN PLACE at row `cache_index`, clamped into [0, S − 1]
+    as `dynamic_update_slice` clamps its start, and the token attends over
+    the first cache_index + 1 rows (`decode_attention`). Otherwise the whole
+    sequence attends through `chunked_attention`; with `cache={}` (prefill)
+    its K/V come back as {"k", "v"}.
+    """
+    if kv_x is not None:
+        raise NotImplementedError("cross-attention (kv_x) is not ported yet "
+                                  "(ROADMAP A9, whisper)")
+    b, t, _ = x.shape
+    dh = cfg.head_dim
+    q = dense(p, x, cfg, w="wq", b="bq").reshape(b, t, cfg.n_heads, dh)
+    if cfg.pos_embed == "rope":
+        q = rope(q, positions, cfg.rope_theta, _rope_dims(cfg))
+    new_cache = None
+    if cache is not None and t == 1:
+        k1 = dense(p, x, cfg, w="wk", b="bk").reshape(b, 1, cfg.n_kv_heads,
+                                                      dh)
+        v1 = dense(p, x, cfg, w="wv", b="bv").reshape(b, 1, cfg.n_kv_heads,
+                                                      dh)
+        if cfg.pos_embed == "rope":
+            k1 = rope(k1, positions, cfg.rope_theta, _rope_dims(cfg))
+        row = torch.as_tensor(cache_index, device=x.device).clamp(
+            0, cache["k"].shape[1] - 1).reshape(1).long()
+        cache["k"].index_copy_(1, row, k_cache_dtype(k1, cache))
+        cache["v"].index_copy_(1, row, k_cache_dtype(v1, cache))
+        o = decode_attention(q, cache["k"], cache["v"], cache_index + 1)
+        new_cache = cache
+    else:
+        k = dense(p, x, cfg, w="wk", b="bk").reshape(b, t, cfg.n_kv_heads, dh)
+        v = dense(p, x, cfg, w="wv", b="bv").reshape(b, t, cfg.n_kv_heads, dh)
+        if cfg.pos_embed == "rope":
+            k = rope(k, positions, cfg.rope_theta, _rope_dims(cfg))
+        o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+                              triangular_max=cfg.attn_triangular_max)
+        if cache is not None:      # prefill: hand back the K/V
+            new_cache = {"k": k, "v": v}
+    y = dense(p, o.reshape(b, t, cfg.n_heads * dh), cfg, w="wo", b="bo")
+    return y, new_cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,22 +1,26 @@
-"""Decoder transformer for paged serving (dense GQA LMs).
+"""Decoder transformer for serving (dense GQA LMs): the padded `forward`,
+the slot engine's `prefill` / `decode_step` and the paged `paged_step`.
 
 Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
 "layers": [per-layer dict, ...]} — the reference's stacked [L, ...] leaves
 become one dict of tensors per layer, and its layer scan becomes a Python
-loop. The paged KV cache keeps the reference's stacked layout
+loop (inference only). The caches keep the reference's stacked layouts,
+slot {"pos", "layers": {"k", "v": [L, B, max_len, KH, dh]}} and paged
 {"layers": {"k", "v": [L, NB, bs, KH, dh]}}; a layer reads and writes its
 slice in place.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
 from . import common
-from .common import (attention_init, dtype_of, embed_init, embed_lookup,
-                     mlp_apply, mlp_init, norm, norm_init, unembed)
+from .common import (attention_apply, attention_init, dtype_of, embed_init,
+                     embed_lookup, mlp_apply, mlp_init, norm, norm_init,
+                     unembed)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
@@ -51,6 +55,113 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
                        for _ in range(cfg.n_layers)]}
 
 
+# ---------------------------------------------------------------------------
+# forward (inference) and the slot engine: prefill + decode over [B, S] caches
+# ---------------------------------------------------------------------------
+def _embed_inputs(params, batch, cfg: ModelConfig):
+    """Token embeddings and their positions [0, T)."""
+    if cfg.pos_embed == "learned" or (cfg.n_image_tokens
+                                      and "image_embeds" in batch):
+        raise NotImplementedError(
+            f"arch {cfg.arch!r}: learned positions and image prefixes are "
+            "not ported yet (ROADMAP A9)")
+    x = embed_lookup(params["tok"], batch["tokens"].long(), cfg)
+    b, t = x.shape[:2]
+    return x, torch.arange(t, device=x.device).expand(b, t)
+
+
+def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
+           cache_index=0):
+    """One decoder layer; `cache` is None (the padded forward), {} (prefill:
+    the layer's K/V come back) or the layer's slot cache {"k", "v"}
+    (decode: written in place). Returns (h, the K/V or None)."""
+    a, kv = attention_apply(lp["attn"], norm(lp["norm1"], h, cfg), cfg,
+                            positions=positions, cache=cache,
+                            cache_index=cache_index)
+    h = h + a
+    return h + mlp_apply(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
+
+
+def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
+    """Full-sequence causal forward → (hidden [B,T,D] after the final norm,
+    aux_loss 0.0, enc_out None), the reference's triple. Inference only:
+    `train=True` raises (A10)."""
+    if train:
+        raise NotImplementedError("training is not ported yet (ROADMAP A10)")
+    x, positions = _embed_inputs(params, batch, cfg)
+    for lp in params["layers"]:
+        x, _ = _layer(lp, x, cfg, positions=positions)
+    return norm(params["final_norm"], x, cfg), 0.0, None
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """The slot cache (zeros): "pos" an int32 scalar on the device, K/V
+    [L, batch, max_len, KH, dh]."""
+    _check_arch(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+            "layers": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
+                                        device=dev),
+                       "v": torch.zeros(shape, dtype=dtype_of(cfg),
+                                        device=dev)}}
+
+
+def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
+                cfg: ModelConfig):
+    """One decode step at the shared position cache["pos"] for every slot:
+    tokens [B, 1] → (logits [B, V], cache). K/V rows are written in place
+    (at row max_len − 1 once pos reaches max_len, as the reference's
+    dynamic_update_slice clamps); the returned dict carries pos + 1."""
+    pos = cache["pos"]
+    x, positions = _embed_inputs(params, {"tokens": tokens}, cfg)
+    positions = positions + pos
+    kv = cache["layers"]
+    for i, lp in enumerate(params["layers"]):
+        x, _ = _layer(lp, x, cfg, positions=positions,
+                      cache={"k": kv["k"][i], "v": kv["v"][i]},
+                      cache_index=pos)
+    x = norm(params["final_norm"], x, cfg)
+    logits = unembed(params["tok"], x[:, 0], cfg)
+    return logits, {**cache, "pos": pos + 1}
+
+
+def prefill(params: dict, batch: dict, cfg: ModelConfig,
+            max_len: int | None = None):
+    """A whole prompt in one forward → (last-token logits [B, V], its
+    cache): K/V [L, B, T, KH, dh] zero-padded to max_len (left as is when
+    T >= max_len), "pos" = T."""
+    x, positions = _embed_inputs(params, batch, cfg)
+    t = x.shape[1]
+    max_len = max_len or t
+    h, ks, vs = x, [], []
+    for lp in params["layers"]:
+        h, kv = _layer(lp, h, cfg, positions=positions, cache={})
+        ks.append(kv["k"])
+        vs.append(kv["v"])
+    cache = {"pos": torch.full((), t, dtype=torch.int32, device=x.device),
+             "layers": _pad_cache({"k": torch.stack(ks), "v": torch.stack(vs)},
+                                  max_len)}
+    h = norm(params["final_norm"], h, cfg)
+    return unembed(params["tok"], h[:, -1], cfg), cache
+
+
+def _pad_cache(kv: dict, max_len: int) -> dict:
+    """[L, B, T, ...] → [L, B, max_len, ...] with zeros (unchanged when
+    T >= max_len)."""
+    def pad(a):
+        pad_t = max_len - a.shape[2]
+        if pad_t <= 0:
+            return a
+        return F.pad(a, (0, 0) * (a.ndim - 3) + (0, pad_t))
+
+    return {k: pad(a) for k, a in kv.items()}
+
+
+# ---------------------------------------------------------------------------
+# the paged engine
+# ---------------------------------------------------------------------------
 def supports_paged(cfg: ModelConfig) -> bool:
     return cfg.mla is None and not cfg.cross_attention
 

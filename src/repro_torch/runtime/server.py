@@ -1,16 +1,29 @@
-"""Continuous-batching serving loop over the paged KV cache: chunked
-prefill, watermark admission with preemption, prefix sharing with
-copy-on-write, seeded per-request sampling and speculative decoding.
+"""Continuous-batching serving loop with two engines behind one front end
+(submit / step / run_until_drained), as in the reference.
 
     from repro_torch.runtime.server import Request, Server, ServingConfig
     server = Server(params, cfg, ServingConfig(paged=True, n_slots=4,
                                                max_len=256))
 
-A physical pool of fixed-size KV blocks is shared by all slots through a
-refcounted `BlockAllocator` + `PrefixTrie` (runtime.paging) and per-slot
-block tables threaded through `models.transformer.paged_step`. Prefill is
-chunked through the same step as decode (decode is C = 1), and a token
-budget caps new tokens per step (decode lanes first, then prompt chunks).
+**Slot-based** (`ServingConfig(paged=False)`, the default, as the
+reference's): a monolithic [n_slots, max_len] cache (`transformer.
+init_cache`). A request prefills alone in one `transformer.prefill` at
+admission (so `submit` runs it, and its time counts toward `wall_s`) and
+is spliced into its slot's row (`_splice`, zero-padded to max_len); one
+shared `pos` clocks every slot, set before each `decode_step` to the
+deepest slot's depth, so shallower slots take RoPE at that position and
+attend over zero gap rows (softmax dilution, the reference's documented
+divergence). Every decode step runs all n_slots lanes, idle ones on
+token 0. The token emitted at prefill is checked against neither
+max_new_tokens nor eos_id. No prefix sharing, parallel samples, drafter
+or trie sweep: those need the paged engine.
+
+**Paged** (`paged=True`): a physical pool of fixed-size KV blocks is
+shared by all slots through a refcounted `BlockAllocator` + `PrefixTrie`
+(runtime.paging) and per-slot block tables threaded through
+`models.transformer.paged_step`. Prefill is chunked through the same
+step as decode (decode is C = 1), and a token budget caps new tokens per
+step (decode lanes first, then prompt chunks).
 At admission a prompt is matched against the trie of cached full-block
 prefixes (the shared span maps the same physical blocks); a lane about to
 write into a block another holder maps first forks it (`_write_plan` →
@@ -46,8 +59,7 @@ and `ServerMetrics.wall_s` comes from its clock, so two servers driven by
 one fake clock record the same trace.
 
 Not ported yet, and raising NotImplementedError with their ROADMAP item:
-static activation grids and precision manifests (A7), the slot engine and
-the model drafter (A4e).
+static activation grids and precision manifests (A7).
 """
 from __future__ import annotations
 
@@ -74,13 +86,15 @@ def _not_ported(what: str, item: str):
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Everything the Server needs beyond (params, model cfg); the fields
-    of the reference's ServingConfig. `paged` defaults to True here because
-    the slot engine is not ported. Speculative decoding: `drafter` picks a
-    proposer from the runtime.speculative registry ("off" / "ngram" /
-    "model:<name>") and `spec_k` caps drafted tokens per lane per verify
-    step. Trie capacity (needs prefix_sharing): `trie_watermark` is a pool
-    fraction; when the prefix cache exceeds it, an LRU sweep drains it to
-    half that (None: eviction only under admission pressure).
+    of the reference's ServingConfig. `paged` picks the block-pool engine
+    (default: the slot engine); `block_size`, `num_blocks` and
+    max_len % block_size are checked only when paged. Speculative decoding
+    (paged only): `drafter` picks a proposer from the runtime.speculative
+    registry ("off" / "ngram" / "model:<name>") and `spec_k` caps drafted
+    tokens per lane per verify step. Trie capacity (paged, needs
+    prefix_sharing): `trie_watermark` is a pool fraction; when the prefix
+    cache exceeds it, an LRU sweep drains it to half that (None: eviction
+    only under admission pressure).
     Observability: `telemetry` enables the per-request event trace, step
     snapshots and latency histograms (runtime.telemetry); the
     Server(telemetry=...) keyword overrides it."""
@@ -88,7 +102,7 @@ class ServingConfig:
     max_len: int = 128
     prequant: bool = False
     packed: bool = True
-    paged: bool = True
+    paged: bool = False
     block_size: int = 16
     num_blocks: Optional[int] = None
     prefill_chunk: int = 16
@@ -113,12 +127,13 @@ class ServingConfig:
             raise ValueError("prefill_chunk must be >= 1")
         if self.token_budget is not None and self.token_budget < 1:
             raise ValueError("token_budget must be >= 1")
-        if self.block_size < 1:
-            raise ValueError("block_size must be >= 1")
-        if self.max_len % self.block_size:
-            raise ValueError("max_len must be a multiple of block_size")
-        if self.num_blocks is not None and self.num_blocks < 1:
-            raise ValueError("num_blocks must be >= 1")
+        if self.paged:
+            if self.block_size < 1:
+                raise ValueError("block_size must be >= 1")
+            if self.max_len % self.block_size:
+                raise ValueError("max_len must be a multiple of block_size")
+            if self.num_blocks is not None and self.num_blocks < 1:
+                raise ValueError("num_blocks must be >= 1")
         if not 0.0 <= self.watermark < 1.0:
             raise ValueError("watermark is a pool fraction in [0, 1)")
         if self.spec_k < 1:
@@ -130,8 +145,6 @@ class ServingConfig:
         if name != "off" and not self.paged:
             raise ValueError("speculative decoding (drafter != 'off') "
                              "needs the paged engine (paged=True)")
-        if not self.paged:
-            raise _not_ported("the slot-based engine (paged=False)", "A4e")
         if self.act_scale is not None or self.act_zero_point is not None:
             raise _not_ported("static activation grids (act_scale)", "A7")
         if self.precision_manifest is not None:
@@ -275,14 +288,20 @@ class Server:
         self.n_slots = serving.n_slots
         self.max_len = serving.max_len
         self.mod = registry.get_module(cfg)
-        if not self.mod.supports_paged(cfg):
-            raise NotImplementedError(
-                f"paged serving not supported for arch {cfg.arch!r}")
+        self.paged = serving.paged
         self.slot_req: list[Optional[Request]] = [None] * self.n_slots
         self.queue: list[Request] = []
         self._next_rid = 0
         self.steps_run = 0
         self.metrics = ServerMetrics()
+        if not self.paged:
+            self.slot_len = np.zeros(self.n_slots, np.int32)
+            self.cache = self.mod.init_cache(cfg, self.n_slots, self.max_len,
+                                             device=self.device)
+            return
+        if not self.mod.supports_paged(cfg):
+            raise NotImplementedError(
+                f"paged serving not supported for arch {cfg.arch!r}")
 
         self.block_size = serving.block_size
         max_blocks = self.max_len // self.block_size
@@ -306,7 +325,8 @@ class Server:
         # speculative decoding: the drafter instance (None = off); its
         # verify steps score every drafted token in one C=spec_k+1 step
         self.spec_k = serving.spec_k
-        self.drafter = make_drafter(serving.drafter, cfg, self.max_len)
+        self.drafter = make_drafter(serving.drafter, cfg, self.max_len,
+                                    device=self.device)
         # trie capacity watermarks (block counts; 0 = sweep disabled)
         self._trie_hi = self._trie_lo = 0
         if self.trie is not None and serving.trie_watermark is not None:
@@ -332,18 +352,22 @@ class Server:
             raise ValueError("Request.sampling must be a SamplingParams "
                              f"(runtime.speculative), got "
                              f"{type(req.sampling).__name__}")
-        if len(req.prompt) >= self.max_len - 1:
-            raise ValueError(f"prompt of {len(req.prompt)} tokens exceeds "
-                             f"max_len={self.max_len}")
-        need = self._blocks_worst_case(req)
-        if req.n_samples > 1:
-            # a sibling's CoW fork keeps the shared original alive in the
-            # stash while the private copy grows
-            need += 1
-        if need > self.alloc.stats.num_blocks:
-            raise ValueError(f"request needs {need} KV blocks worst-case but "
-                             f"the pool only has "
-                             f"{self.alloc.stats.num_blocks}")
+        if self.paged:
+            if len(req.prompt) >= self.max_len - 1:
+                raise ValueError(f"prompt of {len(req.prompt)} tokens "
+                                 f"exceeds max_len={self.max_len}")
+            need = self._blocks_worst_case(req)
+            if req.n_samples > 1:
+                # a sibling's CoW fork keeps the shared original alive in
+                # the stash while the private copy grows
+                need += 1
+            if need > self.alloc.stats.num_blocks:
+                raise ValueError(f"request needs {need} KV blocks worst-case "
+                                 f"but the pool only has "
+                                 f"{self.alloc.stats.num_blocks}")
+        elif req.n_samples > 1:
+            raise ValueError("parallel sampling (n_samples > 1) needs the "
+                             "paged engine")
         tel = self.telemetry
         req.rid = self._next_rid
         req.t_submit = tel.now()
@@ -375,13 +399,86 @@ class Server:
     def step(self):
         """One serving step; retires finished requests and re-admits."""
         t0 = self.telemetry.now()
-        self._step_paged()
-        # the watermark sweep runs every step, idle ones included (where
-        # _step_paged returns early), so a cold prefix cache drains
-        if self._trie_hi:
-            self.metrics.trie_sweep_freed += self.trie.sweep(
-                self.alloc, self._trie_hi, self._trie_lo)
+        if self.paged:
+            self._step_paged()
+            # the watermark sweep runs every step, idle ones included
+            # (where _step_paged returns early), so a cold prefix cache
+            # drains
+            if self._trie_hi:
+                self.metrics.trie_sweep_freed += self.trie.sweep(
+                    self.alloc, self._trie_hi, self._trie_lo)
+        else:
+            self._step_slots()
         self.metrics.wall_s += self.telemetry.now() - t0
+
+    # -- slot engine ----------------------------------------------------------
+    def _admit_slots(self):
+        for slot in range(self.n_slots):
+            if self.slot_req[slot] is None and self.queue:
+                self._prefill_into(slot, self.queue.pop(0))
+
+    def _prefill_into(self, slot: int, req: Request):
+        """Prefill one request alone and splice its cache into `slot`. The
+        token it emits is checked against neither max_new_tokens nor
+        eos_id, as in the reference."""
+        tokens = torch.tensor([req.prompt], dtype=torch.int32,
+                              device=self.device)
+        logits, rcache = self.mod.prefill(self.params, {"tokens": tokens},
+                                          self.cfg, max_len=self.max_len)
+        first = sample_token(logits[0].cpu().numpy(), req.sampling,
+                             len(req.output))
+        req.output.append(first)
+        tel = self.telemetry
+        req.t_first = tel.now()
+        tel.admit(req.rid, slot, req.t_first, prefix_hit_blocks=0,
+                  prefill_tokens=len(req.prompt))
+        tel.prefill_chunk(req.rid, slot, req.t_first, len(req.prompt),
+                          len(req.prompt), len(req.prompt))
+        tel.first_token(req.rid, slot, req.t_first, req.t_submit)
+        self.metrics.prefill_tokens += len(req.prompt)
+        self.slot_req[slot] = req
+        self.slot_len[slot] = len(req.prompt)
+        self.cache = _splice(self.cache, rcache, slot)
+
+    def _step_slots(self):
+        """One decode step for every slot, idle ones on token 0, at the
+        shared position of the deepest slot."""
+        active = [s for s in range(self.n_slots) if self.slot_req[s]]
+        if not active:
+            return
+        toks = np.zeros((self.n_slots, 1), np.int32)
+        for s in active:
+            toks[s, 0] = self.slot_req[s].output[-1]
+        pos = int(max(self.slot_len[s] + len(self.slot_req[s].output) - 1
+                      for s in active))
+        self.cache["pos"] = torch.tensor(pos, dtype=torch.int32,
+                                         device=self.device)
+        logits, self.cache = self.mod.decode_step(
+            self.params, torch.from_numpy(toks).to(self.device), self.cache,
+            self.cfg)
+        rows = logits.cpu().numpy()
+        tel = self.telemetry
+        now = tel.now()
+        for s in active:
+            req = self.slot_req[s]
+            nxt = sample_token(rows[s], req.sampling, len(req.output))
+            req.output.append(nxt)
+            self.metrics.decode_tokens += 1
+            tel.emission(req.rid, s, now)
+            exhausted = len(req.output) >= req.max_new_tokens
+            hit_eos = req.eos_id is not None and nxt == req.eos_id
+            if exhausted or hit_eos or pos + 1 >= self.max_len - 1:
+                req.done = True
+                req.t_done = now
+                tel.retire(req.rid, s, now, tokens=len(req.output),
+                           latency_s=req.latency_s)
+                self.slot_req[s] = None
+                self.slot_len[s] = 0
+        self.steps_run += 1
+        self.metrics.steps += 1
+        self._admit()
+
+    # -- paged engine ---------------------------------------------------------
 
     def _blocks_worst_case(self, req: Request) -> int:
         need = min(len(req.prompt) + req.max_new_tokens, self.max_len)
@@ -395,6 +492,12 @@ class Server:
         return n
 
     def _admit(self):
+        if self.paged:
+            self._admit_paged()
+        else:
+            self._admit_slots()
+
+    def _admit_paged(self):
         while self.queue:
             try:
                 slot = self.slot_req.index(None)
@@ -812,15 +915,39 @@ class Server:
                 if self.trie is not None else 0}
 
     def flush_prefix_cache(self) -> int:
-        """Drop every trie entry; returns blocks freed to the pool."""
-        return self.trie.flush(self.alloc) if self.trie is not None else 0
+        """Drop every trie entry; returns blocks freed to the pool (0 on
+        the slot engine, which has no trie)."""
+        if self.paged and self.trie is not None:
+            return self.trie.flush(self.alloc)
+        return 0
 
     def kv_cache_bytes(self) -> dict:
-        """Resident KV bytes on the device: {"total": the pool tensors'
+        """Resident KV bytes on the device: {"total": the K/V tensors'
         bytes, "in_use": the bytes of the blocks referenced now, by live
-        requests or by the trie}. Reads sizes only."""
+        requests or by the trie; == total for the slot cache}. Reads sizes
+        only."""
         pools = self.cache["layers"].values()
         total = sum(t.numel() * t.element_size() for t in pools)
+        if not self.paged:
+            return {"total": total, "in_use": total}
         per_block = total // (self.alloc.stats.num_blocks + 1)   # + trash
         return {"total": total,
                 "in_use": per_block * self.alloc.stats.in_use}
+
+
+def _splice(batched: dict, request: dict, slot: int) -> dict:
+    """Copy a 1-deep request cache into row `slot` of the batched slot
+    cache, IN PLACE: each K/V leaf [L, 1, T, ...] is cast to the cache's
+    dtype and zero-padded or trimmed to its max_len, so the whole row is
+    overwritten; "pos" takes the max of the two, so the shared clock covers
+    the deepest slot."""
+    for name, dst in batched["layers"].items():
+        src = request["layers"][name][:, :1].to(dst.dtype)
+        s = dst.shape[2]
+        if src.shape[2] > s:
+            src = src[:, :, :s]
+        dst[:, slot:slot + 1, :src.shape[2]] = src
+        dst[:, slot:slot + 1, src.shape[2]:] = 0
+    batched["pos"] = torch.maximum(
+        batched["pos"], request["pos"]).to(batched["pos"].dtype)
+    return batched

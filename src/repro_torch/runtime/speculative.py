@@ -28,9 +28,9 @@ spec-decode streams are bit-identical to plain decode. Both draws for
 emission index j come from the same `(seed, j)` Philox key.
 
 The ngram drafter counts each proposed token as a match or a fallback
-(`runtime.telemetry.KERNEL_COUNTERS.drafter`). Not ported yet: the model
-drafter (`model:<name>` parses, but building it raises NotImplementedError
-naming ROADMAP A4e, the slot engine whose padded `forward` it runs).
+(`runtime.telemetry.KERNEL_COUNTERS.drafter`). The model drafter
+(`model:<name>`) runs the slot engine's padded `transformer.forward` on
+the Server's device.
 """
 from __future__ import annotations
 
@@ -193,30 +193,29 @@ def parse_drafter(spec: str) -> tuple[str, Optional[str]]:
     return name, (arg or None)
 
 
-def make_drafter(spec: str, cfg, max_len: int):
+def make_drafter(spec: str, cfg, max_len: int, **kw):
     """Resolve a spec string into a drafter instance (None for "off").
-    `cfg` is the TARGET model config (vocab compatibility checks)."""
+    `cfg` is the TARGET model config (vocab compatibility checks); `kw`
+    (`device`, and `params` for a model drafter) go to the drafter that
+    takes them."""
     name, arg = parse_drafter(spec)
     ds = get_drafter(name)
-    return ds.factory(arg, cfg, max_len)
+    return ds.factory(arg, cfg, max_len, **kw)
 
 
 @register_drafter("off")
-def _off(arg, cfg, max_len):
+def _off(arg, cfg, max_len, **kw):
     return None
 
 
 @register_drafter("ngram")
-def _ngram(arg, cfg, max_len):
+def _ngram(arg, cfg, max_len, **kw):
     return NGramDrafter()
 
 
 @register_drafter("model", takes_arg=True)
-def _model(arg, cfg, max_len):
-    # ModelDrafter runs the slot engine's padded `forward`, which comes
-    # with the slot engine
-    raise NotImplementedError(f"the model drafter 'model:{arg}' is not "
-                              "ported yet (ROADMAP A4e)")
+def _model(arg, cfg, max_len, **kw):
+    return ModelDrafter(arg, cfg, max_len, **kw)
 
 
 class NGramDrafter:
@@ -253,3 +252,56 @@ class NGramDrafter:
         for _ in range(k):
             work.append(self._next(work))
         return work[len(tokens):]
+
+
+class ModelDrafter:
+    """A small greedy draft model from configs.registry behind the same
+    `propose(tokens, k)` interface.
+
+    The draft model (`SMOKES[arch]` in float32) runs one padded `forward`
+    per proposed token: the stream is right-padded to max_len and the
+    logits row is taken at the last real position, which causal attention
+    keeps independent of the padding. Vocabularies must match exactly, or
+    proposals could index outside the target's embedding table. `params`
+    defaults to the port's own `init_params(seed=17)` (its draws differ
+    from the reference's jax.random ones); `device` defaults to the card.
+    """
+
+    def __init__(self, arch: str, target_cfg, max_len: int, params=None,
+                 seed: int = 17, device=None):
+        from repro_torch.configs.registry import SMOKES
+        from repro_torch.device import resolve_device
+        from repro_torch.models import registry as model_registry
+
+        cfg = SMOKES[arch].replace(dtype="float32")
+        if cfg.vocab != target_cfg.vocab:
+            raise ValueError(
+                f"drafter 'model:{arch}' vocab {cfg.vocab} != target vocab "
+                f"{target_cfg.vocab}; proposals must share the token space")
+        self.cfg = cfg
+        self.max_len = max_len
+        self.device = resolve_device(device)
+        self.params = params if params is not None else \
+            model_registry.init_params(cfg, seed=seed, device=self.device)
+        self._mod = model_registry.get_module(cfg)
+
+    def propose(self, tokens: Sequence[int], k: int) -> list[int]:
+        import torch
+
+        from repro_torch.models.common import unembed
+        # keep the newest max_len - k tokens so the k proposals still fit
+        work = list(tokens)[-(self.max_len - k):]
+        buf = np.zeros(self.max_len, np.int32)
+        buf[:len(work)] = work
+        out = []
+        for i in range(k):
+            last = len(work) + i - 1
+            h, _, _ = self._mod.forward(
+                self.params,
+                {"tokens": torch.from_numpy(buf[None]).to(self.device)},
+                self.cfg, train=False)
+            nxt = int(torch.argmax(unembed(self.params["tok"], h[0, last],
+                                           self.cfg)))
+            out.append(nxt)
+            buf[last + 1] = nxt
+        return out

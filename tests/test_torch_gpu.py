@@ -15,8 +15,9 @@ block sizes past their fast case too (dh 16, 20, 21, 56, 80, 96; bs 48,
 64, 128), and a speculative verify step (C = 5, every position's logits)
 of the smoke model is identical with the kernels and with their plain
 versions, as is a telemetry-on serve with parallel samples and the trie
-watermark sweep (streams, metrics and event kinds). Inputs come from
-numpy seeds. This file needs no JAX.
+watermark sweep (streams, metrics and event kinds), and the slot engine's
+prefill, decode step and serve (logits, caches, streams, metrics). Inputs
+come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -495,7 +496,7 @@ def _telemetry_serve(cfg, dev):
     ticks = iter(range(1, 1 << 30))
     params = registry.init_params(cfg, seed=0, device=dev)
     srv = Server(params, cfg, ServingConfig(
-        n_slots=4, max_len=64, block_size=8, num_blocks=24,
+        paged=True, n_slots=4, max_len=64, block_size=8, num_blocks=24,
         prefill_chunk=8, prequant=True, attn=cfg.attn_backend,
         trie_watermark=0.5), telemetry=Telemetry(
             clock=lambda: float(next(ticks))), device=dev)
@@ -530,3 +531,60 @@ def test_telemetry_serve_kernels_match_plain():
     assert len(streams) == 8 and all(len(s) == 6 for s in streams)
     assert metrics["cow_forks"] > 0 and metrics["trie_sweep_freed"] > 0
     assert {"cow_fork", "first_token", "decode", "retire"} <= set(kinds)
+
+
+def _slot_serve(cfg, dev):
+    """The slot engine (`ServingConfig()`), nibble-packed prequant, 2 slots:
+    four requests of 5-40 prompt tokens, the later ones admitted mid-flight
+    at other depths; (streams, ServerMetrics.summary() without wall_s)."""
+    from repro_torch.models import registry
+    from repro_torch.runtime.server import Request, Server, ServingConfig
+    params = registry.init_params(cfg, seed=0, device=dev)
+    srv = Server(params, cfg, ServingConfig(n_slots=2, max_len=64,
+                                            prequant=True), device=dev)
+    rng = np.random.RandomState(18)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab, size=int(n)).tolist(),
+                    max_new_tokens=5) for n in (5, 40, 17, 9)]
+    for r in reqs:
+        srv.submit(r)
+    srv.run_until_drained()
+    m = srv.metrics.summary()
+    del m["wall_s"], m["decode_tok_s"], m["prefill_tok_s"]
+    return [r.output for r in reqs], m
+
+
+def test_slot_engine_kernels_match_plain():
+    """The slot engine's per-request prefill (B1 at M = the prompt length)
+    and decode step (M = n_slots, idle lanes included) with the kernels
+    and with their plain versions: identical logits, caches, streams and
+    metrics."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.runtime.server import _splice
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
+    plain = cfg.replace(cim=dataclasses.replace(cfg.cim, backend="plain"))
+    params = quantize_params(registry.init_params(cfg, seed=0, device=dev),
+                             cfg)
+    rng = np.random.RandomState(19)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (1, 37))).to(dev)
+    nxt = torch.from_numpy(rng.randint(0, cfg.vocab, (3, 1))).to(dev)
+    outs = []
+    for c in (cfg, plain):
+        l1, rc = transformer.prefill(params, {"tokens": toks}, c,
+                                     max_len=64)
+        cache = _splice(transformer.init_cache(c, 3, 64, device=dev), rc, 2)
+        l2, cache = transformer.decode_step(params, nxt, cache, c)
+        outs.append((l1, l2, cache["layers"]["k"], cache["layers"]["v"]))
+    for a, b in zip(*outs):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a, b.view(torch.int16)
+                           if b.dtype == torch.bfloat16 else b)
+    before = cim_mvm.cim_mvm_grouped_packed.launches
+    kern = _slot_serve(cfg, dev)
+    assert cim_mvm.cim_mvm_grouped_packed.launches > before
+    assert kern == _slot_serve(plain, dev)
+    assert all(len(s) == 5 for s in kern[0])

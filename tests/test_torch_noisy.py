@@ -430,7 +430,7 @@ def test_noisy_wrappers_count_only_kernel_launches():
 
 def test_serve_launcher_bp_noisy_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--requests", "2", "--max-new", "3",
+    serve.main(["--smoke", "--paged", "--requests", "2", "--max-new", "3",
                 "--cim", "bp-noisy", "--attn", "kernel", "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("req") >= 2 and "cim=bp-noisy" in out

@@ -77,7 +77,7 @@ def _servers(ref_weights, leg, **kw):
                                                **kw))
     port = tserver.Server(
         registry.params_from_numpy(ref_weights[1], tcfg, device="cpu"), tcfg,
-        tserver.ServingConfig(**kw), device="cpu")
+        tserver.ServingConfig(paged=True, **kw), device="cpu")
     return (ref, rserver.Request), (port, tserver.Request)
 
 
@@ -212,12 +212,30 @@ def test_prefix_hit_schedule_matches_reference(ref_weights):
 # contracts that need no reference
 # ---------------------------------------------------------------------------
 def test_port_imports_no_jax_and_no_reference():
+    """Every module of the port, chip_smoke and a serve on each engine (the
+    paged one with the model drafter) leave no JAX and no reference
+    module in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
         "for m in pkgutil.walk_packages(repro_torch.__path__, 'repro_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from repro_torch.configs.registry import SMOKES\n"
+        "from repro_torch.models import registry\n"
+        "from repro_torch.runtime.server import Request, Server, "
+        "ServingConfig\n"
+        "cfg = SMOKES['internlm2-1.8b']\n"
+        "p = registry.init_params(cfg, seed=0, device='cpu')\n"
+        "for sc in (ServingConfig(max_len=32),\n"
+        "           ServingConfig(paged=True, max_len=32, block_size=8,\n"
+        "                         drafter='model:internlm2-1.8b',\n"
+        "                         spec_k=2)):\n"
+        "    srv = Server(p, cfg, sc, device='cpu')\n"
+        "    r = Request(prompt=[1, 2, 3], max_new_tokens=4)\n"
+        "    srv.submit(r)\n"
+        "    srv.run_until_drained()\n"
+        "    assert len(r.output) == 4, r.output\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
@@ -253,24 +271,17 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("paged", False, "A4e"),
     ("act_scale", 0.1, "A7"), ("precision_manifest", "m.json", "A7")])
 def test_serving_config_unported_options_raise(field, value, item):
     with pytest.raises(NotImplementedError, match=item):
         tserver.ServingConfig(**{field: value})
 
 
-def test_model_drafter_not_ported():
-    from repro_torch.runtime.speculative import make_drafter
-    cfg, _ = _smoke_params()
-    with pytest.raises(NotImplementedError, match="A4e"):
-        make_drafter("model:internlm2-1.8b", cfg, 64)
-
-
 def test_serve_launcher_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--requests", "2", "--max-new", "3",
+    serve.main(["--smoke", "--paged", "--requests", "2", "--max-new", "3",
                 "--cim", "bp-prequant", "--attn", "kernel",
                 "--device", "cpu"])
     out = capsys.readouterr().out
     assert out.count("req") >= 2 and "tok/s" in out
+    assert "engine=paged" in out

@@ -155,7 +155,8 @@ def _port(weights, cim="off", **kw):
                    attn="exact", prequant=cim == "bp-prequant"), **kw)
     return tserver.Server(registry.params_from_numpy(weights[1], cfg,
                                                      device="cpu"),
-                          cfg, tserver.ServingConfig(**kw), device="cpu")
+                          cfg, tserver.ServingConfig(paged=True, **kw),
+                          device="cpu")
 
 
 def _ref(weights, cim="off", **kw):
@@ -266,14 +267,14 @@ def test_serving_config_spec_checks():
         tserver.ServingConfig(drafter="ngram", paged=False)
     import argparse
     cfg = tserver.ServingConfig.from_flags(argparse.Namespace(
-        drafter="ngram", spec_k=2))
+        paged=True, drafter="ngram", spec_k=2))
     assert (cfg.drafter, cfg.spec_k) == ("ngram", 2)
 
 
 def test_serve_launcher_speculative_on_cpu(capsys):
     from repro_torch.launch import serve
-    serve.main(["--smoke", "--requests", "2", "--max-new", "4", "--device",
-                "cpu", "--drafter", "ngram", "--spec-k", "3",
+    serve.main(["--smoke", "--paged", "--requests", "2", "--max-new", "4",
+                "--device", "cpu", "--drafter", "ngram", "--spec-k", "3",
                 "--temperature", "0.7", "--top-k", "8"])
     out = capsys.readouterr().out
     assert "speculative: drafter=ngram spec_k=3" in out

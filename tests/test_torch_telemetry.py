@@ -100,7 +100,7 @@ def _pair(weights, cim="off", **kw):
                          telemetry=rtel.Telemetry(clock=FakeClock()))
     port = tserver.Server(
         registry.params_from_numpy(weights[1], tcfg, device="cpu"), tcfg,
-        tserver.ServingConfig(**kw),
+        tserver.ServingConfig(paged=True, **kw),
         telemetry=ttel.Telemetry(clock=FakeClock()), device="cpu")
     return ref, port
 
@@ -238,8 +238,8 @@ def test_telemetry_off_serves_identically(weights):
     outs = []
     for on in (True, False):
         srv = tserver.Server(params, tcfg, tserver.ServingConfig(
-            n_slots=2, max_len=32, block_size=4, prefill_chunk=4,
-            attn="exact", telemetry=on), device="cpu")
+            paged=True, n_slots=2, max_len=32, block_size=4,
+            prefill_chunk=4, attn="exact", telemetry=on), device="cpu")
         rng = np.random.RandomState(1)
         reqs = [tserver.Request(prompt=rng.randint(0, 512, size=5).tolist(),
                                 max_new_tokens=6) for _ in range(3)]
@@ -432,7 +432,7 @@ def test_trie_watermark_validation_matches_reference(bad):
     with pytest.raises(ValueError, match="trie_watermark"):
         rserver.ServingConfig(paged=True, **kw)
     with pytest.raises(ValueError, match="trie_watermark"):
-        tserver.ServingConfig(**kw)
+        tserver.ServingConfig(paged=True, **kw)
 
 
 def test_trie_watermark_config_and_flags():
@@ -440,9 +440,9 @@ def test_trie_watermark_config_and_flags():
     ok = dict(max_len=128, block_size=16, drafter="ngram", spec_k=2,
               trie_watermark=0.75)
     assert rserver.ServingConfig(paged=True, **ok)
-    assert tserver.ServingConfig(**ok).trie_watermark == 0.75
+    assert tserver.ServingConfig(paged=True, **ok).trie_watermark == 0.75
     sc = tserver.ServingConfig.from_flags(argparse.Namespace(
-        trie_watermark=0.5, slots=2, max_len=32, block_size=8))
+        paged=True, trie_watermark=0.5, slots=2, max_len=32, block_size=8))
     assert (sc.trie_watermark, sc.n_slots) == (0.5, 2)
 
 
@@ -453,7 +453,7 @@ def test_serve_exports_and_cli_validator(tmp_path, capsys):
     from repro_torch.launch import serve
     trace, prom, events = (tmp_path / n for n in ("trace.json", "m.prom",
                                                   "ev.jsonl"))
-    serve.main(["--smoke", "--requests", "3", "--max-new", "4",
+    serve.main(["--smoke", "--paged", "--requests", "3", "--max-new", "4",
                 "--n-samples", "2", "--trie-watermark", "0.5",
                 "--arrival", "poisson", "--arrival-rate", "50",
                 "--trace-out", str(trace), "--metrics-out", str(prom),
