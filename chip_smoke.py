@@ -30,7 +30,10 @@ of which fails the run when it fails:
      case (dh 16, 20, 56, 80, 128 x bs 16, 48, 64, 128; bf16 and f32 pools)
      bit-exact against their plain versions; B3 timed at decode at dh 80 /
      bs 16 and dh 128 / bs 64 and at a verify step (C = 5), and B1 over a
-     verify step's MVMs (M = 20);
+     verify step's MVMs (M = 20); B1, B2, B5 (NOISY and FULL) and B6
+     bit-exact against their plain versions at every ADC level of the
+     precision search's ladder (L in 32 ... 256), M in {4, 64}, K 2048,
+     N 8192;
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
@@ -76,6 +79,22 @@ of which fails the run when it fails:
      paged spec Server with the model drafter (spec_k 4) sharing the
      target's weights against plain greedy: a draft must be accepted;
      accept rate, mean accept length and target steps are printed;
+  3p. calibrated static grids and precision manifests at phase 3's width
+     and settings: (a) calibrate_act_scale and calibrate_act_tree on the
+     reference launcher's batch (RandomState(7), 2 x 16 tokens), the grid
+     and per-site spans logged; (b) the precision search with the
+     reference test's settings (bit_candidates (7.0,), no per-channel
+     retry), its manifest written under build/; (c) phase 3's 8 requests
+     served --paged --cim bp-prequant three ways (the static grid, the
+     searched manifest, the committed precision_manifest.json), each with
+     169 B1 launches per step and its per-site energy logged against the
+     uniform 362-level energy of the same dots; (d) under both manifests,
+     one prefill and one decode paged_step with the kernels and with their
+     plain versions, which must give identical logits and pools; (e) under
+     the static grid, a probe request's stream served alone must equal its
+     stream beside 3 companions; (f) the host time of one decode step's 169
+     site resolutions, and the manifest and static-grid decode steps on the
+     card (CUDA graph) vs eager;
   4. a short --cim bp serve, which must launch B2, and the decode step
      breakdown of that server (B2's share of the step);
   4b. the seeded stochastic converter (SimLevel.NOISY, noise_seed 0) at
@@ -129,6 +148,9 @@ DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 C1_SHAPES = ((16, 16), (80, 16), (56, 16), (20, 16), (128, 48), (128, 64),
              (80, 128))
 SPEC_K = 4
+# the ADC levels of the precision search's ladder below the native 362
+# (core.precision.ADC_BIT_CANDIDATES: 5 to 8 bits)
+LADDER = (32, 45, 64, 91, 128, 181, 256)
 # the Telemetry hooks the Server calls (event() is the shared internal
 # path of cow_fork and preempt, so it is not wrapped); now() is not a hook
 TEL_HOOKS = ("submit", "admit", "prefill_chunk", "first_token", "emission",
@@ -345,6 +367,41 @@ def main() -> int:
         f"(tolerance {FULL_TOL})")
     check(full_diff <= FULL_TOL, "B5/B6 at FULL differ from their plain "
           "versions beyond the tolerance")
+
+    # every rung of the precision search's ADC ladder (a manifest serves
+    # B1 at its sites' levels): lsb, inv_lsb, inv_lsb / L and code_max
+    # change with L; internlm2-1.8b's widest layer shape
+    for levels in LADDER:
+        lkw = dict(kw, levels=levels)
+        lnoisy, lfull = dict(noisy_kw, levels=levels), \
+            dict(full_kw, levels=levels)
+        for m in (4, 64):
+            x, w = codes((m, 2048)), codes((2048, 8192))
+            wp = ops.pack_codes(w).contiguous()
+            where = f"at L={levels} M={m} K=2048 N=8192"
+            for kid, y, yp in (
+                    ("B1", cm.cim_mvm_grouped_packed(x, wp, **lkw),
+                     cm.cim_mvm_grouped_packed_plain(x, wp, **lkw)),
+                    ("B2", cm.cim_mvm_grouped(x, w, **lkw),
+                     cm.cim_mvm_grouped_plain(x, w, **lkw))):
+                check(torch.equal(y, yp), f"{kid} differs from its plain "
+                      f"version {where}")
+            for lv, lvkw in (("NOISY", lnoisy), ("FULL", lfull)):
+                y5p = cm.cim_mvm_grouped_noisy_plain(x, w, seeds[7],
+                                                     inl_seed=3, **lvkw)
+                y5 = cm.cim_mvm_grouped_noisy(x, w, seeds[7], inl_seed=3,
+                                              **lvkw)
+                y6 = cm.cim_mvm_grouped_noisy_packed(x, wp, seeds[7],
+                                                     inl_seed=3, **lvkw)
+                check(torch.equal(y5, y5p), f"B5 at {lv} differs from its "
+                      f"plain version {where}")
+                check(torch.equal(y6, y5p), f"B6 at {lv} differs from B5's "
+                      f"plain version {where}")
+            torch.cuda.synchronize()
+            del x, w, wp
+    log(f"phase 2: B1, B2, B5 (NOISY and FULL, seed 7, INL instance 3) and "
+        f"B6 bit-exact vs plain at every ADC ladder rung L in {LADDER}, M "
+        "in {4, 64}, K=2048 N=8192 (tolerance 0)")
 
     # decode-step timing: M = 4 slots, every MVM shape of one step
     mvms = {"B1": (cm.cim_mvm_grouped_packed, cm.cim_mvm_grouped_packed_plain,
@@ -1374,6 +1431,187 @@ def main() -> int:
                 f"greedy in {same} of 8 requests")
         del srv
     del sparams
+
+    # ---- phase 3p: calibrated static grids and precision manifests -------
+    # (a) the reference launcher's calibration batch (RandomState(7), 2 x 16
+    # tokens) through the eager einsum forward: the whole-model grid and
+    # the per-site tree
+    from repro_torch.analysis import calibrate as calib
+    from repro_torch.analysis import precision_search as psearch
+    from repro_torch.core import quant
+    from repro_torch.core.cim_matmul import resolve_site_cfg
+    from repro_torch.core.energy import mvm_energy
+    cal_tokens = np.random.RandomState(7).randint(0, cfg.vocab, size=(2, 16))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    grid = calib.calibrate_act_scale(params, cal_tokens, cfg)
+    t_grid = time.monotonic() - t0
+    t0 = time.monotonic()
+    tree = calib.calibrate_act_tree(params, cal_tokens, cfg)
+    t_tree = time.monotonic() - t0
+    check(len(grid["spans"]) == 7 * cfg.n_layers
+          and math.isfinite(grid["scale"]) and grid["scale"] > 0,
+          f"phase 3p: calibration recorded {len(grid['spans'])} spans, "
+          f"scale {grid['scale']}")
+    log(f"phase 3p ({card}): calibrate_act_scale {t_grid:.2f} s: static "
+        f"grid scale={grid['scale']!r} zero_point={grid['zero_point']} "
+        f"(max span {grid['span']:.6f} over {len(grid['spans'])} matmuls); "
+        f"calibrate_act_tree {t_tree:.2f} s")
+    for name, e in tree["sites"].items():
+        log(f"  site {name}: k={e['k']} m={e['m']} rows={e['rows']} "
+            f"calls={e['calls']} lo={e['lo']:.6f} hi={e['hi']:.6f} "
+            f"span={e['span']:.6f} scale={e['scale']!r} zp={e['zero_point']}")
+    check(sorted(tree["sites"]) == sorted(
+        ["wq", "wk", "wv", "wo", "w_up", "w_gate", "w_down"])
+        and all(e["calls"] == cfg.n_layers for e in tree["sites"].values()),
+        "phase 3p: the calibration tree's sites are not the 7 weight names "
+        "with one call per layer")
+
+    # (b) the search with the reference test's cheap settings, at full depth
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    searched = psearch.search(params, cal_tokens, cfg, seed=0,
+                              bit_candidates=(7.0,), try_per_channel=False)
+    t_search = time.monotonic() - t0
+    sm = searched["metrics"]
+    man_path = ROOT / "build" / "phase3p_manifest.json"
+    man_path.parent.mkdir(parents=True, exist_ok=True)
+    psearch.save_manifest(str(man_path), searched)
+    log(f"phase 3p ({card}): search (bit_candidates (7.0,), no per-channel "
+        f"retry, {cfg.n_layers} layers) {t_search:.2f} s: energy_win "
+        f"{sm['energy_win']!r} kl_uniform {sm['kl_uniform']!r} kl_proxy "
+        f"{sm['kl_proxy']!r} uniform {sm['uniform_pj_per_token']!r} / mixed "
+        f"{sm['mixed_pj_per_token']!r} pJ per token; levels "
+        + str({n: e["adc_levels"] for n, e in searched["sites"].items()}))
+    check(sm["mixed_pj_per_token"] <= sm["uniform_pj_per_token"]
+          and math.isfinite(sm["kl_proxy"])
+          and sm["kl_proxy"] <= sm["kl_uniform"] + sm["kl_budget"] + 1e-9,
+          "phase 3p: the search broke its energy or KL contract")
+
+    # (c) three serves, --paged --cim bp-prequant: the static grid, the
+    # searched manifest, the committed manifest
+    committed = str(ROOT / "precision_manifest.json")
+    legs_3p = {"static grid": dict(act_scale=grid["scale"],
+                                   act_zero_point=grid["zero_point"]),
+               "searched manifest": dict(precision_manifest=str(man_path)),
+               "committed manifest": dict(precision_manifest=committed)}
+    servers_3p = {}
+    for leg, extra in legs_3p.items():
+        srv = Server(params, cfg, dataclasses.replace(serving, **extra),
+                     device=dev)
+        check(bool(srv.cfg.cim.site_overrides) == (leg != "static grid"),
+              f"phase 3p: {leg}: the manifest was not applied")
+        KERNEL_COUNTERS.reset()
+        counts, _ = serve_mix(srv, prompts, f"phase 3p: {leg}")
+        b1 = counts["cim_mvm_grouped_packed"]
+        check(b1 == 169 * srv.steps_run and counts["paged_attn_call"] > 0
+              and counts["decode_write_attend_call"] > 0,
+              f"phase 3p: {leg}: {b1} B1 launches in {srv.steps_run} steps "
+              "(169 a step expected), or B3 / the decode launch missing")
+        energy = KERNEL_COUNTERS.snapshot()["site_energy"]
+        parts = []
+        for name, rec in sorted(energy.items()):
+            k_site = (tree["sites"][name]["k"] if name in tree["sites"]
+                      else cfg.d_model)
+            uniform = mvm_energy(cfg.cim.macro, k_site).e_mvm_j * rec["dots"]
+            parts.append(f"{name} {rec['energy_j']!r} J over {rec['dots']} "
+                         f"dots in {rec['calls']} calls (uniform 362 levels "
+                         f"{uniform!r} J)")
+        log(f"phase 3p ({card}): {leg}: site_energy " + "; ".join(parts))
+        servers_3p[leg] = srv
+
+    # (d) one prefill and one decode step under the searched manifest and
+    # under the committed one, kernels vs plain: logits and pools identical
+    def two_steps_pools(step_params, step_cfg):
+        cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
+                                             device=dev)
+        tb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
+        srng = np.random.RandomState(7)
+        toks = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        valid = torch.tensor([16, 16, 9, 0], device=dev)
+        l1, cache = transformer.paged_step(
+            step_params, toks, cache, tb, torch.zeros(4, device=dev,
+                                                      dtype=torch.long),
+            valid, step_cfg)
+        nxt = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 1))).to(dev)
+        l2, cache = transformer.paged_step(
+            step_params, nxt, cache, tb, valid,
+            torch.tensor([1, 1, 1, 0], device=dev), step_cfg)
+        return (l1, l2), cache["layers"]
+
+    for leg in ("searched manifest", "committed manifest"):
+        srv = servers_3p[leg]
+        build.reset_launch_counts()
+        l_k, pools_k = two_steps_pools(srv.params, srv.cfg)
+        torch.cuda.synchronize()
+        st_counts = build.launch_counts()
+        l_p, pools_p = two_steps_pools(srv.params, srv.cfg.replace(
+            attn_backend="plain",
+            cim=dataclasses.replace(srv.cfg.cim, backend="plain")))
+        torch.cuda.synchronize()
+        check(all(a.shape == (4, cfg.vocab) and bool(torch.isfinite(a).all())
+                  for a in l_k), f"phase 3p: {leg}: step logits malformed")
+        m_err = max((a[:3] - b[:3]).abs().max().item()
+                    for a, b in zip(l_k, l_p))
+        same_pools = all(torch.equal(pools_k[n][:, 1:].view(torch.int16),
+                                     pools_p[n][:, 1:].view(torch.int16))
+                         for n in ("k", "v"))
+        log(f"phase 3p: {leg}: paged_step prefill C=16 + decode C=1, "
+            f"kernels vs plain versions: max |dlogit| = {m_err}, pools "
+            f"identical: {same_pools} (tolerance 0); launches {st_counts}")
+        check(m_err == 0.0 and same_pools, f"phase 3p: {leg}: kernel and "
+              "plain steps differ")
+        check(st_counts["cim_mvm_grouped_packed"] == 2 * 169,
+              f"phase 3p: {leg}: the two steps launched B1 "
+              f"{st_counts['cim_mvm_grouped_packed']} times, expected 338")
+        del l_k, l_p, pools_k, pools_p
+
+    # (e) under the static grid a probe's stream does not depend on its
+    # companions (the reference's test_static_scale_decouples_lane_from_
+    # batch, at full width)
+    probe_out = []
+    for companions in ((), (1, 2, 3)):
+        srv = Server(params, cfg, dataclasses.replace(
+            serving, **legs_3p["static grid"]), device=dev)
+        probe = Request(prompt=prompts[5], max_new_tokens=16)
+        srv.submit(probe)
+        for i in companions:
+            srv.submit(Request(prompt=prompts[i], max_new_tokens=16))
+        srv.run_until_drained()
+        probe_out.append(probe.output)
+        del srv
+    log(f"phase 3p: static grid, probe (prompt_len {len(prompts[5])}) alone "
+        f"-> {probe_out[0]}; beside 3 companions -> {probe_out[1]}")
+    check(probe_out[0] == probe_out[1] and len(probe_out[0]) == 16,
+          "phase 3p: under the static grid the probe's stream depends on its "
+          "companions")
+
+    # (f) the host cost of site resolution in one decode step (169 calls
+    # of resolve_site_cfg in the step's site order, cached per (cfg,
+    # site)), and the manifest decode step on the card vs eager
+    srv = servers_3p["committed manifest"]
+    step_sites = ["wq", "wk", "wv", "wo", "w_up", "w_gate",
+                  "w_down"] * cfg.n_layers + ["head"]
+    reps = 200
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for site in step_sites:
+            with quant.act_site(site):
+                resolve_site_cfg(srv.cfg.cim)
+    res_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        for site in step_sites:
+            with quant.act_site(site):
+                pass
+    scope_us = (time.perf_counter() - t0) / reps * 1e6
+    log(f"phase 3p ({card}): site resolution {res_us:.1f} us of host per "
+        f"decode step (169 resolve_site_cfg calls inside their act_site "
+        f"scopes; the scopes alone {scope_us:.1f} us)")
+    decode_breakdown(srv, f"phase 3p ({card}): committed manifest")
+    decode_breakdown(servers_3p["static grid"],
+                     f"phase 3p ({card}): static grid")
+    del servers_3p, srv
 
     # ---- phase 4: --cim bp serve (B2) ------------------------------------
     server = Server(params, cfg, ServingConfig(

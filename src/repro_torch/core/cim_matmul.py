@@ -9,8 +9,11 @@ Pipeline (per Eq. 1/7):
   5. dequantize               — × s_x s_w
 
 Serving uses `cim_matmul_prequant` against offline-quantized stored codes
-(nibble-packed uint8 or an int8 container). The STE training wrapper is
-queued with training (ROADMAP A10).
+(nibble-packed uint8 or an int8 container). Each entry point first
+resolves the enclosing `quant.act_site` through `CIMConfig.site_overrides`
+(`resolve_site_cfg`), so a precision manifest's per-site grid, ADC levels,
+scheme and per-channel scales reach the engine and the kernels. The STE
+training wrapper is queued with training (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -20,9 +23,42 @@ from typing import Literal
 import torch
 
 from .engine import PackedCodes, execute_mvm
-from .macro import MacroConfig
+from .macro import MacroConfig, Scheme
 from .quant import (ActQuantConfig, WeightQuantConfig, act_scale,
-                    quantize_act, quantize_weight, weight_scale)
+                    annotate_recorded_shape, current_site, quantize_act,
+                    quantize_weight, recording_active, weight_scale)
+
+
+@dataclasses.dataclass(frozen=True)
+class SitePrecision:
+    """Per-call-site precision override (one entry of a mixed-precision
+    deployment manifest, analysis.precision_search). Every field is
+    optional; None keeps the uniform base config's value. Frozen and
+    hashable, so it rides CIMConfig inside the `site_overrides` tuple."""
+
+    act_scale: float | None = None     # static DAC grid scale
+    act_zero_point: float | None = None
+    adc_levels: int | None = None      # per-site ADC resolution
+    scheme: str | None = None          # "bp" | "wbs" | "bs" (macro.Scheme)
+    per_channel: bool | None = None    # per-output-channel weight scales
+
+    def apply(self, cfg: "CIMConfig") -> "CIMConfig":
+        macro, act, weight = cfg.macro, cfg.act, cfg.weight
+        if self.adc_levels is not None:
+            macro = dataclasses.replace(macro, adc_levels=self.adc_levels)
+        if self.scheme is not None:
+            macro = dataclasses.replace(macro, scheme=Scheme(self.scheme))
+        if self.act_scale is not None:
+            act = dataclasses.replace(
+                act, static_scale=self.act_scale,
+                static_zero_point=self.act_zero_point or 0.0)
+        elif self.act_zero_point is not None:
+            act = dataclasses.replace(act,
+                                      static_zero_point=self.act_zero_point)
+        if self.per_channel is not None:
+            weight = dataclasses.replace(weight,
+                                         per_channel=self.per_channel)
+        return dataclasses.replace(cfg, macro=macro, act=act, weight=weight)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,9 +66,10 @@ class CIMConfig:
     """How (and whether) a model's matmuls run on the simulated macro.
 
     Field for field the reference's CIMConfig. `noise_seed` names one
-    stochastic converter instance (see core.engine). A non-empty
-    `site_overrides` (per-site mixed precision, ROADMAP A7) raises until
-    its slice lands.
+    stochastic converter instance (see core.engine). `site_overrides` is
+    the mixed-precision deployment tree, ((site_name, SitePrecision), ...)
+    — a tuple of pairs so the config stays hashable; sites without an
+    entry run the uniform base config.
     """
 
     enabled: bool = False
@@ -45,14 +82,45 @@ class CIMConfig:
     noise_seed: int | None = None
     site_overrides: tuple = ()
 
-    def __post_init__(self):
-        if self.site_overrides:
-            raise NotImplementedError("per-site precision overrides are not "
-                                      "ported yet (ROADMAP A7)")
-
     def with_scheme(self, scheme) -> "CIMConfig":
         return dataclasses.replace(
             self, macro=dataclasses.replace(self.macro, scheme=scheme))
+
+    def for_site(self, site: str | None) -> "CIMConfig":
+        """The effective config at a named call site (the uniform base when
+        the site has no override or is unnamed)."""
+        if site is not None:
+            for name, ov in self.site_overrides:
+                if name == site:
+                    return ov.apply(
+                        dataclasses.replace(self, site_overrides=()))
+        return dataclasses.replace(self, site_overrides=()) \
+            if self.site_overrides else self
+
+
+# (id(cfg), site) -> (cfg, resolved). The reference resolves a site once,
+# at trace time; the eager port resolves on every MVM, so the resolved
+# config is cached. The entry holds cfg itself, so its id cannot be reused
+# while the entry lives, and a hit is checked by identity.
+_SITE_CFG_CACHE: dict = {}
+_SITE_CFG_CACHE_MAX = 4096
+
+
+def resolve_site_cfg(cfg: CIMConfig) -> CIMConfig:
+    """Per-site override resolution at the quantization entry points: maps
+    the enclosing quant.act_site scope through cfg.site_overrides."""
+    if not cfg.site_overrides:
+        return cfg
+    site = current_site()
+    key = (id(cfg), site)
+    hit = _SITE_CFG_CACHE.get(key)
+    if hit is not None and hit[0] is cfg:
+        return hit[1]
+    if len(_SITE_CFG_CACHE) >= _SITE_CFG_CACHE_MAX:
+        _SITE_CFG_CACHE.clear()
+    resolved = cfg.for_site(site)
+    _SITE_CFG_CACHE[key] = (cfg, resolved)
+    return resolved
 
 
 def cim_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
@@ -66,7 +134,10 @@ def cim_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
     """
     if not cfg.enabled:
         return x @ w
+    cfg = resolve_site_cfg(cfg)
     s_x = act_scale(x, cfg.act)
+    if recording_active():
+        annotate_recorded_shape(w.shape[-1])
     x_codes, zp = quantize_act(x, s_x, cfg.act)
     s_w = weight_scale(w, cfg.weight)
     w_codes = quantize_weight(w, s_w, cfg.weight)
@@ -81,7 +152,9 @@ def cim_matmul_prequant(x: torch.Tensor, w_codes, w_scale,
 
     w_codes: an int8 container [K, M], the nibble-packed uint8 format
     [ceil(K/2), M], or a PackedCodes (w_scale=None then uses its scale).
+    w_scale is per-matrix or per-output-channel ([..., 1, M]).
     """
+    cfg = resolve_site_cfg(cfg)
     s_x = act_scale(x, cfg.act)
     x_codes, zp = quantize_act(x, s_x, cfg.act)
     if isinstance(w_codes, PackedCodes):
@@ -98,8 +171,10 @@ def cim_matmul_prequant(x: torch.Tensor, w_codes, w_scale,
 def quantize_weight_offline(w: torch.Tensor, cfg: CIMConfig):
     """bf16/f32 weight → (int8 stored codes, f32 scale) for the prequant
     path: one scale per matrix ([..., 1, 1]), or per output channel
-    ([..., 1, M]) under cfg.weight.per_channel."""
+    ([..., 1, M]) under cfg.weight.per_channel — per site, since
+    models.quantize pushes the weight name as the site."""
     wf = w.to(torch.float32)
+    cfg = resolve_site_cfg(cfg)
     dims = (-2,) if cfg.weight.per_channel else (-2, -1)
     amax = torch.amax(wf.abs(), dim=dims, keepdim=True)
     qmax = torch.full((), float(cfg.weight.qmax), dtype=torch.float32,

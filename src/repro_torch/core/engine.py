@@ -22,10 +22,14 @@ the DAC→MAC→ADC core is evaluated:
                        bit-identical to B5 under one seed
   "plain"              the kernels' plain PyTorch versions, either any
                        container and every sim level (the
-                       yardstick on the card)
+                       yardstick on the card); WBS/BS on einsum
 
-Only the bit-parallel scheme is ported; the WBS/BS baselines raise
-NotImplementedError naming ROADMAP A8.
+The kernels implement the bit-parallel scheme; the WBS/BS baselines run on
+the einsum backend (schemes.wbs_mvm / bs_mvm), as the reference's
+choose_backend routes them. A per-site override (cim_matmul.
+resolve_site_cfg) reaches this module as the resolved config, so the
+dispatch hook charges energy under the site's own macro and the kernels
+get the site's ADC levels.
 
 noise_seed semantics
 --------------------
@@ -240,11 +244,18 @@ def _cuda_noisy_packed_backend(x_codes, weights: PackedCodes,
                                     noise_seed=seed, inl_seed=inl_seed)
 
 
-@register_backend("plain", schemes=_BP, sim_levels=_ALL_LEVELS, packed=None)
+@register_backend("plain", schemes=_ALL_SCHEMES, sim_levels=_ALL_LEVELS,
+                  packed=None)
 def _plain_backend(x_codes, weights, cfg: MacroConfig, *, key=None,
                    inl_seed=0, noise_seed=None):
     """The kernels' plain versions on any device: B1/B2 at IDEAL, B6/B5 at
-    NOISY/FULL (same seed contract as cuda_noisy)."""
+    NOISY/FULL (same seed contract as cuda_noisy). The WBS/BS baselines
+    have no kernel (auto runs them on einsum), so they run on einsum here
+    too, as on scan: a manifest's WBS site compares like for like."""
+    if cfg.scheme != Scheme.BP:
+        w = unpack(weights) if isinstance(weights, PackedCodes) else weights
+        return _einsum_backend(x_codes, w, cfg, key=key, inl_seed=inl_seed,
+                               noise_seed=noise_seed)
     kw = ops._kernel_kw(cfg)
     packed = isinstance(weights, PackedCodes)
     if packed:

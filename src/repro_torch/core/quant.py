@@ -2,10 +2,10 @@
 
 The paper stores 4-bit weights (signed, offset-encoded per Eq. 7) and drives
 4-bit DAC activations. This module holds the configs, the dynamic
-activation range, the affine activation quantizer and the weight
-quantizer. The straight-through estimators used for training are queued
-with training (ROADMAP A10); the static calibrated grid with calibration
-(ROADMAP A7).
+activation range and the calibrated static grid, the affine activation
+quantizer, the weight quantizer, the call-site scope and the span
+recorder that calibration (analysis.calibrate) reads. The straight-through
+estimators used for training are queued with training (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -19,9 +19,12 @@ import torch
 class ActQuantConfig:
     """Activation (DAC input) quantizer — asymmetric affine to u4 codes.
 
-    `static_scale` / `static_zero_point` describe the calibrated fixed grid
-    of the reference; setting `static_scale` raises here until calibration
-    is ported (ROADMAP A7).
+    `static_scale` pins the calibrated fixed DAC grid (analysis.calibrate):
+    act_scale returns it, and the zero point is `static_zero_point` (0
+    keeps the unsigned grid; a calibrated zp > 0 covers a signed
+    activation's negative tail), so each lane's grid is independent of
+    what else shares the serving batch. None = the dynamic per-tensor
+    range.
     """
 
     bits: int = 4
@@ -54,10 +57,37 @@ class WeightQuantConfig:
         return 1 << (self.bits - 1)
 
 
+class SpanRecord(float):
+    """One recorded activation-range observation: a float (the span,
+    max − min(·, 0)) carrying the call-site name (`site`, the weight name
+    of the enclosing matmul, without a layer index), the signed range
+    [lo, hi], the reduction depth `k`, the row count `rows` and, once
+    cim_matmul has seen the weight, its output columns `m` (None before
+    that, or when act_scale ran outside a matmul)."""
+
+    site: str | None
+    lo: float
+    hi: float
+    k: int
+    rows: int
+    m: int | None
+
+    def __new__(cls, span: float, *, site=None, lo=0.0, hi=0.0, k=0,
+                rows=0, m=None):
+        self = super().__new__(cls, span)
+        self.site = site
+        self.lo = lo
+        self.hi = hi
+        self.k = k
+        self.rows = rows
+        self.m = m
+        return self
+
+
 # Call-site identity: models wrap each CIM-routed matmul in an `act_site`
-# scope named after the weight ("wq", "w_up", "head", ...). The port keeps
-# the scope so per-site overrides can resolve against it once they land
-# (ROADMAP A7).
+# scope named after the weight ("wq", "w_up", "head", ...). Per-site
+# precision overrides (cim_matmul.resolve_site_cfg) and the span recorder
+# read it.
 _SITE_STACK: list[str] = []
 
 
@@ -75,6 +105,31 @@ def current_site() -> str | None:
     return _SITE_STACK[-1] if _SITE_STACK else None
 
 
+# Calibration hook: while a `record_act_spans()` context is open, act_scale
+# appends every activation span it computes, in call order, as a
+# SpanRecord. Reading a span back is a host sync, so it happens only while
+# a recorder is open; the serving path never opens one.
+_SPAN_RECORDER: list[list] = []
+
+
+def recording_active() -> bool:
+    """True while any record_act_spans() context is open."""
+    return bool(_SPAN_RECORDER)
+
+
+@contextlib.contextmanager
+def record_act_spans():
+    """Collect per-matmul activation spans (max − min(·, 0)) during
+    forwards; yields the list being filled (SpanRecord entries)."""
+    spans: list[SpanRecord] = []
+    _SPAN_RECORDER.append(spans)
+    try:
+        yield spans
+    finally:
+        # detach by identity: nested recorders hold ==-equal lists
+        _SPAN_RECORDER[:] = [r for r in _SPAN_RECORDER if r is not spans]
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """v as an f32 tensor on like's device: dividing by a tensor is a true
     division on every device (a Python divisor becomes a multiply by its
@@ -83,17 +138,33 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
 
 
 def act_scale(x: torch.Tensor, cfg: ActQuantConfig) -> torch.Tensor:
-    """Dynamic per-tensor affine range (max − min(·, 0)) / qmax, over the
-    WHOLE tensor: every lane of a batched serving step shares one grid."""
+    """Activation scale: the static calibrated grid when cfg.static_scale
+    is set (an f32 tensor, so quantize_act divides by it as the reference
+    divides by its f32 constant), else the dynamic per-tensor affine range
+    (max − min(·, 0)) / qmax over the WHOLE tensor: every lane of a
+    batched serving step shares one grid."""
     if cfg.static_scale is not None:
-        raise NotImplementedError(
-            "static calibrated activation grids are not ported yet "
-            "(ROADMAP A7)")
+        return _f32(float(cfg.static_scale), x)
     xs = x.detach()
     lo = torch.clamp(xs.min(), max=0.0)
     hi = xs.max()
     span = torch.clamp(hi - lo, min=1e-8)
+    if _SPAN_RECORDER:
+        rec_entry = SpanRecord(
+            float(span), site=current_site(), lo=float(lo), hi=float(hi),
+            k=int(x.shape[-1]) if x.ndim else 1,
+            rows=int(x.numel() // x.shape[-1]) if x.ndim else 1)
+        for rec in _SPAN_RECORDER:
+            rec.append(rec_entry)
     return span / _f32(float(cfg.qmax), span)
+
+
+def annotate_recorded_shape(m: int) -> None:
+    """Attach the matmul's output-column count to the most recent span
+    record (called by cim_matmul, which sees the weight)."""
+    for rec in _SPAN_RECORDER:
+        if rec and rec[-1].m is None:
+            rec[-1].m = int(m)
 
 
 def weight_scale(w: torch.Tensor, cfg: WeightQuantConfig) -> torch.Tensor:
@@ -107,15 +178,16 @@ def weight_scale(w: torch.Tensor, cfg: WeightQuantConfig) -> torch.Tensor:
 
 
 def quantize_act(x: torch.Tensor, scale: torch.Tensor, cfg: ActQuantConfig):
-    """x → (u4 DAC codes, zero_point): q = clip(round(x/s) + z, 0, 15) with
-    z = round(clip(−min(x)/s, 0, 15)). round is half-to-even, as in the
-    reference."""
-    if cfg.static_scale is not None:
-        raise NotImplementedError(
-            "static calibrated activation grids are not ported yet "
-            "(ROADMAP A7)")
+    """x → (u4 DAC codes, zero_point): q = clip(round(x/s) + z, 0, 15).
+    Dynamic: z = round(clip(−min(x)/s, 0, 15)). Static grid: z is the
+    calibrated `static_zero_point`, rounded to f32 as the reference's
+    jnp.asarray(float, f32) rounds it, on x's device. round is
+    half-to-even, as in the reference."""
     qmax = float(cfg.qmax)
-    zp = torch.round(torch.clamp(-x.detach().min() / scale, 0, qmax))
+    if cfg.static_scale is not None:
+        zp = _f32(float(cfg.static_zero_point), x)
+    else:
+        zp = torch.round(torch.clamp(-x.detach().min() / scale, 0, qmax))
     q = torch.clamp(torch.round(x / scale) + zp, 0.0, qmax)
     return q, zp
 
@@ -126,3 +198,12 @@ def quantize_weight(w: torch.Tensor, scale: torch.Tensor,
     q_signed = torch.clamp(torch.round(w / scale), float(cfg.qmin),
                            float(cfg.qmax))
     return q_signed + cfg.offset
+
+
+def bit_planes(q: torch.Tensor, bits: int) -> torch.Tensor:
+    """Unsigned integer codes → `bits` binary planes, shape (bits,) +
+    q.shape, plane p holding bit p (LSB first), in q's dtype. The BS / WBS
+    baselines (Eq. 2) run one analog pass per plane."""
+    qi = q.to(torch.int32)
+    return torch.stack([(qi >> p) & 1 for p in range(bits)],
+                       dim=0).to(q.dtype)

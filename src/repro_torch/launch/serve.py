@@ -35,6 +35,14 @@ reference's launcher does.
       [--events-out events.jsonl] \
       [--arrival poisson --arrival-rate 8 --arrival-seed 0]
 
+  # a static calibrated DAC grid (calibrated on a 2 x 16-token batch), or
+  # a mixed-precision manifest's per-site grids and ADC levels
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --cim bp-prequant --act-scale static --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --cim bp-prequant --precision-manifest precision_manifest.json \
+      --device cpu
+
 Weights are random, drawn from a torch.Generator seeded with --seed.
 Prints each request's generated token ids, the tokens per second, the
 TTFT / latency and SLO lines and the KV bytes.
@@ -113,6 +121,19 @@ def main(argv=None):
                     help="paged attention backend: kernel = Hopper kernels "
                          "B3/B4, exact = window gather + one-pass softmax, "
                          "auto = kernel")
+    ap.add_argument("--act-scale", choices=("dynamic", "static"),
+                    default="dynamic",
+                    help="static = calibrate one fixed input-DAC grid "
+                         "(analysis.calibrate over a synthetic 2 x 16-token "
+                         "batch) so each lane's CIM quantization is "
+                         "independent of batch composition; needs --cim")
+    ap.add_argument("--precision-manifest", default=None, metavar="PATH",
+                    dest="precision_manifest",
+                    help="mixed-precision deployment manifest "
+                         "(analysis.precision_search JSON): per-call-site "
+                         "static grid, ADC levels, scheme and per-channel "
+                         "overrides; a missing/malformed/stale file warns "
+                         "and serves uniform defaults; needs --cim")
     ap.add_argument("--cim", choices=("off", "bp", "bp-noisy",
                                       "bp-prequant"),
                     default="off",
@@ -159,8 +180,25 @@ def main(argv=None):
     elif args.cim != "off":
         cfg = cfg.replace(cim=CIMConfig(enabled=True))
     params = registry.init_params(cfg, seed=args.seed, device=device)
-    server = Server(params, cfg, ServingConfig.from_flags(args),
-                    device=device)
+    if args.precision_manifest and args.cim == "off":
+        ap.error("--precision-manifest needs a --cim mode")
+    act_scale = act_zero_point = None
+    if args.act_scale == "static":
+        if args.cim == "off":
+            ap.error("--act-scale static needs a --cim mode")
+        from repro_torch.analysis.calibrate import calibrate_act_scale
+        cal_rng = np.random.RandomState(7)
+        cal_tokens = cal_rng.randint(0, cfg.vocab, size=(2, 16))
+        cal = calibrate_act_scale(params, cal_tokens, cfg)
+        act_scale = cal["scale"]
+        act_zero_point = cal["zero_point"]
+        print(f"calibrated static act_scale={act_scale:.6f} "
+              f"zero_point={act_zero_point:.0f} "
+              f"(max span {cal['span']:.4f} over {len(cal['spans'])} "
+              f"matmul sites)")
+    serving = ServingConfig.from_flags(args, act_scale=act_scale,
+                                       act_zero_point=act_zero_point)
+    server = Server(params, cfg, serving, device=device)
 
     rng = np.random.RandomState(0)
     reqs = []

@@ -58,8 +58,11 @@ hooks below append to it at the reference's places, and every timestamp
 and `ServerMetrics.wall_s` comes from its clock, so two servers driven by
 one fake clock record the same trace.
 
-Not ported yet, and raising NotImplementedError with their ROADMAP item:
-static activation grids and precision manifests (A7).
+Precision: `ServingConfig.act_scale` (+ `act_zero_point`) pins a static
+calibrated DAC grid (analysis.calibrate), so a lane's quantization no
+longer depends on its companions; `precision_manifest` installs a
+mixed-precision manifest's per-site overrides (analysis.precision_search)
+as cfg.cim.site_overrides. Both are applied before offline prequant.
 """
 from __future__ import annotations
 
@@ -79,10 +82,6 @@ from repro_torch.runtime.speculative import (SamplingParams, make_drafter,
 from repro_torch.runtime.telemetry import Telemetry
 
 
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass(frozen=True)
 class ServingConfig:
     """Everything the Server needs beyond (params, model cfg); the fields
@@ -94,7 +93,11 @@ class ServingConfig:
     tokens per lane per verify step. Trie capacity (paged, needs
     prefix_sharing): `trie_watermark` is a pool fraction; when the prefix
     cache exceeds it, an LRU sweep drains it to half that (None: eviction
-    only under admission pressure).
+    only under admission pressure). Precision: `act_scale` (+ optional
+    `act_zero_point`) pins a static calibrated activation grid, and
+    `precision_manifest` points at a mixed-precision deployment manifest
+    (a missing, malformed or stale one warns and serves uniform
+    defaults); both need cfg.cim.enabled.
     Observability: `telemetry` enables the per-request event trace, step
     snapshots and latency histograms (runtime.telemetry); the
     Server(telemetry=...) keyword overrides it."""
@@ -139,16 +142,15 @@ class ServingConfig:
         if self.spec_k < 1:
             raise ValueError("spec_k must be >= 1 (tokens drafted per "
                              "verify step)")
+        if self.act_zero_point is not None and self.act_scale is None:
+            raise ValueError("act_zero_point positions a static grid — it "
+                             "needs act_scale (the grid's step) set too")
         from repro_torch.kernels.paged_attention import choose_attn_backend
         choose_attn_backend(self.attn)   # validate the name up front
         name, _ = parse_drafter(self.drafter)   # validate like attn
         if name != "off" and not self.paged:
             raise ValueError("speculative decoding (drafter != 'off') "
                              "needs the paged engine (paged=True)")
-        if self.act_scale is not None or self.act_zero_point is not None:
-            raise _not_ported("static activation grids (act_scale)", "A7")
-        if self.precision_manifest is not None:
-            raise _not_ported("precision manifests", "A7")
         if self.trie_watermark is not None:
             if not 0.0 < self.trie_watermark <= 1.0:
                 raise ValueError("trie_watermark is a pool fraction in "
@@ -159,7 +161,9 @@ class ServingConfig:
 
     @classmethod
     def from_flags(cls, args, **overrides) -> "ServingConfig":
-        """Build from an argparse namespace (launch.serve's flag names)."""
+        """Build from an argparse namespace (launch.serve's flag names);
+        `overrides` win last (the launcher passes the calibrated act_scale
+        this way)."""
         kw = {}
         pairs = [("n_slots", "slots"), ("max_len", "max_len"),
                  ("paged", "paged"), ("block_size", "block_size"),
@@ -168,7 +172,8 @@ class ServingConfig:
                  ("token_budget", "token_budget"), ("attn", "attn"),
                  ("watermark", "watermark"), ("drafter", "drafter"),
                  ("spec_k", "spec_k"),
-                 ("trie_watermark", "trie_watermark")]
+                 ("trie_watermark", "trie_watermark"),
+                 ("precision_manifest", "precision_manifest")]
         for field, flag in pairs:
             v = getattr(args, flag, None)
             if v is not None:
@@ -278,6 +283,22 @@ class Server:
         self.telemetry = telemetry if telemetry is not None \
             else Telemetry(enabled=serving.telemetry)
         cfg = cfg.replace(attn_backend=serving.attn)
+        if serving.act_scale is not None:
+            if not cfg.cim.enabled:
+                raise AssertionError("static act_scale needs cim.enabled")
+            cfg = cfg.replace(cim=dataclasses.replace(
+                cfg.cim, act=dataclasses.replace(
+                    cfg.cim.act, static_scale=float(serving.act_scale),
+                    static_zero_point=float(serving.act_zero_point or 0.0))))
+        if serving.precision_manifest is not None:
+            if not cfg.cim.enabled:
+                raise AssertionError("precision manifest needs cim.enabled")
+            from repro_torch.analysis.precision_search import (
+                apply_manifest, load_manifest)
+            manifest = load_manifest(serving.precision_manifest,
+                                     arch=cfg.arch)
+            # None (missing/malformed/stale): uniform defaults
+            cfg = cfg.replace(cim=apply_manifest(cfg.cim, manifest))
         if serving.prequant:
             if not cfg.cim.enabled:
                 raise ValueError("prequant serving needs cim.enabled")

@@ -208,17 +208,30 @@ def test_engine_registry_and_choice():
 @pytest.mark.parametrize("what,item", [("scheme", "A8"), ("scheme-bs", "A8"),
                                        ("scheme-noisy", "A8")])
 def test_engine_unported_raises(what, item):
-    """The WBS/BS baselines are not ported (ROADMAP A8): auto resolves them
-    to einsum, as the reference does, and einsum raises, at IDEAL and at
-    NOISY with a noise_seed."""
+    """The WBS/BS baselines (ROADMAP A8, pulled forward with A7) run on the
+    einsum backend, as the reference routes them: auto resolves them to
+    einsum at IDEAL and at NOISY with a noise_seed, the result equals the
+    reference's at IDEAL and is seeded-reproducible at NOISY, and a kernel
+    backend named explicitly still raises for them."""
     import dataclasses
-    cfg = CIMConfig(enabled=True).with_scheme(
-        Scheme.BS if what == "scheme-bs" else Scheme.WBS)
+    scheme = Scheme.BS if what == "scheme-bs" else Scheme.WBS
+    cfg = CIMConfig(enabled=True).with_scheme(scheme)
+    rcfg = ref_cim.CIMConfig(enabled=True).with_scheme(
+        importlib.import_module("repro.core.macro").Scheme(scheme.value))
     if what == "scheme-noisy":
         cfg = dataclasses.replace(cfg, noise_seed=0, macro=dataclasses.replace(
             cfg.macro, sim_level=SimLevel.NOISY))
-    with pytest.raises(NotImplementedError, match=item):
-        cim_matmul(torch.ones(2, 8), torch.ones(8, 3), cfg)
+    x, w = torch.ones(2, 8), torch.ones(8, 3)
+    assert engine.choose_backend(cfg, x, w) == "einsum"
+    y = cim_matmul(x, w, cfg)
+    assert y.shape == (2, 3) and bool(torch.isfinite(y).all())
+    if what == "scheme-noisy":
+        assert torch.equal(y, cim_matmul(x, w, cfg))
+    else:
+        assert np.array_equal(y.numpy(), np.asarray(ref_cim.cim_matmul(
+            jnp.ones((2, 8)), jnp.ones((8, 3)), rcfg)))
+    with pytest.raises(ValueError, match="does not implement scheme"):
+        cim_matmul(x, w, dataclasses.replace(cfg, backend="cuda"))
 
 
 @pytest.mark.parametrize("packed", [True, False])

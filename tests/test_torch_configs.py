@@ -76,5 +76,16 @@ def test_registry_unported_arch_raises():
 
 
 def test_cim_config_site_overrides_raise():
-    with pytest.raises(NotImplementedError, match="A7"):
-        t_cim.CIMConfig(site_overrides=(("wq", None),))
+    """Per-site overrides (ROADMAP A7) are accepted; a bad one raises where
+    the site resolves, as the reference's does."""
+    ok = t_cim.CIMConfig(site_overrides=(
+        ("wq", t_cim.SitePrecision(adc_levels=128)),))
+    assert ok.for_site("wq").macro.adc_levels == 128
+    assert ok.for_site("wk").macro.adc_levels == 362
+    bad = t_cim.CIMConfig(site_overrides=(
+        ("wq", t_cim.SitePrecision(adc_levels=1)),))
+    with pytest.raises(ValueError, match="adc_levels"):
+        bad.for_site("wq")
+    with pytest.raises(ValueError):
+        t_cim.CIMConfig(site_overrides=(
+            ("wq", t_cim.SitePrecision(scheme="xyz")),)).for_site("wq")

@@ -16,8 +16,13 @@ block sizes past their fast case too (dh 16, 20, 21, 56, 80, 96; bs 48,
 of the smoke model is identical with the kernels and with their plain
 versions, as is a telemetry-on serve with parallel samples and the trie
 watermark sweep (streams, metrics and event kinds), and the slot engine's
-prefill, decode step and serve (logits, caches, streams, metrics). Inputs
-come from numpy seeds. This file needs no JAX.
+prefill, decode step and serve (logits, caches, streams, metrics). B1,
+B2, B5 and B6 are also held at every ADC level of the precision search's
+ladder (32 to 256), and a paged prefill and decode step under a precision
+manifest (per-site static grids, 128 / 181 / 45 levels, a WBS site, a
+per-channel site) is identical with the kernels and with their plain
+versions, as is a lane's stream under the static grid alone and beside
+companions. Inputs come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -588,3 +593,128 @@ def test_slot_engine_kernels_match_plain():
     assert cim_mvm.cim_mvm_grouped_packed.launches > before
     assert kern == _slot_serve(plain, dev)
     assert all(len(s) == 5 for s in kern[0])
+
+
+LADDER = (32, 45, 64, 91, 128, 181, 256)   # core.precision's rungs < 362
+
+
+@pytest.mark.parametrize("levels", LADDER)
+@pytest.mark.parametrize("m,k,n", [(3, 301, 70), (4, 2048, 1024),
+                                   (64, 2047, 160)])
+def test_mvm_kernels_bit_exact_on_the_adc_ladder(m, k, n, levels):
+    """B1/B2 (IDEAL) and B5/B6 (NOISY and FULL) at ADC levels other than
+    362: lsb, inv_lsb, inv_lsb / L and code_max all change with L."""
+    dev = gpu_device()
+    x = _codes(m + levels, (m, k)).to(dev)
+    w = _codes(n + levels, (k, n)).to(dev)
+    wp = ops.pack_codes(w).contiguous()
+    kw = dict(KW, levels=levels)
+    assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **kw),
+                       cim_mvm.cim_mvm_grouped_plain(x, w, **kw))
+    assert torch.equal(cim_mvm.cim_mvm_grouped_packed(x, wp, **kw),
+                       cim_mvm.cim_mvm_grouped_packed_plain(x, wp, **kw))
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    for nkw in (dict(NOISY, levels=levels), dict(FULL, levels=levels)):
+        y5 = cim_mvm.cim_mvm_grouped_noisy(x, w, s, inl_seed=3, **nkw)
+        assert torch.equal(y5, cim_mvm.cim_mvm_grouped_noisy_plain(
+            x, w, s, inl_seed=3, **nkw))
+        assert torch.equal(cim_mvm.cim_mvm_grouped_noisy_packed(
+            x, wp, s, inl_seed=3, **nkw), y5)
+
+
+def _mixed_manifest_cim(cim):
+    """The committed manifest with wv on WBS, w_up per-channel and wo at
+    45 ADC levels, applied to `cim`."""
+    import json
+    import os
+    from repro_torch.analysis import precision_search as ps
+    path = os.path.join(os.path.dirname(__file__), "..",
+                        "precision_manifest.json")
+    with open(path) as f:
+        man = json.load(f)
+    man["sites"]["wv"]["scheme"] = "wbs"
+    man["sites"]["w_up"]["per_channel"] = True
+    man["sites"]["wo"]["adc_levels"] = 45
+    return ps.apply_manifest(cim, man)
+
+
+@pytest.mark.parametrize("mixed", [False, True])
+def test_manifest_step_kernels_bit_exact_vs_plain(mixed):
+    """A paged prefill (C = 16) and decode step of the smoke model under
+    a precision manifest, kernels (B1 at the site levels, B3, the decode
+    launch; the mixed manifest's WBS site on einsum) against their plain
+    versions: identical logits and pools."""
+    import dataclasses
+    import json
+    import os
+    from repro_torch.analysis import precision_search as ps
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.models import quantize, registry, transformer
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
+    if mixed:
+        cim = _mixed_manifest_cim(cfg.cim)
+    else:
+        with open(os.path.join(os.path.dirname(__file__), "..",
+                               "precision_manifest.json")) as f:
+            cim = ps.apply_manifest(cfg.cim, json.load(f))
+    cfg = cfg.replace(cim=cim)
+    params = quantize.quantize_params(
+        registry.init_params(cfg, seed=0, device=dev), cfg, packed=True)
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+    tables = torch.arange(1, 17, dtype=torch.int32, device=dev).reshape(4, 4)
+    runs = []
+    for step_cfg in (cfg, cfg.replace(attn_backend="plain", cim=dataclasses
+                                      .replace(cfg.cim, backend="plain"))):
+        KERNEL_COUNTERS.reset()
+        rng = np.random.RandomState(21)
+        cache = transformer.init_paged_cache(step_cfg, 17, 16, device=dev)
+        toks = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        lens = torch.zeros(4, dtype=torch.int32, device=dev)
+        valid = torch.tensor([16, 16, 9, 0], dtype=torch.int32, device=dev)
+        l1, cache = transformer.paged_step(params, toks, cache, tables, lens,
+                                           valid, step_cfg)
+        nxt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 1))).to(dev)
+        l2, cache = transformer.paged_step(
+            params, nxt, cache, tables, valid,
+            torch.tensor([1, 1, 1, 0], dtype=torch.int32, device=dev),
+            step_cfg)
+        runs.append((l1, l2, cache["layers"]))
+        if step_cfg is cfg:     # the WBS site has no kernel: einsum
+            einsum = KERNEL_COUNTERS.snapshot()["backend_dispatch"].get(
+                "einsum", 0)
+            assert einsum == (2 * cfg.n_layers if mixed else 0)
+    (a1, a2, pk), (b1, b2, pp) = runs
+    assert torch.isfinite(a1[:3]).all() and torch.isfinite(a2[:3]).all()
+    assert torch.equal(a1[:3], b1[:3]) and torch.equal(a2[:3], b2[:3])
+    assert _same_bits(pk["k"][:, 1:], pp["k"][:, 1:])
+    assert _same_bits(pk["v"][:, 1:], pp["v"][:, 1:])
+
+
+def test_static_grid_lane_decoupled_on_the_card():
+    """Under a calibrated static grid a probe's greedy stream is the same
+    served alone and beside companions (paged engine, the kernels)."""
+    from repro_torch.analysis.calibrate import calibrate_act_scale
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.models import registry
+    from repro_torch.runtime.server import Request, Server, ServingConfig
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
+    params = registry.init_params(cfg, seed=0, device=dev)
+    cal = calibrate_act_scale(params, np.random.RandomState(7).randint(
+        0, cfg.vocab, size=(2, 16)), cfg)
+    outs = []
+    for companions in ([], [[11, 3, 8], [1, 2, 3, 4, 5, 6]]):
+        srv = Server(params, cfg, ServingConfig(
+            n_slots=3, max_len=64, paged=True, prequant=True, block_size=8,
+            prefill_chunk=4, act_scale=cal["scale"],
+            act_zero_point=cal["zero_point"]), device=dev)
+        probe = Request(prompt=[5, 9, 2, 7, 4], max_new_tokens=6)
+        srv.submit(probe)
+        for p in companions:
+            srv.submit(Request(prompt=p, max_new_tokens=6))
+        srv.run_until_drained()
+        outs.append(probe.output)
+    assert outs[0] == outs[1] and len(outs[0]) == 6

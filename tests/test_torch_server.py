@@ -239,7 +239,9 @@ def test_port_imports_no_jax_and_no_reference():
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
-        "          'repro_torch.core.energy'):\n"
+        "          'repro_torch.core.energy', 'repro_torch.core.sqnr',\n"
+        "          'repro_torch.analysis.calibrate',\n"
+        "          'repro_torch.analysis.precision_search'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
@@ -273,8 +275,14 @@ def test_entry_points_without_device_raise_on_cpu_only_machine():
 @pytest.mark.parametrize("field,value,item", [
     ("act_scale", 0.1, "A7"), ("precision_manifest", "m.json", "A7")])
 def test_serving_config_unported_options_raise(field, value, item):
-    with pytest.raises(NotImplementedError, match=item):
-        tserver.ServingConfig(**{field: value})
+    """The static grid and the precision manifest (ROADMAP A7) are ported:
+    ServingConfig takes them, and a Server without CIM raises the
+    reference's AssertionError for them."""
+    sc = tserver.ServingConfig(**{field: value})
+    assert getattr(sc, field) == value
+    cfg, params = _smoke_params()
+    with pytest.raises(AssertionError, match="cim.enabled"):
+        tserver.Server(params, cfg, sc, device="cpu")
 
 
 def test_serve_launcher_on_cpu(capsys):
