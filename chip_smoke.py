@@ -105,8 +105,29 @@ of which fails the run when it fails:
      quantized on the fly, which must launch B5;
   5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
      against their plain versions, B1/B6 equal to them at the even depth;
+  3m. the MoE family at full width (run after phase 5, once phase 3's
+     model is freed): (a) B1 and B6's expert-batched entries (B1e, B6e:
+     64 experts x capacity 8, K 2048 -> N 1408 and K 1408 -> N 2048)
+     bit-exact against their plain versions and against 64 2-D launches
+     (B6e at seeds 0 and 7), timed over one layer's three expert MVMs
+     against the bound of their bytes or hash operations; (b)
+     qwen2-moe-a2.7b (24 layers, d_model 2048, 60 routed experts padded
+     to 64, top-4, 4 gated shared experts, vocab 151936; random weights
+     from a torch.Generator seed) initialised and quantized layer by
+     layer, peak memory printed; (c) one prefill and one decode
+     paged_step with the kernels and with their plain versions: identical
+     logits and pools; (d) phase 3's 8 requests served --paged --cim
+     bp-prequant with the kernel attention (B1, B1e, B3 and the B3+B4
+     decode launch must launch), the decode step on the card (CUDA graph)
+     vs eager, then twice at SimLevel.NOISY, noise_seed 0 (B6, B6e, B3 and
+     the decode launch must launch; the kernel-vs-plain steps; the two
+     same-seed serves must give identical streams); (e) stablelm-3b at
+     full width (head dim 80 through B3's GEN instances, LayerNorm, qkv
+     bias, partial rotary): one prefill and one decode paged_step,
+     kernels vs plain, identical logits and pools;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
-     phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b),
+     phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
+     B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve),
      then the result line.
 """
 from __future__ import annotations
@@ -157,6 +178,10 @@ TEL_HOOKS = ("submit", "admit", "prefill_chunk", "first_token", "emission",
              "decode_step", "spec_verify", "cow_fork", "preempt", "retire",
              "step_snapshot")
 HOOK_LIMIT = 0.03              # hook time / step() wall, the reference's
+# qwen2-moe-a2.7b's routed experts at the paged decode: 60 padded to 64,
+# capacity 8 (T = 4 tokens); (name, K, N, launches per layer)
+MOE_EXPERTS, MOE_CAPACITY = 64, 8
+MOE_MVMS = [("e_gate+e_up", 2048, 1408, 2), ("e_down", 1408, 2048, 1)]
 
 
 def log(msg: str) -> None:
@@ -247,7 +272,8 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.core import engine
     from repro_torch.core.engine import PackedCodes
-    from repro_torch.models import common, registry, transformer
+    from repro_torch.models import common, moe, registry, transformer
+    from repro_torch.models.quantize import quantize_params
     from repro_torch.runtime import obs
     from repro_torch.runtime.server import (Request, Server, ServerMetrics,
                                             ServingConfig)
@@ -835,7 +861,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-            check(len(r.output) == 16 and all(0 <= t < cfg.vocab
+            check(len(r.output) == 16 and all(0 <= t < server.cfg.vocab
                                               for t in r.output),
                   f"{tag} req{r.rid}: bad output {r.output}")
         total = sum(len(r.output) for r in reqs)
@@ -855,41 +881,48 @@ def main() -> int:
         return counts, [r.output for r in reqs]
 
     def two_steps(server, step_cfg):
-        """One prefill (C=16) and one decode step from an empty pool."""
+        """One prefill (C=16) and one decode step from an empty pool;
+        (the two logits, the pools)."""
         cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
                                              device=dev)
         tb = torch.arange(1, 65, dtype=torch.int32, device=dev).reshape(4, 16)
         srng = np.random.RandomState(7)
-        toks = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 16))).to(dev)
+        vocab = step_cfg.vocab
+        toks = torch.from_numpy(srng.randint(0, vocab, (4, 16))).to(dev)
         valid = torch.tensor([16, 16, 9, 0], device=dev)
         l1, cache = transformer.paged_step(
             server.params, toks, cache, tb, torch.zeros(4, device=dev,
                                                         dtype=torch.long),
             valid, step_cfg)
-        nxt = torch.from_numpy(srng.randint(0, cfg.vocab, (4, 1))).to(dev)
+        nxt = torch.from_numpy(srng.randint(0, vocab, (4, 1))).to(dev)
         l2, cache = transformer.paged_step(
             server.params, nxt, cache, tb, valid,
             torch.tensor([1, 1, 1, 0], device=dev), step_cfg)
-        return l1, l2
+        return (l1, l2), cache["layers"]
 
     def check_steps(server, tag):
         """The two steps with the kernels and with their plain versions
-        must give identical logits."""
-        l_k = two_steps(server, server.cfg)
+        must give identical logits and pools (blocks >= 1: the trash
+        block takes masked writes by design)."""
+        l_k, pools_k = two_steps(server, server.cfg)
         plain_cfg = server.cfg.replace(
             attn_backend="plain",
             cim=dataclasses.replace(server.cfg.cim, backend="plain"))
-        l_p = two_steps(server, plain_cfg)
+        l_p, pools_p = two_steps(server, plain_cfg)
         torch.cuda.synchronize()
         step_err = 0.0
         for a, p_ in zip(l_k, l_p):
-            check(a.shape == (4, cfg.vocab) and bool(torch.isfinite(a).all()),
+            check(a.shape == (4, server.cfg.vocab)
+                  and bool(torch.isfinite(a).all()),
                   "paged_step logits malformed")
             step_err = max(step_err, (a[:3] - p_[:3]).abs().max().item())
+        same_pools = all(torch.equal(pools_k[n][:, 1:], pools_p[n][:, 1:])
+                         for n in ("k", "v"))
         log(f"{tag}: paged_step prefill C=16 + decode C=1, kernels vs plain "
-            f"versions: max |dlogit| = {step_err} (tolerance 0, bit-exact)")
-        check(step_err == 0.0, f"{tag}: kernel and plain paged_step logits "
-              "differ")
+            f"versions: max |dlogit| = {step_err} (tolerance 0, bit-exact), "
+            f"pools identical: {same_pools}")
+        check(step_err == 0.0 and same_pools, f"{tag}: kernel and plain "
+              "paged_step logits or pools differ")
 
     def decode_breakdown(server, tag, decode_step=None):
         """Where a decode step's time goes: the whole C=1 step captured
@@ -897,7 +930,7 @@ def main() -> int:
         host's; torch.profiler gives device time by kernel name. The step
         is a paged one unless `decode_step` is given."""
         dtok = torch.from_numpy(np.random.RandomState(8).randint(
-            0, cfg.vocab, (4, 1))).to(dev)
+            0, server.cfg.vocab, (4, 1))).to(dev)
         note = ""
         if decode_step is None:
             note = " (7,987 with B4 launched alone and the casts around B3)"
@@ -1677,6 +1710,160 @@ def main() -> int:
         "{4, 64}, K=N=2048 (NOISY seed 7; tolerance 0); B1 == B2 and B6 == "
         "B5 at the even depths")
 
+    # ---- phase 3m: the MoE family at full width (qwen2-moe-a2.7b) ---------
+    del params
+    torch.cuda.empty_cache()
+    # (a) the expert-batched B1 / B6 at the decode shapes: 64 experts
+    # (60 padded to 64) of capacity 8, one layer's three projections
+    for kid, kern, plain, two_d, nkw in (
+            ("B1e", cm.cim_mvm_grouped_packed_experts,
+             cm.cim_mvm_grouped_packed_experts_plain,
+             cm.cim_mvm_grouped_packed, {}),
+            ("B6e", cm.cim_mvm_grouped_noisy_packed_experts,
+             cm.cim_mvm_grouped_noisy_packed_experts_plain,
+             cm.cim_mvm_grouped_noisy_packed, noisy_kw)):
+        fkw = nkw or kw
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+               "hash_ops": 0.0}
+        e_err = 0.0
+        for label, k, n, count in MOE_MVMS:
+            x = codes((MOE_EXPERTS, MOE_CAPACITY, k))
+            w = ops.pack_codes(codes((MOE_EXPERTS, k, n))).contiguous()
+            for sd in ((0, 7) if nkw else (None,)):
+                extra = () if sd is None else (seeds[sd],)
+                y = kern(x, w, *extra, **fkw)
+                yp = plain(x, w, *extra, **fkw)
+                y2 = torch.stack([two_d(x[i], w[i], *extra, **fkw)
+                                  for i in range(MOE_EXPERTS)])
+                torch.cuda.synchronize()
+                where = f"at E={MOE_EXPERTS} C={MOE_CAPACITY} K={k} N={n}" \
+                    + ("" if sd is None else f" seed {sd}")
+                check(torch.equal(y, yp), f"{kid} differs from its plain "
+                      f"version {where}")
+                check(torch.equal(y, y2), f"{kid} differs from "
+                      f"{MOE_EXPERTS} 2-D launches {where}")
+                e_err = max(e_err, (y - yp).abs().max().item())
+                del y, yp, y2
+            extra = (seeds[0],) if nkw else ()
+
+            def run_k(a, b):
+                return kern(a, b, *extra, **fkw)
+
+            def run_p(a, b):
+                return plain(a, b, *extra, **fkw)
+
+            ws = copies(w)
+            args = [(x, wi) for wi in ws]
+            t_k = graph_ms(torch, run_k, args)
+            t_p = graph_ms(torch, run_p, args[:2], reps=3, min_iters=2)
+            wbytes = w.numel() * w.element_size()
+            rows = MOE_EXPERTS * MOE_CAPACITY
+            log(f"  {kid} {label:12s} E={MOE_EXPERTS} C={MOE_CAPACITY} "
+                f"K={k} N={n} x{count}/layer: kernel {t_k * 1e3:.2f} us on "
+                f"the card ({wbytes / (t_k * 1e-3) / 1e12:.3f} TB/s of "
+                f"{wbytes / 1e6:.2f} MB weights), plain {t_p * 1e3:.2f} us")
+            tot["ms"] += count * t_k
+            tot["plain_ms"] += count * t_p
+            tot["bytes"] += count * (wbytes + rows * k * 4 + rows * n * 4)
+            tot["ops"] += count * 2 * rows * k * n
+            if nkw:
+                tot["hash_ops"] += count * rows * n * (
+                    -(-k // kw["n_rows"]) * HASH_OPS_PER_CONVERSION
+                    + HASH_OPS_PER_OUTPUT)
+            del x, w, ws, args
+        b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
+        b_ops = max(tot["ops"] / INT_OP_S, tot["hash_ops"] / INT32_OP_S) * 1e3
+        report[kid] = dict(
+            ms=tot["ms"], plain_ms=tot["plain_ms"],
+            bound_ms=max(b_bytes, b_ops),
+            bound_by="bytes" if b_bytes >= b_ops else "operations",
+            library_ms=None, max_abs_err=e_err)
+        log(f"phase 3m: {kid} bit-exact vs its plain version and vs "
+            f"{MOE_EXPERTS} 2-D launches" + (" (seeds 0 and 7)" if nkw
+                                              else "")
+            + f"; one layer's 3 expert MVMs: kernel {tot['ms']:.3f} ms on "
+            f"the card, plain {tot['plain_ms']:.3f} ms, bound "
+            f"{max(b_bytes, b_ops):.3f} ms (bytes {b_bytes:.3f} ms, "
+            f"operations {b_ops:.3f} ms, hash "
+            f"{tot['hash_ops'] / 1e9:.3f} G int32 ops)")
+
+    # (b) the model: initialised and quantized layer by layer, so its float
+    # weights (~30 GB in bf16) are never held whole
+    mcfg = ARCHS["qwen2-moe-a2.7b"].replace(cim=CIMConfig(enabled=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    mparams = registry.init_params(
+        mcfg, seed=0, device=dev,
+        layer_fn=lambda lp: quantize_params(lp, mcfg))
+    mserver = Server(mparams, mcfg, serving, device=dev)
+    del mparams
+    torch.cuda.synchronize()
+    e_bytes = sum(lp["ffn"][n + "_q"].numel()
+                  for lp in mserver.params["layers"]
+                  for n in ("e_gate", "e_up", "e_down"))
+    log(f"phase 3m: {mcfg.arch} full width ({mcfg.n_layers} layers, d_model "
+        f"{mcfg.d_model}, {mcfg.moe.n_experts} routed experts padded to "
+        f"{moe.padded_experts(mcfg.moe.n_experts)}, top-{mcfg.moe.top_k}, "
+        f"{mcfg.moe.n_shared} gated shared experts of width "
+        f"{mcfg.moe.d_ff_shared}, vocab {mcfg.vocab}) initialised and "
+        f"quantized layer by layer in {time.monotonic() - t0:.1f} s: "
+        f"{e_bytes / 1e9:.3f} GB of packed expert codes, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # (c) a prefill chunk and a decode step, kernels vs plain
+    check_steps(mserver, "phase 3m")
+    # (d) phase 3's 8 requests, IDEAL, then NOISY (noise_seed 0) twice
+    counts, _ = serve_mix(mserver, prompts, "phase 3m: IDEAL")
+    for name, n in (("B1", counts["cim_mvm_grouped_packed"]),
+                    ("B1e", counts["cim_mvm_grouped_packed_experts"]),
+                    ("B3", counts["paged_attn_call"]),
+                    ("B3+B4", counts["decode_write_attend_call"])):
+        check(n > 0, f"{name} was not launched on the MoE serve")
+    main_launches["B1e"] = counts["cim_mvm_grouped_packed_experts"]
+    decode_breakdown(mserver, f"phase 3m ({card}): IDEAL")
+    nserver = Server(mserver.params, mcfg.replace(cim=noisy), serving,
+                     device=dev)
+    counts, streams_n = serve_mix(nserver, prompts, "phase 3m: NOISY run 1")
+    for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
+                    ("B6e", counts["cim_mvm_grouped_noisy_packed_experts"]),
+                    ("B3", counts["paged_attn_call"]),
+                    ("B3+B4", counts["decode_write_attend_call"])):
+        check(n > 0, f"{name} was not launched on the NOISY MoE serve")
+    main_launches["B6e"] = counts["cim_mvm_grouped_noisy_packed_experts"]
+    check_steps(nserver, "phase 3m: NOISY")
+    decode_breakdown(nserver, f"phase 3m ({card}): NOISY")
+    del nserver
+    nserver = Server(mserver.params, mcfg.replace(cim=noisy), serving,
+                     device=dev)
+    _, streams_n2 = serve_mix(nserver, prompts, "phase 3m: NOISY run 2")
+    check(streams_n2 == streams_n, "phase 3m: two same-seed NOISY serves "
+          "gave different streams")
+    log("phase 3m: the two same-seed NOISY serves gave identical streams")
+    del nserver, mserver
+    torch.cuda.empty_cache()
+
+    # (e) stablelm-3b: dh 80 through B3's GEN instances, LayerNorm, qkv
+    # bias, rotary on a quarter of the head dim
+    lcfg = ARCHS["stablelm-3b"].replace(cim=CIMConfig(enabled=True))
+    t0 = time.monotonic()
+    lserver = Server(registry.init_params(
+        lcfg, seed=0, device=dev,
+        layer_fn=lambda lp: quantize_params(lp, lcfg)), lcfg, serving,
+        device=dev)
+    log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers} layers, d_model "
+        f"{lcfg.d_model}, head dim {lcfg.head_dim}, vocab {lcfg.vocab}) "
+        f"initialised and packed in {time.monotonic() - t0:.1f} s")
+    build.reset_launch_counts()
+    check_steps(lserver, f"phase 3m: {lcfg.arch}")
+    counts = build.launch_counts()
+    check(counts["paged_attn_call"] > 0
+          and counts["decode_write_attend_call"] > 0,
+          f"phase 3m: {lcfg.arch}'s steps did not launch B3 and the decode "
+          "launch")
+    del lserver
+    torch.cuda.empty_cache()
+
     # ---- phase 6: report -------------------------------------------------
     meta = {
         "B1": ("cim_mvm_grouped_packed", "src/repro_torch/kernels/csrc/"
@@ -1691,6 +1878,11 @@ def main() -> int:
                "cim_mvm.cu", "src/repro/kernels/cim_mvm.py:210"),
         "B6": ("cim_mvm_grouped_noisy_packed", "src/repro_torch/kernels/"
                "csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:253"),
+        # the reference runs B1 / B6 under jax.vmap over the routed experts
+        "B1e": ("cim_mvm_grouped_packed_experts", "src/repro_torch/kernels/"
+                "csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:331"),
+        "B6e": ("cim_mvm_grouped_noisy_packed_experts", "src/repro_torch/"
+                "kernels/csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:253"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

@@ -153,10 +153,18 @@ def cim_matmul_prequant(x: torch.Tensor, w_codes, w_scale,
     w_codes: an int8 container [K, M], the nibble-packed uint8 format
     [ceil(K/2), M], or a PackedCodes (w_scale=None then uses its scale).
     w_scale is per-matrix or per-output-channel ([..., 1, M]).
+
+    Expert-batched (the MoE routed experts): x [E, C, K] with a PackedCodes
+    of data [E, K2, M] or an int8 container [E, K, M], scales [E, 1, 1] or
+    [E, 1, M] → [E, C, M]. Each expert is quantized on its own dynamic
+    activation grid, as the reference's vmap over the expert axis does;
+    the engine runs B1/B6's expert-batched entry (one launch).
     """
     cfg = resolve_site_cfg(cfg)
-    s_x = act_scale(x, cfg.act)
-    x_codes, zp = quantize_act(x, s_x, cfg.act)
+    data = w_codes.data if isinstance(w_codes, PackedCodes) else w_codes
+    experts = data.ndim == 3
+    s_x = act_scale(x, cfg.act, per_expert=experts)
+    x_codes, zp = quantize_act(x, s_x, cfg.act, per_expert=experts)
     if isinstance(w_codes, PackedCodes):
         weights = w_codes if w_scale is None \
             else PackedCodes(w_codes.data, w_codes.k, w_scale)

@@ -55,6 +55,17 @@ stochastic instance of the converter chain, as in the reference:
 `s_w` may be per-matrix or per-output-channel ([..., 1, M]); the Eq. 7
 integer correction is scale-free, so per-channel dequant broadcasts
 s_w[..., 0, :] over the output after the correction.
+
+Expert-batched MVMs (the MoE routed experts)
+--------------------------------------------
+Weights with a leading expert axis (PackedCodes data [E, K2, M], or
+dense codes [E, K, M]) with x_codes [E, C, K] compute, per expert, what
+the reference computes under `jax.vmap` over that axis: the caller
+(cim_matmul_prequant) quantizes each expert's activations on its own
+grid, s_x / zero point [E, 1, 1] and s_w [E, 1, 1] or [E, 1, M]; the
+Eq. 7 sums are per expert. The backends that register `experts=True`
+("cuda_packed", "cuda_noisy_packed": B1 / B6's expert-batched entry) run
+all E experts in one call; every other backend runs one call per expert.
 """
 from __future__ import annotations
 
@@ -105,17 +116,20 @@ class BackendSpec:
     schemes: frozenset
     sim_levels: frozenset
     packed: bool | None = False   # True: PackedCodes; None: either container
+    experts: bool = False         # takes x [E, C, K] x weights [E, ., M]
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
 
 
-def register_backend(name: str, *, schemes, sim_levels, packed=False):
+def register_backend(name: str, *, schemes, sim_levels, packed=False,
+                     experts=False):
     """Register a backend fn(x_codes, weights, macro, *, key, inl_seed,
-    noise_seed) under `name`."""
+    noise_seed) under `name`; `experts`: fn also takes expert-batched
+    operands in one call."""
     def deco(fn):
         _REGISTRY[name] = BackendSpec(name, fn, frozenset(schemes),
-                                      frozenset(sim_levels), packed)
+                                      frozenset(sim_levels), packed, experts)
         return fn
     return deco
 
@@ -220,9 +234,12 @@ def _cuda_backend(x_codes, w_codes, cfg: MacroConfig, **_):
     return ops.cim_mvm_dense(x_codes, w_codes, cfg)
 
 
-@register_backend("cuda_packed", schemes=_BP, sim_levels=_IDEAL, packed=True)
+@register_backend("cuda_packed", schemes=_BP, sim_levels=_IDEAL, packed=True,
+                  experts=True)
 def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig,
                          **_):
+    if weights.data.ndim == 3:
+        return ops.cim_mvm_packed_experts(x_codes, weights.data, cfg)
     return ops.cim_mvm_packed(x_codes, weights.data, cfg)
 
 
@@ -235,13 +252,15 @@ def _cuda_noisy_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
 
 
 @register_backend("cuda_noisy_packed", schemes=_BP, sim_levels=_STOCHASTIC,
-                  packed=True)
+                  packed=True, experts=True)
 def _cuda_noisy_packed_backend(x_codes, weights: PackedCodes,
                                cfg: MacroConfig, *, key=None, inl_seed=0,
                                noise_seed=None):
     seed = _resolve_noise_seed(noise_seed, key, x_codes.device)
-    return ops.cim_mvm_noisy_packed(x_codes, weights.data, cfg,
-                                    noise_seed=seed, inl_seed=inl_seed)
+    fn = ops.cim_mvm_noisy_packed_experts if weights.data.ndim == 3 \
+        else ops.cim_mvm_noisy_packed
+    return fn(x_codes, weights.data, cfg, noise_seed=seed,
+              inl_seed=inl_seed)
 
 
 @register_backend("plain", schemes=_ALL_SCHEMES, sim_levels=_ALL_LEVELS,
@@ -321,7 +340,9 @@ def _record_dispatch(name: str, x_codes: torch.Tensor, weights,
     calls; see telemetry.KernelCounters. Energy is Eq. 4 per K-deep dot
     product (energy.mvm_energy, cached per (macro, K)) times the call's
     dot count (rows x output columns). Reads shapes only: no tensor value
-    reaches the host."""
+    reaches the host. An expert-batched call counts one dispatch and all
+    E·C rows; the reference's trace-time hook sees one vmap slice (C
+    rows), once per compiled shape."""
     if isinstance(weights, PackedCodes):
         k, m = weights.k, weights.data.shape[-1]
     else:
@@ -336,6 +357,24 @@ def _record_dispatch(name: str, x_codes: torch.Tensor, weights,
                                     e_dot * rows * m, rows * m)
 
 
+def _expert_count(weights) -> int:
+    """E for expert-batched weights ([E, K2, M] packed, [E, K, M] dense),
+    0 for a single matrix."""
+    data = weights.data if isinstance(weights, PackedCodes) else weights
+    return data.shape[0] if data.ndim == 3 else 0
+
+
+def _per_expert(spec: BackendSpec, x_codes, weights, macro, kw):
+    """A backend without an expert-batched entry, one call per expert (as
+    the reference's vmap computes each slice); [E, C, M]."""
+    outs = []
+    for e in range(x_codes.shape[0]):
+        w_e = PackedCodes(weights.data[e], weights.k) \
+            if isinstance(weights, PackedCodes) else weights[e]
+        outs.append(spec.fn(x_codes[e], w_e, macro, **kw))
+    return torch.stack(outs)
+
+
 def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
                 s_w: torch.Tensor | None, x_zero_point: torch.Tensor,
                 key: torch.Generator | None = None, inl_seed: int = 0,
@@ -345,9 +384,11 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
 
     x_codes [..., K] unsigned DAC codes; weights are dense stored codes
     [K, M] (float / int8 container) or PackedCodes. Eq. 7's ΣW̃ comes from
-    the packed bytes and `k` is the logical K. `noise_seed` overrides
-    cfg.noise_seed for this call; `key` is a torch.Generator for the eager
-    backends (see the module docstring). Returns f32 [..., M].
+    the packed bytes and `k` is the logical K. Expert-batched weights
+    ([E, ., M], x_codes [E, C, K]) run per expert (module docstring).
+    `noise_seed` overrides cfg.noise_seed for this call; `key` is a
+    torch.Generator for the eager backends (see the module docstring).
+    Returns f32 [..., M].
     """
     macro: MacroConfig = cfg.macro
     if noise_seed is None:
@@ -384,19 +425,25 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
         weights = PackedCodes(ops.pack_codes(w_codes), w_codes.shape[-2])
         packed = True
     kw = dict(key=key, inl_seed=inl_seed, noise_seed=noise_seed)
-    if packed:
+    experts = _expert_count(weights)
+    if not packed:
+        weights = weights.to(torch.float32)
+    if experts and not spec.experts:
+        y_codes = _per_expert(spec, x_codes, weights, macro, kw)
+    else:
         y_codes = spec.fn(x_codes, weights, macro, **kw)
+    if packed:
         sum_w = ops.packed_col_sums(weights.data)
         k = weights.k
     else:
-        w_codes = weights.to(torch.float32)
-        y_codes = spec.fn(x_codes, w_codes, macro, **kw)
-        sum_w = torch.sum(w_codes, dim=-2)
-        k = w_codes.shape[-2]
+        sum_w = torch.sum(weights, dim=-2)
+        k = weights.shape[-2]
+    if experts:                    # [E, M] → [E, 1, M] against [E, C, M]
+        sum_w = sum_w.unsqueeze(-2)
     y_int = signed_correction(y_codes, x_codes, None,
                               w_offset=cfg.weight.offset,
                               x_zero_point=x_zero_point, sum_w=sum_w, k=k)
     s_w_out = s_w
-    if cfg.weight.per_channel and s_w.ndim >= 2:
+    if cfg.weight.per_channel and s_w.ndim >= 2 and not experts:
         s_w_out = s_w[..., 0, :]
     return y_int * s_x * s_w_out

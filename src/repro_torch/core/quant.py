@@ -137,15 +137,37 @@ def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), v, dtype=torch.float32, device=like.device)
 
 
-def act_scale(x: torch.Tensor, cfg: ActQuantConfig) -> torch.Tensor:
+def _expert_dims(x: torch.Tensor) -> tuple:
+    """Every axis but the leading expert axis."""
+    return tuple(range(1, x.ndim))
+
+
+def act_scale(x: torch.Tensor, cfg: ActQuantConfig, *,
+              per_expert: bool = False) -> torch.Tensor:
     """Activation scale: the static calibrated grid when cfg.static_scale
     is set (an f32 tensor, so quantize_act divides by it as the reference
     divides by its f32 constant), else the dynamic per-tensor affine range
     (max − min(·, 0)) / qmax over the WHOLE tensor: every lane of a
-    batched serving step shares one grid."""
+    batched serving step shares one grid.
+
+    per_expert: x is [E, C, K] (the MoE routed experts) and each expert
+    gets its own dynamic grid over its [C, K] slice, zero rows included,
+    as the reference's act_scale under vmap: the scale is [E, 1, 1]. Its
+    spans are not recorded (models.moe unrolls the experts while a
+    recorder is open)."""
     if cfg.static_scale is not None:
         return _f32(float(cfg.static_scale), x)
     xs = x.detach()
+    if per_expert:
+        if _SPAN_RECORDER:
+            raise RuntimeError("per-expert activation grids are not "
+                               "recorded: unroll the experts while a span "
+                               "recorder is open (models.moe)")
+        dims = _expert_dims(xs)
+        lo = torch.clamp(torch.amin(xs, dim=dims, keepdim=True), max=0.0)
+        span = torch.clamp(torch.amax(xs, dim=dims, keepdim=True) - lo,
+                           min=1e-8)
+        return span / _f32(float(cfg.qmax), span)
     lo = torch.clamp(xs.min(), max=0.0)
     hi = xs.max()
     span = torch.clamp(hi - lo, min=1e-8)
@@ -177,17 +199,22 @@ def weight_scale(w: torch.Tensor, cfg: WeightQuantConfig) -> torch.Tensor:
     return (amax / _f32(float(cfg.qmax), amax)).detach()
 
 
-def quantize_act(x: torch.Tensor, scale: torch.Tensor, cfg: ActQuantConfig):
+def quantize_act(x: torch.Tensor, scale: torch.Tensor, cfg: ActQuantConfig,
+                 *, per_expert: bool = False):
     """x → (u4 DAC codes, zero_point): q = clip(round(x/s) + z, 0, 15).
-    Dynamic: z = round(clip(−min(x)/s, 0, 15)). Static grid: z is the
-    calibrated `static_zero_point`, rounded to f32 as the reference's
+    Dynamic: z = round(clip(−min(x)/s, 0, 15)), min per expert ([E, 1, 1])
+    under `per_expert` (see act_scale). Static grid: z is the calibrated
+    `static_zero_point`, rounded to f32 as the reference's
     jnp.asarray(float, f32) rounds it, on x's device. round is
     half-to-even, as in the reference."""
     qmax = float(cfg.qmax)
     if cfg.static_scale is not None:
         zp = _f32(float(cfg.static_zero_point), x)
     else:
-        zp = torch.round(torch.clamp(-x.detach().min() / scale, 0, qmax))
+        xs = x.detach()
+        lo = torch.amin(xs, dim=_expert_dims(xs), keepdim=True) \
+            if per_expert else xs.min()
+        zp = torch.round(torch.clamp(-lo / scale, 0, qmax))
     q = torch.clamp(torch.round(x / scale) + zp, 0.0, qmax)
     return q, zp
 

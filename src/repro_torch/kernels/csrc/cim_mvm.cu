@@ -71,6 +71,14 @@
 // instruction). The split aims at ~64 CTAs: at M = 4 the 2048-wide MVMs
 // take clusters of 2 and the 1024-wide ones clusters of 4.
 //
+// B1/B6 expert-batched (the MoE routed experts, which the reference runs
+// as jax.vmap of its packed kernels): x [E, M, K], w [E, K2, N] -> out
+// [E, M, N] in one launch, grid z over (expert, row tile). Separate
+// template instances (EXPERTS = true), so the 2-D instances compile as
+// before. Rows and groups are counted within an expert, so an expert's
+// outputs, and under NOISY/FULL its noise draws, are those of a 2-D
+// launch on its own operands.
+//
 // B2/B5 (cim_mvm_dense_kernel): a lane loads a float4 (4 columns of one
 // f32 weight row) for each of U = 9 rows at once (144 bytes in flight per
 // lane, at both tile heights). The f32 container carries 8x the bytes of
@@ -163,14 +171,20 @@ __device__ __forceinline__ float inl_curve(float cf, const Stochastic& s) {
 }
 
 // The packed fallback: one block per 32 columns x BM rows, `gpp` warps (at
-// most kWarps) each converting one group of a pass.
-template <int BM, int MODE>
+// most kWarps) each converting one group of a pass. EXPERTS: grid z is the
+// expert, each one an [M, K] x [KW, N] problem of its own.
+template <int BM, int MODE, bool EXPERTS>
 __global__ void __launch_bounds__(kThreads)
 cim_mvm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
                float* __restrict__ out, int M, int N, int K, int KW,
                int n_rows, int G, int gpp, float inv_lsb, float lsb,
                float code_max, Stochastic st) {
   extern __shared__ float smem[];
+  if constexpr (EXPERTS) {
+    x += (size_t)blockIdx.z * M * K;
+    w += (size_t)blockIdx.z * KW * N;
+    out += (size_t)blockIdx.z * M * N;
+  }
   float* xs = smem;                                // [gpp][BM][n_rows]
   float* cs = smem + gpp * BM * n_rows;            // [gpp][BM][kCols]
   const int lane = threadIdx.x & 31;
@@ -270,11 +284,12 @@ cim_mvm_kernel(const float* __restrict__ x, const uint8_t* __restrict__ w,
 
 // Launches the fallback with as many groups per pass (up to kWarps) as
 // the CTA's shared memory holds; an error where not even one group fits.
-template <int BM, int MODE>
-int launch_fallback(const float* x, const uint8_t* w, float* out, int M,
-                    int N, int K, int KW, int n_rows, int G, float inv_lsb,
-                    float lsb, float code_max, const Stochastic& st,
-                    cudaStream_t stream) {
+// E experts (EXPERTS) take grid z.
+template <int BM, int MODE, bool EXPERTS>
+int launch_fallback(const float* x, const uint8_t* w, float* out, int E,
+                    int M, int N, int K, int KW, int n_rows, int G,
+                    float inv_lsb, float lsb, float code_max,
+                    const Stochastic& st, cudaStream_t stream) {
   const size_t per_group = sizeof(float) * (size_t)BM * (n_rows + kCols);
   const int gpp = (int)std::min<size_t>(kWarps, kSmemMax / per_group);
   if (gpp < 1) return (int)cudaErrorInvalidValue;
@@ -284,13 +299,14 @@ int launch_fallback(const float* x, const uint8_t* w, float* out, int M,
   static size_t cap = 48 * 1024;
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        cim_mvm_kernel<BM, MODE>,
+        cim_mvm_kernel<BM, MODE, EXPERTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
   }
-  dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM);
-  cim_mvm_kernel<BM, MODE><<<grid, kThreads, smem, stream>>>(
+  if (E > 65535) return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kCols - 1) / kCols, (M + BM - 1) / BM, E);
+  cim_mvm_kernel<BM, MODE, EXPERTS><<<grid, kThreads, smem, stream>>>(
       x, w, out, M, N, K, KW, n_rows, G, gpp, inv_lsb, lsb, code_max, st);
   return (int)cudaGetLastError();
 }
@@ -385,7 +401,7 @@ __device__ __forceinline__ void quad_columns(uint32_t r0, uint32_t r1,
   col[3] = (int)__byte_perm(a23, b23, 0x7632);
 }
 
-template <int BM, int VB, int MODE>
+template <int BM, int VB, int MODE, bool EXPERTS>
 __global__ void __launch_bounds__(kGroupWarps * 32)
 cim_mvm_packed_kernel(const float* __restrict__ x,
                       const uint8_t* __restrict__ w, float* __restrict__ out,
@@ -408,7 +424,18 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
   const int wg = warp / wcols;                      // ... and group lane
   const int wgs = (blockDim.x >> 5) / wcols;
   const int n0 = blockIdx.x * nct + wc * NC;
-  const int m0 = blockIdx.z * BM;
+  int mz = blockIdx.z;                              // the row tile
+  if constexpr (EXPERTS) {
+    // grid z runs over (expert, row tile); the expert's operands are the
+    // next [M, K], [KW, N] and [M, N] blocks
+    const int mt = (M + BM - 1) / BM;
+    const int e = mz / mt;
+    mz -= e * mt;
+    x += (size_t)e * M * K;
+    w += (size_t)e * KW * N;
+    out += (size_t)e * M * N;
+  }
+  const int m0 = mz * BM;
   const int g0 = rank * gpc;
   const int ng = max(0, min(gpc, G - g0));
   const int chunk = lane & 3;
@@ -570,18 +597,21 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
 // The cluster launch of the packed kernel; returns -1 for shapes it does
 // not take (groups of rows that are no multiple of four, or more shared
 // memory than a CTA has): the caller then takes the fallback body.
-template <int BM, int VB, int MODE>
-int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
-                  int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
-                  float code_max, const Stochastic& st, cudaStream_t stream) {
+template <int BM, int VB, int MODE, bool EXPERTS>
+int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
+                  int N, int K, int KW, int n_rows, int G, float inv_lsb,
+                  float lsb, float code_max, const Stochastic& st,
+                  cudaStream_t stream) {
   constexpr int NC = kChunks * VB;
   // Wide matrices: up to 8 warps side by side along the columns share one
   // CTA's staged activations. Then the groups split over just enough
   // cluster ranks to give the card ~kCtaTarget CTAs: the cluster barrier
   // and the DSMEM pass cost latency that only pays where the column tiles
   // alone would leave SMs idle. The remaining warps of a CTA (up to 8 in
-  // all) take the rank's groups in turn.
-  const long mt = (M + BM - 1) / BM;
+  // all) take the rank's groups in turn. E experts (EXPERTS) multiply the
+  // row tiles; a tile's N % VB == 0 keeps every expert's rows aligned.
+  const long mt = (long)((M + BM - 1) / BM) * E;   // (expert, row) tiles
+  if (mt > 65535) return (int)cudaErrorInvalidValue;
   const long warp_tiles = (long)((N + NC - 1) / NC) * mt;
   int wcols = 1;
   while (wcols < kGroupWarps && warp_tiles >= 2L * wcols * kWideTiles)
@@ -600,7 +630,7 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        cim_mvm_packed_kernel<BM, VB, MODE>,
+        cim_mvm_packed_kernel<BM, VB, MODE, EXPERTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
@@ -618,9 +648,10 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, cim_mvm_packed_kernel<BM, VB, MODE>,
-                                     x, w, out, M, N, K, KW, n_rows, G, gpc,
-                                     wcols, vec, inv_lsb, lsb, code_max, st);
+  cudaError_t e =
+      cudaLaunchKernelEx(&cfg, cim_mvm_packed_kernel<BM, VB, MODE, EXPERTS>,
+                         x, w, out, M, N, K, KW, n_rows, G, gpc, wcols, vec,
+                         inv_lsb, lsb, code_max, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1003,10 +1034,11 @@ int launch_dense(const float* x, const float* w, float* out, int M, int N,
   return (int)cudaGetLastError();
 }
 
-template <bool PACKED, int MODE>
-int dispatch_rows(const float* x, const void* w, float* out, int M, int N,
-                  int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
-                  float code_max, const Stochastic& st, cudaStream_t stream) {
+template <bool PACKED, int MODE, bool EXPERTS>
+int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
+                  int N, int K, int KW, int n_rows, int G, float inv_lsb,
+                  float lsb, float code_max, const Stochastic& st,
+                  cudaStream_t stream) {
   if constexpr (!PACKED) {
     const float* wf = static_cast<const float*>(w);
     return M <= 4 ? launch_dense<4, MODE>(x, wf, out, M, N, K, n_rows, G,
@@ -1016,37 +1048,43 @@ int dispatch_rows(const float* x, const void* w, float* out, int M, int N,
   } else {
     const uint8_t* wp = static_cast<const uint8_t*>(w);
     const int rc =
-        M <= 4 ? launch_packed<4, 16, MODE>(x, wp, out, M, N, K, KW, n_rows,
-                                            G, inv_lsb, lsb, code_max, st,
-                                            stream)
-               : launch_packed<8, 8, MODE>(x, wp, out, M, N, K, KW, n_rows,
-                                           G, inv_lsb, lsb, code_max, st,
-                                           stream);
+        M <= 4 ? launch_packed<4, 16, MODE, EXPERTS>(x, wp, out, E, M, N, K,
+                                                     KW, n_rows, G, inv_lsb,
+                                                     lsb, code_max, st, stream)
+               : launch_packed<8, 8, MODE, EXPERTS>(x, wp, out, E, M, N, K,
+                                                    KW, n_rows, G, inv_lsb,
+                                                    lsb, code_max, st, stream);
     if (rc != -1) return rc;
-    return M <= 4
-               ? launch_fallback<4, MODE>(x, wp, out, M, N, K, KW, n_rows, G,
-                                          inv_lsb, lsb, code_max, st, stream)
-               : launch_fallback<8, MODE>(x, wp, out, M, N, K, KW, n_rows, G,
-                                          inv_lsb, lsb, code_max, st, stream);
+    return M <= 4 ? launch_fallback<4, MODE, EXPERTS>(
+                        x, wp, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb,
+                        code_max, st, stream)
+                  : launch_fallback<8, MODE, EXPERTS>(
+                        x, wp, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb,
+                        code_max, st, stream);
   }
 }
 
-template <bool PACKED>
-int dispatch(const float* x, const void* w, float* out, int M, int N, int K,
-             int KW, int n_rows, int G, float inv_lsb, float lsb,
+// E > 1 problems side by side (EXPERTS, packed only): x [E, M, K], w [E,
+// KW, N], out [E, M, N], each expert computed as its own 2-D launch would.
+template <bool PACKED, bool EXPERTS = false>
+int dispatch(const float* x, const void* w, float* out, int E, int M, int N,
+             int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
              float code_max, int mode, const Stochastic& st,
              cudaStream_t stream) {
-  if (M <= 0 || N <= 0) return 0;
+  if (E <= 0 || M <= 0 || N <= 0) return 0;
   switch (mode) {
     case kIdeal:
-      return dispatch_rows<PACKED, kIdeal>(x, w, out, M, N, K, KW, n_rows, G,
-                                           inv_lsb, lsb, code_max, st, stream);
+      return dispatch_rows<PACKED, kIdeal, EXPERTS>(
+          x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
     case kNoisy:
-      return dispatch_rows<PACKED, kNoisy>(x, w, out, M, N, K, KW, n_rows, G,
-                                           inv_lsb, lsb, code_max, st, stream);
+      return dispatch_rows<PACKED, kNoisy, EXPERTS>(
+          x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
     case kFull:
-      return dispatch_rows<PACKED, kFull>(x, w, out, M, N, K, KW, n_rows, G,
-                                          inv_lsb, lsb, code_max, st, stream);
+      return dispatch_rows<PACKED, kFull, EXPERTS>(
+          x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1074,7 +1112,7 @@ int cim_mvm_dense_launch(const float* x, const float* w, float* out, int M,
                          int N, int K, int n_rows, float inv_lsb, float lsb,
                          float code_max, cudaStream_t stream) {
   const Stochastic none{};
-  return dispatch<false>(x, w, out, M, N, K, K, n_rows, groups(K, n_rows),
+  return dispatch<false>(x, w, out, 1, M, N, K, K, n_rows, groups(K, n_rows),
                          inv_lsb, lsb, code_max, kIdeal, none, stream);
 }
 
@@ -1084,8 +1122,9 @@ int cim_mvm_packed_launch(const float* x, const uint8_t* w, float* out,
                           float inv_lsb, float lsb, float code_max,
                           cudaStream_t stream) {
   const Stochastic none{};
-  return dispatch<true>(x, w, out, M, N, K, K2, n_rows, groups(2 * K2, n_rows),
-                        inv_lsb, lsb, code_max, kIdeal, none, stream);
+  return dispatch<true>(x, w, out, 1, M, N, K, K2, n_rows,
+                        groups(2 * K2, n_rows), inv_lsb, lsb, code_max, kIdeal,
+                        none, stream);
 }
 
 // B5: B2 with the stochastic converter; mode 1 = NOISY, 2 = FULL; seed is a
@@ -1098,7 +1137,7 @@ int cim_mvm_noisy_dense_launch(const float* x, const float* w, float* out,
                                cudaStream_t stream) {
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
-  return dispatch<false>(x, w, out, M, N, K, K, n_rows, groups(K, n_rows),
+  return dispatch<false>(x, w, out, 1, M, N, K, K, n_rows, groups(K, n_rows),
                          inv_lsb, lsb, code_max, mode, st, stream);
 }
 
@@ -1111,9 +1150,40 @@ int cim_mvm_noisy_packed_launch(const float* x, const uint8_t* w, float* out,
                                 cudaStream_t stream) {
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
-  return dispatch<true>(x, w, out, M, N, K, K2, n_rows,
+  return dispatch<true>(x, w, out, 1, M, N, K, K2, n_rows,
                         groups(2 * K2, n_rows), inv_lsb, lsb, code_max, mode,
                         st, stream);
+}
+
+// B1, expert-batched: x [E, M, K] f32, w [E, K2, N] uint8, out [E, M, N]
+// f32; expert e computes what B1 computes on x[e], w[e] (one launch, its
+// own template instances).
+int cim_mvm_packed_experts_launch(const float* x, const uint8_t* w,
+                                  float* out, int E, int M, int N, int K,
+                                  int K2, int n_rows, float inv_lsb,
+                                  float lsb, float code_max,
+                                  cudaStream_t stream) {
+  const Stochastic none{};
+  return dispatch<true, true>(x, w, out, E, M, N, K, K2, n_rows,
+                              groups(2 * K2, n_rows), inv_lsb, lsb, code_max,
+                              kIdeal, none, stream);
+}
+
+// B6, expert-batched. The counter hash takes the row within the expert and
+// no expert index, so every expert draws the noise B6 draws on its own.
+int cim_mvm_noisy_packed_experts_launch(const float* x, const uint8_t* w,
+                                        float* out, int E, int M, int N,
+                                        int K, int K2, int n_rows,
+                                        float inv_lsb, float lsb,
+                                        float code_max, int mode,
+                                        const int* seed, unsigned salt,
+                                        float sigma, const float* inl,
+                                        cudaStream_t stream) {
+  if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
+  const Stochastic st = make_stochastic(seed, salt, sigma, inl);
+  return dispatch<true, true>(x, w, out, E, M, N, K, K2, n_rows,
+                              groups(2 * K2, n_rows), inv_lsb, lsb, code_max,
+                              mode, st, stream);
 }
 
 }  // extern "C"

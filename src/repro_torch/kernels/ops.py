@@ -16,11 +16,14 @@ from repro_torch.core.adc import stochastic_transfer_params
 from repro_torch.core.macro import MacroConfig, Scheme, SimLevel
 
 from .cim_mvm import (cim_mvm_grouped, cim_mvm_grouped_noisy,
-                      cim_mvm_grouped_noisy_packed, cim_mvm_grouped_packed,
+                      cim_mvm_grouped_noisy_packed,
+                      cim_mvm_grouped_noisy_packed_experts,
+                      cim_mvm_grouped_packed, cim_mvm_grouped_packed_experts,
                       salt_seed, unpack_nibbles)
 
 __all__ = ["cim_mvm_dense", "cim_mvm_packed", "cim_mvm_noisy",
-           "cim_mvm_noisy_packed", "pack_codes", "unpack_codes",
+           "cim_mvm_noisy_packed", "cim_mvm_packed_experts",
+           "cim_mvm_noisy_packed_experts", "pack_codes", "unpack_codes",
            "packed_col_sums", "salt_seed"]
 
 
@@ -73,6 +76,19 @@ def _prep_packed(x_codes: torch.Tensor, w_packed: torch.Tensor):
     return x2, w_packed.to(torch.uint8).contiguous(), lead
 
 
+def _prep_experts(x_codes: torch.Tensor, w_packed: torch.Tensor):
+    """Operand prep of the expert-batched packed kernels: x [E, C, K] f32,
+    w [E, K2, M] uint8, both contiguous."""
+    if x_codes.ndim != 3 or w_packed.ndim != 3 \
+            or x_codes.shape[0] != w_packed.shape[0] \
+            or x_codes.shape[-1] not in (2 * w_packed.shape[1],
+                                         2 * w_packed.shape[1] - 1):
+        raise ValueError(f"x {tuple(x_codes.shape)} does not match packed "
+                         f"expert weights {tuple(w_packed.shape)}")
+    return (x_codes.to(torch.float32).contiguous(),
+            w_packed.to(torch.uint8).contiguous())
+
+
 def _kernel_kw(cfg: MacroConfig) -> dict:
     return dict(n_rows=cfg.n_rows, levels=cfg.effective_adc_levels(),
                 gain=cfg.gain, full_scale=cfg.full_scale())
@@ -88,6 +104,17 @@ def cim_mvm_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,
     x2, w2, lead = _prep_packed(x_codes, w_packed)
     out = cim_mvm_grouped_packed(x2, w2, **_kernel_kw(cfg))
     return out.reshape(*lead, w2.shape[1])
+
+
+def cim_mvm_packed_experts(x_codes: torch.Tensor, w_packed: torch.Tensor,
+                           cfg: MacroConfig) -> torch.Tensor:
+    """B1 over E experts in one launch: x [E, C, K], w_packed [E, K2, M] →
+    f32 [E, C, M], expert e exactly `cim_mvm_packed(x[e], w_packed[e])`."""
+    if cfg.scheme != Scheme.BP or cfg.n_rows % 2:
+        raise ValueError("the packed kernel implements BP over an even "
+                         "macro depth")
+    x3, w3 = _prep_experts(x_codes, w_packed)
+    return cim_mvm_grouped_packed_experts(x3, w3, **_kernel_kw(cfg))
 
 
 def cim_mvm_dense(x_codes: torch.Tensor, w_codes: torch.Tensor,
@@ -138,3 +165,18 @@ def cim_mvm_noisy_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,
     out = cim_mvm_grouped_noisy_packed(x2, w2, noise_seed, inl_seed=inl_seed,
                                        **kw)
     return out.reshape(*lead, w2.shape[1])
+
+
+def cim_mvm_noisy_packed_experts(x_codes: torch.Tensor,
+                                 w_packed: torch.Tensor, cfg: MacroConfig, *,
+                                 noise_seed: torch.Tensor,
+                                 inl_seed: int = 0) -> torch.Tensor:
+    """B6 over E experts in one launch: x [E, C, K], w_packed [E, K2, M] →
+    f32 [E, C, M], expert e exactly `cim_mvm_noisy_packed(x[e],
+    w_packed[e])` under the same seed."""
+    kw = _check_stochastic(cfg)
+    if cfg.n_rows % 2:
+        raise ValueError("nibble packing needs an even macro depth")
+    x3, w3 = _prep_experts(x_codes, w_packed)
+    return cim_mvm_grouped_noisy_packed_experts(x3, w3, noise_seed,
+                                                inl_seed=inl_seed, **kw)

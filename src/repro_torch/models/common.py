@@ -72,8 +72,9 @@ def attention_init(gen, cfg: ModelConfig, *, device) -> Params:
     return p
 
 
-def mlp_init(gen, cfg: ModelConfig, *, device) -> Params:
-    d, f = cfg.d_model, cfg.d_ff
+def mlp_init(gen, cfg: ModelConfig, *, device,
+             d_ff: int | None = None) -> Params:
+    d, f = cfg.d_model, d_ff or cfg.d_ff
     kw = dict(dtype=dtype_of(cfg), device=device)
     p = {}
     if cfg.mlp == "swiglu":

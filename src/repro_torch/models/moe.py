@@ -1,0 +1,206 @@
+"""Mixture-of-Experts FFN (qwen2-moe): routed experts at a static capacity
+plus the gated shared expert. The local path of the reference's
+`models/moe.py`: no mesh, so no expert parallelism and no all-to-all
+dispatch (ROADMAP A11).
+
+Routed expert weights are [E, D, F], E padded to a multiple of EP_PAD
+(qwen2's 60 → 64). Pad experts have no router logit, so they receive no
+token; their MVMs still run, on all-zero buffers, as in the reference.
+Under CIM the experts may hold stored codes (models.quantize):
+nibble-packed uint8 [E, ceil(K/2), M] or int8 [E, K, M], with scales
+[E, 1, 1] or [E, 1, M]. Stored codes run all experts of a projection in
+one expert-batched call (core.cim_matmul.cim_matmul_prequant: one launch
+of B1 / B6 for packed codes); weights quantized on the fly run one
+cim_matmul per expert.
+
+The numerics follow the reference op by op (ROADMAP Queue C):
+  * routing: f32 logits from the f32 router; softmax as jax.nn.softmax
+    computes it, exp(x − max) / sum; top-k by a stable descending sort,
+    so ties go to the lower expert index as in lax.top_k; the top-k
+    weights renormalized by max(sum, 1e-9);
+  * capacity max(8, ceil8(ceil(T·k·cf / E_pad))) over T = B·S tokens;
+    slots from an exclusive cumsum over the flattened (token, choice)
+    order, batch-major; every lane (idle and padding lanes too) is routed
+    and takes capacity; choices past capacity go to a discarded last row;
+  * each expert's activations on its own dynamic DAC grid, zero rows of
+    a partly filled buffer included (the reference's act_scale under
+    vmap);
+  * the combine in the model dtype: y_choice = out[slot] · weight, the
+    weight rounded to the model dtype; a token's k choices added in
+    choice order starting from zero (the reference's scatter-add; not
+    index_add_, whose CUDA atomics add in a run-dependent order); then
+    y_shared + y.
+The load-balance loss is a training term (ROADMAP A10): `apply` returns
+the FFN output only.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import quant
+from repro_torch.core.cim_matmul import cim_matmul, cim_matmul_prequant
+from repro_torch.core.engine import PackedCodes
+
+from .common import _normal, dtype_of, mlp_apply, mlp_init
+
+EP_PAD = 16  # the expert count pads to a multiple of this
+
+
+def padded_experts(n: int) -> int:
+    return -(-n // EP_PAD) * EP_PAD
+
+
+def init(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
+    """Random MoE FFN weights from `gen` (the router in f32, the experts
+    and the shared expert in the model dtype)."""
+    m = cfg.moe
+    e_pad = padded_experts(m.n_experts)
+    d, f = cfg.d_model, m.d_ff_expert
+    dt = dtype_of(cfg)
+    scale_in = 1.0 / math.sqrt(d)
+    scale_out = 1.0 / math.sqrt(f * 2 * cfg.n_layers)
+    p = {"router": _normal(gen, (d, m.n_experts), device) * 0.02,
+         "e_gate": (_normal(gen, (e_pad, d, f), device) * scale_in).to(dt),
+         "e_up": (_normal(gen, (e_pad, d, f), device) * scale_in).to(dt),
+         "e_down": (_normal(gen, (e_pad, f, d), device) * scale_out).to(dt)}
+    if m.n_shared:
+        p["shared"] = mlp_init(gen, cfg, device=device, d_ff=m.d_ff_shared)
+        if m.shared_gate:
+            p["shared"]["w_sg"] = (_normal(gen, (d, 1), device)
+                                   * 0.02).to(dt)
+    return p
+
+
+# ---------------------------------------------------------------------------
+# routing + static-capacity dispatch
+# ---------------------------------------------------------------------------
+def _route(x2: torch.Tensor, router_w: torch.Tensor, top_k: int):
+    """x2 [T, D] → (probs [T, E], ids [T, k], weights [T, k])."""
+    logits = x2.float() @ router_w.float()
+    un = torch.exp(logits - torch.amax(logits, dim=-1, keepdim=True))
+    probs = un / torch.sum(un, dim=-1, keepdim=True)
+    weights, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    weights, ids = weights[:, :top_k], ids[:, :top_k]
+    weights = weights / torch.clamp(torch.sum(weights, dim=-1, keepdim=True),
+                                    min=1e-9)
+    return probs, ids, weights
+
+
+def _positions_in_expert(ids_flat: torch.Tensor, e_pad: int) -> torch.Tensor:
+    """Slot index of each (token, choice) within its expert's buffer."""
+    onehot = (ids_flat[:, None] == torch.arange(
+        e_pad, device=ids_flat.device)[None, :]).to(torch.int32)
+    pos = torch.cumsum(onehot, dim=0, dtype=torch.int32) - onehot
+    return torch.gather(pos, 1, ids_flat[:, None])[:, 0]
+
+
+def _capacity(n_tokens: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    c = int(math.ceil(n_tokens * m.top_k * m.capacity_factor
+                      / padded_experts(m.n_experts)))
+    return max(8, -(-c // 8) * 8)
+
+
+def _expert_weights(p: dict, name: str, cfg: ModelConfig) -> dict:
+    """One routed-expert weight as a small dict: {"w": float [E, K, M]};
+    after models.quantize.quantize_params {"q": int8 codes, "s": scales}
+    or, nibble-packed, {"pk": PackedCodes} carrying the code bytes [E,
+    ceil(K/2), M] and the scales. Stored codes are read only when
+    cfg.cim.enabled, as common.dense reads them."""
+    if cfg.cim.enabled and name + "_q" in p:
+        q, s = p[name + "_q"], p[name + "_scale"]
+        if q.dtype == torch.uint8:
+            k = cfg.d_model if name in ("e_gate", "e_up") \
+                else cfg.moe.d_ff_expert
+            return {"pk": PackedCodes(q, k, s)}
+        return {"q": q, "s": s}
+    return {"w": p[name]}
+
+
+def _expert_slice(wp: dict, e: int) -> dict:
+    if "pk" in wp:
+        pk = wp["pk"]
+        return {"pk": PackedCodes(pk.data[e], pk.k, pk.scale[e])}
+    return {name: v[e] for name, v in wp.items()}
+
+
+def _cim_mvm(xb: torch.Tensor, wp: dict, cfg: ModelConfig) -> torch.Tensor:
+    """One _expert_weights dict on the macro: expert-batched ([E, C, K])
+    for stored codes, or one expert ([C, K]) for any weight."""
+    if "pk" in wp:
+        return cim_matmul_prequant(xb.float(), wp["pk"], None, cfg.cim)
+    if "q" in wp:
+        return cim_matmul_prequant(xb.float(), wp["q"], wp["s"], cfg.cim)
+    return cim_matmul(xb.float(), wp["w"].float(), cfg.cim)
+
+
+def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
+                cfg: ModelConfig) -> torch.Tensor:
+    """Batched expert MLP: buf [E, C, D] → [E, C, D].
+
+    Under CIM the three projections run under the e_gate / e_up / e_down
+    sites. Stored codes take one expert-batched call each; float weights
+    (quantized on the fly) and every call while a calibration span
+    recorder is open run expert by expert, so each expert's span is
+    recorded, as the reference unrolls its vmap then."""
+    if cfg.cim.enabled:
+        def f(xb, wp, site):
+            with quant.act_site(site):
+                if "w" in wp or quant.recording_active():
+                    return torch.stack([
+                        _cim_mvm(xb[e], _expert_slice(wp, e), cfg)
+                        for e in range(xb.shape[0])])
+                return _cim_mvm(xb, wp, cfg)
+        h = F.silu(f(buf, wg, "e_gate")) * f(buf, wu, "e_up")
+        return f(h, wd, "e_down").to(buf.dtype)
+    h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg["w"])) \
+        * torch.einsum("ecd,edf->ecf", buf, wu["w"])
+    return torch.einsum("ecf,efd->ecd", h, wd["w"])
+
+
+def _local_moe(x2: torch.Tensor, router_w: torch.Tensor, wg: dict, wu: dict,
+               wd: dict, cfg: ModelConfig, *, capacity: int) -> torch.Tensor:
+    """Dispatch x2's tokens [T, D] to every expert, compute and combine →
+    [T, D] in the experts' output dtype."""
+    t, d = x2.shape
+    e_pad = padded_experts(cfg.moe.n_experts)
+    k = cfg.moe.top_k
+    _, ids, weights = _route(x2, router_w, k)
+    ids_flat = ids.reshape(-1)                                  # [T·k]
+    pos = _positions_in_expert(ids_flat, e_pad)
+    slot = torch.where(pos < capacity, ids_flat * capacity + pos,
+                       e_pad * capacity)                        # overflow row
+    token_idx = torch.arange(t * k, device=x2.device) // k
+    buf = x2.new_zeros((e_pad * capacity + 1, d))
+    buf[slot] = x2[token_idx]
+    out = _expert_ffn(buf[:-1].reshape(e_pad, capacity, d), wg, wu, wd, cfg)
+    out_flat = torch.cat([out.reshape(e_pad * capacity, d),
+                          out.new_zeros((1, d))])
+    y_choices = (out_flat[slot] * weights.reshape(-1, 1).to(out.dtype)
+                 ).reshape(t, k, d)
+    y2 = out.new_zeros((t, d))
+    for j in range(k):                  # the scatter-add's order
+        y2 = y2 + y_choices[:, j]
+    return y2
+
+
+def _shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig):
+    y = mlp_apply(p["shared"], x, cfg)
+    if cfg.moe.shared_gate:
+        y = y * torch.sigmoid(x @ p["shared"]["w_sg"].to(x.dtype))
+    return y
+
+
+def apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """MoE FFN: x [B, T, D] → y [B, T, D]."""
+    b, t, d = x.shape
+    y_shared = _shared_expert(p, x, cfg) if cfg.moe.n_shared else 0.0
+    wg, wu, wd = (_expert_weights(p, name, cfg)
+                  for name in ("e_gate", "e_up", "e_down"))
+    y2 = _local_moe(x.reshape(b * t, d), p["router"], wg, wu, wd, cfg,
+                    capacity=_capacity(b * t, cfg))
+    return y_shared + y2.reshape(b, t, d).to(x.dtype)

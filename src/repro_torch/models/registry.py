@@ -1,8 +1,8 @@
 """Model registry: ModelConfig.family → implementation module, plus the
 bridge that carries the reference package's weights across.
 
-Only the dense transformer family is ported; the others are queued in
-ROADMAP Queue A9.
+The dense and MoE transformer families are ported; the others are queued
+in ROADMAP Queue A9.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ from repro_torch.device import resolve_device
 
 from . import transformer
 
-_FAMILY = {"dense": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer}
 
 
 def get_module(cfg: ModelConfig):
@@ -25,8 +25,8 @@ def get_module(cfg: ModelConfig):
     return _FAMILY[cfg.family]
 
 
-def init_params(cfg: ModelConfig, *, seed: int = 0, device=None):
-    return get_module(cfg).init(cfg, seed=seed, device=device)
+def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, **kw):
+    return get_module(cfg).init(cfg, seed=seed, device=device, **kw)
 
 
 def _to_tensor(a, device) -> torch.Tensor:
@@ -41,8 +41,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference package's parameter tree, as numpy arrays, → the
     port's params on `device`.
 
-    Stacked [L, ...] leaves under "layers" become one dict per layer; bf16
-    leaves arrive as uint16 views (the checkpoint format's encoding).
+    Stacked [L, ...] leaves under "layers" become one dict per layer (the
+    MoE FFN's router [L, D, E], experts [L, E, D, F] and shared gate too);
+    bf16 leaves arrive as uint16 views (the checkpoint format's
+    encoding).
     """
     get_module(cfg)
     dev = resolve_device(device)

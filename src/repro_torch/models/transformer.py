@@ -1,5 +1,7 @@
-"""Decoder transformer for serving (dense GQA LMs): the padded `forward`,
-the slot engine's `prefill` / `decode_step` and the paged `paged_step`.
+"""Decoder transformer for serving (dense GQA LMs and the MoE family): the
+padded `forward`, the slot engine's `prefill` / `decode_step` and the
+paged `paged_step`. A layer's FFN is the MLP, or the MoE FFN
+(`models.moe`) where its params hold a router.
 
 Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
 "layers": [per-layer dict, ...]} — the reference's stacked [L, ...] leaves
@@ -17,14 +19,18 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from . import common
+from . import common, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
                      embed_lookup, mlp_apply, mlp_init, norm, norm_init,
                      unembed)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.mla is not None or cfg.encoder_layers \
+    if cfg.moe is not None and (cfg.moe.first_dense or cfg.moe.d_ff_dense):
+        raise NotImplementedError(
+            f"arch {cfg.arch!r}: leading dense layers (MoEConfig.first_dense, "
+            "deepseek-v3) are not ported yet (ROADMAP A9)")
+    if cfg.mla is not None or cfg.encoder_layers \
             or cfg.cross_attention or cfg.n_image_tokens \
             or cfg.pos_embed != "rope" or cfg.mtp:
         raise NotImplementedError(
@@ -37,21 +43,26 @@ def _layer_init(gen, cfg: ModelConfig, *, device) -> dict:
     return {"norm1": norm_init(cfg.d_model, **kw),
             "norm2": norm_init(cfg.d_model, **kw),
             "attn": attention_init(gen, cfg, device=device),
-            "ffn": mlp_init(gen, cfg, device=device)}
+            "ffn": (moe.init if cfg.moe is not None else mlp_init)(
+                gen, cfg, device=device)}
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
+def init(cfg: ModelConfig, *, seed: int = 0, device=None,
+         layer_fn=None) -> dict:
     """Random weights from a torch.Generator seeded with `seed`, made on
     `device` (default: the card). The draws differ from the reference's
     jax.random ones; `registry.params_from_numpy` carries the reference's
-    weights across instead."""
+    weights across instead. `layer_fn` maps each layer's params as soon
+    as they are made (e.g. models.quantize.quantize_params), so a model
+    whose float weights would not fit is never held whole."""
     _check_arch(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
+    layer_fn = layer_fn or (lambda lp: lp)
     return {"tok": embed_init(gen, cfg, device=dev),
             "final_norm": norm_init(cfg.d_model, dtype=dtype_of(cfg),
                                     device=dev, kind=cfg.norm),
-            "layers": [_layer_init(gen, cfg, device=dev)
+            "layers": [layer_fn(_layer_init(gen, cfg, device=dev))
                        for _ in range(cfg.n_layers)]}
 
 
@@ -70,6 +81,11 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, torch.arange(t, device=x.device).expand(b, t)
 
 
+def _ffn(p: dict, x, cfg: ModelConfig):
+    """The layer's FFN: the MoE FFN where its params hold a router."""
+    return moe.apply(p, x, cfg) if "router" in p else mlp_apply(p, x, cfg)
+
+
 def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
            cache_index=0):
     """One decoder layer; `cache` is None (the padded forward), {} (prefill:
@@ -79,7 +95,7 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
                             positions=positions, cache=cache,
                             cache_index=cache_index)
     h = h + a
-    return h + mlp_apply(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
+    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
@@ -197,7 +213,7 @@ def _layer_paged(lp: dict, h, layer_pool: dict, cfg: ModelConfig, *,
         lp["attn"], norm(lp["norm1"], h, cfg), cfg, cache=layer_pool,
         index=index)
     h = h + a
-    return h + mlp_apply(lp["ffn"], norm(lp["norm2"], h, cfg), cfg)
+    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg)
 
 
 def paged_step(params: dict, tokens: torch.Tensor, cache: dict,

@@ -1,4 +1,6 @@
-"""The port's configs equal the reference's, field for field."""
+"""The port's configs equal the reference's, field for field: every
+ported arch's full and smoke config (internlm2-1.8b, stablelm-3b,
+llama3-8b, granite-3-8b, qwen2-moe-a2.7b with its MoEConfig)."""
 import dataclasses
 import importlib
 
@@ -22,6 +24,9 @@ from repro_torch.core import quant as t_quant  # noqa: E402
 # repro.core re-exports a function named cim_matmul over the submodule
 ref_cim = importlib.import_module("repro.core.cim_matmul")
 
+ARCH_MODULES = ("stablelm_3b", "llama3_8b", "granite_3_8b",
+                "qwen2_moe_a2_7b")
+
 PAIRS = {
     "CONFIG": (ref_arch.CONFIG, t_arch.CONFIG),
     "SMOKE": (ref_arch.SMOKE, t_arch.SMOKE),
@@ -36,6 +41,11 @@ PAIRS = {
     "DECODE_32K": (ref_base.DECODE_32K, t_base.DECODE_32K),
     "TrainConfig": (ref_base.TrainConfig(), t_base.TrainConfig()),
 }
+for _mod in ARCH_MODULES:
+    _ref = importlib.import_module(f"repro.configs.{_mod}")
+    _port = importlib.import_module(f"repro_torch.configs.{_mod}")
+    PAIRS[f"{_mod}.CONFIG"] = (_ref.CONFIG, _port.CONFIG)
+    PAIRS[f"{_mod}.SMOKE"] = (_ref.SMOKE, _port.SMOKE)
 
 
 @pytest.mark.parametrize("name", sorted(PAIRS))
@@ -68,11 +78,21 @@ def test_model_config_widths():
     assert (c.n_layers, c.d_model, c.n_heads, c.n_kv_heads, c.head_dim,
             c.d_ff, c.vocab) == (24, 2048, 16, 8, 128, 8192, 92544)
     assert t_registry.get("internlm2-1.8b", smoke=True) == t_arch.SMOKE
+    q = t_registry.get("qwen2-moe-a2.7b")
+    assert (q.n_layers, q.d_model, q.n_heads, q.n_kv_heads, q.head_dim,
+            q.vocab, q.moe.n_experts, q.moe.top_k, q.moe.d_ff_expert,
+            q.moe.n_shared, q.moe.d_ff_shared) == (24, 2048, 16, 16, 128,
+                                                   151936, 60, 4, 1408, 4,
+                                                   5632)
+    assert t_registry.get("stablelm-3b").head_dim == 80
 
 
 def test_registry_unported_arch_raises():
     with pytest.raises(KeyError, match="A9"):
-        t_registry.get("llama3-8b")
+        t_registry.get("deepseek-v3-671b")
+    assert sorted(t_registry.ARCHS) == sorted(t_registry.SMOKES) == [
+        "granite-3-8b", "internlm2-1.8b", "llama3-8b", "qwen2-moe-a2.7b",
+        "stablelm-3b"]
 
 
 def test_cim_config_site_overrides_raise():

@@ -22,7 +22,11 @@ ladder (32 to 256), and a paged prefill and decode step under a precision
 manifest (per-site static grids, 128 / 181 / 45 levels, a WBS site, a
 per-channel site) is identical with the kernels and with their plain
 versions, as is a lane's stream under the static grid alone and beside
-companions. Inputs come from numpy seeds. This file needs no JAX.
+companions. B1 and B6's expert-batched entries (the MoE routed experts)
+equal their plain versions and one 2-D launch per expert, bit for bit, and
+the smoke qwen2-moe's paged steps and slot serve are identical with the
+kernels and with their plain versions. Inputs come from numpy seeds. This
+file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -107,6 +111,112 @@ def test_b1_b6_groups_of_rows_not_a_multiple_of_four(level):
     assert torch.equal(
         cim_mvm.cim_mvm_grouped_noisy_packed(x, wp, s, **kw),
         cim_mvm.cim_mvm_grouped_noisy_packed_plain(x, wp, s, **kw))
+
+
+# (E, M, K, N, n_rows) of the expert-batched B1 / B6: qwen2-moe's decode
+# shapes at full width (64 experts of capacity 8), the smoke model's, the
+# 4-row tile (M <= 4), an odd K, warps side by side, and 146-row groups
+# (the one-block-per-32-columns body)
+EXPERT_SHAPES = [(64, 8, 2048, 1408, 144), (64, 8, 1408, 2048, 144),
+                 (16, 8, 128, 64, 144), (16, 8, 64, 128, 144),
+                 (5, 3, 301, 70, 144), (3, 4, 2047, 1024, 144),
+                 (4, 64, 2048, 4096, 144), (6, 8, 700, 96, 146)]
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
+@pytest.mark.parametrize("e,m,k,n,n_rows", EXPERT_SHAPES)
+def test_b1_b6_experts_bit_exact(e, m, k, n, n_rows, level):
+    """One expert-batched launch equals its plain version and one 2-D
+    launch per expert; every expert draws the 2-D kernel's noise (the
+    hash takes no expert index)."""
+    dev = gpu_device()
+    kw = dict(KW, n_rows=n_rows)
+    if level != "ideal":
+        kw.update({k_: v for k_, v in (NOISY if level == "noisy"
+                                       else FULL).items() if k_ not in KW})
+    x = _codes(e + m, (e, m, k)).to(dev)
+    wp = ops.pack_codes(_codes(n + k, (e, k, n)).to(dev)).contiguous()
+    if level == "ideal":
+        fn, wrapper = (cim_mvm.cim_mvm_grouped_packed_experts,
+                       cim_mvm.cim_mvm_grouped_packed)
+        plain = cim_mvm.cim_mvm_grouped_packed_experts_plain
+        args = ()
+    else:
+        fn, wrapper = (cim_mvm.cim_mvm_grouped_noisy_packed_experts,
+                       cim_mvm.cim_mvm_grouped_noisy_packed)
+        plain = cim_mvm.cim_mvm_grouped_noisy_packed_experts_plain
+        args = (torch.tensor([7], dtype=torch.int32, device=dev),)
+    before = fn.launches
+    y = fn(x, wp, *args, **kw)
+    assert fn.launches == before + 1 and y.shape == (e, m, n)
+    assert torch.equal(y, plain(x, wp, *args, **kw))
+    assert torch.equal(y, torch.stack([wrapper(x[i], wp[i], *args, **kw)
+                                       for i in range(e)]))
+
+
+def test_experts_reject_bad_operands():
+    dev = gpu_device()
+    x = _codes(1, (4, 8, 288)).to(dev)
+    wp = ops.pack_codes(_codes(2, (4, 288, 32)).to(dev)).contiguous()
+    with pytest.raises(ValueError, match="3-D"):
+        cim_mvm.cim_mvm_grouped_packed_experts(x[0], wp, **KW)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        cim_mvm.cim_mvm_grouped_packed_experts(x[:3].contiguous(), wp, **KW)
+    with pytest.raises(ValueError, match="CUDA"):
+        cim_mvm.cim_mvm_grouped_packed_experts(x, wp.cpu(), **KW)
+    with pytest.raises(ValueError, match="even"):
+        cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **dict(KW, n_rows=9))
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy"])
+def test_moe_steps_kernels_bit_exact_vs_plain(level):
+    """The smoke qwen2-moe (packed prequant; NOISY at noise_seed 0): a
+    paged prefill chunk and a decode step, and a slot-engine serve, are
+    identical with the kernels (B1, B1 / B6 expert-batched, B3 and the
+    decode launch) and with their plain versions."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import build
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.quantize import quantize_params
+    dev = gpu_device()
+    cim = CIMConfig(enabled=True)
+    if level == "noisy":
+        cim = dataclasses.replace(cim, noise_seed=0, macro=dataclasses.replace(
+            cim.macro, sim_level=SimLevel.NOISY))
+    cfg = SMOKES["qwen2-moe-a2.7b"].replace(cim=cim, attn_backend="kernel")
+    plain = cfg.replace(attn_backend="plain",
+                        cim=dataclasses.replace(cim, backend="plain"))
+    params = quantize_params(registry.init_params(cfg, seed=0, device=dev),
+                             cfg)
+    rng = np.random.RandomState(20)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 8))).to(dev)
+    nxt = torch.from_numpy(rng.randint(0, cfg.vocab, (4, 1))).to(dev)
+    tables = torch.arange(1, 9, dtype=torch.int32, device=dev).reshape(4, 2)
+    valid = torch.tensor([8, 5, 0, 8], device=dev)
+    outs = []
+    build.reset_launch_counts()
+    for c in (cfg, plain):
+        cache = transformer.init_paged_cache(c, 9, 8, device=dev)
+        l1, cache = transformer.paged_step(
+            params, toks, cache, tables, torch.zeros(4, dtype=torch.long,
+                                                     device=dev), valid, c)
+        l2, cache = transformer.paged_step(
+            params, nxt, cache, tables, valid,
+            torch.tensor([1, 1, 0, 1], device=dev), c)
+        # blocks >= 1: the trash block takes masked writes by design
+        outs.append((l1, l2, cache["layers"]["k"][:, 1:],
+                     cache["layers"]["v"][:, 1:]))
+    counts = build.launch_counts()
+    batched = "cim_mvm_grouped_packed_experts" if level == "ideal" \
+        else "cim_mvm_grouped_noisy_packed_experts"
+    assert counts[batched] == 2 * 3 * cfg.n_layers
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    kern = _slot_serve(cfg, dev)
+    assert kern == _slot_serve(plain, dev)
 
 
 # Shapes that reach each path of the dense MVM's dispatch (B2/B5), as

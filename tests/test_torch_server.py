@@ -208,13 +208,57 @@ def test_prefix_hit_schedule_matches_reference(ref_weights):
     _same_metrics(ref, port)
 
 
+@pytest.mark.parametrize("engine", ["paged", "slots"])
+@pytest.mark.parametrize("arch", ["stablelm-3b", "llama3-8b",
+                                  "granite-3-8b"])
+def test_dense_arch_streams_match_reference(arch, engine):
+    """The other dense archs of the port's registry, float32 smoke, packed
+    prequant (B1; B3 on the paged engine): the jitted reference Server's
+    greedy streams on the mixed-depth schedule."""
+    jax = pytest.importorskip("jax")
+    from repro.configs.registry import SMOKES as REF_SMOKES
+    from repro.core.cim_matmul import CIMConfig as RefCIM
+    from repro.models import registry as ref_registry
+    from repro.runtime import server as rserver
+    rcfg = REF_SMOKES[arch].replace(dtype="float32",
+                                    cim=RefCIM(enabled=True))
+    tcfg = SMOKES[arch].replace(dtype="float32", cim=CIMConfig(enabled=True))
+    params = ref_registry.init_params(jax.random.PRNGKey(0), rcfg)
+    kw = dict(n_slots=2, max_len=MAX_LEN, prequant=True)
+    if engine == "paged":
+        kw.update(paged=True, block_size=8, prefill_chunk=4, attn="kernel")
+    srvs = ((rserver.Server(params, rcfg, rserver.ServingConfig(
+                telemetry=False, **kw)), rserver.Request),
+            (tserver.Server(registry.params_from_numpy(
+                to_numpy_tree(params), tcfg, device="cpu"), tcfg,
+                tserver.ServingConfig(**kw), device="cpu"),
+             tserver.Request))
+    outs = []
+    for srv, Req in srvs:
+        rng = np.random.RandomState(42)
+        schedule = {0: 2, 2: 1, 3: 1, 7: 1}
+        reqs, step = [], 0
+        while reqs == [] or any(not r.done for r in reqs) or srv.queue:
+            for _ in range(schedule.get(step, 0)):
+                plen = int(rng.randint(3, 9))
+                r = Req(prompt=rng.randint(0, 512, size=plen).tolist(),
+                        max_new_tokens=int(rng.randint(2, 6)))
+                srv.submit(r)
+                reqs.append(r)
+            srv.step()
+            step += 1
+            assert step < 200
+        outs.append([r.output for r in reqs])
+    assert outs[0] == outs[1]
+
+
 # ---------------------------------------------------------------------------
 # contracts that need no reference
 # ---------------------------------------------------------------------------
 def test_port_imports_no_jax_and_no_reference():
-    """Every module of the port, chip_smoke and a serve on each engine (the
-    paged one with the model drafter) leave no JAX and no reference
-    module in sys.modules."""
+    """Every module of the port, chip_smoke, a serve on each engine (the
+    paged one with the model drafter) and a paged prequant serve of the
+    MoE family leave no JAX and no reference module in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
@@ -236,7 +280,17 @@ def test_port_imports_no_jax_and_no_reference():
         "    srv.submit(r)\n"
         "    srv.run_until_drained()\n"
         "    assert len(r.output) == 4, r.output\n"
+        "from repro_torch.core.cim_matmul import CIMConfig\n"
+        "mcfg = SMOKES['qwen2-moe-a2.7b'].replace(cim=CIMConfig(enabled=True))\n"
+        "srv = Server(registry.init_params(mcfg, seed=0, device='cpu'), mcfg,\n"
+        "             ServingConfig(paged=True, max_len=32, block_size=8,\n"
+        "                           prequant=True), device='cpu')\n"
+        "r = Request(prompt=[1, 2, 3], max_new_tokens=4)\n"
+        "srv.submit(r)\n"
+        "srv.run_until_drained()\n"
+        "assert len(r.output) == 4, r.output\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
+        "          'repro_torch.models.moe',\n"
         "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
         "          'repro_torch.core.energy', 'repro_torch.core.sqnr',\n"

@@ -28,6 +28,12 @@ moves its output by a whole ADC step (about 90 MAC units times the
 scales, the size of the output itself at smoke width), so the reference
 differs from itself by as much under a one-ulp perturbation of its input.
 `test_dense_bf16_cim_bit_exact` holds the bf16 CIM layer itself exact.
+
+The other dense archs (stablelm-3b: LayerNorm with bias, qkv bias, rotary
+on a quarter of the head dim; llama3-8b; granite-3-8b: tied embeddings,
+its head quantized on the fly from embed.T) run the same step sequence
+and the slot engine's prefill + decode_step in the float32 model under
+packed prequant with the kernel attention, at TOL["float32"].
 """
 import dataclasses
 
@@ -223,3 +229,55 @@ def test_cow_copy_block_in_place():
     k[:, 2] = 1.5
     out = transformer.cow_copy_block(cache, 2, 4)
     assert out is cache and torch.equal(k[:, 4], k[:, 2])
+
+
+@pytest.mark.parametrize("arch", ["stablelm-3b", "llama3-8b",
+                                  "granite-3-8b"])
+def test_other_dense_archs_match_reference(arch):
+    ref_cfg = REF_SMOKES[arch].replace(dtype="float32", attn_backend="kernel",
+                                       cim=RefCIM(enabled=True))
+    cfg = SMOKES[arch].replace(dtype="float32", attn_backend="kernel",
+                               cim=CIMConfig(enabled=True))
+    ref_params = ref_registry.init_params(jax.random.PRNGKey(0), ref_cfg)
+    params = quantize_params(registry.params_from_numpy(
+        to_numpy_tree(ref_params), cfg, device="cpu"), cfg)
+    ref_params = ref_quantize(ref_params, ref_cfg)
+    if arch == "granite-3-8b":
+        assert "head_q" not in params["tok"]           # tied: on the fly
+    if arch == "stablelm-3b":
+        assert "bias" in params["layers"][0]["norm1"]
+        assert "bq" in params["layers"][0]["attn"]
+    ref_cfg = ref_cfg.replace(scan_layers=False)
+    tol = TOL["float32"]
+    tables, steps = _schedule(np.random.RandomState(1), cfg.vocab)
+    ref_cache = ref_tf.init_paged_cache(ref_cfg, B * MB + 1, BS)
+    cache = transformer.init_paged_cache(cfg, B * MB + 1, BS, device="cpu")
+    for toks, lens, valid, all_logits in steps[:2]:
+        rl, ref_cache = ref_tf.paged_step(
+            ref_params, jnp.asarray(toks), ref_cache, jnp.asarray(tables),
+            jnp.asarray(lens), jnp.asarray(valid), ref_cfg,
+            all_logits=all_logits)
+        tl, cache = transformer.paged_step(
+            params, torch.from_numpy(toks), cache, torch.from_numpy(tables),
+            torch.from_numpy(lens), torch.from_numpy(valid), cfg,
+            all_logits=all_logits)
+        live = valid > 0
+        assert _rel_err(np32(tl)[live], np32(rl)[live]) <= tol
+        for kv in ("k", "v"):
+            assert _rel_err(np32(cache["layers"][kv])[:, 1:],
+                            np32(ref_cache["layers"][kv])[:, 1:]) <= tol
+    # the slot engine: a prompt prefilled, then one decode step
+    toks = np.random.RandomState(2).randint(0, cfg.vocab, (1, 7)) \
+        .astype(np.int32)
+    rl, rc = ref_tf.prefill(ref_params, {"tokens": jnp.asarray(toks)},
+                            ref_cfg, max_len=16)
+    tl, tc = transformer.prefill(params, {"tokens": torch.from_numpy(toks)},
+                                 cfg, max_len=16)
+    assert _rel_err(np32(tl), np32(rl)) <= tol
+    nxt = np.array([[int(np.argmax(np32(rl)))]], np.int32)
+    rl, rc = ref_tf.decode_step(ref_params, jnp.asarray(nxt), rc, ref_cfg)
+    tl, tc = transformer.decode_step(params, torch.from_numpy(nxt), tc, cfg)
+    assert _rel_err(np32(tl), np32(rl)) <= tol
+    for kv in ("k", "v"):
+        assert _rel_err(np32(tc["layers"][kv]), np32(rc["layers"][kv])) \
+            <= tol
