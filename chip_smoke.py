@@ -121,14 +121,37 @@ of which fails the run when it fails:
      decode launch must launch), the decode step on the card (CUDA graph)
      vs eager, then twice at SimLevel.NOISY, noise_seed 0 (B6, B6e, B3 and
      the decode launch must launch; the kernel-vs-plain steps; the two
-     same-seed serves must give identical streams); (e) stablelm-3b at
-     full width (head dim 80 through B3's GEN instances, LayerNorm, qkv
-     bias, partial rotary): one prefill and one decode paged_step,
-     kernels vs plain, identical logits and pools;
+     same-seed serves must give identical streams); (e) stablelm-3b
+     (head dim 80 through B3's GEN instances, LayerNorm, qkv bias,
+     partial rotary), llama3-8b and granite-3-8b at full width: one
+     prefill and one decode paged_step each, kernels vs plain, identical
+     logits and pools;
+  3d. deepseek-v3 (run after phase 3m, once its models are freed): (a) B2
+     and B5's expert-batched entries (B2e, B5e: 256 experts x capacity 8,
+     K 7168 -> N 2048 and K 2048 -> N 7168, f32 code containers of 15 GB)
+     bit-exact against their plain versions and against 256 2-D launches
+     (B5e at seeds 0 and 7), timed over one layer's three expert MVMs
+     against the bound of their bytes or hash operations; (b)
+     deepseek-v3-671b with every matrix at full width (d_model 7168, 128
+     heads, q / kv LoRA 1536 / 512, 256 routed experts top-8, d_ff_dense
+     18432, vocab 129280) and n_layers cut to first_dense + 1 (three dense
+     layers, one MoE layer; the full model's routed experts hold 654 G
+     codes), random weights from a torch.Generator seed, the expert
+     stacks drawn in chunks, peak memory printed; (c) one per-request
+     prefill (96 tokens) and one decode step through the slot engine's
+     prefill / decode_step at --cim bp (IDEAL) and bp-noisy (NOISY,
+     noise_seed 0), kernels vs plain: identical logits and latent caches,
+     B2e / B5e launched 3 times per MoE layer and forward; (d) phase 3's 8
+     requests served through the slot engine at --cim bp, then twice at
+     --cim bp-noisy (B2e / B5e launched exactly 3 times per MoE layer per
+     forward; the two NOISY serves must give identical streams), the
+     decode step on the card (CUDA graph) vs eager, its launches and the
+     card's idle share. Each part prints its seconds;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
-     B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve),
-     then the result line.
+     B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
+     B2e from phase 3d's --cim bp serve and B5e from its first --cim
+     bp-noisy serve), then the result line.
 """
 from __future__ import annotations
 
@@ -165,7 +188,8 @@ PARITY_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
 DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 # B3's head dims and block sizes past its fast case (dh in {32, 64, 128,
 # 256}, bs <= 32): bf16 rows of dh 20 are 40 bytes; dh 56 is deepseek-v3's
-# MLA head dim, dh 80 stablelm-3b's
+# d_model / n_heads (its MLA attention never reaches B3: q/k head dim 192,
+# V 128), dh 80 stablelm-3b's
 C1_SHAPES = ((16, 16), (80, 16), (56, 16), (20, 16), (128, 48), (128, 64),
              (80, 128))
 SPEC_K = 4
@@ -182,6 +206,10 @@ HOOK_LIMIT = 0.03              # hook time / step() wall, the reference's
 # capacity 8 (T = 4 tokens); (name, K, N, launches per layer)
 MOE_EXPERTS, MOE_CAPACITY = 64, 8
 MOE_MVMS = [("e_gate+e_up", 2048, 1408, 2), ("e_down", 1408, 2048, 1)]
+# deepseek-v3's routed experts at the slot decode (and at a prefill of up
+# to 96 tokens): 256 experts of capacity 8
+DS_EXPERTS, DS_CAPACITY = 256, 8
+DS_MVMS = [("e_gate+e_up", 7168, 2048, 2), ("e_down", 2048, 7168, 1)]
 
 
 def log(msg: str) -> None:
@@ -1710,82 +1738,100 @@ def main() -> int:
         "{4, 64}, K=N=2048 (NOISY seed 7; tolerance 0); B1 == B2 and B6 == "
         "B5 at the even depths")
 
+    # ---- shared by phases 3m and 3d --------------------------------------
+    def expert_mvms(tag, n_exp, cap, shapes, specs, make_w):
+        """Each expert-batched kernel of `specs` ((id, kernel, plain, 2-D
+        wrapper, stochastic kw)) at E = n_exp experts of capacity `cap`,
+        one layer's projections `shapes` ((label, K, N, launches per
+        layer)), weights from make_w(K, N): bit-exact against its plain
+        version and against n_exp 2-D launches (the stochastic ones at
+        seeds 0 and 7), then timed against the bound of its bytes or its
+        operations; the results go to `report`."""
+        for kid, kern, plain, two_d, nkw in specs:
+            t_kid = time.monotonic()
+            fkw = nkw or kw
+            tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+                   "hash_ops": 0.0}
+            e_err = 0.0
+            for label, k, n, count in shapes:
+                x = codes((n_exp, cap, k))
+                w = make_w(k, n)
+                for sd in ((0, 7) if nkw else (None,)):
+                    extra = () if sd is None else (seeds[sd],)
+                    y = kern(x, w, *extra, **fkw)
+                    yp = plain(x, w, *extra, **fkw)
+                    y2 = torch.stack([two_d(x[i], w[i], *extra, **fkw)
+                                      for i in range(n_exp)])
+                    torch.cuda.synchronize()
+                    where = f"at E={n_exp} C={cap} K={k} N={n}" \
+                        + ("" if sd is None else f" seed {sd}")
+                    check(torch.equal(y, yp), f"{kid} differs from its "
+                          f"plain version {where}")
+                    check(torch.equal(y, y2), f"{kid} differs from "
+                          f"{n_exp} 2-D launches {where}")
+                    e_err = max(e_err, (y - yp).abs().max().item())
+                    del y, yp, y2
+                extra = (seeds[0],) if nkw else ()
+
+                def run_k(a, b):
+                    return kern(a, b, *extra, **fkw)
+
+                def run_p(a, b):
+                    return plain(a, b, *extra, **fkw)
+
+                ws = copies(w)
+                args = [(x, wi) for wi in ws]
+                t_k = graph_ms(torch, run_k, args)
+                t_p = graph_ms(torch, run_p, args[:2], reps=3,
+                               min_iters=len(args[:2]))
+                wbytes = w.numel() * w.element_size()
+                rows = n_exp * cap
+                log(f"  {kid} {label:12s} E={n_exp} C={cap} K={k} N={n} "
+                    f"x{count}/layer: kernel {t_k * 1e3:.2f} us on the card "
+                    f"({wbytes / (t_k * 1e-3) / 1e12:.3f} TB/s of "
+                    f"{wbytes / 1e6:.2f} MB weights), plain "
+                    f"{t_p * 1e3:.2f} us")
+                tot["ms"] += count * t_k
+                tot["plain_ms"] += count * t_p
+                tot["bytes"] += count * (wbytes + rows * k * 4 + rows * n * 4)
+                tot["ops"] += count * 2 * rows * k * n
+                if nkw:
+                    tot["hash_ops"] += count * rows * n * (
+                        -(-k // kw["n_rows"]) * HASH_OPS_PER_CONVERSION
+                        + HASH_OPS_PER_OUTPUT)
+                del x, w, ws, args
+                torch.cuda.empty_cache()
+            b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
+            b_ops = max(tot["ops"] / INT_OP_S,
+                        tot["hash_ops"] / INT32_OP_S) * 1e3
+            report[kid] = dict(
+                ms=tot["ms"], plain_ms=tot["plain_ms"],
+                bound_ms=max(b_bytes, b_ops),
+                bound_by="bytes" if b_bytes >= b_ops else "operations",
+                library_ms=None, max_abs_err=e_err)
+            log(f"{tag}: {kid} bit-exact vs its plain version and vs "
+                f"{n_exp} 2-D launches" + (" (seeds 0 and 7)" if nkw else "")
+                + f"; one layer's {sum(c for *_, c in shapes)} expert MVMs: "
+                f"kernel {tot['ms']:.3f} ms on the card, plain "
+                f"{tot['plain_ms']:.3f} ms, bound {max(b_bytes, b_ops):.3f} "
+                f"ms (bytes {b_bytes:.3f} ms, operations {b_ops:.3f} ms, "
+                f"hash {tot['hash_ops'] / 1e9:.3f} G int32 ops); "
+                f"{time.monotonic() - t_kid:.1f} s")
+
     # ---- phase 3m: the MoE family at full width (qwen2-moe-a2.7b) ---------
     del params
     torch.cuda.empty_cache()
     # (a) the expert-batched B1 / B6 at the decode shapes: 64 experts
     # (60 padded to 64) of capacity 8, one layer's three projections
-    for kid, kern, plain, two_d, nkw in (
-            ("B1e", cm.cim_mvm_grouped_packed_experts,
-             cm.cim_mvm_grouped_packed_experts_plain,
-             cm.cim_mvm_grouped_packed, {}),
-            ("B6e", cm.cim_mvm_grouped_noisy_packed_experts,
-             cm.cim_mvm_grouped_noisy_packed_experts_plain,
-             cm.cim_mvm_grouped_noisy_packed, noisy_kw)):
-        fkw = nkw or kw
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
-               "hash_ops": 0.0}
-        e_err = 0.0
-        for label, k, n, count in MOE_MVMS:
-            x = codes((MOE_EXPERTS, MOE_CAPACITY, k))
-            w = ops.pack_codes(codes((MOE_EXPERTS, k, n))).contiguous()
-            for sd in ((0, 7) if nkw else (None,)):
-                extra = () if sd is None else (seeds[sd],)
-                y = kern(x, w, *extra, **fkw)
-                yp = plain(x, w, *extra, **fkw)
-                y2 = torch.stack([two_d(x[i], w[i], *extra, **fkw)
-                                  for i in range(MOE_EXPERTS)])
-                torch.cuda.synchronize()
-                where = f"at E={MOE_EXPERTS} C={MOE_CAPACITY} K={k} N={n}" \
-                    + ("" if sd is None else f" seed {sd}")
-                check(torch.equal(y, yp), f"{kid} differs from its plain "
-                      f"version {where}")
-                check(torch.equal(y, y2), f"{kid} differs from "
-                      f"{MOE_EXPERTS} 2-D launches {where}")
-                e_err = max(e_err, (y - yp).abs().max().item())
-                del y, yp, y2
-            extra = (seeds[0],) if nkw else ()
-
-            def run_k(a, b):
-                return kern(a, b, *extra, **fkw)
-
-            def run_p(a, b):
-                return plain(a, b, *extra, **fkw)
-
-            ws = copies(w)
-            args = [(x, wi) for wi in ws]
-            t_k = graph_ms(torch, run_k, args)
-            t_p = graph_ms(torch, run_p, args[:2], reps=3, min_iters=2)
-            wbytes = w.numel() * w.element_size()
-            rows = MOE_EXPERTS * MOE_CAPACITY
-            log(f"  {kid} {label:12s} E={MOE_EXPERTS} C={MOE_CAPACITY} "
-                f"K={k} N={n} x{count}/layer: kernel {t_k * 1e3:.2f} us on "
-                f"the card ({wbytes / (t_k * 1e-3) / 1e12:.3f} TB/s of "
-                f"{wbytes / 1e6:.2f} MB weights), plain {t_p * 1e3:.2f} us")
-            tot["ms"] += count * t_k
-            tot["plain_ms"] += count * t_p
-            tot["bytes"] += count * (wbytes + rows * k * 4 + rows * n * 4)
-            tot["ops"] += count * 2 * rows * k * n
-            if nkw:
-                tot["hash_ops"] += count * rows * n * (
-                    -(-k // kw["n_rows"]) * HASH_OPS_PER_CONVERSION
-                    + HASH_OPS_PER_OUTPUT)
-            del x, w, ws, args
-        b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
-        b_ops = max(tot["ops"] / INT_OP_S, tot["hash_ops"] / INT32_OP_S) * 1e3
-        report[kid] = dict(
-            ms=tot["ms"], plain_ms=tot["plain_ms"],
-            bound_ms=max(b_bytes, b_ops),
-            bound_by="bytes" if b_bytes >= b_ops else "operations",
-            library_ms=None, max_abs_err=e_err)
-        log(f"phase 3m: {kid} bit-exact vs its plain version and vs "
-            f"{MOE_EXPERTS} 2-D launches" + (" (seeds 0 and 7)" if nkw
-                                              else "")
-            + f"; one layer's 3 expert MVMs: kernel {tot['ms']:.3f} ms on "
-            f"the card, plain {tot['plain_ms']:.3f} ms, bound "
-            f"{max(b_bytes, b_ops):.3f} ms (bytes {b_bytes:.3f} ms, "
-            f"operations {b_ops:.3f} ms, hash "
-            f"{tot['hash_ops'] / 1e9:.3f} G int32 ops)")
+    expert_mvms(
+        "phase 3m", MOE_EXPERTS, MOE_CAPACITY, MOE_MVMS,
+        (("B1e", cm.cim_mvm_grouped_packed_experts,
+          cm.cim_mvm_grouped_packed_experts_plain,
+          cm.cim_mvm_grouped_packed, {}),
+         ("B6e", cm.cim_mvm_grouped_noisy_packed_experts,
+          cm.cim_mvm_grouped_noisy_packed_experts_plain,
+          cm.cim_mvm_grouped_noisy_packed, noisy_kw)),
+        lambda k, n: ops.pack_codes(codes((MOE_EXPERTS, k, n))).contiguous())
 
     # (b) the model: initialised and quantized layer by layer, so its float
     # weights (~30 GB in bf16) are never held whole
@@ -1843,26 +1889,226 @@ def main() -> int:
     del nserver, mserver
     torch.cuda.empty_cache()
 
-    # (e) stablelm-3b: dh 80 through B3's GEN instances, LayerNorm, qkv
-    # bias, rotary on a quarter of the head dim
-    lcfg = ARCHS["stablelm-3b"].replace(cim=CIMConfig(enabled=True))
+    # (e) the dense archs: stablelm-3b (dh 80 through B3's GEN instances,
+    # LayerNorm, qkv bias, rotary on a quarter of the head dim), llama3-8b
+    # and granite-3-8b (GQA 32 / 8 heads of 128, d_model 4096)
+    for arch in ("stablelm-3b", "llama3-8b", "granite-3-8b"):
+        lcfg = ARCHS[arch].replace(cim=CIMConfig(enabled=True))
+        t0 = time.monotonic()
+        lserver = Server(registry.init_params(
+            lcfg, seed=0, device=dev,
+            layer_fn=lambda lp, c=lcfg: quantize_params(lp, c)), lcfg,
+            serving, device=dev)
+        log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers} layers, "
+            f"d_model {lcfg.d_model}, {lcfg.n_heads} / {lcfg.n_kv_heads} "
+            f"heads of {lcfg.head_dim}, vocab {lcfg.vocab}) initialised and "
+            f"packed in {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+        build.reset_launch_counts()
+        check_steps(lserver, f"phase 3m: {lcfg.arch}")
+        counts = build.launch_counts()
+        check(counts["paged_attn_call"] > 0
+              and counts["decode_write_attend_call"] > 0
+              and counts["cim_mvm_grouped_packed"] > 0,
+              f"phase 3m: {lcfg.arch}'s steps did not launch B1, B3 and the "
+              "decode launch")
+        log(f"phase 3m: {lcfg.arch} steps kernels vs plain in "
+            f"{time.monotonic() - t0:.1f} s; launches {counts}")
+        del lserver
+        torch.cuda.empty_cache()
+
+    # ---- phase 3d: deepseek-v3 (MLA, leading dense layers, B2e / B5e) ----
+    t3d = time.monotonic()
+    # (a) the expert-batched B2 / B5 at deepseek-v3's decode shapes: 256
+    # experts of capacity 8, f32 code containers of 15 GB a projection
+    cgen = torch.Generator(device=dev).manual_seed(3)
+    expert_mvms(
+        "phase 3d", DS_EXPERTS, DS_CAPACITY, DS_MVMS,
+        (("B2e", cm.cim_mvm_grouped_experts,
+          cm.cim_mvm_grouped_experts_plain, cm.cim_mvm_grouped, {}),
+         ("B5e", cm.cim_mvm_grouped_noisy_experts,
+          cm.cim_mvm_grouped_noisy_experts_plain, cm.cim_mvm_grouped_noisy,
+          noisy_kw)),
+        lambda k, n: torch.randint(0, 16, (DS_EXPERTS, k, n), generator=cgen,
+                                   device=dev, dtype=torch.float32))
+    log(f"phase 3d (a): {time.monotonic() - t3d:.1f} s")
+
+    # (b) every matrix at full width, n_layers cut to first_dense + 1: the
+    # three dense layers and one MoE layer (the full model's routed experts
+    # hold 654 G codes, 58 layers x 256 x 3 x 7168 x 2048)
     t0 = time.monotonic()
-    lserver = Server(registry.init_params(
-        lcfg, seed=0, device=dev,
-        layer_fn=lambda lp: quantize_params(lp, lcfg)), lcfg, serving,
-        device=dev)
-    log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers} layers, d_model "
-        f"{lcfg.d_model}, head dim {lcfg.head_dim}, vocab {lcfg.vocab}) "
-        f"initialised and packed in {time.monotonic() - t0:.1f} s")
-    build.reset_launch_counts()
-    check_steps(lserver, f"phase 3m: {lcfg.arch}")
-    counts = build.launch_counts()
-    check(counts["paged_attn_call"] > 0
-          and counts["decode_write_attend_call"] > 0,
-          f"phase 3m: {lcfg.arch}'s steps did not launch B3 and the decode "
-          "launch")
-    del lserver
+    full = ARCHS["deepseek-v3-671b"]
+    dcfg = full.replace(n_layers=full.moe.first_dense + 1,
+                        cim=CIMConfig(enabled=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dparams = registry.init_params(dcfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+
+    def gbytes(tree):
+        if isinstance(tree, dict):
+            return sum(gbytes(v) for v in tree.values())
+        if isinstance(tree, list):
+            return sum(gbytes(v) for v in tree)
+        return tree.numel() * tree.element_size() / 1e9
+
+    log(f"phase 3d (b): {dcfg.arch} at full width (d_model {dcfg.d_model}, "
+        f"{dcfg.n_heads} heads, q / kv LoRA {dcfg.mla.q_lora_rank} / "
+        f"{dcfg.mla.kv_lora_rank}, {dcfg.moe.n_experts} routed experts "
+        f"top-{dcfg.moe.top_k}, d_ff_dense {dcfg.moe.d_ff_dense}, vocab "
+        f"{dcfg.vocab}), n_layers cut to {dcfg.n_layers} "
+        f"({dcfg.moe.first_dense} dense + 1 MoE), initialised in "
+        f"{time.monotonic() - t0:.1f} s: tok {gbytes(dparams['tok']):.2f} "
+        f"GB, dense layers {gbytes(dparams['dense_layers']):.2f} GB, MoE "
+        f"layer {gbytes(dparams['layers']):.2f} GB, mtp "
+        f"{gbytes(dparams['mtp']):.2f} GB; "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    n_moe = dcfg.n_layers - dcfg.moe.first_dense
+    ds_serving = ServingConfig(n_slots=4, max_len=256)
+    ds_noisy = dcfg.replace(cim=noisy)
+
+    # (c) one per-request prefill (the 96-token prompt, spliced into slot
+    # 1) and one decode step, kernels vs plain, at IDEAL and NOISY
+    def ds_steps(step_cfg):
+        toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
+        l1, rcache = transformer.prefill(dparams, {"tokens": toks}, step_cfg,
+                                         max_len=256)
+        cache = splice(transformer.init_cache(step_cfg, 4, 256, device=dev),
+                       rcache, 1)
+        nxt = torch.from_numpy(np.random.RandomState(10).randint(
+            0, step_cfg.vocab, (4, 1))).to(dev)
+        l2, cache = transformer.decode_step(dparams, nxt, cache, step_cfg)
+        return (l1, l2), cache
+
+    batched = {"IDEAL": "cim_mvm_grouped_experts",
+               "NOISY": "cim_mvm_grouped_noisy_experts"}
+    for level, step_cfg in (("IDEAL", dcfg), ("NOISY", ds_noisy)):
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        l_k, c_k = ds_steps(step_cfg)
+        torch.cuda.synchronize()
+        s_counts = build.launch_counts()
+        t_k = time.monotonic() - t0
+        l_p, c_p = ds_steps(step_cfg.replace(cim=dataclasses.replace(
+            step_cfg.cim, backend="plain")))
+        torch.cuda.synchronize()
+        check(l_k[0].shape == (1, dcfg.vocab)
+              and l_k[1].shape == (4, dcfg.vocab)
+              and all(bool(torch.isfinite(a).all()) for a in l_k),
+              f"phase 3d: {level} prefill / decode logits malformed")
+        d_err = max((a - b).abs().max().item() for a, b in zip(l_k, l_p))
+        same = all(torch.equal(c_k[st]["latent"].view(torch.int16),
+                               c_p[st]["latent"].view(torch.int16))
+                   for st in ("dense_layers", "layers"))
+        log(f"phase 3d (c): {level} prefill T={len(prompts[0])} + decode "
+            f"step, kernels vs plain versions: max |dlogit| = {d_err}, "
+            f"latent caches identical: {same} (tolerance 0); kernels "
+            f"{t_k:.1f} s, plain {time.monotonic() - t0 - t_k:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{s_counts}")
+        check(d_err == 0.0 and same, f"phase 3d: {level} kernel and plain "
+              "prefill / decode steps differ")
+        check(s_counts[batched[level]] == 2 * 3 * n_moe,
+              f"phase 3d: {level}: {s_counts[batched[level]]} expert-batched "
+              f"launches in a prefill and a decode step, expected "
+              f"{2 * 3 * n_moe}")
+        del l_k, l_p, c_k, c_p
+        torch.cuda.empty_cache()
+
+    # (d) phase 3's 8 requests through the slot engine at --cim bp, then
+    # twice at --cim bp-noisy (noise_seed 0); B2e / B5e launch 3 times per
+    # MoE layer and forward (each prefill, each decode step)
+    def ds_serve(step_cfg, tag):
+        server = Server(dparams, step_cfg, ds_serving, device=dev)
+        check(not server.paged, f"{tag}: not the slot engine")
+        forwards = [0]
+        inner = (transformer.prefill, transformer.decode_step)
+
+        def counted(fn):
+            def run(*a, **k):
+                forwards[0] += 1
+                return fn(*a, **k)
+            return run
+
+        transformer.prefill, transformer.decode_step = map(counted, inner)
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        try:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            build.reset_launch_counts()
+            t0 = time.monotonic()
+            for r in reqs:
+                server.submit(r)
+            server.run_until_drained()
+            torch.cuda.synchronize()
+            dt = time.monotonic() - t0
+        finally:
+            transformer.prefill, transformer.decode_step = inner
+        counts = build.launch_counts()
+        for r in reqs:
+            log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> "
+                f"{r.output}")
+            check(len(r.output) == 16 and all(0 <= t < dcfg.vocab
+                                              for t in r.output),
+                  f"{tag} req{r.rid}: bad output {r.output}")
+        total = sum(len(r.output) for r in reqs)
+        log(f"{tag}: 8 requests, {total} tokens, {forwards[0]} forwards "
+            f"({server.steps_run} steps), {dt:.2f} s "
+            f"({total / dt:.1f} tok/s), peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+            f"{counts}")
+        return server, counts, forwards[0], [r.output for r in reqs]
+
+    for level, step_cfg, runs in (("IDEAL", dcfg, 1), ("NOISY", ds_noisy, 2)):
+        streams = []
+        for run in range(runs):
+            mode = "bp" if level == "IDEAL" else "bp-noisy"
+            tag = f"phase 3d (d): --cim {mode}" \
+                + (f" run {run + 1}" if runs > 1 else "")
+            server, counts, fwd, out = ds_serve(step_cfg, tag)
+            streams.append(out)
+            kname = batched[level]
+            check(counts[kname] == 3 * n_moe * fwd,
+                  f"{tag}: {counts[kname]} {kname} launches in {fwd} "
+                  f"forwards, expected {3 * n_moe * fwd}")
+            other = batched["NOISY" if level == "IDEAL" else "IDEAL"]
+            check(counts[other] == 0 and counts["paged_attn_call"] == 0,
+                  f"{tag}: launched {other} or the paged attention kernel")
+            if run == 0:
+                main_launches["B2e" if level == "IDEAL" else "B5e"] = \
+                    counts[kname]
+                # the slot decode step on the card vs eager (4 slots at
+                # pos 100), and its launches
+                scache = transformer.init_cache(step_cfg, 4, 256,
+                                                device=dev)
+                scache["pos"].fill_(100)
+                stok = torch.from_numpy(np.random.RandomState(8).randint(
+                    0, dcfg.vocab, (4, 1))).to(dev)
+
+                def ds_decode_step(c=step_cfg, sc=scache, st=stok):
+                    transformer.decode_step(dparams, st, sc, c)
+
+                torch.cuda.empty_cache()
+                decode_breakdown(server, f"phase 3d ({card}): {level}",
+                                 ds_decode_step)
+                build.reset_launch_counts()
+                ds_decode_step()
+                torch.cuda.synchronize()
+                log(f"phase 3d: {level}: launches of one slot decode step "
+                    f"{build.launch_counts()}")
+                del scache
+            del server
+            torch.cuda.empty_cache()
+        if runs > 1:
+            check(streams[0] == streams[1], "phase 3d: two same-seed NOISY "
+                  "serves gave different streams")
+            log("phase 3d: the two same-seed NOISY serves gave identical "
+                "streams")
+    del dparams
     torch.cuda.empty_cache()
+    log(f"phase 3d: {time.monotonic() - t3d:.1f} s in all")
 
     # ---- phase 6: report -------------------------------------------------
     meta = {
@@ -1883,6 +2129,11 @@ def main() -> int:
                 "csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:331"),
         "B6e": ("cim_mvm_grouped_noisy_packed_experts", "src/repro_torch/"
                 "kernels/csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:253"),
+        # ... and B2 / B5 there for float expert weights (--cim bp, bp-noisy)
+        "B2e": ("cim_mvm_grouped_experts", "src/repro_torch/kernels/csrc/"
+                "cim_mvm.cu", "src/repro/kernels/cim_mvm.py:366"),
+        "B5e": ("cim_mvm_grouped_noisy_experts", "src/repro_torch/kernels/"
+                "csrc/cim_mvm.cu", "src/repro/kernels/cim_mvm.py:210"),
     }
     kernels = []
     for kid, (name, source, replaces) in meta.items():

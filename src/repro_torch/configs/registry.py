@@ -5,12 +5,12 @@ queued in ROADMAP Queue A9.
 """
 from __future__ import annotations
 
-from . import (granite_3_8b, internlm2_1_8b, llama3_8b, qwen2_moe_a2_7b,
-               stablelm_3b)
+from . import (deepseek_v3_671b, granite_3_8b, internlm2_1_8b, llama3_8b,
+               qwen2_moe_a2_7b, stablelm_3b)
 from .base import SHAPES, MeshConfig, ModelConfig, ShapeConfig  # noqa: F401
 
-_MODULES = (qwen2_moe_a2_7b, llama3_8b, granite_3_8b, internlm2_1_8b,
-            stablelm_3b)
+_MODULES = (deepseek_v3_671b, qwen2_moe_a2_7b, llama3_8b, granite_3_8b,
+            internlm2_1_8b, stablelm_3b)
 
 ARCHS: dict[str, ModelConfig] = {m.CONFIG.arch: m.CONFIG for m in _MODULES}
 SMOKES: dict[str, ModelConfig] = {m.CONFIG.arch: m.SMOKE for m in _MODULES}

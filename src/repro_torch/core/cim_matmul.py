@@ -26,7 +26,8 @@ from .engine import PackedCodes, execute_mvm
 from .macro import MacroConfig, Scheme
 from .quant import (ActQuantConfig, WeightQuantConfig, act_scale,
                     annotate_recorded_shape, current_site, quantize_act,
-                    quantize_weight, recording_active, weight_scale)
+                    quantize_weight, quantize_weight_experts,
+                    recording_active, weight_scale)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,16 +132,26 @@ def cim_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
     x: [..., K] float; w: [K, M] float. Returns float32 [..., M]. `key`
     (a torch.Generator) and `inl_seed` reach the stochastic converter
     (core.engine).
+
+    Expert-batched (the MoE routed experts): x [E, C, K] with w [E, K, M]
+    → [E, C, M]. Each expert is quantized on its own dynamic activation
+    grid and its own weight scale ([E, 1, 1], or [E, 1, M] per channel),
+    as the reference's vmap over the expert axis computes; w may stay in
+    the model dtype, and its codes are made a few experts at a time into
+    one f32 container (quant.quantize_weight_experts). The engine runs
+    the expert-batched entry of B2 / B5 (one launch).
     """
     if not cfg.enabled:
         return x @ w
     cfg = resolve_site_cfg(cfg)
-    s_x = act_scale(x, cfg.act)
+    experts = w.ndim == 3
+    s_x = act_scale(x, cfg.act, per_expert=experts)
     if recording_active():
         annotate_recorded_shape(w.shape[-1])
-    x_codes, zp = quantize_act(x, s_x, cfg.act)
-    s_w = weight_scale(w, cfg.weight)
-    w_codes = quantize_weight(w, s_w, cfg.weight)
+    x_codes, zp = quantize_act(x, s_x, cfg.act, per_expert=experts)
+    s_w = weight_scale(w, cfg.weight, per_expert=experts)
+    w_codes = quantize_weight_experts(w, s_w, cfg.weight) if experts \
+        else quantize_weight(w, s_w, cfg.weight)
     return execute_mvm(x_codes, w_codes, cfg, s_x=s_x, s_w=s_w,
                        x_zero_point=zp, key=key, inl_seed=inl_seed)
 

@@ -63,9 +63,10 @@ dense codes [E, K, M]) with x_codes [E, C, K] compute, per expert, what
 the reference computes under `jax.vmap` over that axis: the caller
 (cim_matmul_prequant) quantizes each expert's activations on its own
 grid, s_x / zero point [E, 1, 1] and s_w [E, 1, 1] or [E, 1, M]; the
-Eq. 7 sums are per expert. The backends that register `experts=True`
-("cuda_packed", "cuda_noisy_packed": B1 / B6's expert-batched entry) run
-all E experts in one call; every other backend runs one call per expert.
+Eq. 7 sums are per expert. The kernel backends register `experts=True`
+and run all E experts in one call (the expert-batched entry of B1 / B2 /
+B5 / B6); the eager backends (einsum, scan, plain) run one call per
+expert.
 """
 from __future__ import annotations
 
@@ -229,8 +230,10 @@ def _scan_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
 # ---------------------------------------------------------------------------
 # Hopper kernels
 # ---------------------------------------------------------------------------
-@register_backend("cuda", schemes=_BP, sim_levels=_IDEAL)
+@register_backend("cuda", schemes=_BP, sim_levels=_IDEAL, experts=True)
 def _cuda_backend(x_codes, w_codes, cfg: MacroConfig, **_):
+    if w_codes.ndim == 3:
+        return ops.cim_mvm_dense_experts(x_codes, w_codes, cfg)
     return ops.cim_mvm_dense(x_codes, w_codes, cfg)
 
 
@@ -243,12 +246,14 @@ def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig,
     return ops.cim_mvm_packed(x_codes, weights.data, cfg)
 
 
-@register_backend("cuda_noisy", schemes=_BP, sim_levels=_STOCHASTIC)
+@register_backend("cuda_noisy", schemes=_BP, sim_levels=_STOCHASTIC,
+                  experts=True)
 def _cuda_noisy_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
                         inl_seed=0, noise_seed=None):
     seed = _resolve_noise_seed(noise_seed, key, x_codes.device)
-    return ops.cim_mvm_noisy(x_codes, w_codes, cfg, noise_seed=seed,
-                             inl_seed=inl_seed)
+    fn = ops.cim_mvm_noisy_experts if w_codes.ndim == 3 \
+        else ops.cim_mvm_noisy
+    return fn(x_codes, w_codes, cfg, noise_seed=seed, inl_seed=inl_seed)
 
 
 @register_backend("cuda_noisy_packed", schemes=_BP, sim_levels=_STOCHASTIC,

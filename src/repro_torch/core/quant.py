@@ -189,9 +189,20 @@ def annotate_recorded_shape(m: int) -> None:
             rec[-1].m = int(m)
 
 
-def weight_scale(w: torch.Tensor, cfg: WeightQuantConfig) -> torch.Tensor:
-    """Symmetric weight scale; per-channel reduces over all but last dim."""
-    if cfg.per_channel:
+def weight_scale(w: torch.Tensor, cfg: WeightQuantConfig, *,
+                 per_expert: bool = False) -> torch.Tensor:
+    """Symmetric weight scale; per-channel reduces over all but last dim.
+
+    per_expert: w is [E, K, M] (the MoE routed experts) and each expert
+    gets its own scale, [E, 1, 1] or per-channel [E, 1, M], as the
+    reference's weight_scale under vmap. Its |w| max is max(max w, −min w)
+    in w's own dtype (exact: no value is rounded), so no |w| copy of the
+    expert stack is made, and it is then widened to f32."""
+    if per_expert:
+        dims = (1,) if cfg.per_channel else (1, 2)
+        amax = torch.maximum(torch.amax(w, dim=dims, keepdim=True),
+                             -torch.amin(w, dim=dims, keepdim=True)).float()
+    elif cfg.per_channel:
         amax = torch.amax(w.abs(), dim=tuple(range(w.ndim - 1)), keepdim=True)
     else:
         amax = w.abs().max()
@@ -225,6 +236,27 @@ def quantize_weight(w: torch.Tensor, scale: torch.Tensor,
     q_signed = torch.clamp(torch.round(w / scale), float(cfg.qmin),
                            float(cfg.qmax))
     return q_signed + cfg.offset
+
+
+# f32 elements of one expert chunk's temporaries in quantize_weight_experts
+_EXPERT_CHUNK_ELEMS = 1 << 28
+
+
+def quantize_weight_experts(w: torch.Tensor, scale: torch.Tensor,
+                            cfg: WeightQuantConfig) -> torch.Tensor:
+    """quantize_weight over an expert stack w [E, K, M] (any float dtype)
+    with per-expert scales [E, 1, 1] or [E, 1, M] → f32 codes [E, K, M],
+    made into one container a few experts at a time: elementwise, so the
+    codes are quantize_weight's on w.float(), without that f32 copy and
+    its temporaries of the whole stack (15 GB each for one deepseek-v3
+    projection)."""
+    e = w.shape[0]
+    out = torch.empty(w.shape, dtype=torch.float32, device=w.device)
+    step = max(1, _EXPERT_CHUNK_ELEMS // max(1, w[0].numel()))
+    for e0 in range(0, e, step):
+        e1 = min(e, e0 + step)
+        out[e0:e1] = quantize_weight(w[e0:e1].float(), scale[e0:e1], cfg)
+    return out
 
 
 def bit_planes(q: torch.Tensor, bits: int) -> torch.Tensor:

@@ -117,5 +117,7 @@ def _wrappers(cim_mvm, paged_attention):
             cim_mvm.cim_mvm_grouped_noisy_packed,
             cim_mvm.cim_mvm_grouped_packed_experts,
             cim_mvm.cim_mvm_grouped_noisy_packed_experts,
+            cim_mvm.cim_mvm_grouped_experts,
+            cim_mvm.cim_mvm_grouped_noisy_experts,
             paged_attention.paged_attn_call,
             paged_attention.decode_write_attend_call)

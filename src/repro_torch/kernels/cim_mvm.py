@@ -33,10 +33,10 @@ product through a 16-bit split, so no int64 product overflows.
 
 Each function has a plain PyTorch version here (`*_plain`) and a wrapper
 that launches the Hopper kernel in `csrc/cim_mvm.cu` on a CUDA tensor and
-runs the plain version on a CPU tensor. B1 and B6 also have an
-expert-batched entry (`*_experts`: x [E, M, K], w [E, K2, N] in one
-launch, for the MoE routed experts), each expert bit-identical to the
-2-D kernel on its own operands. The wrappers count their launches
+runs the plain version on a CPU tensor. Each kernel also has an
+expert-batched entry (`*_experts`: x [E, M, K], w [E, K2, N] or dense
+[E, K, N] in one launch, for the MoE routed experts), each expert
+bit-identical to the 2-D kernel on its own operands. The wrappers count their launches
 (`<wrapper>.launches`). The macro depth n_rows may be any depth >= 1 for
 the dense kernels B2/B5, as in the reference; the packed B1/B6 need an
 even depth (the reference's packed kernels assert it) of at most
@@ -274,6 +274,25 @@ def cim_mvm_grouped_noisy_packed_experts_plain(x: torch.Tensor,
         for e in range(x.shape[0])])
 
 
+def cim_mvm_grouped_experts_plain(x: torch.Tensor, w: torch.Tensor,
+                                  **kw) -> torch.Tensor:
+    """Plain version of B2's expert-batched entry: x [E, M, K] f32 codes,
+    w [E, K, N] codes → [E, M, N], B2's plain version on each expert in
+    turn (what the reference's vmap over the expert axis computes)."""
+    return torch.stack([cim_mvm_grouped_plain(x[e], w[e], **kw)
+                        for e in range(x.shape[0])])
+
+
+def cim_mvm_grouped_noisy_experts_plain(x: torch.Tensor, w: torch.Tensor,
+                                        seed, **kw) -> torch.Tensor:
+    """Plain version of B5's expert-batched entry: B5's plain version on
+    each expert in turn, every expert under the same seed (the counter
+    hash takes the row within the expert and no expert index, as under the
+    reference's vmap)."""
+    return torch.stack([cim_mvm_grouped_noisy_plain(x[e], w[e], seed, **kw)
+                        for e in range(x.shape[0])])
+
+
 def _check_launch(name: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -314,23 +333,24 @@ def _check_mvm_operands(x: torch.Tensor, w: torch.Tensor, wdtype,
     check_depth(n_rows, packed=wdtype == torch.uint8)
 
 
-def _check_expert_operands(x: torch.Tensor, w_packed: torch.Tensor,
+def _check_expert_operands(x: torch.Tensor, w: torch.Tensor, wdtype,
                            n_rows: int) -> tuple[int, int, int, int, int]:
-    """(E, M, K, K2, N) of an expert-batched packed MVM's operands."""
-    if not w_packed.is_cuda or w_packed.device != x.device:
+    """(E, M, K, KW, N) of an expert-batched MVM's operands: KW = K2 byte
+    rows for nibble-packed uint8 w, K rows for dense f32 codes."""
+    if not w.is_cuda or w.device != x.device:
         raise ValueError("x and w must lie on the same CUDA device")
     if x.dtype != torch.float32 or x.ndim != 3 or not x.is_contiguous():
         raise ValueError("x must be a contiguous 3-D float32 tensor")
-    if w_packed.dtype != torch.uint8 or w_packed.ndim != 3 \
-            or not w_packed.is_contiguous():
-        raise ValueError("w must be a contiguous 3-D uint8 tensor")
-    check_depth(n_rows, packed=True)
+    if w.dtype != wdtype or w.ndim != 3 or not w.is_contiguous():
+        raise ValueError(f"w must be a contiguous 3-D {wdtype} tensor")
+    packed = wdtype == torch.uint8
+    check_depth(n_rows, packed=packed)
     e, m, k = x.shape
-    e_w, k2, n = w_packed.shape
-    if e_w != e or k not in (2 * k2, 2 * k2 - 1):
-        raise ValueError(f"shape mismatch x {tuple(x.shape)} w_packed "
-                         f"{tuple(w_packed.shape)}")
-    return e, m, k, k2, n
+    e_w, kw_, n = w.shape
+    if e_w != e or k not in ((2 * kw_, 2 * kw_ - 1) if packed else (kw_,)):
+        raise ValueError(f"shape mismatch x {tuple(x.shape)} w "
+                         f"{tuple(w.shape)}")
+    return e, m, k, kw_, n
 
 
 def cim_mvm_grouped(x: torch.Tensor, w: torch.Tensor, *, n_rows: int,
@@ -488,7 +508,8 @@ def cim_mvm_grouped_packed_experts(x: torch.Tensor, w_packed: torch.Tensor,
     kw = dict(n_rows=n_rows, levels=levels, gain=gain, full_scale=full_scale)
     if not x.is_cuda:
         return cim_mvm_grouped_packed_experts_plain(x, w_packed, **kw)
-    e, m, k, k2, n = _check_expert_operands(x, w_packed, n_rows)
+    e, m, k, k2, n = _check_expert_operands(x, w_packed, torch.uint8,
+                                            n_rows)
     out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
     lib = build.load("cim_mvm")
@@ -521,7 +542,8 @@ def cim_mvm_grouped_noisy_packed_experts(x: torch.Tensor,
     if not x.is_cuda:
         return cim_mvm_grouped_noisy_packed_experts_plain(x, w_packed, seed,
                                                           **kw)
-    e, m, k, k2, n = _check_expert_operands(x, w_packed, n_rows)
+    e, m, k, k2, n = _check_expert_operands(x, w_packed, torch.uint8,
+                                            n_rows)
     _check_seed(seed, x)
     out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
@@ -537,12 +559,69 @@ def cim_mvm_grouped_noisy_packed_experts(x: torch.Tensor,
     return out
 
 
+def cim_mvm_grouped_experts(x: torch.Tensor, w: torch.Tensor, *,
+                            n_rows: int, levels: int, gain: float,
+                            full_scale: float) -> torch.Tensor:
+    """B2, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
+    [E, M, N] f32 in one launch, expert e bit-identical to B2 on (x[e],
+    w[e]). Replaces `kernels/cim_mvm.py:cim_mvm_grouped` of the JAX package
+    under `jax.vmap` over the routed experts (`models/moe.py`)."""
+    kw = dict(n_rows=n_rows, levels=levels, gain=gain, full_scale=full_scale)
+    if not x.is_cuda:
+        return cim_mvm_grouped_experts_plain(x, w, **kw)
+    e, m, k, _, n = _check_expert_operands(x, w, torch.float32, n_rows)
+    out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
+    lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    lib = build.load("cim_mvm")
+    rc = lib.cim_mvm_dense_experts_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
+        inv_lsb, lsb, float(levels - 1),
+        torch.cuda.current_stream(x.device).cuda_stream)
+    cim_mvm_grouped_experts.launches += 1
+    _check_launch("cim_mvm_grouped_experts", rc)
+    return out
+
+
+def cim_mvm_grouped_noisy_experts(x: torch.Tensor, w: torch.Tensor,
+                                  seed: torch.Tensor, *, n_rows: int,
+                                  levels: int, gain: float, full_scale: float,
+                                  sigma: float, inl_amp: float = 0.0,
+                                  inl_seed: int = 0,
+                                  apply_inl: bool = False) -> torch.Tensor:
+    """B5, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
+    [E, M, N] f32 in one launch, expert e bit-identical to B5 on (x[e],
+    w[e]) under the same seed: the counter hash takes the row within the
+    expert and no expert index, as the reference's Pallas kernel under
+    vmap."""
+    kw = dict(n_rows=n_rows, levels=levels, gain=gain, full_scale=full_scale,
+              sigma=sigma, inl_amp=inl_amp, inl_seed=inl_seed,
+              apply_inl=apply_inl)
+    if not x.is_cuda:
+        return cim_mvm_grouped_noisy_experts_plain(x, w, seed, **kw)
+    e, m, k, _, n = _check_expert_operands(x, w, torch.float32, n_rows)
+    _check_seed(seed, x)
+    out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
+    lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    mode, salt, sig, inl = _stochastic_args(inv_lsb, levels, sigma,
+                                            inl_amp, inl_seed, apply_inl)
+    lib = build.load("cim_mvm")
+    rc = lib.cim_mvm_noisy_dense_experts_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
+        inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt, sig,
+        inl, torch.cuda.current_stream(x.device).cuda_stream)
+    cim_mvm_grouped_noisy_experts.launches += 1
+    _check_launch("cim_mvm_grouped_noisy_experts", rc)
+    return out
+
+
 cim_mvm_grouped.launches = 0
 cim_mvm_grouped_packed.launches = 0
 cim_mvm_grouped_noisy.launches = 0
 cim_mvm_grouped_noisy_packed.launches = 0
 cim_mvm_grouped_packed_experts.launches = 0
 cim_mvm_grouped_noisy_packed_experts.launches = 0
+cim_mvm_grouped_experts.launches = 0
+cim_mvm_grouped_noisy_experts.launches = 0
 
 # ctypes signatures of the C entry points in csrc/cim_mvm.cu
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
@@ -560,4 +639,9 @@ build.declare("cim_mvm", {
     "cim_mvm_noisy_packed_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
                                             _I, _F, _F, _F, _I, _P, _U, _F,
                                             _FA, _P],
+    "cim_mvm_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
+                                     _F, _P],
+    "cim_mvm_noisy_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
+                                           _F, _F, _F, _I, _P, _U, _F, _FA,
+                                           _P],
 })

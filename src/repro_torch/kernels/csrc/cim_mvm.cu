@@ -71,13 +71,13 @@
 // instruction). The split aims at ~64 CTAs: at M = 4 the 2048-wide MVMs
 // take clusters of 2 and the 1024-wide ones clusters of 4.
 //
-// B1/B6 expert-batched (the MoE routed experts, which the reference runs
-// as jax.vmap of its packed kernels): x [E, M, K], w [E, K2, N] -> out
-// [E, M, N] in one launch, grid z over (expert, row tile). Separate
-// template instances (EXPERTS = true), so the 2-D instances compile as
-// before. Rows and groups are counted within an expert, so an expert's
-// outputs, and under NOISY/FULL its noise draws, are those of a 2-D
-// launch on its own operands.
+// B1/B6 and B2/B5 expert-batched (the MoE routed experts, which the
+// reference runs as jax.vmap of its kernels): x [E, M, K], w [E, K2, N]
+// (or dense [E, K, N]) -> out [E, M, N] in one launch, grid z over
+// (expert, row tile). Separate template instances (EXPERTS = true), so the
+// 2-D instances compile as before. Rows and groups are counted within an
+// expert, so an expert's outputs, and under NOISY/FULL its noise draws,
+// are those of a 2-D launch on its own operands.
 //
 // B2/B5 (cim_mvm_dense_kernel): a lane loads a float4 (4 columns of one
 // f32 weight row) for each of U = 9 rows at once (144 bytes in flight per
@@ -735,7 +735,7 @@ __device__ __forceinline__ void reduce_cols(float (&acc)[4][BM], int upper,
     }
 }
 
-template <int BM, int MODE>
+template <int BM, int MODE, bool EXPERTS>
 __global__ void __launch_bounds__(kDenseWarps * 32, 2)
 cim_mvm_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
                      float* __restrict__ out, int M, int N, int K,
@@ -760,7 +760,18 @@ cim_mvm_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int wg = warp / wcols;                      // ... and group lane
   const int wgs = (blockDim.x >> 5) / wcols;
   const int n0 = blockIdx.x * nct + wc * kCols;
-  const int m0 = blockIdx.z * BM;
+  int mz = blockIdx.z;                              // the row tile
+  if constexpr (EXPERTS) {
+    // grid z runs over (expert, row tile); the expert's operands are the
+    // next [M, K], [K, N] and [M, N] blocks
+    const int mt = (M + BM - 1) / BM;
+    const int e = mz / mt;
+    mz -= e * mt;
+    x += (size_t)e * M * K;
+    w += (size_t)e * K * N;
+    out += (size_t)e * M * N;
+  }
+  const int m0 = mz * BM;
   const int g0 = rank * gpc;
   const int ng = max(0, min(gpc, G - g0));
   const int chunk = lane % kChunks;
@@ -943,16 +954,18 @@ cim_mvm_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
 }
 
 // The cluster launch of the dense kernel; takes every shape.
-template <int BM, int MODE>
-int launch_dense(const float* x, const float* w, float* out, int M, int N,
-                 int K, int n_rows, int G, float inv_lsb, float lsb,
+template <int BM, int MODE, bool EXPERTS>
+int launch_dense(const float* x, const float* w, float* out, int E, int M,
+                 int N, int K, int n_rows, int G, float inv_lsb, float lsb,
                  float code_max, const Stochastic& st, cudaStream_t stream) {
   // Wide matrices: up to 8 warps side by side along the columns share one
   // CTA's staged activations. Then the groups split over the fewest
   // cluster ranks that give the most warps, up to ~kDenseWarpTarget (two
   // 8-warp CTAs per SM): each rank more costs barrier and DSMEM latency.
+  // E experts (EXPERTS) multiply the row tiles.
   constexpr int kCols = 4 * dense_chunks(BM);       // columns per warp
-  const long mt = (M + BM - 1) / BM;
+  const long mt = (long)((M + BM - 1) / BM) * E;   // (expert, row) tiles
+  if (mt > 65535) return (int)cudaErrorInvalidValue;
   const long warp_tiles = (long)((N + kCols - 1) / kCols) * mt;
   int wcols = 1;
   while (wcols < kDenseWarps && warp_tiles >= 2L * wcols * kDenseWideTiles)
@@ -1008,7 +1021,7 @@ int launch_dense(const float* x, const float* w, float* out, int M, int N,
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        cim_mvm_dense_kernel<BM, MODE>,
+        cim_mvm_dense_kernel<BM, MODE, EXPERTS>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
@@ -1026,10 +1039,9 @@ int launch_dense(const float* x, const float* w, float* out, int M, int N,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t e = cudaLaunchKernelEx(&cfg, cim_mvm_dense_kernel<BM, MODE>,
-                                     x, w, out, M, N, K, n_rows, G, gpc, gpp,
-                                     rpp, wcols, vec, inv_lsb, lsb, code_max,
-                                     st);
+  cudaError_t e = cudaLaunchKernelEx(
+      &cfg, cim_mvm_dense_kernel<BM, MODE, EXPERTS>, x, w, out, M, N, K,
+      n_rows, G, gpc, gpp, rpp, wcols, vec, inv_lsb, lsb, code_max, st);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -1041,10 +1053,12 @@ int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
                   cudaStream_t stream) {
   if constexpr (!PACKED) {
     const float* wf = static_cast<const float*>(w);
-    return M <= 4 ? launch_dense<4, MODE>(x, wf, out, M, N, K, n_rows, G,
-                                          inv_lsb, lsb, code_max, st, stream)
-                  : launch_dense<8, MODE>(x, wf, out, M, N, K, n_rows, G,
-                                          inv_lsb, lsb, code_max, st, stream);
+    return M <= 4 ? launch_dense<4, MODE, EXPERTS>(x, wf, out, E, M, N, K,
+                                                   n_rows, G, inv_lsb, lsb,
+                                                   code_max, st, stream)
+                  : launch_dense<8, MODE, EXPERTS>(x, wf, out, E, M, N, K,
+                                                   n_rows, G, inv_lsb, lsb,
+                                                   code_max, st, stream);
   } else {
     const uint8_t* wp = static_cast<const uint8_t*>(w);
     const int rc =
@@ -1064,8 +1078,8 @@ int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
   }
 }
 
-// E > 1 problems side by side (EXPERTS, packed only): x [E, M, K], w [E,
-// KW, N], out [E, M, N], each expert computed as its own 2-D launch would.
+// E > 1 problems side by side (EXPERTS): x [E, M, K], w [E, KW, N], out
+// [E, M, N], each expert computed as its own 2-D launch would.
 template <bool PACKED, bool EXPERTS = false>
 int dispatch(const float* x, const void* w, float* out, int E, int M, int N,
              int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
@@ -1153,6 +1167,35 @@ int cim_mvm_noisy_packed_launch(const float* x, const uint8_t* w, float* out,
   return dispatch<true>(x, w, out, 1, M, N, K, K2, n_rows,
                         groups(2 * K2, n_rows), inv_lsb, lsb, code_max, mode,
                         st, stream);
+}
+
+// B2, expert-batched: x [E, M, K] f32, w [E, K, N] f32 codes, out [E, M,
+// N] f32; expert e computes what B2 computes on x[e], w[e] (one launch, its
+// own template instances).
+int cim_mvm_dense_experts_launch(const float* x, const float* w, float* out,
+                                 int E, int M, int N, int K, int n_rows,
+                                 float inv_lsb, float lsb, float code_max,
+                                 cudaStream_t stream) {
+  const Stochastic none{};
+  return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
+                               groups(K, n_rows), inv_lsb, lsb, code_max,
+                               kIdeal, none, stream);
+}
+
+// B5, expert-batched. The counter hash takes the row within the expert and
+// no expert index, so every expert draws the noise B5 draws on its own.
+int cim_mvm_noisy_dense_experts_launch(const float* x, const float* w,
+                                       float* out, int E, int M, int N,
+                                       int K, int n_rows, float inv_lsb,
+                                       float lsb, float code_max, int mode,
+                                       const int* seed, unsigned salt,
+                                       float sigma, const float* inl,
+                                       cudaStream_t stream) {
+  if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
+  const Stochastic st = make_stochastic(seed, salt, sigma, inl);
+  return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
+                               groups(K, n_rows), inv_lsb, lsb, code_max,
+                               mode, st, stream);
 }
 
 // B1, expert-batched: x [E, M, K] f32, w [E, K2, N] uint8, out [E, M, N]

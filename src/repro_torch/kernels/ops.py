@@ -1,8 +1,8 @@
 """Entry points of the grouped ADC MVM kernels and the nibble-pack helpers.
 
 Handles leading-dim flattening and operand dtype/contiguity, then calls
-the kernel wrappers in `kernels.cim_mvm` (B1 packed, B2 dense, and their
-stochastic twins B6, B5). K is not
+the kernel wrappers in `kernels.cim_mvm` (B1 packed, B2 dense, their
+stochastic twins B6, B5, and each one's expert-batched entry). K is not
 padded here: the plain versions zero-pad it to the macro depth, and the
 CUDA kernels read rows past K as zero codes, which is the same function
 without copying the weights.
@@ -15,14 +15,16 @@ import torch.nn.functional as F
 from repro_torch.core.adc import stochastic_transfer_params
 from repro_torch.core.macro import MacroConfig, Scheme, SimLevel
 
-from .cim_mvm import (cim_mvm_grouped, cim_mvm_grouped_noisy,
+from .cim_mvm import (cim_mvm_grouped, cim_mvm_grouped_experts,
+                      cim_mvm_grouped_noisy, cim_mvm_grouped_noisy_experts,
                       cim_mvm_grouped_noisy_packed,
                       cim_mvm_grouped_noisy_packed_experts,
                       cim_mvm_grouped_packed, cim_mvm_grouped_packed_experts,
                       salt_seed, unpack_nibbles)
 
 __all__ = ["cim_mvm_dense", "cim_mvm_packed", "cim_mvm_noisy",
-           "cim_mvm_noisy_packed", "cim_mvm_packed_experts",
+           "cim_mvm_noisy_packed", "cim_mvm_dense_experts",
+           "cim_mvm_packed_experts", "cim_mvm_noisy_experts",
            "cim_mvm_noisy_packed_experts", "pack_codes", "unpack_codes",
            "packed_col_sums", "salt_seed"]
 
@@ -89,6 +91,18 @@ def _prep_experts(x_codes: torch.Tensor, w_packed: torch.Tensor):
             w_packed.to(torch.uint8).contiguous())
 
 
+def _prep_dense_experts(x_codes: torch.Tensor, w_codes: torch.Tensor):
+    """Operand prep of the expert-batched dense kernels: x [E, C, K] f32,
+    w [E, K, M] f32 codes, both contiguous."""
+    if x_codes.ndim != 3 or w_codes.ndim != 3 \
+            or x_codes.shape[0] != w_codes.shape[0] \
+            or x_codes.shape[-1] != w_codes.shape[1]:
+        raise ValueError(f"x {tuple(x_codes.shape)} does not match expert "
+                         f"weights {tuple(w_codes.shape)}")
+    return (x_codes.to(torch.float32).contiguous(),
+            w_codes.to(torch.float32).contiguous())
+
+
 def _kernel_kw(cfg: MacroConfig) -> dict:
     return dict(n_rows=cfg.n_rows, levels=cfg.effective_adc_levels(),
                 gain=cfg.gain, full_scale=cfg.full_scale())
@@ -128,6 +142,17 @@ def cim_mvm_dense(x_codes: torch.Tensor, w_codes: torch.Tensor,
     return out.reshape(*lead, w2.shape[1])
 
 
+def cim_mvm_dense_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                          cfg: MacroConfig) -> torch.Tensor:
+    """B2 over E experts in one launch: x [E, C, K], w [E, K, M] stored
+    codes → f32 [E, C, M], expert e exactly `cim_mvm_dense(x[e],
+    w_codes[e])`."""
+    if cfg.scheme != Scheme.BP:
+        raise ValueError("the fused kernel implements BP only")
+    x3, w3 = _prep_dense_experts(x_codes, w_codes)
+    return cim_mvm_grouped_experts(x3, w3, **_kernel_kw(cfg))
+
+
 def _check_stochastic(cfg: MacroConfig) -> dict:
     if cfg.scheme != Scheme.BP:
         raise ValueError("the fused stochastic kernels implement BP only")
@@ -151,6 +176,18 @@ def cim_mvm_noisy(x_codes: torch.Tensor, w_codes: torch.Tensor,
     x2, w2, lead = _prep_dense(x_codes, w_codes)
     out = cim_mvm_grouped_noisy(x2, w2, noise_seed, inl_seed=inl_seed, **kw)
     return out.reshape(*lead, w2.shape[1])
+
+
+def cim_mvm_noisy_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
+                          cfg: MacroConfig, *, noise_seed: torch.Tensor,
+                          inl_seed: int = 0) -> torch.Tensor:
+    """B5 over E experts in one launch: x [E, C, K], w [E, K, M] → f32
+    [E, C, M], expert e exactly `cim_mvm_noisy(x[e], w_codes[e])` under the
+    same seed."""
+    kw = _check_stochastic(cfg)
+    x3, w3 = _prep_dense_experts(x_codes, w_codes)
+    return cim_mvm_grouped_noisy_experts(x3, w3, noise_seed,
+                                         inl_seed=inl_seed, **kw)
 
 
 def cim_mvm_noisy_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,

@@ -7,6 +7,14 @@ reference's launcher does.
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu \
       [--cim bp-prequant]
 
+  # deepseek-v3 (MLA with the absorbed latent decode, three leading dense
+  # layers, 256 routed experts): the slot engine only (--paged raises);
+  # --cim bp / bp-noisy runs the routed experts through B2 / B5's
+  # expert-batched entry (bp-prequant cannot decode: the absorbed decode
+  # reads float weights, as in the reference)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
+      --smoke --device cpu [--cim bp|bp-noisy]
+
   # the paged-KV engine at full width on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \
       --cim bp-prequant

@@ -8,10 +8,12 @@ Routed expert weights are [E, D, F], E padded to a multiple of EP_PAD
 token; their MVMs still run, on all-zero buffers, as in the reference.
 Under CIM the experts may hold stored codes (models.quantize):
 nibble-packed uint8 [E, ceil(K/2), M] or int8 [E, K, M], with scales
-[E, 1, 1] or [E, 1, M]. Stored codes run all experts of a projection in
-one expert-batched call (core.cim_matmul.cim_matmul_prequant: one launch
-of B1 / B6 for packed codes); weights quantized on the fly run one
-cim_matmul per expert.
+[E, 1, 1] or [E, 1, M]. Each projection runs all experts in one
+expert-batched call: core.cim_matmul.cim_matmul_prequant for stored codes
+(one launch of B1 / B6 for packed codes), core.cim_matmul.cim_matmul for
+float weights quantized on the fly (one launch of B2 / B5), each expert
+on its own activation grid and weight scale. While a calibration span
+recorder is open the experts run one call each instead.
 
 The numerics follow the reference op by op (ROADMAP Queue C):
   * routing: f32 logits from the f32 router; softmax as jax.nn.softmax
@@ -54,6 +56,23 @@ def padded_experts(n: int) -> int:
     return -(-n // EP_PAD) * EP_PAD
 
 
+# f32 elements drawn at once while initialising an expert stack
+_INIT_CHUNK_ELEMS = 1 << 28
+
+
+def _expert_stack(gen, shape, scale, dtype, device) -> torch.Tensor:
+    """Random [E, K, M] expert weights in `dtype`, drawn a few experts at
+    a time, so no f32 copy of the whole stack is held (15 GB for one
+    deepseek-v3 projection)."""
+    out = torch.empty(shape, dtype=dtype, device=device)
+    step = max(1, _INIT_CHUNK_ELEMS // (shape[1] * shape[2]))
+    for e0 in range(0, shape[0], step):
+        e1 = min(shape[0], e0 + step)
+        out[e0:e1] = (_normal(gen, (e1 - e0,) + tuple(shape[1:]), device)
+                      * scale).to(dtype)
+    return out
+
+
 def init(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     """Random MoE FFN weights from `gen` (the router in f32, the experts
     and the shared expert in the model dtype)."""
@@ -64,9 +83,9 @@ def init(gen: torch.Generator, cfg: ModelConfig, *, device) -> dict:
     scale_in = 1.0 / math.sqrt(d)
     scale_out = 1.0 / math.sqrt(f * 2 * cfg.n_layers)
     p = {"router": _normal(gen, (d, m.n_experts), device) * 0.02,
-         "e_gate": (_normal(gen, (e_pad, d, f), device) * scale_in).to(dt),
-         "e_up": (_normal(gen, (e_pad, d, f), device) * scale_in).to(dt),
-         "e_down": (_normal(gen, (e_pad, f, d), device) * scale_out).to(dt)}
+         "e_gate": _expert_stack(gen, (e_pad, d, f), scale_in, dt, device),
+         "e_up": _expert_stack(gen, (e_pad, d, f), scale_in, dt, device),
+         "e_down": _expert_stack(gen, (e_pad, f, d), scale_out, dt, device)}
     if m.n_shared:
         p["shared"] = mlp_init(gen, cfg, device=device, d_ff=m.d_ff_shared)
         if m.shared_gate:
@@ -129,13 +148,15 @@ def _expert_slice(wp: dict, e: int) -> dict:
 
 
 def _cim_mvm(xb: torch.Tensor, wp: dict, cfg: ModelConfig) -> torch.Tensor:
-    """One _expert_weights dict on the macro: expert-batched ([E, C, K])
-    for stored codes, or one expert ([C, K]) for any weight."""
+    """One _expert_weights dict on the macro, expert-batched ([E, C, K]) or
+    for one expert ([C, K]). Float weights stay in the model dtype: the
+    quantizer widens them a few experts at a time."""
     if "pk" in wp:
         return cim_matmul_prequant(xb.float(), wp["pk"], None, cfg.cim)
     if "q" in wp:
         return cim_matmul_prequant(xb.float(), wp["q"], wp["s"], cfg.cim)
-    return cim_matmul(xb.float(), wp["w"].float(), cfg.cim)
+    w = wp["w"]
+    return cim_matmul(xb.float(), w if w.ndim == 3 else w.float(), cfg.cim)
 
 
 def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
@@ -143,14 +164,13 @@ def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
     """Batched expert MLP: buf [E, C, D] → [E, C, D].
 
     Under CIM the three projections run under the e_gate / e_up / e_down
-    sites. Stored codes take one expert-batched call each; float weights
-    (quantized on the fly) and every call while a calibration span
-    recorder is open run expert by expert, so each expert's span is
+    sites, one expert-batched call each; while a calibration span recorder
+    is open they run expert by expert instead, so each expert's span is
     recorded, as the reference unrolls its vmap then."""
     if cfg.cim.enabled:
         def f(xb, wp, site):
             with quant.act_site(site):
-                if "w" in wp or quant.recording_active():
+                if quant.recording_active():
                     return torch.stack([
                         _cim_mvm(xb[e], _expert_slice(wp, e), cfg)
                         for e in range(xb.shape[0])])

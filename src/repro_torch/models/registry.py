@@ -41,10 +41,12 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     """The reference package's parameter tree, as numpy arrays, → the
     port's params on `device`.
 
-    Stacked [L, ...] leaves under "layers" become one dict per layer (the
-    MoE FFN's router [L, D, E], experts [L, E, D, F] and shared gate too);
-    bf16 leaves arrive as uint16 views (the checkpoint format's
-    encoding).
+    Stacked [L, ...] leaves under "dense_layers" (MoEConfig.first_dense
+    layers) and "layers" (the other n_layers − first_dense) become one
+    dict per layer (the MoE FFN's router [L, D, E], experts [L, E, D, F]
+    and shared gate too); every other entry ("tok", "final_norm",
+    deepseek's "mtp") is carried as it is; bf16 leaves arrive as uint16
+    views (the checkpoint format's encoding).
     """
     get_module(cfg)
     dev = resolve_device(device)
@@ -59,6 +61,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
             return {k: split(v, i) for k, v in node.items()}
         return _to_tensor(node[i], dev)
 
-    out = {k: conv(v) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [split(tree["layers"], i) for i in range(cfg.n_layers)]
-    return out
+    n_dense = cfg.moe.first_dense if cfg.moe is not None else 0
+    depth = {"dense_layers": n_dense, "layers": cfg.n_layers - n_dense}
+    return {k: [split(v, i) for i in range(depth[k])] if k in depth
+            else conv(v) for k, v in tree.items()}

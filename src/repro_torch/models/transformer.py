@@ -1,15 +1,21 @@
-"""Decoder transformer for serving (dense GQA LMs and the MoE family): the
-padded `forward`, the slot engine's `prefill` / `decode_step` and the
-paged `paged_step`. A layer's FFN is the MLP, or the MoE FFN
-(`models.moe`) where its params hold a router.
+"""Decoder transformer for serving (dense GQA LMs, the MoE family and
+deepseek-v3's MLA): the padded `forward`, the slot engine's `prefill` /
+`decode_step` and the paged `paged_step`. A layer's FFN is the MLP, or the
+MoE FFN (`models.moe`) where its params hold a router; its attention is
+GQA, or MLA (`models.mla`) where cfg.mla is set.
 
 Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
-"layers": [per-layer dict, ...]} — the reference's stacked [L, ...] leaves
-become one dict of tensors per layer, and its layer scan becomes a Python
-loop (inference only). The caches keep the reference's stacked layouts,
-slot {"pos", "layers": {"k", "v": [L, B, max_len, KH, dh]}} and paged
-{"layers": {"k", "v": [L, NB, bs, KH, dh]}}; a layer reads and writes its
-slice in place.
+"dense_layers": [...], "layers": [per-layer dict, ...], "mtp": {...}} —
+the reference's stacked [L, ...] leaves become one dict of tensors per
+layer, and its layer scans become Python loops (inference only).
+"dense_layers" holds MoEConfig.first_dense leading layers with a dense FFN
+of width d_ff_dense (deepseek-v3's first three), run before "layers";
+"mtp" (the multi-token-prediction block) is carried for training (ROADMAP
+A10) and never read here. The caches keep the reference's stacked
+layouts, one entry per layer stack: slot {"pos", "dense_layers", "layers":
+{"k", "v": [L, B, max_len, KH, dh]}} ({"latent": [L, B, max_len, lat]}
+under MLA) and paged {"dense_layers", "layers": {"k", "v": [L, NB, bs, KH,
+dh]}}; a layer reads and writes its slice in place.
 """
 from __future__ import annotations
 
@@ -19,32 +25,48 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from . import common, moe
+from . import common, mla, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
                      embed_lookup, mlp_apply, mlp_init, norm, norm_init,
                      unembed)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.moe is not None and (cfg.moe.first_dense or cfg.moe.d_ff_dense):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r}: leading dense layers (MoEConfig.first_dense, "
-            "deepseek-v3) are not ported yet (ROADMAP A9)")
-    if cfg.mla is not None or cfg.encoder_layers \
-            or cfg.cross_attention or cfg.n_image_tokens \
-            or cfg.pos_embed != "rope" or cfg.mtp:
+    if cfg.encoder_layers or cfg.cross_attention or cfg.n_image_tokens \
+            or cfg.pos_embed != "rope":
         raise NotImplementedError(
             f"arch {cfg.arch!r} needs model features that are not ported "
-            "yet (ROADMAP A9)")
+            "yet: image prefixes, learned positions, cross-attention "
+            "(ROADMAP A9b)")
 
 
-def _layer_init(gen, cfg: ModelConfig, *, device) -> dict:
+def _n_dense(cfg: ModelConfig) -> int:
+    """Leading layers with a dense FFN of width d_ff_dense."""
+    return cfg.moe.first_dense if cfg.moe is not None else 0
+
+
+def _layer_init(gen, cfg: ModelConfig, *, device, ffn: str) -> dict:
+    """One decoder layer; ffn "dense", "moe" or "dense_wide" (the leading
+    dense layers' width d_ff_dense)."""
     kw = dict(dtype=dtype_of(cfg), device=device, kind=cfg.norm)
-    return {"norm1": norm_init(cfg.d_model, **kw),
-            "norm2": norm_init(cfg.d_model, **kw),
-            "attn": attention_init(gen, cfg, device=device),
-            "ffn": (moe.init if cfg.moe is not None else mlp_init)(
-                gen, cfg, device=device)}
+    attn = mla.init if cfg.mla is not None else attention_init
+    p = {"norm1": norm_init(cfg.d_model, **kw),
+         "norm2": norm_init(cfg.d_model, **kw),
+         "attn": attn(gen, cfg, device=device)}
+    if ffn == "moe":
+        p["ffn"] = moe.init(gen, cfg, device=device)
+    else:
+        p["ffn"] = mlp_init(gen, cfg, device=device,
+                            d_ff=cfg.moe.d_ff_dense if ffn == "dense_wide"
+                            else None)
+    return p
+
+
+def _stacks(tree: dict):
+    """(name, entry) of each layer stack present in a params or cache
+    tree, in execution order: "dense_layers", then "layers"."""
+    return [(name, tree[name]) for name in ("dense_layers", "layers")
+            if name in tree]
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None,
@@ -59,11 +81,28 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     layer_fn = layer_fn or (lambda lp: lp)
-    return {"tok": embed_init(gen, cfg, device=dev),
-            "final_norm": norm_init(cfg.d_model, dtype=dtype_of(cfg),
-                                    device=dev, kind=cfg.norm),
-            "layers": [layer_fn(_layer_init(gen, cfg, device=dev))
-                       for _ in range(cfg.n_layers)]}
+    n_dense = _n_dense(cfg)
+    params = {"tok": embed_init(gen, cfg, device=dev),
+              "final_norm": norm_init(cfg.d_model, dtype=dtype_of(cfg),
+                                      device=dev, kind=cfg.norm)}
+    if n_dense:
+        params["dense_layers"] = [
+            layer_fn(_layer_init(gen, cfg, device=dev, ffn="dense_wide"))
+            for _ in range(n_dense)]
+    main = "moe" if cfg.moe is not None else "dense"
+    params["layers"] = [layer_fn(_layer_init(gen, cfg, device=dev, ffn=main))
+                        for _ in range(cfg.n_layers - n_dense)]
+    if cfg.mtp:     # deepseek's multi-token prediction: one block + proj
+        kw = dict(dtype=dtype_of(cfg), device=dev, kind=cfg.norm)
+        params["mtp"] = layer_fn({
+            "proj": common.dense_init(gen, 2 * cfg.d_model, cfg.d_model,
+                                      dtype=dtype_of(cfg), device=dev,
+                                      name_w="w_proj"),
+            "block": _layer_init(gen, cfg, device=dev,
+                                 ffn="dense_wide" if cfg.moe else "dense"),
+            "norm_h": norm_init(cfg.d_model, **kw),
+            "norm_e": norm_init(cfg.d_model, **kw)})
+    return params
 
 
 # ---------------------------------------------------------------------------
@@ -89,11 +128,17 @@ def _ffn(p: dict, x, cfg: ModelConfig):
 def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
            cache_index=0):
     """One decoder layer; `cache` is None (the padded forward), {} (prefill:
-    the layer's K/V come back) or the layer's slot cache {"k", "v"}
-    (decode: written in place). Returns (h, the K/V or None)."""
-    a, kv = attention_apply(lp["attn"], norm(lp["norm1"], h, cfg), cfg,
-                            positions=positions, cache=cache,
-                            cache_index=cache_index)
+    the layer's cache entries come back) or the layer's slot cache {"k",
+    "v"} / {"latent"} (decode: written in place). Returns (h, the entries
+    or None)."""
+    hn = norm(lp["norm1"], h, cfg)
+    if cfg.mla is not None:
+        a, kv = mla.apply(lp["attn"], hn, cfg, positions=positions,
+                          cache=cache or None, cache_index=cache_index,
+                          return_cache=cache == {})
+    else:
+        a, kv = attention_apply(lp["attn"], hn, cfg, positions=positions,
+                                cache=cache, cache_index=cache_index)
     h = h + a
     return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
 
@@ -105,23 +150,40 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
     if train:
         raise NotImplementedError("training is not ported yet (ROADMAP A10)")
     x, positions = _embed_inputs(params, batch, cfg)
-    for lp in params["layers"]:
-        x, _ = _layer(lp, x, cfg, positions=positions)
+    for _, stack in _stacks(params):
+        for lp in stack:
+            x, _ = _layer(lp, x, cfg, positions=positions)
     return norm(params["final_norm"], x, cfg), 0.0, None
+
+
+def _cache_stacks(cfg: ModelConfig, lead: tuple, device) -> dict:
+    """Zeroed cache entries per layer stack, each leaf [L, *lead, ...]:
+    {"latent"} under MLA (kv_lora + rope wide), else {"k", "v"}."""
+    if cfg.mla is not None:
+        tail = {"latent": (cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim,)}
+    else:
+        kv = (cfg.n_kv_heads, cfg.head_dim)
+        tail = {"k": kv, "v": kv}
+
+    def mk(n):
+        return {leaf: torch.zeros((n, *lead, *t), dtype=dtype_of(cfg),
+                                  device=device) for leaf, t in tail.items()}
+
+    out = {"layers": mk(cfg.n_layers - _n_dense(cfg))}
+    if _n_dense(cfg):
+        out["dense_layers"] = mk(_n_dense(cfg))
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """The slot cache (zeros): "pos" an int32 scalar on the device, K/V
-    [L, batch, max_len, KH, dh]."""
+    """The slot cache (zeros): "pos" an int32 scalar on the device, and per
+    layer stack K/V [L, batch, max_len, KH, dh] (the latent [L, batch,
+    max_len, kv_lora + rope] under MLA)."""
     _check_arch(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
     return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            "layers": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=dev),
-                       "v": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=dev)}}
+            **_cache_stacks(cfg, (batch, max_len), dev)}
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
@@ -133,11 +195,12 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     pos = cache["pos"]
     x, positions = _embed_inputs(params, {"tokens": tokens}, cfg)
     positions = positions + pos
-    kv = cache["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x, _ = _layer(lp, x, cfg, positions=positions,
-                      cache={"k": kv["k"][i], "v": kv["v"][i]},
-                      cache_index=pos)
+    for name, stack in _stacks(params):
+        kv = cache[name]
+        for i, lp in enumerate(stack):
+            x, _ = _layer(lp, x, cfg, positions=positions,
+                          cache={leaf: t[i] for leaf, t in kv.items()},
+                          cache_index=pos)
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params["tok"], x[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}
@@ -146,19 +209,22 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
 def prefill(params: dict, batch: dict, cfg: ModelConfig,
             max_len: int | None = None):
     """A whole prompt in one forward → (last-token logits [B, V], its
-    cache): K/V [L, B, T, KH, dh] zero-padded to max_len (left as is when
-    T >= max_len), "pos" = T."""
+    cache): per layer stack K/V [L, B, T, KH, dh] (the latent [L, B, T,
+    lat] under MLA) zero-padded to max_len (left as is when T >= max_len),
+    "pos" = T."""
     x, positions = _embed_inputs(params, batch, cfg)
     t = x.shape[1]
     max_len = max_len or t
-    h, ks, vs = x, [], []
-    for lp in params["layers"]:
-        h, kv = _layer(lp, h, cfg, positions=positions, cache={})
-        ks.append(kv["k"])
-        vs.append(kv["v"])
-    cache = {"pos": torch.full((), t, dtype=torch.int32, device=x.device),
-             "layers": _pad_cache({"k": torch.stack(ks), "v": torch.stack(vs)},
-                                  max_len)}
+    cache = {"pos": torch.full((), t, dtype=torch.int32, device=x.device)}
+    h = x
+    for name, stack in _stacks(params):
+        entries = []
+        for lp in stack:
+            h, kv = _layer(lp, h, cfg, positions=positions, cache={})
+            entries.append(kv)
+        cache[name] = _pad_cache({leaf: torch.stack([e[leaf]
+                                                     for e in entries])
+                                  for leaf in entries[0]}, max_len)
     h = norm(params["final_norm"], h, cfg)
     return unembed(params["tok"], h[:, -1], cfg), cache
 
@@ -184,26 +250,24 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
                      device=None) -> dict:
-    """Physical KV block pools [L, NB, bs, KH, dh] (zeros); NB includes
-    the trash block (physical id 0)."""
+    """Physical KV block pools [L, NB, bs, KH, dh] (zeros) per layer stack;
+    NB includes the trash block (physical id 0). MLA's latent cache has no
+    paged layout, as in the reference."""
     if not supports_paged(cfg):
         raise NotImplementedError(
-            f"paged KV serving not implemented for arch {cfg.arch!r}")
+            f"paged KV serving not implemented for arch {cfg.arch!r} "
+            "(MLA latent / cross-attention caches)")
     _check_arch(cfg)
-    dev = resolve_device(device)
-    shape = (cfg.n_layers, num_blocks, block_size, cfg.n_kv_heads,
-             cfg.head_dim)
-    return {"layers": {"k": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=dev),
-                       "v": torch.zeros(shape, dtype=dtype_of(cfg),
-                                        device=dev)}}
+    return _cache_stacks(cfg, (num_blocks, block_size),
+                         resolve_device(device))
 
 
 def cow_copy_block(cache: dict, src: int, dst: int) -> dict:
     """Copy one physical block's K/V (every layer) from `src` to `dst`, IN
     PLACE — the copy-on-write primitive behind prefix sharing."""
-    for pool in cache["layers"].values():
-        pool[:, dst] = pool[:, src]
+    for _, pools in _stacks(cache):
+        for pool in pools.values():
+            pool[:, dst] = pool[:, src]
     return cache
 
 
@@ -254,10 +318,11 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
                               kv_len.to(torch.int32),
                               flat_idx.to(torch.int32))
 
-    pools = cache["layers"]
-    for i, lp in enumerate(params["layers"]):
-        x = _layer_paged(lp, x, {"k": pools["k"][i], "v": pools["v"][i]},
-                         cfg, index=index)
+    for name, stack in _stacks(params):
+        pools = cache[name]
+        for i, lp in enumerate(stack):
+            x = _layer_paged(lp, x, {"k": pools["k"][i],
+                                     "v": pools["v"][i]}, cfg, index=index)
     x = norm(params["final_norm"], x, cfg)
     if all_logits:
         return unembed(params["tok"], x, cfg), cache          # [B, C, V]

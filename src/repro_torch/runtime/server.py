@@ -945,10 +945,12 @@ class Server:
     def kv_cache_bytes(self) -> dict:
         """Resident KV bytes on the device: {"total": the K/V tensors'
         bytes, "in_use": the bytes of the blocks referenced now, by live
-        requests or by the trie; == total for the slot cache}. Reads sizes
-        only."""
-        pools = self.cache["layers"].values()
-        total = sum(t.numel() * t.element_size() for t in pools)
+        requests or by the trie; == total for the slot cache}: every cache
+        leaf but the scalar "pos", in every layer stack (K/V, or MLA's
+        latent). Reads sizes only."""
+        total = sum(t.numel() * t.element_size()
+                    for name, stack in self.cache.items() if name != "pos"
+                    for t in stack.values())
         if not self.paged:
             return {"total": total, "in_use": total}
         per_block = total // (self.alloc.stats.num_blocks + 1)   # + trash
@@ -958,17 +960,20 @@ class Server:
 
 def _splice(batched: dict, request: dict, slot: int) -> dict:
     """Copy a 1-deep request cache into row `slot` of the batched slot
-    cache, IN PLACE: each K/V leaf [L, 1, T, ...] is cast to the cache's
-    dtype and zero-padded or trimmed to its max_len, so the whole row is
-    overwritten; "pos" takes the max of the two, so the shared clock covers
-    the deepest slot."""
-    for name, dst in batched["layers"].items():
-        src = request["layers"][name][:, :1].to(dst.dtype)
-        s = dst.shape[2]
-        if src.shape[2] > s:
-            src = src[:, :, :s]
-        dst[:, slot:slot + 1, :src.shape[2]] = src
-        dst[:, slot:slot + 1, src.shape[2]:] = 0
+    cache, IN PLACE: each leaf [L, 1, T, ...] of every layer stack (K/V,
+    or MLA's latent) is cast to the cache's dtype and zero-padded or
+    trimmed to its max_len, so the whole row is overwritten; "pos" takes
+    the max of the two, so the shared clock covers the deepest slot."""
+    for stack, leaves in batched.items():
+        if stack == "pos":
+            continue
+        for name, dst in leaves.items():
+            src = request[stack][name][:, :1].to(dst.dtype)
+            s = dst.shape[2]
+            if src.shape[2] > s:
+                src = src[:, :, :s]
+            dst[:, slot:slot + 1, :src.shape[2]] = src
+            dst[:, slot:slot + 1, src.shape[2]:] = 0
     batched["pos"] = torch.maximum(
         batched["pos"], request["pos"]).to(batched["pos"].dtype)
     return batched

@@ -1,6 +1,7 @@
 """The port's configs equal the reference's, field for field: every
 ported arch's full and smoke config (internlm2-1.8b, stablelm-3b,
-llama3-8b, granite-3-8b, qwen2-moe-a2.7b with its MoEConfig)."""
+llama3-8b, granite-3-8b, qwen2-moe-a2.7b with its MoEConfig, deepseek-v3
+with its MoEConfig and MLAConfig)."""
 import dataclasses
 import importlib
 
@@ -25,7 +26,7 @@ from repro_torch.core import quant as t_quant  # noqa: E402
 ref_cim = importlib.import_module("repro.core.cim_matmul")
 
 ARCH_MODULES = ("stablelm_3b", "llama3_8b", "granite_3_8b",
-                "qwen2_moe_a2_7b")
+                "qwen2_moe_a2_7b", "deepseek_v3_671b")
 
 PAIRS = {
     "CONFIG": (ref_arch.CONFIG, t_arch.CONFIG),
@@ -85,14 +86,20 @@ def test_model_config_widths():
                                                    151936, 60, 4, 1408, 4,
                                                    5632)
     assert t_registry.get("stablelm-3b").head_dim == 80
+    d = t_registry.get("deepseek-v3-671b")
+    assert (d.n_layers, d.d_model, d.n_heads, d.head_dim, d.vocab,
+            d.moe.n_experts, d.moe.top_k, d.moe.first_dense,
+            d.moe.d_ff_dense, d.mla.q_lora_rank, d.mla.kv_lora_rank,
+            d.mtp) == (61, 7168, 128, 56, 129280, 256, 8, 3, 18432, 1536,
+                       512, True)
 
 
 def test_registry_unported_arch_raises():
     with pytest.raises(KeyError, match="A9"):
-        t_registry.get("deepseek-v3-671b")
+        t_registry.get("zamba2-2.7b")
     assert sorted(t_registry.ARCHS) == sorted(t_registry.SMOKES) == [
-        "granite-3-8b", "internlm2-1.8b", "llama3-8b", "qwen2-moe-a2.7b",
-        "stablelm-3b"]
+        "deepseek-v3-671b", "granite-3-8b", "internlm2-1.8b", "llama3-8b",
+        "qwen2-moe-a2.7b", "stablelm-3b"]
 
 
 def test_cim_config_site_overrides_raise():

@@ -25,8 +25,11 @@ versions, as is a lane's stream under the static grid alone and beside
 companions. B1 and B6's expert-batched entries (the MoE routed experts)
 equal their plain versions and one 2-D launch per expert, bit for bit, and
 the smoke qwen2-moe's paged steps and slot serve are identical with the
-kernels and with their plain versions. Inputs come from numpy seeds. This
-file needs no JAX.
+kernels and with their plain versions; so do B2 and B5's (the float
+routed experts at --cim bp / bp-noisy), and the smoke deepseek-v3's slot
+prefill, decode step and serve (MLA, a leading dense layer, the experts
+through B2 / B5's expert-batched entry). Inputs come from numpy seeds.
+This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -166,6 +169,118 @@ def test_experts_reject_bad_operands():
         cim_mvm.cim_mvm_grouped_packed_experts(x, wp.cpu(), **KW)
     with pytest.raises(ValueError, match="even"):
         cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **dict(KW, n_rows=9))
+
+
+# (E, M, K, N, n_rows) of the expert-batched B2 / B5: deepseek-v3's expert
+# widths on fewer experts (capacity 8; K 7168 -> N 256 and K 2048 -> N
+# 896), the smoke model's, the 4-row tile, an odd K, warps side by side
+# (N 4096 at M > 4), N % 4 != 0 (scalar weight loads), depth 9, and
+# groups staged in passes (n_rows 1, no cluster)
+DENSE_EXPERT_SHAPES = [(16, 8, 7168, 256, 144), (16, 8, 2048, 896, 144),
+                       (16, 8, 128, 64, 144), (16, 8, 64, 128, 144),
+                       (5, 3, 301, 70, 144), (3, 4, 2047, 1024, 144),
+                       (4, 64, 2048, 4096, 144), (4, 8, 1500, 18, 144),
+                       (6, 8, 700, 96, 9), (2, 4, 12000, 16, 1)]
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
+@pytest.mark.parametrize("e,m,k,n,n_rows", DENSE_EXPERT_SHAPES)
+def test_b2_b5_experts_bit_exact(e, m, k, n, n_rows, level):
+    """One expert-batched B2 / B5 launch equals its plain version and one
+    2-D launch per expert; every expert draws the 2-D kernel's noise."""
+    dev = gpu_device()
+    kw = _depth_kw(n_rows, level)
+    x = _codes(e + m, (e, m, k)).to(dev)
+    w = _codes(n + k, (e, k, n)).to(dev)
+    if level == "ideal":
+        fn, wrapper = (cim_mvm.cim_mvm_grouped_experts,
+                       cim_mvm.cim_mvm_grouped)
+        plain = cim_mvm.cim_mvm_grouped_experts_plain
+        args = ()
+    else:
+        fn, wrapper = (cim_mvm.cim_mvm_grouped_noisy_experts,
+                       cim_mvm.cim_mvm_grouped_noisy)
+        plain = cim_mvm.cim_mvm_grouped_noisy_experts_plain
+        args = (torch.tensor([7], dtype=torch.int32, device=dev),)
+    before = fn.launches
+    y = fn(x, w, *args, **kw)
+    assert fn.launches == before + 1 and y.shape == (e, m, n)
+    assert torch.equal(y, plain(x, w, *args, **kw))
+    assert torch.equal(y, torch.stack([wrapper(x[i], w[i], *args, **kw)
+                                       for i in range(e)]))
+
+
+def test_dense_experts_reject_bad_operands():
+    dev = gpu_device()
+    x = _codes(1, (4, 8, 288)).to(dev)
+    w = _codes(2, (4, 288, 32)).to(dev)
+    with pytest.raises(ValueError, match="3-D"):
+        cim_mvm.cim_mvm_grouped_experts(x[0], w, **KW)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        cim_mvm.cim_mvm_grouped_experts(x[:3].contiguous(), w, **KW)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        cim_mvm.cim_mvm_grouped_experts(x[..., :200].contiguous(), w, **KW)
+    with pytest.raises(ValueError, match="CUDA"):
+        cim_mvm.cim_mvm_grouped_experts(x, w.cpu(), **KW)
+    with pytest.raises(ValueError, match="float32"):
+        cim_mvm.cim_mvm_grouped_experts(x, w.to(torch.uint8), **KW)
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy"])
+def test_deepseek_steps_kernels_bit_exact_vs_plain(level):
+    """The smoke deepseek-v3 at --cim bp (NOISY at noise_seed 0): a slot
+    prefill and a decode step are identical with the kernels (B2, B2e at
+    IDEAL; B5, B5e at NOISY) and with their plain versions, logits and
+    both latent stacks, with 3 expert-batched launches per MoE layer and
+    forward; so are a slot serve's streams and metrics."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import build
+    from repro_torch.models import registry, transformer
+    from repro_torch.runtime.server import (Request, Server, ServingConfig,
+                                            _splice)
+    dev = gpu_device()
+    cim = CIMConfig(enabled=True)
+    if level == "noisy":
+        cim = dataclasses.replace(cim, noise_seed=0, macro=dataclasses.replace(
+            cim.macro, sim_level=SimLevel.NOISY))
+    cfg = SMOKES["deepseek-v3-671b"].replace(cim=cim)
+    plain = cfg.replace(cim=dataclasses.replace(cim, backend="plain"))
+    params = registry.init_params(cfg, seed=0, device=dev)
+    rng = np.random.RandomState(21)
+    toks = torch.from_numpy(rng.randint(0, cfg.vocab, (1, 11))).to(dev)
+    nxt = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 1))).to(dev)
+    outs = []
+    build.reset_launch_counts()
+    for c in (cfg, plain):
+        l1, rcache = transformer.prefill(params, {"tokens": toks}, c,
+                                         max_len=32)
+        cache = _splice(transformer.init_cache(c, 2, 32, device=dev), rcache,
+                        1)
+        l2, cache = transformer.decode_step(params, nxt, cache, c)
+        outs.append((l1, l2, cache["dense_layers"]["latent"],
+                     cache["layers"]["latent"]))
+    counts = build.launch_counts()
+    batched = "cim_mvm_grouped_experts" if level == "ideal" \
+        else "cim_mvm_grouped_noisy_experts"
+    assert counts[batched] == 2 * 3 * (cfg.n_layers - cfg.moe.first_dense)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+    def serve(c):
+        srv = Server(params, c, ServingConfig(n_slots=2, max_len=64),
+                     device=dev)
+        r2 = np.random.RandomState(19)
+        reqs = [Request(prompt=r2.randint(0, c.vocab, size=int(n)).tolist(),
+                        max_new_tokens=5) for n in (5, 30, 9)]
+        for r in reqs:
+            srv.submit(r)
+        srv.run_until_drained()
+        return [r.output for r in reqs], srv.steps_run
+
+    assert serve(cfg) == serve(plain)
 
 
 @pytest.mark.parametrize("level", ["ideal", "noisy"])
@@ -492,8 +607,9 @@ def test_b4_bit_exact_vs_plain(dtype):
 # Head dims and block sizes past B3's fast case (dh in {32, 64, 128, 256},
 # bs <= 32): rows of bf16 dh 20 are 40 bytes (8-byte copies), of dh 21 42
 # bytes in bf16 (2-byte copies) and 84 in f32 (4-byte copies); dh 56 is
-# deepseek-v3's MLA head dim, dh 80 stablelm-3b's; bs > 32 is scored in
-# pieces of 32 tokens.
+# deepseek-v3's d_model / n_heads (7168 / 128; its MLA attention never
+# reaches B3: q/k head dim 192, V 128), dh 80 stablelm-3b's; bs > 32 is
+# scored in pieces of 32 tokens.
 C1_SHAPES = [(16, 16), (20, 16), (21, 8), (56, 16), (80, 16), (96, 8),
              (128, 48), (128, 64), (80, 128)]
 

@@ -50,7 +50,7 @@ from repro_torch.core.cim_matmul import (CIMConfig,  # noqa: E402
                                          cim_matmul_prequant)
 from repro_torch.core.engine import PackedCodes  # noqa: E402
 from repro_torch.core.macro import SimLevel  # noqa: E402
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, cim_mvm  # noqa: E402
 from repro_torch.models import moe, registry, transformer  # noqa: E402
 from repro_torch.models.quantize import quantize_params  # noqa: E402
 from repro_torch.runtime import server as tserver  # noqa: E402
@@ -324,10 +324,27 @@ def test_quantize_params_experts_match_reference(weights, leg):
 
 
 def test_first_dense_layers_raise():
-    cfg = SMOKES[ARCH].replace(moe=dataclasses.replace(SMOKES[ARCH].moe,
-                                                       first_dense=1))
+    """Leading dense layers (MoEConfig.first_dense) are ported: qwen2-moe
+    with one builds one dense layer of width d_ff_dense and n_layers − 1
+    MoE layers, as the reference's init does, and its paged pool gets a
+    "dense_layers" stack; what still raises is an arch feature queued in
+    A9b (here an image prefix)."""
+    moe_cfg = dataclasses.replace(SMOKES[ARCH].moe, first_dense=1,
+                                  d_ff_dense=96)
+    cfg = SMOKES[ARCH].replace(moe=moe_cfg)
+    ref = ref_registry.init_params(jax.random.PRNGKey(0), REF_SMOKES[
+        ARCH].replace(moe=dataclasses.replace(REF_SMOKES[ARCH].moe,
+                                              first_dense=1, d_ff_dense=96)))
+    p = registry.init_params(cfg, device="cpu")
+    assert len(p["dense_layers"]) == 1 and len(p["layers"]) == 1
+    assert p["dense_layers"][0]["ffn"]["w_up"].shape \
+        == ref["dense_layers"]["ffn"]["w_up"].shape[1:] == (128, 96)
+    assert "router" in p["layers"][0]["ffn"]
+    pools = transformer.init_paged_cache(cfg, 5, 8, device="cpu")
+    assert pools["dense_layers"]["k"].shape[0] == 1
+    assert pools["layers"]["k"].shape[0] == 1
     with pytest.raises(NotImplementedError, match="A9"):
-        registry.init_params(cfg, device="cpu")
+        registry.init_params(cfg.replace(n_image_tokens=4), device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -383,14 +400,17 @@ def _serve(srv, req_cls):
 
 
 @pytest.mark.parametrize("engine", ["paged", "slots"])
-@pytest.mark.parametrize("leg", ["off", "prequant", "noisy-prequant"])
-def test_servers_match_reference(weights, leg, engine):
+@pytest.mark.parametrize("leg", ["off", "bp", "prequant", "noisy-prequant"])
+def test_servers_match_reference(weights, leg, engine, monkeypatch):
     """The port's Server gives the jitted reference Server's greedy
     streams on the float32 smoke qwen2-moe, on both engines. On CPU
     tensors the expert-batched wrappers run their plain versions and
-    count no launch."""
+    count no launch; at --cim bp the routed experts' float weights go
+    through B2's expert-batched entry (its plain version here), once per
+    projection and MoE layer of each forward."""
     ref_cfg, cfg = _cfgs(leg)
-    kw = dict(n_slots=2, max_len=MAX_LEN, prequant=leg != "off")
+    kw = dict(n_slots=2, max_len=MAX_LEN,
+              prequant=leg not in ("off", "bp"))
     if engine == "paged":
         kw.update(paged=True, block_size=8, prefill_chunk=4,
                   attn="kernel" if leg != "off" else "exact")
@@ -399,14 +419,24 @@ def test_servers_match_reference(weights, leg, engine):
     port = tserver.Server(
         registry.params_from_numpy(weights[1], cfg, device="cpu"), cfg,
         tserver.ServingConfig(**kw), device="cpu")
+    calls = []
+    b2e_plain = cim_mvm.cim_mvm_grouped_experts_plain
+    monkeypatch.setattr(cim_mvm, "cim_mvm_grouped_experts_plain",
+                        lambda *a, **k: calls.append(1) or b2e_plain(*a,
+                                                                     **k))
     build.reset_launch_counts()
     out = _serve(port, tserver.Request)
     counts = build.launch_counts()
     assert out == _serve(ref, rserver.Request)
     batched = {"prequant": "cim_mvm_grouped_packed_experts",
-               "noisy-prequant": "cim_mvm_grouped_noisy_packed_experts"}
+               "noisy-prequant": "cim_mvm_grouped_noisy_packed_experts",
+               "bp": "cim_mvm_grouped_experts"}
     if leg in batched:
         assert counts[batched[leg]] == 0
+    if leg == "bp":     # 3 projections x n_layers MoE layers per forward
+        assert len(calls) > 0 and len(calls) % (3 * cfg.n_layers) == 0
+    else:
+        assert calls == []
 
 
 def test_calibration_records_expert_sites(weights):

@@ -257,8 +257,9 @@ def test_dense_arch_streams_match_reference(arch, engine):
 # ---------------------------------------------------------------------------
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, chip_smoke, a serve on each engine (the
-    paged one with the model drafter) and a paged prequant serve of the
-    MoE family leave no JAX and no reference module in sys.modules."""
+    paged one with the model drafter), a paged prequant serve of the MoE
+    family and a --cim bp slot serve of deepseek-v3 leave no JAX and no
+    reference module in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
@@ -289,8 +290,15 @@ def test_port_imports_no_jax_and_no_reference():
         "srv.submit(r)\n"
         "srv.run_until_drained()\n"
         "assert len(r.output) == 4, r.output\n"
+        "dcfg = SMOKES['deepseek-v3-671b'].replace(cim=CIMConfig(enabled=True))\n"
+        "srv = Server(registry.init_params(dcfg, seed=0, device='cpu'), dcfg,\n"
+        "             ServingConfig(max_len=32), device='cpu')\n"
+        "r = Request(prompt=[1, 2, 3], max_new_tokens=4)\n"
+        "srv.submit(r)\n"
+        "srv.run_until_drained()\n"
+        "assert len(r.output) == 4, r.output\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
-        "          'repro_torch.models.moe',\n"
+        "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
         "          'repro_torch.core.energy', 'repro_torch.core.sqnr',\n"
