@@ -123,9 +123,16 @@ of which fails the run when it fails:
      the decode launch must launch; the kernel-vs-plain steps; the two
      same-seed serves must give identical streams); (e) stablelm-3b
      (head dim 80 through B3's GEN instances, LayerNorm, qkv bias,
-     partial rotary), llama3-8b and granite-3-8b at full width: one
-     prefill and one decode paged_step each, kernels vs plain, identical
-     logits and pools;
+     partial rotary), llama3-8b, granite-3-8b and internvl2-26b's
+     decoder (48 layers, d_model 6144, GQA 48 / 8, vocab 92553; ~37.5 GB
+     of bf16 never held whole) at full width, each initialised and
+     quantized layer by layer: one prefill and one decode paged_step
+     each, kernels vs plain, identical logits and pools; for internvl2
+     also one slot-engine prefill of 256 numpy-seeded image embeddings
+     [1, 256, 6144] in front of 32 tokens, kernels vs plain, identical
+     logits and K/V, B1 launched once per stored matrix, and its paged
+     decode step on the card (CUDA graph) vs eager, its launches and the
+     card's idle share;
   3d. deepseek-v3 (run after phase 3m, once its models are freed): (a) B2
      and B5's expert-batched entries (B2e, B5e: 256 experts x capacity 8,
      K 7168 -> N 2048 and K 2048 -> N 7168, f32 code containers of 15 GB)
@@ -147,6 +154,24 @@ of which fails the run when it fails:
      forward; the two NOISY serves must give identical streams), the
      decode step on the card (CUDA graph) vs eager, its launches and the
      card's idle share. Each part prints its seconds;
+  3r. the recurrent archs (run after phase 3d, once its model is freed):
+     rwkv6-7b (32 layers, d_model 4096, 64 heads of 64, d_ff 14336, vocab
+     65536), then zamba2-2.7b (54 Mamba2 layers, d_model 2560, d_inner
+     5120, N 64, the weight-shared attention block of 32 heads of 80 and
+     d_ff 10240 after every 6th layer, vocab 32000), each at full width
+     and depth with random weights from a torch.Generator seed,
+     initialised and quantized layer by layer, on the slot engine (4
+     slots, max_len 256), phase 3's token ids folded into the arch's
+     vocab: (a) one per-request prefill (prompt 0) and one decode step at
+     --cim bp-prequant, IDEAL (B1) and NOISY (B6, noise_seed 0), kernels
+     vs plain: max |dlogit| 0 and every recurrent state, conv history and
+     shared K/V identical, B1 / B6 launched once per stored matrix and
+     forward; for zamba2 the same pair at --cim bp-noisy on float weights
+     (B5); (b) phase 3's 8 requests at IDEAL, then twice at NOISY (the two
+     NOISY serves must give identical streams); (c) the decode step on the
+     card (CUDA graph) vs eager at IDEAL and NOISY, its launches, the
+     card's idle share, peak memory and the phase's seconds. Each model
+     is freed before the next loads;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
@@ -300,7 +325,8 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.core import engine
     from repro_torch.core.engine import PackedCodes
-    from repro_torch.models import common, moe, registry, transformer
+    from repro_torch.models import (common, mamba2, moe, registry,
+                                    transformer)
     from repro_torch.models.quantize import quantize_params
     from repro_torch.runtime import obs
     from repro_torch.runtime.server import (Request, Server, ServerMetrics,
@@ -961,7 +987,9 @@ def main() -> int:
             0, server.cfg.vocab, (4, 1))).to(dev)
         note = ""
         if decode_step is None:
-            note = " (7,987 with B4 launched alone and the casts around B3)"
+            if server.cfg.arch == "internlm2-1.8b":
+                note = (" (7,987 with B4 launched alone and the casts "
+                        "around B3)")
             dcache = transformer.init_paged_cache(server.cfg, 4 * 16 + 1, 16,
                                                   device=dev)
             dtb = torch.arange(1, 65, dtype=torch.int32,
@@ -1314,14 +1342,14 @@ def main() -> int:
     slot_serving = ServingConfig(prequant=True, packed=True, n_slots=4,
                                  max_len=256)
 
-    def serve_slots(tag):
-        """Phase 3's 8 requests, 16 new tokens each, greedy, through a
-        fresh slot-engine Server; launch counts are reset just before and
-        read just after. Returns (the server, the counts, the streams)."""
-        server = Server(params, cfg, slot_serving, device=dev)
-        check(not server.paged, f"{tag}: ServingConfig() did not pick the "
-              "slot engine")
-        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+    def slot_serve(server, prompts_, tag, kname, per_fwd):
+        """Phase 3's 8 requests (`prompts_`), 16 new tokens each, greedy,
+        through a slot-engine Server; launch counts are reset just before
+        and read just after: `kname` must launch `per_fwd` times per decode
+        step and per prefill, the paged attention kernel never. Returns
+        (the counts, the streams)."""
+        check(not server.paged, f"{tag}: not the slot engine")
+        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts_]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
@@ -1335,7 +1363,7 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-            check(len(r.output) == 16 and all(0 <= t < cfg.vocab
+            check(len(r.output) == 16 and all(0 <= t < server.cfg.vocab
                                               for t in r.output),
                   f"{tag} req{r.rid}: bad output {r.output}")
         m = server.metrics.summary()
@@ -1345,14 +1373,37 @@ def main() -> int:
             f"peak memory {peak:.2f} GiB, prefill_tokens="
             f"{m['prefill_tokens']} decode_tokens={m['decode_tokens']} "
             f"wall_s={m['wall_s']:.3f}; launches {counts}")
-        b1 = counts["cim_mvm_grouped_packed"]
-        check(b1 == 169 * (server.steps_run + len(reqs)),
-              f"{tag}: {b1} B1 launches, expected 169 per decode step and "
-              f"per prefill ({server.steps_run} + {len(reqs)})")
+        check(counts[kname] == per_fwd * (server.steps_run + len(reqs)),
+              f"{tag}: {counts[kname]} {kname} launches, expected {per_fwd} "
+              f"per decode step and per prefill ({server.steps_run} + "
+              f"{len(reqs)})")
         check(counts["paged_attn_call"] == 0
               and counts["decode_write_attend_call"] == 0,
               f"{tag}: the slot engine launched the paged attention kernel")
-        return server, counts, [r.output for r in reqs]
+        return counts, [r.output for r in reqs]
+
+    def slot_pair(mod, step_params, step_cfg, prompt):
+        """One per-request prefill of `prompt`, spliced into slot 1 of a
+        4-slot cache of max_len 256, and one decode step for all 4 slots;
+        (the two logits, the batched cache)."""
+        toks = torch.tensor([prompt], dtype=torch.int32, device=dev)
+        l1, rcache = mod.prefill(step_params, {"tokens": toks}, step_cfg,
+                                 max_len=256)
+        cache = splice(mod.init_cache(step_cfg, 4, 256, device=dev), rcache,
+                       1)
+        nxt = torch.from_numpy(np.random.RandomState(10).randint(
+            0, step_cfg.vocab, (4, 1))).to(dev)
+        l2, cache = mod.decode_step(step_params, nxt, cache, step_cfg)
+        return (l1, l2), cache
+
+    def serve_slots(tag):
+        """Phase 3's 8 requests through a fresh slot-engine Server at phase
+        3's width: B1 169 times per decode step and per prefill. Returns
+        (the server, the counts, the streams)."""
+        server = Server(params, cfg, slot_serving, device=dev)
+        counts, streams = slot_serve(server, prompts, tag,
+                                     "cim_mvm_grouped_packed", 169)
+        return server, counts, streams
 
     server, counts_3l, streams_l = serve_slots("phase 3l: slot engine run 1")
     log(f"phase 3l ({card}): B1 launches on the slot path "
@@ -1360,24 +1411,12 @@ def main() -> int:
 
     # one per-request prefill (the 96-token prompt, spliced into slot 1)
     # and one decode step at the shared position, kernels vs plain
-    def slot_steps(step_cfg):
-        toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
-        l1, rcache = transformer.prefill(server.params, {"tokens": toks},
-                                         step_cfg, max_len=256)
-        cache = splice(transformer.init_cache(step_cfg, 4, 256, device=dev),
-                       rcache, 1)
-        nxt = torch.from_numpy(np.random.RandomState(10).randint(
-            0, cfg.vocab, (4, 1))).to(dev)
-        l2, cache = transformer.decode_step(server.params, nxt, cache,
-                                            step_cfg)
-        return (l1, l2), cache
-
     build.reset_launch_counts()
-    l_k, c_k = slot_steps(server.cfg)
+    l_k, c_k = slot_pair(transformer, server.params, server.cfg, prompts[0])
     torch.cuda.synchronize()
     s_counts = build.launch_counts()
-    l_p, c_p = slot_steps(server.cfg.replace(cim=dataclasses.replace(
-        server.cfg.cim, backend="plain")))
+    l_p, c_p = slot_pair(transformer, server.params, server.cfg.replace(
+        cim=dataclasses.replace(server.cfg.cim, backend="plain")), prompts[0])
     torch.cuda.synchronize()
     check(l_k[0].shape == (1, cfg.vocab) and l_k[1].shape == (4, cfg.vocab)
           and all(bool(torch.isfinite(a).all()) for a in l_k),
@@ -1818,6 +1857,56 @@ def main() -> int:
                 f"hash {tot['hash_ops'] / 1e9:.3f} G int32 ops); "
                 f"{time.monotonic() - t_kid:.1f} s")
 
+    def packed_gb(tree):
+        """GB of the stored (nibble-packed) codes in a params tree."""
+        if isinstance(tree, dict):
+            return sum(v.numel() * v.element_size() / 1e9 if k.endswith("_q")
+                       else packed_gb(v) for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(packed_gb(v) for v in tree)
+        return 0.0
+
+    def image_prefill(server):
+        """A VLM's slot-engine prefill: numpy-seeded image_embeds [1,
+        n_image_tokens, D] in front of 32 text tokens, kernels vs plain:
+        identical logits and K/V; B1 launched once per dense call."""
+        vcfg = server.cfg
+        irng = np.random.RandomState(11)
+        img = torch.from_numpy(irng.standard_normal(
+            (1, vcfg.n_image_tokens, vcfg.d_model)).astype(np.float32)
+            * 0.02).to(dev)
+        toks = torch.from_numpy(irng.randint(0, vcfg.vocab, (1, 32))).to(dev)
+        batch = {"tokens": toks, "image_embeds": img}
+        t0 = time.monotonic()
+        build.reset_launch_counts()
+        l_k, c_k = transformer.prefill(server.params, batch, vcfg,
+                                       max_len=512)
+        torch.cuda.synchronize()
+        i_counts = build.launch_counts()
+        l_p, c_p = transformer.prefill(server.params, batch, vcfg.replace(
+            cim=dataclasses.replace(vcfg.cim, backend="plain")), max_len=512)
+        torch.cuda.synchronize()
+        t_len = vcfg.n_image_tokens + 32
+        check(l_k.shape == (1, vcfg.vocab) and bool(torch.isfinite(l_k).all())
+              and int(c_k["pos"]) == t_len,
+              f"{vcfg.arch}: image-prefix prefill malformed")
+        i_err = (l_k - l_p).abs().max().item()
+        same = all(torch.equal(c_k["layers"][n].view(torch.int16),
+                               c_p["layers"][n].view(torch.int16))
+                   for n in ("k", "v"))
+        per_fwd = 7 * vcfg.n_layers + 1
+        log(f"phase 3m: {vcfg.arch} slot prefill of {vcfg.n_image_tokens} "
+            f"image embeddings + 32 tokens (T = {t_len}), kernels vs plain "
+            f"versions: max |dlogit| = {i_err}, K/V identical: {same} "
+            f"(tolerance 0); {time.monotonic() - t0:.1f} s; launches "
+            f"{i_counts}")
+        check(i_err == 0.0 and same, f"phase 3m: {vcfg.arch}'s kernel and "
+              "plain image-prefix prefills differ")
+        check(i_counts["cim_mvm_grouped_packed"] == per_fwd,
+              f"phase 3m: {vcfg.arch}'s image-prefix prefill launched B1 "
+              f"{i_counts['cim_mvm_grouped_packed']} times, expected "
+              f"{per_fwd}")
+
     # ---- phase 3m: the MoE family at full width (qwen2-moe-a2.7b) ---------
     del params
     torch.cuda.empty_cache()
@@ -1891,18 +1980,27 @@ def main() -> int:
 
     # (e) the dense archs: stablelm-3b (dh 80 through B3's GEN instances,
     # LayerNorm, qkv bias, rotary on a quarter of the head dim), llama3-8b
-    # and granite-3-8b (GQA 32 / 8 heads of 128, d_model 4096)
-    for arch in ("stablelm-3b", "llama3-8b", "granite-3-8b"):
+    # and granite-3-8b (GQA 32 / 8 heads of 128, d_model 4096), and
+    # internvl2-26b's decoder (48 layers, d_model 6144, GQA 48 / 8, d_ff
+    # 16384, vocab 92553; ~37.5 GB of bf16 never held whole)
+    for arch in ("stablelm-3b", "llama3-8b", "granite-3-8b",
+                 "internvl2-26b"):
         lcfg = ARCHS[arch].replace(cim=CIMConfig(enabled=True))
-        t0 = time.monotonic()
+        t0 = t_arch = time.monotonic()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         lserver = Server(registry.init_params(
             lcfg, seed=0, device=dev,
             layer_fn=lambda lp, c=lcfg: quantize_params(lp, c)), lcfg,
             serving, device=dev)
+        torch.cuda.synchronize()
         log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers} layers, "
             f"d_model {lcfg.d_model}, {lcfg.n_heads} / {lcfg.n_kv_heads} "
             f"heads of {lcfg.head_dim}, vocab {lcfg.vocab}) initialised and "
-            f"packed in {time.monotonic() - t0:.1f} s")
+            f"packed in {time.monotonic() - t0:.1f} s: "
+            f"{packed_gb(lserver.params):.3f} GB of packed codes, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         t0 = time.monotonic()
         build.reset_launch_counts()
         check_steps(lserver, f"phase 3m: {lcfg.arch}")
@@ -1914,6 +2012,12 @@ def main() -> int:
               "decode launch")
         log(f"phase 3m: {lcfg.arch} steps kernels vs plain in "
             f"{time.monotonic() - t0:.1f} s; launches {counts}")
+        if lcfg.n_image_tokens:
+            image_prefill(lserver)
+            decode_breakdown(lserver, f"phase 3m ({card}): {lcfg.arch}")
+            log(f"phase 3m: {lcfg.arch}: {time.monotonic() - t_arch:.1f} s "
+                f"in all, peak memory "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
         del lserver
         torch.cuda.empty_cache()
 
@@ -1970,29 +2074,19 @@ def main() -> int:
 
     # (c) one per-request prefill (the 96-token prompt, spliced into slot
     # 1) and one decode step, kernels vs plain, at IDEAL and NOISY
-    def ds_steps(step_cfg):
-        toks = torch.tensor([prompts[0]], dtype=torch.int32, device=dev)
-        l1, rcache = transformer.prefill(dparams, {"tokens": toks}, step_cfg,
-                                         max_len=256)
-        cache = splice(transformer.init_cache(step_cfg, 4, 256, device=dev),
-                       rcache, 1)
-        nxt = torch.from_numpy(np.random.RandomState(10).randint(
-            0, step_cfg.vocab, (4, 1))).to(dev)
-        l2, cache = transformer.decode_step(dparams, nxt, cache, step_cfg)
-        return (l1, l2), cache
-
     batched = {"IDEAL": "cim_mvm_grouped_experts",
                "NOISY": "cim_mvm_grouped_noisy_experts"}
     for level, step_cfg in (("IDEAL", dcfg), ("NOISY", ds_noisy)):
         t0 = time.monotonic()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
-        l_k, c_k = ds_steps(step_cfg)
+        l_k, c_k = slot_pair(transformer, dparams, step_cfg, prompts[0])
         torch.cuda.synchronize()
         s_counts = build.launch_counts()
         t_k = time.monotonic() - t0
-        l_p, c_p = ds_steps(step_cfg.replace(cim=dataclasses.replace(
-            step_cfg.cim, backend="plain")))
+        l_p, c_p = slot_pair(transformer, dparams, step_cfg.replace(
+            cim=dataclasses.replace(step_cfg.cim, backend="plain")),
+            prompts[0])
         torch.cuda.synchronize()
         check(l_k[0].shape == (1, dcfg.vocab)
               and l_k[1].shape == (4, dcfg.vocab)
@@ -2109,6 +2203,128 @@ def main() -> int:
     del dparams
     torch.cuda.empty_cache()
     log(f"phase 3d: {time.monotonic() - t3d:.1f} s in all")
+
+    # ---- phase 3r: the recurrent archs (rwkv6-7b, then zamba2-2.7b) -------
+    r_serving = ServingConfig(prequant=True, packed=True, n_slots=4,
+                              max_len=256)
+
+    def dense_calls(params, rcfg):
+        """B1 / B6 launches of one forward: one per stored matrix, the
+        shared block's once per application."""
+        def n_q(tree):
+            if isinstance(tree, dict):
+                return sum(1 if k.endswith("_q") else n_q(v)
+                           for k, v in tree.items())
+            if isinstance(tree, list):
+                return sum(n_q(v) for v in tree)
+            return 0
+        apps = mamba2._n_shared_apps(rcfg) if "shared" in params else 0
+        return n_q(params["layers"]) + n_q(params["tok"]) \
+            + apps * n_q(params.get("shared", {}))
+
+    def rec_check(tag, rmod, params, step_cfg, r_prompts, kname, per_fwd):
+        """slot_pair with the kernels and with their plain versions: max
+        |dlogit| 0 and every cache leaf identical; `kname` launched once
+        per dense call of each forward."""
+        t0 = time.monotonic()
+        build.reset_launch_counts()
+        l_k, c_k = slot_pair(rmod, params, step_cfg, r_prompts[0])
+        torch.cuda.synchronize()
+        s_counts = build.launch_counts()
+        t_k = time.monotonic() - t0
+        l_p, c_p = slot_pair(rmod, params, step_cfg.replace(
+            cim=dataclasses.replace(step_cfg.cim, backend="plain")),
+            r_prompts[0])
+        torch.cuda.synchronize()
+        check(l_k[0].shape == (1, step_cfg.vocab)
+              and l_k[1].shape == (4, step_cfg.vocab)
+              and all(bool(torch.isfinite(a).all()) for a in l_k),
+              f"{tag}: prefill / decode logits malformed")
+        d_err = max((a - b).abs().max().item() for a, b in zip(l_k, l_p))
+        leaves = [(st, n) for st in c_k if st != "pos" for n in c_k[st]]
+        same = all(torch.equal(c_k[st][n], c_p[st][n]) for st, n in leaves)
+        log(f"{tag}: prefill T={len(r_prompts[0])} + decode step, kernels "
+            f"vs plain versions: max |dlogit| = {d_err}, caches identical "
+            f"({', '.join(f'{st}.{n}' for st, n in leaves)}): {same} "
+            f"(tolerance 0); kernels {t_k:.1f} s, plain "
+            f"{time.monotonic() - t0 - t_k:.1f} s; launches {s_counts}")
+        check(d_err == 0.0 and same, f"{tag}: kernel and plain prefill / "
+              "decode steps differ")
+        check(s_counts[kname] == 2 * per_fwd,
+              f"{tag}: {s_counts[kname]} {kname} launches in a prefill and "
+              f"a decode step, expected {2 * per_fwd}")
+
+    for arch in ("rwkv6-7b", "zamba2-2.7b"):
+        t3r = time.monotonic()
+        rcfg = ARCHS[arch].replace(cim=CIMConfig(enabled=True))
+        rmod = registry.get_module(rcfg)
+        r_prompts = [[t % rcfg.vocab for t in p] for p in prompts]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rserver = Server(registry.init_params(
+            rcfg, seed=0, device=dev,
+            layer_fn=lambda lp, c=rcfg: quantize_params(lp, c)), rcfg,
+            r_serving, device=dev)
+        torch.cuda.synchronize()
+        per_fwd = dense_calls(rserver.params, rcfg)
+        log(f"phase 3r: {arch} full width ({rcfg.n_layers} layers, d_model "
+            f"{rcfg.d_model}, d_ff {rcfg.d_ff}, vocab {rcfg.vocab}, "
+            f"{rcfg.ssm}) initialised and packed layer by layer in "
+            f"{time.monotonic() - t3r:.1f} s: {packed_gb(rserver.params):.3f}"
+            f" GB of packed codes, {per_fwd} stored matrices per forward, "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        rnoisy = rcfg.replace(cim=noisy)
+        # (a) a prefill and a decode step, kernels vs plain: IDEAL (B1),
+        # NOISY (B6) and, for zamba2, --cim bp-noisy on float weights (B5)
+        rec_check(f"phase 3r (a): {arch} IDEAL", rmod, rserver.params,
+                  rcfg, r_prompts, "cim_mvm_grouped_packed", per_fwd)
+        rec_check(f"phase 3r (a): {arch} NOISY", rmod, rserver.params,
+                  rnoisy, r_prompts, "cim_mvm_grouped_noisy_packed",
+                  per_fwd)
+        if arch == "zamba2-2.7b":
+            fparams = registry.init_params(rcfg, seed=0, device=dev)
+            rec_check(f"phase 3r (a): {arch} --cim bp-noisy", rmod, fparams,
+                      rnoisy, r_prompts, "cim_mvm_grouped_noisy", per_fwd)
+            del fparams
+            torch.cuda.empty_cache()
+        # (b) phase 3's 8 requests at IDEAL, then twice at NOISY
+        slot_serve(rserver, r_prompts, f"phase 3r (b): {arch} IDEAL",
+                   "cim_mvm_grouped_packed", per_fwd)
+        streams = []
+        for run in (1, 2):
+            nserver = Server(rserver.params, rnoisy, r_serving, device=dev)
+            streams.append(slot_serve(
+                nserver, r_prompts, f"phase 3r (b): {arch} NOISY run {run}",
+                "cim_mvm_grouped_noisy_packed", per_fwd)[1])
+            del nserver
+        check(streams[0] == streams[1], f"phase 3r: {arch}'s two same-seed "
+              "NOISY serves gave different streams")
+        log(f"phase 3r: {arch}'s two same-seed NOISY serves gave identical "
+            "streams")
+        # (c) the slot decode step on the card vs eager (4 slots at pos
+        # 100) and its launches, at IDEAL and NOISY
+        for level, step_cfg in (("IDEAL", rcfg), ("NOISY", rnoisy)):
+            rcache = rmod.init_cache(step_cfg, 4, 256, device=dev)
+            rcache["pos"].fill_(100)
+            rtok = torch.from_numpy(np.random.RandomState(8).randint(
+                0, rcfg.vocab, (4, 1))).to(dev)
+
+            def rec_decode_step(c=step_cfg, rc=rcache, rt=rtok):
+                rmod.decode_step(rserver.params, rt, rc, c)
+
+            torch.cuda.empty_cache()
+            decode_breakdown(rserver, f"phase 3r ({card}): {arch} {level}",
+                             rec_decode_step)
+            build.reset_launch_counts()
+            rec_decode_step()
+            torch.cuda.synchronize()
+            log(f"phase 3r: {arch} {level}: launches of one slot decode "
+                f"step {build.launch_counts()}")
+            del rcache
+        del rserver
+        torch.cuda.empty_cache()
+        log(f"phase 3r: {arch}: {time.monotonic() - t3r:.1f} s in all")
 
     # ---- phase 6: report -------------------------------------------------
     meta = {

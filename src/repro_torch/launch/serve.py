@@ -15,9 +15,24 @@ reference's launcher does.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch deepseek-v3-671b \
       --smoke --device cpu [--cim bp|bp-noisy]
 
-  # the paged-KV engine at full width on the card
+  # the rest of the decoder archs: internvl2-26b (the dense decoder behind
+  # an image prefix; served as text, on either engine), rwkv6-7b and
+  # zamba2-2.7b (recurrent state caches: the slot engine only, --paged
+  # raises, as in the reference)
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \
+      --smoke --device cpu [--cim bp-prequant|bp-noisy]
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
+      --smoke --device cpu --paged --cim bp-prequant
+
+  # the paged-KV engine at full width on the card; --cim bp-prequant
+  # quantizes every layer as soon as it is made, at any size (so
+  # internvl2-26b's ~37.5 GB of bf16 weights are never held whole), except
+  # under --act-scale static or --precision-manifest, which quantize the
+  # whole float model once the Server has its site grids
   PYTHONPATH=src python -m repro_torch.launch.serve --full --paged \
       --cim bp-prequant
+  PYTHONPATH=src python -m repro_torch.launch.serve --full \
+      --arch zamba2-2.7b --cim bp-prequant
 
   # smoke-size model on the CPU, the plain PyTorch versions of the kernels
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
@@ -70,6 +85,7 @@ from repro_torch.core.cim_matmul import CIMConfig
 from repro_torch.core.macro import SimLevel
 from repro_torch.device import resolve_device
 from repro_torch.models import registry
+from repro_torch.models.quantize import quantize_params
 from repro_torch.runtime import obs
 from repro_torch.runtime.server import Request, Server, ServingConfig
 from repro_torch.runtime.speculative import SamplingParams
@@ -187,7 +203,13 @@ def main(argv=None):
                                            sim_level=SimLevel.NOISY)))
     elif args.cim != "off":
         cfg = cfg.replace(cim=CIMConfig(enabled=True))
-    params = registry.init_params(cfg, seed=args.seed, device=device)
+    layer_fn = None
+    if args.cim == "bp-prequant" and args.act_scale == "dynamic" \
+            and not args.precision_manifest:
+        def layer_fn(lp):
+            return quantize_params(lp, cfg)
+    params = registry.init_params(cfg, seed=args.seed, device=device,
+                                  layer_fn=layer_fn)
     if args.precision_manifest and args.cim == "off":
         ap.error("--precision-manifest needs a --cim mode")
     act_scale = act_zero_point = None

@@ -21,6 +21,10 @@ from repro_torch.core.cim_matmul import cim_matmul, cim_matmul_prequant
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 Params = dict
+# XLA:CPU evaluates a cumulative sum in blocks of this length: sequential
+# adds within a block, then the running sum of the earlier blocks' totals
+# added to each element
+CUMSUM_BLOCK = 16
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "float16": torch.float16}
@@ -130,6 +134,34 @@ def norm(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         ms = (xf * xf).mean(-1, keepdim=True)
         y = xf * torch.rsqrt(ms + cfg.norm_eps) * p["scale"].float()
     return y.to(x.dtype)
+
+
+def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive f32 cumulative sum in XLA:CPU's order (the reference's
+    jnp.cumsum): sequential f32 adds within blocks of 16, the block totals
+    summed the same way and added to each block. torch.cumsum accumulates
+    in double on the CPU, which rounds otherwise."""
+    x = x.movedim(dim, -1)
+    n = x.shape[-1]
+    if n <= CUMSUM_BLOCK:
+        out = [x[..., 0]]
+        for i in range(1, n):
+            out.append(out[-1] + x[..., i])
+        return torch.stack(out, -1).movedim(-1, dim)
+    pad = (-n) % CUMSUM_BLOCK
+    if pad:
+        x = F.pad(x, (0, pad))
+    blocks = x.reshape(*x.shape[:-1], -1, CUMSUM_BLOCK)
+    inner = cumsum_f32(blocks, -1)
+    totals = cumsum_f32(inner[..., -1], -1)
+    before = F.pad(totals[..., :-1], (1, 0))
+    out = (inner + before[..., None]).reshape(*x.shape[:-1], -1)
+    return out[..., :n].movedim(-1, dim)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """x·sigmoid(x), as jax.nn.silu composes it (F.silu rounds otherwise)."""
+    return x * torch.sigmoid(x)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
@@ -274,6 +306,18 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def k_cache_dtype(x: torch.Tensor, cache: dict) -> torch.Tensor:
     return x.to(cache["k"].dtype)
+
+
+def pad_cache(kv: dict, max_len: int) -> dict:
+    """[L, B, T, ...] → [L, B, max_len, ...] with zeros (unchanged when
+    T >= max_len)."""
+    def pad(a):
+        pad_t = max_len - a.shape[2]
+        if pad_t <= 0:
+            return a
+        return F.pad(a, (0, 0) * (a.ndim - 3) + (0, pad_t))
+
+    return {k: pad(a) for k, a in kv.items()}
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,

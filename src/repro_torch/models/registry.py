@@ -1,8 +1,9 @@
 """Model registry: ModelConfig.family → implementation module, plus the
 bridge that carries the reference package's weights across.
 
-The dense and MoE transformer families are ported; the others are queued
-in ROADMAP Queue A9.
+Every family but "audio" (whisper, ROADMAP Queue A9b) is ported: the
+dense, MoE and VLM transformers, RWKV6 ("ssm") and the Mamba2 / Zamba2
+hybrid ("hybrid").
 """
 from __future__ import annotations
 
@@ -12,16 +13,17 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 
-from . import transformer
+from . import mamba2, rwkv6, transformer
 
-_FAMILY = {"dense": transformer, "moe": transformer}
+_FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
+           "ssm": rwkv6, "hybrid": mamba2}
 
 
 def get_module(cfg: ModelConfig):
     if cfg.family not in _FAMILY:
         raise NotImplementedError(
             f"model family {cfg.family!r} ({cfg.arch}) is not ported yet "
-            "(ROADMAP A9)")
+            "(ROADMAP A9b)")
     return _FAMILY[cfg.family]
 
 
@@ -44,9 +46,10 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     Stacked [L, ...] leaves under "dense_layers" (MoEConfig.first_dense
     layers) and "layers" (the other n_layers − first_dense) become one
     dict per layer (the MoE FFN's router [L, D, E], experts [L, E, D, F]
-    and shared gate too); every other entry ("tok", "final_norm",
-    deepseek's "mtp") is carried as it is; bf16 leaves arrive as uint16
-    views (the checkpoint format's encoding).
+    and shared gate too; RWKV6's {"norm1", "tm", "norm2", "cm"}; Mamba2's
+    {"norm1", "ssm"}); every other entry ("tok", "final_norm", deepseek's
+    "mtp", zamba2's one weight-shared block "shared") is carried as it is;
+    bf16 leaves arrive as uint16 views (the checkpoint format's encoding).
     """
     get_module(cfg)
     dev = resolve_device(device)

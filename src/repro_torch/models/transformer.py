@@ -4,6 +4,10 @@ deepseek-v3's MLA): the padded `forward`, the slot engine's `prefill` /
 MoE FFN (`models.moe`) where its params hold a router; its attention is
 GQA, or MLA (`models.mla`) where cfg.mla is set.
 
+internvl2-26b (family "vlm") is the dense decoder behind an image prefix:
+`forward` and `prefill` put batch["image_embeds"] (the stub frontend's
+patch embeddings) in front of the token embeddings.
+
 Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
 "dense_layers": [...], "layers": [per-layer dict, ...], "mtp": {...}} —
 the reference's stacked [L, ...] leaves become one dict of tensors per
@@ -20,7 +24,6 @@ dh]}}; a layer reads and writes its slice in place.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -28,16 +31,15 @@ from repro_torch.device import resolve_device
 from . import common, mla, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
                      embed_lookup, mlp_apply, mlp_init, norm, norm_init,
-                     unembed)
+                     pad_cache, unembed)
 
 
 def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers or cfg.cross_attention or cfg.n_image_tokens \
-            or cfg.pos_embed != "rope":
+    if cfg.encoder_layers or cfg.cross_attention or cfg.pos_embed != "rope":
         raise NotImplementedError(
             f"arch {cfg.arch!r} needs model features that are not ported "
-            "yet: image prefixes, learned positions, cross-attention "
-            "(ROADMAP A9b)")
+            "yet: an encoder, learned positions, cross-attention (ROADMAP "
+            "A9b, whisper)")
 
 
 def _n_dense(cfg: ModelConfig) -> int:
@@ -109,13 +111,13 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
 # forward (inference) and the slot engine: prefill + decode over [B, S] caches
 # ---------------------------------------------------------------------------
 def _embed_inputs(params, batch, cfg: ModelConfig):
-    """Token embeddings and their positions [0, T)."""
-    if cfg.pos_embed == "learned" or (cfg.n_image_tokens
-                                      and "image_embeds" in batch):
-        raise NotImplementedError(
-            f"arch {cfg.arch!r}: learned positions and image prefixes are "
-            "not ported yet (ROADMAP A9)")
+    """Token embeddings, behind a VLM's image prefix where the batch holds
+    one (batch["image_embeds"] [B, n_image_tokens, D], cast to the
+    embedding dtype), and their positions [0, T) over the whole span."""
+    _check_arch(cfg)
     x = embed_lookup(params["tok"], batch["tokens"].long(), cfg)
+    if cfg.n_image_tokens and "image_embeds" in batch:
+        x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
     b, t = x.shape[:2]
     return x, torch.arange(t, device=x.device).expand(b, t)
 
@@ -222,23 +224,11 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
         for lp in stack:
             h, kv = _layer(lp, h, cfg, positions=positions, cache={})
             entries.append(kv)
-        cache[name] = _pad_cache({leaf: torch.stack([e[leaf]
+        cache[name] = pad_cache({leaf: torch.stack([e[leaf]
                                                      for e in entries])
                                   for leaf in entries[0]}, max_len)
     h = norm(params["final_norm"], h, cfg)
     return unembed(params["tok"], h[:, -1], cfg), cache
-
-
-def _pad_cache(kv: dict, max_len: int) -> dict:
-    """[L, B, T, ...] → [L, B, max_len, ...] with zeros (unchanged when
-    T >= max_len)."""
-    def pad(a):
-        pad_t = max_len - a.shape[2]
-        if pad_t <= 0:
-            return a
-        return F.pad(a, (0, 0) * (a.ndim - 3) + (0, pad_t))
-
-    return {k: pad(a) for k, a in kv.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -960,20 +960,23 @@ class Server:
 
 def _splice(batched: dict, request: dict, slot: int) -> dict:
     """Copy a 1-deep request cache into row `slot` of the batched slot
-    cache, IN PLACE: each leaf [L, 1, T, ...] of every layer stack (K/V,
-    or MLA's latent) is cast to the cache's dtype and zero-padded or
-    trimmed to its max_len, so the whole row is overwritten; "pos" takes
-    the max of the two, so the shared clock covers the deepest slot."""
+    cache, IN PLACE: each leaf [L, 1, ...] of every cache stack (K/V, MLA's
+    latent, RWKV6's carries and state, Mamba2's conv history and state,
+    zamba2's shared K/V) is cast to the cache's dtype and zero-padded or
+    trimmed on every other axis to the batched leaf's shape, so the whole
+    row is overwritten; "pos" takes the max of the two, so the shared
+    clock covers the deepest slot."""
     for stack, leaves in batched.items():
         if stack == "pos":
             continue
         for name, dst in leaves.items():
             src = request[stack][name][:, :1].to(dst.dtype)
-            s = dst.shape[2]
-            if src.shape[2] > s:
-                src = src[:, :, :s]
-            dst[:, slot:slot + 1, :src.shape[2]] = src
-            dst[:, slot:slot + 1, src.shape[2]:] = 0
+            row = dst[:, slot:slot + 1]
+            if any(a < b for a, b in zip(src.shape, row.shape)):
+                row.zero_()
+            overlap = tuple(slice(0, min(a, b))
+                           for a, b in zip(src.shape, row.shape))
+            row[overlap] = src[overlap]
     batched["pos"] = torch.maximum(
         batched["pos"], request["pos"]).to(batched["pos"].dtype)
     return batched

@@ -1,7 +1,8 @@
 """The port's configs equal the reference's, field for field: every
 ported arch's full and smoke config (internlm2-1.8b, stablelm-3b,
 llama3-8b, granite-3-8b, qwen2-moe-a2.7b with its MoEConfig, deepseek-v3
-with its MoEConfig and MLAConfig)."""
+with its MoEConfig and MLAConfig, internvl2-26b, rwkv6-7b and zamba2-2.7b
+with their SSMConfigs)."""
 import dataclasses
 import importlib
 
@@ -26,7 +27,8 @@ from repro_torch.core import quant as t_quant  # noqa: E402
 ref_cim = importlib.import_module("repro.core.cim_matmul")
 
 ARCH_MODULES = ("stablelm_3b", "llama3_8b", "granite_3_8b",
-                "qwen2_moe_a2_7b", "deepseek_v3_671b")
+                "qwen2_moe_a2_7b", "deepseek_v3_671b", "internvl2_26b",
+                "rwkv6_7b", "zamba2_2_7b")
 
 PAIRS = {
     "CONFIG": (ref_arch.CONFIG, t_arch.CONFIG),
@@ -95,11 +97,12 @@ def test_model_config_widths():
 
 
 def test_registry_unported_arch_raises():
-    with pytest.raises(KeyError, match="A9"):
-        t_registry.get("zamba2-2.7b")
+    with pytest.raises(KeyError, match="A9b"):
+        t_registry.get("whisper-large-v3")
     assert sorted(t_registry.ARCHS) == sorted(t_registry.SMOKES) == [
-        "deepseek-v3-671b", "granite-3-8b", "internlm2-1.8b", "llama3-8b",
-        "qwen2-moe-a2.7b", "stablelm-3b"]
+        "deepseek-v3-671b", "granite-3-8b", "internlm2-1.8b",
+        "internvl2-26b", "llama3-8b", "qwen2-moe-a2.7b", "rwkv6-7b",
+        "stablelm-3b", "zamba2-2.7b"]
 
 
 def test_cim_config_site_overrides_raise():

@@ -28,8 +28,11 @@ the smoke qwen2-moe's paged steps and slot serve are identical with the
 kernels and with their plain versions; so do B2 and B5's (the float
 routed experts at --cim bp / bp-noisy), and the smoke deepseek-v3's slot
 prefill, decode step and serve (MLA, a leading dense layer, the experts
-through B2 / B5's expert-batched entry). Inputs come from numpy seeds.
-This file needs no JAX.
+through B2 / B5's expert-batched entry). So are the smoke rwkv6-7b's and
+zamba2-2.7b's slot prefill and decode step (their recurrent caches too)
+and internvl2-26b's image-prefix prefill and decode step, at IDEAL (B1)
+and NOISY (B6), and zamba2's at --cim bp-noisy (B5). Inputs come from
+numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -281,6 +284,63 @@ def test_deepseek_steps_kernels_bit_exact_vs_plain(level):
         return [r.output for r in reqs], srv.steps_run
 
     assert serve(cfg) == serve(plain)
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "bp-noisy"])
+@pytest.mark.parametrize("arch", ["rwkv6-7b", "zamba2-2.7b",
+                                  "internvl2-26b"])
+def test_a9b_slot_steps_kernels_bit_exact_vs_plain(arch, level):
+    """The smoke rwkv6-7b, zamba2-2.7b and internvl2-26b (packed prequant;
+    NOISY at noise_seed 0; bp-noisy: float weights through B5): a slot
+    prefill (internvl2's behind 16 numpy-seeded image embeddings) spliced
+    into slot 1 and a decode step are identical with the kernels and with
+    their plain versions: logits and every cache leaf (the token-shift
+    carries and WKV state, the conv history, SSD state and shared K/V, the
+    K/V), one launch per stored matrix and forward."""
+    import dataclasses
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import build
+    from repro_torch.models import registry
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.runtime.server import _splice
+    dev = gpu_device()
+    cim = CIMConfig(enabled=True)
+    if level != "ideal":
+        cim = dataclasses.replace(cim, noise_seed=0, macro=dataclasses.replace(
+            cim.macro, sim_level=SimLevel.NOISY))
+    cfg = SMOKES[arch].replace(cim=cim)
+    plain = cfg.replace(cim=dataclasses.replace(cim, backend="plain"))
+    mod = registry.get_module(cfg)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    if level != "bp-noisy":
+        params = quantize_params(params, cfg)
+    rng = np.random.RandomState(23)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab,
+                                                    (1, 21))).to(dev)}
+    if cfg.n_image_tokens:
+        batch["image_embeds"] = torch.from_numpy(rng.standard_normal(
+            (1, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)).to(dev)
+    nxt = torch.from_numpy(rng.randint(0, cfg.vocab, (2, 1))).to(dev)
+    outs = []
+    build.reset_launch_counts()
+    for c in (cfg, plain):
+        l1, rcache = mod.prefill(params, batch, c, max_len=64)
+        cache = _splice(mod.init_cache(c, 2, 64, device=dev), rcache, 1)
+        l2, cache = mod.decode_step(params, nxt, cache, c)
+        outs.append([l1, l2] + [t for st in sorted(cache) if st != "pos"
+                                for _, t in sorted(cache[st].items())])
+    kname = {"ideal": "cim_mvm_grouped_packed",
+             "noisy": "cim_mvm_grouped_noisy_packed",
+             "bp-noisy": "cim_mvm_grouped_noisy"}[level]
+    # one launch per stored matrix and forward (the head included; zamba2's
+    # shared block at each of its 2 applications), in the kernels' forwards
+    per_fwd = {"rwkv6-7b": 2 * 8, "zamba2-2.7b": 6 * 2 + 2 * 7,
+               "internvl2-26b": 2 * 7}[arch] + 1
+    assert build.launch_counts()[kname] == 2 * per_fwd
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("level", ["ideal", "noisy"])

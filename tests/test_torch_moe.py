@@ -328,7 +328,7 @@ def test_first_dense_layers_raise():
     with one builds one dense layer of width d_ff_dense and n_layers − 1
     MoE layers, as the reference's init does, and its paged pool gets a
     "dense_layers" stack; what still raises is an arch feature queued in
-    A9b (here an image prefix)."""
+    A9b (here learned positions, whisper's)."""
     moe_cfg = dataclasses.replace(SMOKES[ARCH].moe, first_dense=1,
                                   d_ff_dense=96)
     cfg = SMOKES[ARCH].replace(moe=moe_cfg)
@@ -344,7 +344,7 @@ def test_first_dense_layers_raise():
     assert pools["dense_layers"]["k"].shape[0] == 1
     assert pools["layers"]["k"].shape[0] == 1
     with pytest.raises(NotImplementedError, match="A9"):
-        registry.init_params(cfg.replace(n_image_tokens=4), device="cpu")
+        registry.init_params(cfg.replace(pos_embed="learned"), device="cpu")
 
 
 # ---------------------------------------------------------------------------

@@ -258,7 +258,8 @@ def test_dense_arch_streams_match_reference(arch, engine):
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, chip_smoke, a serve on each engine (the
     paged one with the model drafter), a paged prequant serve of the MoE
-    family and a --cim bp slot serve of deepseek-v3 leave no JAX and no
+    family, a --cim bp slot serve of deepseek-v3 and prequant slot serves
+    of rwkv6-7b, zamba2-2.7b and internvl2-26b leave no JAX and no
     reference module in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -297,8 +298,18 @@ def test_port_imports_no_jax_and_no_reference():
         "srv.submit(r)\n"
         "srv.run_until_drained()\n"
         "assert len(r.output) == 4, r.output\n"
+        "for arch in ('rwkv6-7b', 'zamba2-2.7b', 'internvl2-26b'):\n"
+        "    acfg = SMOKES[arch].replace(cim=CIMConfig(enabled=True))\n"
+        "    srv = Server(registry.init_params(acfg, seed=0, device='cpu'),\n"
+        "                 acfg, ServingConfig(max_len=32, prequant=True),\n"
+        "                 device='cpu')\n"
+        "    r = Request(prompt=[1, 2, 3], max_new_tokens=4)\n"
+        "    srv.submit(r)\n"
+        "    srv.run_until_drained()\n"
+        "    assert len(r.output) == 4, r.output\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
+        "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
         "          'repro_torch.kernels.cim_mvm', 'repro_torch.kernels.ops',\n"
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
         "          'repro_torch.core.energy', 'repro_torch.core.sqnr',\n"
