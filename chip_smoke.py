@@ -123,9 +123,12 @@ of which fails the run when it fails:
      the decode launch must launch; the kernel-vs-plain steps; the two
      same-seed serves must give identical streams); (e) stablelm-3b
      (head dim 80 through B3's GEN instances, LayerNorm, qkv bias,
-     partial rotary), llama3-8b, granite-3-8b and internvl2-26b's
-     decoder (48 layers, d_model 6144, GQA 48 / 8, vocab 92553; ~37.5 GB
-     of bf16 never held whole) at full width, each initialised and
+     partial rotary), llama3-8b (GQA 32 / 8, vocab 128256), granite-3-8b
+     (the tied head: embed.T through B2) and internvl2-26b's decoder (48
+     layers, d_model 6144, GQA 48 / 8, vocab 92553; ~37.5 GB of bf16
+     never held whole) at full width (llama3-8b's n_layers cut from 32
+     and granite-3-8b's from 40 to 4, E_DEPTH, since phase 3w was added,
+     to keep the script's time), each initialised and
      quantized layer by layer: one prefill and one decode paged_step
      each, kernels vs plain, identical logits and pools; for internvl2
      also one slot-engine prefill of 256 numpy-seeded image embeddings
@@ -149,7 +152,9 @@ of which fails the run when it fails:
      prefill / decode_step at --cim bp (IDEAL) and bp-noisy (NOISY,
      noise_seed 0), kernels vs plain: identical logits and latent caches,
      B2e / B5e launched 3 times per MoE layer and forward; (d) phase 3's 8
-     requests served through the slot engine at --cim bp, then twice at
+     requests, 8 new tokens each (16 before phase 3w was added, cut to
+     keep the script's time), served through the slot engine at --cim
+     bp, then twice at
      --cim bp-noisy (B2e / B5e launched exactly 3 times per MoE layer per
      forward; the two NOISY serves must give identical streams), the
      decode step on the card (CUDA graph) vs eager, its launches and the
@@ -172,6 +177,31 @@ of which fails the run when it fails:
      card (CUDA graph) vs eager at IDEAL and NOISY, its launches, the
      card's idle share, peak memory and the phase's seconds. Each model
      is freed before the next loads;
+  3w. whisper-large-v3 (run after phase 3r, once its models are freed) at
+     full width and depth: 32 encoder and 32 decoder layers, d_model 1280,
+     20 heads of 64, d_ff 5120, vocab 51866, 1500 frames, max_seq 448;
+     random weights from a torch.Generator seed, initialised and quantized
+     layer by layer in bf16 (stored codes and packed bytes logged): (a) one
+     prefill of 2 requests (1500 numpy-seeded stub frames each, 4 prompt
+     tokens) and 8 greedy decode steps at IDEAL (B1), then twice at NOISY
+     (B6, noise_seed 0), each with the kernels and with their plain
+     versions: identical logits, streams and caches (self and cross K/V),
+     the two NOISY runs identical, B1 / B6 launched exactly 513 times a
+     prefill (encoder 32 x 6, decoder 32 x 10, head) and 257 a decode step
+     (32 x 8 + 1); (c) the encoder's and the prefill's seconds, the decode
+     step (2 requests at pos 100) on the card (CUDA graph) vs eager, its
+     launches, the card's idle share and profiler rows, at IDEAL and
+     NOISY; (b) one prefill and decode step at --cim bp-noisy from the
+     float weights (B5), kernels vs plain, identical; peak memory and the
+     phase's seconds;
+  3g. the paper's KWS GRU (d 144, gates [288, 144], 12 classes): the
+     example's float training (300 full-batch SGD steps over numpy-seeded
+     synthetic keywords, `repro_torch.examples.kws_gru`) on the card, the
+     loss falling and float accuracy > 0.9; then forwards over the 512
+     test sequences from stored codes at gain 3, IDEAL (B1) and FULL with
+     noise_seed 0 at the example's five PVT corners (B6), each with the
+     kernels and with their plain versions: identical logits, 37 launches
+     a forward; accuracies logged;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
@@ -235,6 +265,12 @@ MOE_MVMS = [("e_gate+e_up", 2048, 1408, 2), ("e_down", 1408, 2048, 1)]
 # to 96 tokens): 256 experts of capacity 8
 DS_EXPERTS, DS_CAPACITY = 256, 8
 DS_MVMS = [("e_gate+e_up", 7168, 2048, 2), ("e_down", 2048, 7168, 1)]
+DS_NEW_TOKENS = 8              # per request in phase 3d's serves
+# phase 3m(e)'s depth cuts, to keep the script's time (full width kept)
+E_DEPTH = {"llama3-8b": 4, "granite-3-8b": 4}
+# whisper-large-v3: its published text context (arXiv:2212.04356) and the
+# greedy decode steps after each prefill of phase 3w
+W_MAX_SEQ, W_STEPS = 448, 8
 
 
 def log(msg: str) -> None:
@@ -325,7 +361,8 @@ def main() -> int:
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.core import engine
     from repro_torch.core.engine import PackedCodes
-    from repro_torch.models import (common, mamba2, moe, registry,
+    from repro_torch.examples import kws_gru
+    from repro_torch.models import (common, gru, mamba2, moe, registry,
                                     transformer)
     from repro_torch.models.quantize import quantize_params
     from repro_torch.runtime import obs
@@ -978,15 +1015,16 @@ def main() -> int:
         check(step_err == 0.0 and same_pools, f"{tag}: kernel and plain "
               "paged_step logits or pools differ")
 
-    def decode_breakdown(server, tag, decode_step=None):
+    def decode_breakdown(server, tag, decode_step=None, slots=4):
         """Where a decode step's time goes: the whole C=1 step captured
         into a CUDA graph gives the card's time; the eager step adds the
         host's; torch.profiler gives device time by kernel name. The step
-        is a paged one unless `decode_step` is given."""
-        dtok = torch.from_numpy(np.random.RandomState(8).randint(
-            0, server.cfg.vocab, (4, 1))).to(dev)
+        is a paged one over `server` unless `decode_step` is given (then
+        `server` is unused)."""
         note = ""
         if decode_step is None:
+            dtok = torch.from_numpy(np.random.RandomState(8).randint(
+                0, server.cfg.vocab, (4, 1))).to(dev)
             if server.cfg.arch == "internlm2-1.8b":
                 note = (" (7,987 with B4 launched alone and the casts "
                         "around B3)")
@@ -1003,8 +1041,8 @@ def main() -> int:
 
         t_dev = graph_ms(torch, decode_step, [()], reps=3, min_iters=3)
         t_eager = time_ms(torch, decode_step, [()], reps=3, min_iters=3)
-        log(f"{tag}: one decode step (4 slots, C=1): {t_dev:.2f} ms on the "
-            f"card (CUDA graph), {t_eager:.2f} ms eager -> the card is idle "
+        log(f"{tag}: one decode step ({slots} slots, C=1): {t_dev:.2f} ms on "
+            f"the card (CUDA graph), {t_eager:.2f} ms eager -> the card is idle "
             f"{100 * (1 - t_dev / t_eager):.1f} % of the eager step")
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU,
@@ -1980,12 +2018,15 @@ def main() -> int:
 
     # (e) the dense archs: stablelm-3b (dh 80 through B3's GEN instances,
     # LayerNorm, qkv bias, rotary on a quarter of the head dim), llama3-8b
-    # and granite-3-8b (GQA 32 / 8 heads of 128, d_model 4096), and
+    # (GQA 32 / 8 heads of 128, vocab 128256) and granite-3-8b (the tied
+    # head, embed.T through B2), both with n_layers cut to E_DEPTH, and
     # internvl2-26b's decoder (48 layers, d_model 6144, GQA 48 / 8, d_ff
     # 16384, vocab 92553; ~37.5 GB of bf16 never held whole)
     for arch in ("stablelm-3b", "llama3-8b", "granite-3-8b",
                  "internvl2-26b"):
         lcfg = ARCHS[arch].replace(cim=CIMConfig(enabled=True))
+        if arch in E_DEPTH:
+            lcfg = lcfg.replace(n_layers=E_DEPTH[arch])
         t0 = t_arch = time.monotonic()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1994,7 +2035,8 @@ def main() -> int:
             layer_fn=lambda lp, c=lcfg: quantize_params(lp, c)), lcfg,
             serving, device=dev)
         torch.cuda.synchronize()
-        log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers} layers, "
+        cut = (f" of {ARCHS[arch].n_layers}" if arch in E_DEPTH else "")
+        log(f"phase 3m: {lcfg.arch} full width ({lcfg.n_layers}{cut} layers, "
             f"d_model {lcfg.d_model}, {lcfg.n_heads} / {lcfg.n_kv_heads} "
             f"heads of {lcfg.head_dim}, vocab {lcfg.vocab}) initialised and "
             f"packed in {time.monotonic() - t0:.1f} s: "
@@ -2010,6 +2052,8 @@ def main() -> int:
               and counts["cim_mvm_grouped_packed"] > 0,
               f"phase 3m: {lcfg.arch}'s steps did not launch B1, B3 and the "
               "decode launch")
+        check(not lcfg.tie_embeddings or counts["cim_mvm_grouped"] > 0,
+              f"phase 3m: {lcfg.arch}'s tied head did not launch B2")
         log(f"phase 3m: {lcfg.arch} steps kernels vs plain in "
             f"{time.monotonic() - t0:.1f} s; launches {counts}")
         if lcfg.n_image_tokens:
@@ -2127,7 +2171,8 @@ def main() -> int:
             return run
 
         transformer.prefill, transformer.decode_step = map(counted, inner)
-        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts]
+        reqs = [Request(prompt=p, max_new_tokens=DS_NEW_TOKENS)
+                for p in prompts]
         try:
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
@@ -2144,8 +2189,8 @@ def main() -> int:
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> "
                 f"{r.output}")
-            check(len(r.output) == 16 and all(0 <= t < dcfg.vocab
-                                              for t in r.output),
+            check(len(r.output) == DS_NEW_TOKENS
+                  and all(0 <= t < dcfg.vocab for t in r.output),
                   f"{tag} req{r.rid}: bad output {r.output}")
         total = sum(len(r.output) for r in reqs)
         log(f"{tag}: 8 requests, {total} tokens, {forwards[0]} forwards "
@@ -2325,6 +2370,243 @@ def main() -> int:
         del rserver
         torch.cuda.empty_cache()
         log(f"phase 3r: {arch}: {time.monotonic() - t3r:.1f} s in all")
+
+    # ---- phase 3w: whisper-large-v3 at full width and depth ---------------
+    t3w = time.monotonic()
+    wcfg = ARCHS["whisper-large-v3"].replace(cim=CIMConfig(enabled=True))
+    wnoisy = wcfg.replace(cim=noisy)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    wparams = quantize_params(registry.init_params(
+        wcfg, seed=0, device=dev, max_seq=W_MAX_SEQ,
+        layer_fn=lambda lp: quantize_params(lp, wcfg)), wcfg)
+    torch.cuda.synchronize()
+
+    def n_codes(tree):
+        """Stored codes (logical, two per packed byte) in a params tree."""
+        if isinstance(tree, dict):
+            return sum(2 * v.numel() if k.endswith("_q") else n_codes(v)
+                       for k, v in tree.items())
+        if isinstance(tree, list):
+            return sum(n_codes(v) for v in tree)
+        return 0
+
+    log(f"phase 3w: {wcfg.arch} full width and depth ({wcfg.encoder_layers} "
+        f"encoder + {wcfg.n_layers} decoder layers, d_model {wcfg.d_model}, "
+        f"{wcfg.n_heads} heads of {wcfg.head_dim}, d_ff {wcfg.d_ff}, vocab "
+        f"{wcfg.vocab}, {wcfg.encoder_len} frames, max_seq {W_MAX_SEQ}) "
+        f"initialised and packed layer by layer in "
+        f"{time.monotonic() - t3w:.1f} s: stored codes encoder "
+        f"{n_codes(wparams['enc_layers']) / 1e6:.1f} M, decoder "
+        f"{n_codes(wparams['layers']) / 1e6:.1f} M, head "
+        f"{n_codes(wparams['tok']) / 1e6:.1f} M; "
+        f"{packed_gb(wparams):.3f} GB packed, "
+        f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    wrng = np.random.RandomState(41)
+    wbatch = {"tokens": torch.from_numpy(wrng.randint(0, wcfg.vocab, (2, 4))
+                                         ).to(dev),
+              "frames": torch.from_numpy(wrng.standard_normal(
+                  (2, wcfg.encoder_len, wcfg.d_model)).astype(np.float32)
+              ).to(dev)}
+    w_prefill, w_step = 6 * wcfg.encoder_layers + 10 * wcfg.n_layers + 1, \
+        8 * wcfg.n_layers + 1
+    w_kname = {"IDEAL": "cim_mvm_grouped_packed",
+               "NOISY": "cim_mvm_grouped_noisy_packed",
+               "bp-noisy": "cim_mvm_grouped_noisy"}
+
+    def whisper_run(params, step_cfg, steps, level, tag):
+        """One prefill of wbatch, then `steps` greedy decode steps; (the
+        logits, the cache leaves, the streams). With the kernels (not the
+        plain versions), B1 / B6 / B5 must launch w_prefill times in the
+        prefill and w_step times per decode step."""
+        kernels = step_cfg.cim.backend != "plain"
+        torch.cuda.synchronize()
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        logit, cache = transformer.prefill(params, wbatch, step_cfg,
+                                           max_len=W_MAX_SEQ)
+        torch.cuda.synchronize()
+        t_pre = time.monotonic() - t0
+        p_counts = build.launch_counts()
+        logits, toks = [logit], [logit.argmax(-1)]
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        for _ in range(steps):
+            logit, cache = transformer.decode_step(params, toks[-1][:, None],
+                                                   cache, step_cfg)
+            logits.append(logit)
+            toks.append(logit.argmax(-1))
+        torch.cuda.synchronize()
+        t_dec = time.monotonic() - t0
+        d_counts = build.launch_counts()
+        kname = w_kname[level]
+        if kernels:
+            check(p_counts[kname] == w_prefill
+                  and d_counts[kname] == steps * w_step,
+                  f"{tag}: {kname} launched {p_counts[kname]} times in the "
+                  f"prefill and {d_counts[kname]} in {steps} decode steps, "
+                  f"expected {w_prefill} and {steps * w_step}")
+            main_w[level] = (p_counts[kname], d_counts[kname])
+        check(all(a.shape == (2, wcfg.vocab) and bool(torch.isfinite(a).all())
+                  for a in logits), f"{tag}: logits malformed")
+        check(tuple(cache["cross"]["k"].shape)
+              == (wcfg.n_layers, 2, wcfg.encoder_len, wcfg.n_kv_heads,
+                  wcfg.head_dim), f"{tag}: cross cache malformed")
+        log(f"{tag}: prefill {t_pre:.2f} s, {steps} decode steps "
+            f"{t_dec:.2f} s; {'kernels' if kernels else 'plain versions'}"
+            + (f"; {kname} {p_counts[kname]} + {d_counts[kname]} launches"
+               if kernels else ""))
+        leaves = [cache[st][n] for st in ("layers", "cross")
+                  for n in ("k", "v")]
+        return logits, leaves, torch.stack(toks, 1).tolist()
+
+    def whisper_same(a, b):
+        """(max |dlogit|, every cache leaf identical byte for byte)."""
+        err = max((x - y).abs().max().item() for x, y in zip(a[0], b[0]))
+        same = all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+                   for x, y in zip(a[1], b[1]))
+        return err, same
+
+    main_w = {}
+    # (a) IDEAL, then NOISY twice with one noise_seed; kernels vs plain
+    for level, step_cfg, runs in (("IDEAL", wcfg, 1), ("NOISY", wnoisy, 2)):
+        outs = [whisper_run(wparams, step_cfg, W_STEPS, level,
+                            f"phase 3w (a): {level} run {r + 1}")
+                for r in range(runs)]
+        torch.cuda.reset_peak_memory_stats()
+        plain_out = whisper_run(wparams, step_cfg.replace(
+            cim=dataclasses.replace(step_cfg.cim, backend="plain")),
+            W_STEPS, level, f"phase 3w (a): {level} plain")
+        err, same = whisper_same(outs[0], plain_out)
+        log(f"phase 3w (a): {level} prefill + {W_STEPS} decode steps, "
+            f"kernels vs plain versions: max |dlogit| = {err}, self and "
+            f"cross K/V identical: {same} (tolerance 0); streams "
+            f"{outs[0][2]}; plain run's peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(err == 0.0 and same and outs[0][2] == plain_out[2],
+              f"phase 3w: {level} kernel and plain runs differ")
+        if runs > 1:
+            err, same = whisper_same(outs[0], outs[1])
+            check(err == 0.0 and same and outs[0][2] == outs[1][2],
+                  "phase 3w: the two same-seed NOISY runs differ")
+            log("phase 3w (a): the two same-seed NOISY runs are identical "
+                "(logits, caches, streams)")
+        del outs, plain_out
+        torch.cuda.empty_cache()
+
+    # (c) where the time goes: the encoder and the prefill alone, then the
+    # decode step (2 requests at pos 100) on the card vs eager
+    for level, step_cfg in (("IDEAL", wcfg), ("NOISY", wnoisy)):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        transformer._encode(wparams, wbatch, step_cfg)
+        torch.cuda.synchronize()
+        t_enc = time.monotonic() - t0
+        t0 = time.monotonic()
+        _, wcache = transformer.prefill(wparams, wbatch, step_cfg,
+                                        max_len=W_MAX_SEQ)
+        torch.cuda.synchronize()
+        log(f"phase 3w ({card}): {level} encoder ({wcfg.encoder_layers} "
+            f"layers over 2 x {wcfg.encoder_len} frames, B1 / B6 at M = "
+            f"{2 * wcfg.encoder_len}) {t_enc:.3f} s; whole prefill "
+            f"{time.monotonic() - t0:.3f} s")
+        wcache["pos"].fill_(100)
+        wtok = torch.from_numpy(np.random.RandomState(8).randint(
+            0, wcfg.vocab, (2, 1))).to(dev)
+
+        def w_decode_step(c=step_cfg, wc=wcache, wt=wtok):
+            transformer.decode_step(wparams, wt, wc, c)
+
+        decode_breakdown(None, f"phase 3w ({card}): {level}",
+                         w_decode_step, slots=2)
+        build.reset_launch_counts()
+        w_decode_step()
+        torch.cuda.synchronize()
+        log(f"phase 3w: {level}: launches of one decode step "
+            f"{build.launch_counts()}")
+        del wcache
+        torch.cuda.empty_cache()
+    del wparams
+    torch.cuda.empty_cache()
+
+    # (b) --cim bp-noisy from the float weights (B5): one prefill and one
+    # decode step, kernels vs plain
+    t0 = time.monotonic()
+    torch.cuda.reset_peak_memory_stats()
+    fparams = registry.init_params(wcfg, seed=0, device=dev,
+                                   max_seq=W_MAX_SEQ)
+    torch.cuda.synchronize()
+    log(f"phase 3w (b): float model {gbytes(fparams):.2f} GB (bf16) in "
+        f"{time.monotonic() - t0:.1f} s")
+    k_out = whisper_run(fparams, wnoisy, 1, "bp-noisy",
+                        "phase 3w (b): --cim bp-noisy")
+    p_out = whisper_run(fparams, wnoisy.replace(cim=dataclasses.replace(
+        noisy, backend="plain")), 1, "bp-noisy",
+        "phase 3w (b): --cim bp-noisy plain")
+    err, same = whisper_same(k_out, p_out)
+    log(f"phase 3w (b): --cim bp-noisy prefill + decode step, kernels vs "
+        f"plain versions: max |dlogit| = {err}, K/V identical: {same} "
+        f"(tolerance 0); peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB")
+    check(err == 0.0 and same, "phase 3w: --cim bp-noisy kernel and plain "
+          "runs differ")
+    del fparams, k_out, p_out
+    torch.cuda.empty_cache()
+    log(f"phase 3w ({card}): launches (prefill, {W_STEPS} decode steps) "
+        f"{main_w}; {time.monotonic() - t3w:.1f} s in all")
+
+    # ---- phase 3g: the paper's KWS GRU -------------------------------------
+    t3g = time.monotonic()
+    gcfg = gru.gru_config(n_classes=kws_gru.N_CLASSES)
+    grng = np.random.RandomState(0)
+    proto = grng.standard_normal((kws_gru.N_CLASSES, kws_gru.FRAMES,
+                                  144)) * 1.2
+    xtr, ytr = (torch.from_numpy(a).to(dev)
+                for a in kws_gru.make_kws_data(grng, proto))
+    xte, yte = (torch.from_numpy(a).to(dev)
+                for a in kws_gru.make_kws_data(grng, proto, n=512))
+    t0 = time.monotonic()
+    gp, losses = kws_gru.train(gru.init(gcfg, seed=3, device=dev), xtr, ytr,
+                               gcfg, steps=300, log=lambda m: None)
+    torch.cuda.synchronize()
+    acc_f = kws_gru.accuracy(gp, xte, yte, gcfg)
+    log(f"phase 3g ({card}): KWS GRU float training, 300 full-batch SGD "
+        f"steps over 1024 x {kws_gru.FRAMES} frames in "
+        f"{time.monotonic() - t0:.2f} s: loss {losses[0]:.3f} -> "
+        f"{losses[-1]:.3f}, float accuracy {acc_f:.4f}")
+    check(losses[-1] < losses[0] - 0.2 and acc_f > 0.9,
+          "phase 3g: the GRU did not learn")
+    g_runs = [("IDEAL", kws_gru.macro_cfg(gcfg, level=SimLevel.IDEAL,
+                                          noise_seed=None))]
+    g_runs += [(f"FULL {vdd:.2f} V {temp:+.0f} C",
+                kws_gru.macro_cfg(gcfg, vdd=vdd, temp_c=temp))
+               for vdd, temp in kws_gru.CORNERS]
+    g_launch = {}
+    for tag, ccfg in g_runs:
+        gq = quantize_params(gp, ccfg)
+        kname = "cim_mvm_grouped_packed" if tag == "IDEAL" \
+            else "cim_mvm_grouped_noisy_packed"
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        l_k = gru.forward(gq, xte, ccfg)
+        torch.cuda.synchronize()
+        t_k = time.monotonic() - t0
+        g_launch[tag] = build.launch_counts()[kname]
+        l_p = gru.forward(gq, xte, ccfg.replace(cim=dataclasses.replace(
+            ccfg.cim, backend="plain")))
+        torch.cuda.synchronize()
+        acc = float((l_k.argmax(-1) == yte).float().mean())
+        log(f"phase 3g: stored codes at {tag}, gain 3: accuracy {acc:.4f} "
+            f"(float {acc_f:.4f}); kernels vs plain versions: max |dlogit| "
+            f"= {(l_k - l_p).abs().max().item()} (tolerance 0); forward "
+            f"{t_k * 1e3:.1f} ms eager, {kname} {g_launch[tag]} launches")
+        check(torch.equal(l_k, l_p), f"phase 3g: {tag} kernel and plain "
+              "forwards differ")
+        check(g_launch[tag] == 3 * kws_gru.FRAMES + 1,
+              f"phase 3g: {tag}: {g_launch[tag]} {kname} launches, expected "
+              f"{3 * kws_gru.FRAMES + 1}")
+    log(f"phase 3g: {time.monotonic() - t3g:.1f} s in all")
 
     # ---- phase 6: report -------------------------------------------------
     meta = {

@@ -24,6 +24,12 @@ reference's launcher does.
   PYTHONPATH=src python -m repro_torch.launch.serve --arch internvl2-26b \
       --smoke --device cpu --paged --cim bp-prequant
 
+  # whisper-large-v3 is accepted, as by the reference's launcher, and its
+  # first prefill raises KeyError('frames'...): the Servers pass tokens
+  # only and its encoder reads frame embeddings, so whisper runs through
+  # models.transformer.prefill / decode_step with batch["frames"]
+  # (--paged raises NotImplementedError: a cross-attention cache)
+
   # the paged-KV engine at full width on the card; --cim bp-prequant
   # quantizes every layer as soon as it is made, at any size (so
   # internvl2-26b's ~37.5 GB of bf16 weights are never held whole), except
@@ -209,7 +215,7 @@ def main(argv=None):
         def layer_fn(lp):
             return quantize_params(lp, cfg)
     params = registry.init_params(cfg, seed=args.seed, device=device,
-                                  layer_fn=layer_fn)
+                                  layer_fn=layer_fn, max_seq=args.max_len)
     if args.precision_manifest and args.cim == "off":
         ap.error("--precision-manifest needs a --cim mode")
     act_scale = act_zero_point = None

@@ -9,6 +9,7 @@ tensors; layouts follow the reference package ([d_in, d_out] weights,
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -194,13 +195,30 @@ def _rope_dims(cfg: ModelConfig) -> int:
     return d - (d % 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _const(value: float, dtype: torch.dtype) -> float:
+    """`value` rounded to `dtype`: a weakly typed constant of the reference
+    enters an op in the operand's dtype."""
+    return float(torch.tensor(value, dtype=dtype))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh GELU, jax.nn.gelu's default (approximate=True), in its op
+    order: x · 0.5·(1 + tanh(√(2/π)·(x + 0.044715·x³))). F.gelu's default
+    is the exact erf form, up to 4.7e-4 away."""
+    c = _const(math.sqrt(2 / math.pi), x.dtype)
+    cdf = 0.5 * (1.0 + torch.tanh(c * (x + _const(0.044715, x.dtype)
+                                       * (x * (x * x)))))
+    return x * cdf
+
+
 def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     up = dense(p, x, cfg, w="w_up", b=None)
     if cfg.mlp == "swiglu":
         gate = dense(p, x, cfg, w="w_gate", b=None)
         h = F.silu(gate) * up
     else:
-        h = F.gelu(up)
+        h = gelu(up)
     return dense(p, h, cfg, w="w_down", b=None)
 
 
@@ -321,35 +339,40 @@ def pad_cache(kv: dict, max_len: int) -> dict:
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor,
+                    positions: torch.Tensor, causal: bool = True,
                     kv_x: torch.Tensor | None = None,
                     cache: dict | None = None,
                     cache_index: torch.Tensor | int = 0):
-    """Causal self-attention over the slot cache. Returns (y, cache entries
-    | None).
+    """Self- or cross-attention over the slot cache. Returns (y, cache
+    entries | None).
 
-    Decode (T = 1 with a cache {"k", "v": [B, S, KH, dh]}): the new token's
-    K/V are written IN PLACE at row `cache_index`, clamped into [0, S − 1]
-    as `dynamic_update_slice` clamps its start, and the token attends over
-    the first cache_index + 1 rows (`decode_attention`). Otherwise the whole
-    sequence attends through `chunked_attention`; with `cache={}` (prefill)
-    its K/V come back as {"k", "v"}.
+    Three routes, as in the reference:
+    - decode self-attention (T = 1, no `kv_x`, a cache {"k", "v": [B, S,
+      KH, dh]}): the new token's K/V are written IN PLACE at row
+      `cache_index`, clamped into [0, S − 1] as `dynamic_update_slice`
+      clamps its start, and the token attends over the first cache_index +
+      1 rows (`decode_attention`);
+    - decode cross-attention (`kv_x` given and a cache holding the
+      encoder's K/V): only wq and wo run, the query attends over every
+      cached row and the cache comes back unchanged;
+    - otherwise the whole sequence attends through `chunked_attention`,
+      K/V projected from `kv_x` when given (RoPE and the causal mask only
+      for self-attention); with `cache={}` (prefill) the K/V come back as
+      {"k", "v"}.
     """
-    if kv_x is not None:
-        raise NotImplementedError("cross-attention (kv_x) is not ported yet "
-                                  "(ROADMAP A9, whisper)")
     b, t, _ = x.shape
     dh = cfg.head_dim
+    rope_on = cfg.pos_embed == "rope" and kv_x is None
     q = dense(p, x, cfg, w="wq", b="bq").reshape(b, t, cfg.n_heads, dh)
-    if cfg.pos_embed == "rope":
+    if rope_on:
         q = rope(q, positions, cfg.rope_theta, _rope_dims(cfg))
     new_cache = None
-    if cache is not None and t == 1:
+    if cache is not None and kv_x is None and t == 1:
         k1 = dense(p, x, cfg, w="wk", b="bk").reshape(b, 1, cfg.n_kv_heads,
                                                       dh)
         v1 = dense(p, x, cfg, w="wv", b="bv").reshape(b, 1, cfg.n_kv_heads,
                                                       dh)
-        if cfg.pos_embed == "rope":
+        if rope_on:
             k1 = rope(k1, positions, cfg.rope_theta, _rope_dims(cfg))
         row = torch.as_tensor(cache_index, device=x.device).clamp(
             0, cache["k"].shape[1] - 1).reshape(1).long()
@@ -357,12 +380,20 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         cache["v"].index_copy_(1, row, k_cache_dtype(v1, cache))
         o = decode_attention(q, cache["k"], cache["v"], cache_index + 1)
         new_cache = cache
+    elif cache is not None and kv_x is not None and "k" in cache:
+        o = decode_attention(q, cache["k"], cache["v"], cache["k"].shape[1])
+        new_cache = cache
     else:
-        k = dense(p, x, cfg, w="wk", b="bk").reshape(b, t, cfg.n_kv_heads, dh)
-        v = dense(p, x, cfg, w="wv", b="bv").reshape(b, t, cfg.n_kv_heads, dh)
-        if cfg.pos_embed == "rope":
+        src = x if kv_x is None else kv_x
+        ts = src.shape[1]
+        k = dense(p, src, cfg, w="wk", b="bk").reshape(b, ts,
+                                                       cfg.n_kv_heads, dh)
+        v = dense(p, src, cfg, w="wv", b="bv").reshape(b, ts,
+                                                       cfg.n_kv_heads, dh)
+        if rope_on:
             k = rope(k, positions, cfg.rope_theta, _rope_dims(cfg))
-        o = chunked_attention(q, k, v, causal=True, chunk=cfg.attn_chunk,
+        o = chunked_attention(q, k, v, causal=causal and kv_x is None,
+                              chunk=cfg.attn_chunk,
                               triangular_max=cfg.attn_triangular_max)
         if cache is not None:      # prefill: hand back the K/V
             new_cache = {"k": k, "v": v}

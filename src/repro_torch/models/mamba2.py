@@ -72,11 +72,12 @@ def _n_shared_apps(cfg: ModelConfig) -> int:
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         layer_fn=None) -> dict:
+         layer_fn=None, max_seq: int = 0) -> dict:
     """Random weights from a torch.Generator seeded with `seed`, made on
     `device` (default: the card); the reference's constants (A = −(1 …
     16), dt from a log-uniform [1e-3, 1e-1], D = 1). `layer_fn` maps each
-    layer's params, and the shared block's, as soon as they are made."""
+    layer's params, and the shared block's, as soon as they are made.
+    `max_seq` is taken and ignored, as the reference's init takes `**_`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     layer_fn = layer_fn or (lambda lp: lp)

@@ -1,9 +1,10 @@
 """Model registry: ModelConfig.family → implementation module, plus the
 bridge that carries the reference package's weights across.
 
-Every family but "audio" (whisper, ROADMAP Queue A9b) is ported: the
-dense, MoE and VLM transformers, RWKV6 ("ssm") and the Mamba2 / Zamba2
-hybrid ("hybrid").
+Every family is ported: the dense, MoE, VLM and audio (whisper's
+encoder-decoder) transformers, RWKV6 ("ssm") and the Mamba2 / Zamba2
+hybrid ("hybrid"). The paper's KWS GRU (`models.gru`, family "audio"
+too) is built by its own module, as in the reference.
 """
 from __future__ import annotations
 
@@ -16,18 +17,16 @@ from repro_torch.device import resolve_device
 from . import mamba2, rwkv6, transformer
 
 _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
-           "ssm": rwkv6, "hybrid": mamba2}
+           "audio": transformer, "ssm": rwkv6, "hybrid": mamba2}
 
 
 def get_module(cfg: ModelConfig):
-    if cfg.family not in _FAMILY:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} ({cfg.arch}) is not ported yet "
-            "(ROADMAP A9b)")
     return _FAMILY[cfg.family]
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, **kw):
+    """`max_seq` (in kw) sizes the transformer's learned positions; the
+    other modules take it and ignore it, as in the reference."""
     return get_module(cfg).init(cfg, seed=seed, device=device, **kw)
 
 
@@ -44,12 +43,14 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     port's params on `device`.
 
     Stacked [L, ...] leaves under "dense_layers" (MoEConfig.first_dense
-    layers) and "layers" (the other n_layers − first_dense) become one
-    dict per layer (the MoE FFN's router [L, D, E], experts [L, E, D, F]
-    and shared gate too; RWKV6's {"norm1", "tm", "norm2", "cm"}; Mamba2's
-    {"norm1", "ssm"}); every other entry ("tok", "final_norm", deepseek's
-    "mtp", zamba2's one weight-shared block "shared") is carried as it is;
-    bf16 leaves arrive as uint16 views (the checkpoint format's encoding).
+    layers), "layers" (the other n_layers − first_dense) and "enc_layers"
+    (whisper's encoder_layers) become one dict per layer (the MoE FFN's
+    router [L, D, E], experts [L, E, D, F] and shared gate too; whisper's
+    "norm_x" / "xattn"; RWKV6's {"norm1", "tm", "norm2", "cm"}; Mamba2's
+    {"norm1", "ssm"}); every other entry ("tok", "final_norm", whisper's
+    "enc_norm", "enc_pos" and "dec_pos", deepseek's "mtp", zamba2's one
+    weight-shared block "shared") is carried as it is; bf16 leaves arrive
+    as uint16 views (the checkpoint format's encoding).
     """
     get_module(cfg)
     dev = resolve_device(device)
@@ -65,6 +66,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
         return _to_tensor(node[i], dev)
 
     n_dense = cfg.moe.first_dense if cfg.moe is not None else 0
-    depth = {"dense_layers": n_dense, "layers": cfg.n_layers - n_dense}
+    depth = {"dense_layers": n_dense, "layers": cfg.n_layers - n_dense,
+             "enc_layers": cfg.encoder_layers}
     return {k: [split(v, i) for i in range(depth[k])] if k in depth
             else conv(v) for k, v in tree.items()}

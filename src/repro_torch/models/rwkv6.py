@@ -66,12 +66,13 @@ def _channel_mix_init(gen, cfg: ModelConfig, *, device) -> dict:
 
 
 def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         layer_fn=None) -> dict:
+         layer_fn=None, max_seq: int = 0) -> dict:
     """Random weights from a torch.Generator seeded with `seed`, made on
     `device` (default: the card); the reference's constants (μ 0.5, the
     decay base linspace(−6, −0.5), u 0) as in its init. `layer_fn` maps
     each layer's params as soon as they are made (e.g.
-    models.quantize.quantize_params)."""
+    models.quantize.quantize_params). `max_seq` is taken and ignored, as
+    the reference's init takes `**_`."""
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     layer_fn = layer_fn or (lambda lp: lp)

@@ -1,15 +1,23 @@
-"""Decoder transformer for serving (dense GQA LMs, the MoE family and
-deepseek-v3's MLA): the padded `forward`, the slot engine's `prefill` /
-`decode_step` and the paged `paged_step`. A layer's FFN is the MLP, or the
-MoE FFN (`models.moe`) where its params hold a router; its attention is
-GQA, or MLA (`models.mla`) where cfg.mla is set.
+"""Transformer for serving (dense GQA LMs, the MoE family, deepseek-v3's
+MLA, the VLM prefix and whisper's encoder-decoder): the padded `forward`,
+the slot engine's `prefill` / `decode_step` and the paged `paged_step`. A
+layer's FFN is the MLP, or the MoE FFN (`models.moe`) where its params
+hold a router; its attention is GQA, or MLA (`models.mla`) where cfg.mla
+is set.
 
 internvl2-26b (family "vlm") is the dense decoder behind an image prefix:
 `forward` and `prefill` put batch["image_embeds"] (the stub frontend's
 patch embeddings) in front of the token embeddings.
 
+whisper-large-v3 (family "audio") adds an encoder over batch["frames"]
+(the stub conv frontend's frame embeddings [B, T, D]) with learned
+positions, run without the causal mask; every decoder layer attends to
+the encoder's output through its cross-attention ("norm_x", "xattn"),
+and the decoder adds learned positions (params["dec_pos"], max_seq rows).
+
 Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
-"dense_layers": [...], "layers": [per-layer dict, ...], "mtp": {...}} —
+"dense_layers": [...], "layers": [per-layer dict, ...], "enc_layers":
+[...], "enc_norm", "enc_pos" / "dec_pos": {"pos_embed"}, "mtp": {...}} —
 the reference's stacked [L, ...] leaves become one dict of tensors per
 layer, and its layer scans become Python loops (inference only).
 "dense_layers" holds MoEConfig.first_dense leading layers with a dense FFN
@@ -18,8 +26,10 @@ of width d_ff_dense (deepseek-v3's first three), run before "layers";
 A10) and never read here. The caches keep the reference's stacked
 layouts, one entry per layer stack: slot {"pos", "dense_layers", "layers":
 {"k", "v": [L, B, max_len, KH, dh]}} ({"latent": [L, B, max_len, lat]}
-under MLA) and paged {"dense_layers", "layers": {"k", "v": [L, NB, bs, KH,
-dh]}}; a layer reads and writes its slice in place.
+under MLA; whisper's "cross": {"k", "v": [L, B, frames, KH, dh]}, the
+encoder's K/V per decoder layer) and paged {"dense_layers", "layers":
+{"k", "v": [L, NB, bs, KH, dh]}}; a layer reads and writes its slice in
+place.
 """
 from __future__ import annotations
 
@@ -32,14 +42,6 @@ from . import common, mla, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
                      embed_lookup, mlp_apply, mlp_init, norm, norm_init,
                      pad_cache, unembed)
-
-
-def _check_arch(cfg: ModelConfig) -> None:
-    if cfg.encoder_layers or cfg.cross_attention or cfg.pos_embed != "rope":
-        raise NotImplementedError(
-            f"arch {cfg.arch!r} needs model features that are not ported "
-            "yet: an encoder, learned positions, cross-attention (ROADMAP "
-            "A9b, whisper)")
 
 
 def _n_dense(cfg: ModelConfig) -> int:
@@ -61,7 +63,16 @@ def _layer_init(gen, cfg: ModelConfig, *, device, ffn: str) -> dict:
         p["ffn"] = mlp_init(gen, cfg, device=device,
                             d_ff=cfg.moe.d_ff_dense if ffn == "dense_wide"
                             else None)
+    if cfg.cross_attention:
+        p["norm_x"] = norm_init(cfg.d_model, **kw)
+        p["xattn"] = attention_init(gen, cfg, device=device)
     return p
+
+
+def _pos_table(gen, n: int, cfg: ModelConfig, device) -> dict:
+    """Learned positions [n, D], N(0, 0.02²) in the model dtype."""
+    return {"pos_embed": (common._normal(gen, (n, cfg.d_model), device)
+                          * 0.02).to(dtype_of(cfg))}
 
 
 def _stacks(tree: dict):
@@ -71,15 +82,18 @@ def _stacks(tree: dict):
             if name in tree]
 
 
-def init(cfg: ModelConfig, *, seed: int = 0, device=None,
-         layer_fn=None) -> dict:
+def init(cfg: ModelConfig, *, seed: int = 0, device=None, layer_fn=None,
+         max_seq: int = 0) -> dict:
     """Random weights from a torch.Generator seeded with `seed`, made on
     `device` (default: the card). The draws differ from the reference's
     jax.random ones; `registry.params_from_numpy` carries the reference's
-    weights across instead. `layer_fn` maps each layer's params as soon
-    as they are made (e.g. models.quantize.quantize_params), so a model
-    whose float weights would not fit is never held whole."""
-    _check_arch(cfg)
+    weights across instead. `layer_fn` maps each layer's params (encoder
+    layers too) as soon as they are made (e.g.
+    models.quantize.quantize_params), so a model whose float weights would
+    not fit is never held whole. Learned decoder positions get `max_seq`
+    rows."""
+    if cfg.pos_embed == "learned" and max_seq <= 0:
+        raise ValueError("learned positions need max_seq at init")
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(seed)
     layer_fn = layer_fn or (lambda lp: lp)
@@ -94,6 +108,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     main = "moe" if cfg.moe is not None else "dense"
     params["layers"] = [layer_fn(_layer_init(gen, cfg, device=dev, ffn=main))
                         for _ in range(cfg.n_layers - n_dense)]
+    if cfg.encoder_layers:
+        enc_cfg = cfg.replace(cross_attention=False)
+        params["enc_layers"] = [
+            layer_fn(_layer_init(gen, enc_cfg, device=dev, ffn="dense"))
+            for _ in range(cfg.encoder_layers)]
+        params["enc_norm"] = norm_init(cfg.d_model, dtype=dtype_of(cfg),
+                                       device=dev, kind=cfg.norm)
+        params["enc_pos"] = _pos_table(gen, cfg.encoder_len, cfg, dev)
+    if cfg.pos_embed == "learned":
+        params["dec_pos"] = _pos_table(gen, max_seq, cfg, dev)
     if cfg.mtp:     # deepseek's multi-token prediction: one block + proj
         kw = dict(dtype=dtype_of(cfg), device=dev, kind=cfg.norm)
         params["mtp"] = layer_fn({
@@ -113,13 +137,34 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
 def _embed_inputs(params, batch, cfg: ModelConfig):
     """Token embeddings, behind a VLM's image prefix where the batch holds
     one (batch["image_embeds"] [B, n_image_tokens, D], cast to the
-    embedding dtype), and their positions [0, T) over the whole span."""
-    _check_arch(cfg)
+    embedding dtype), plus learned positions [0, T) where the arch has
+    them; and their positions [0, T) over the whole span."""
     x = embed_lookup(params["tok"], batch["tokens"].long(), cfg)
     if cfg.n_image_tokens and "image_embeds" in batch:
         x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
     b, t = x.shape[:2]
+    if cfg.pos_embed == "learned":
+        x = x + params["dec_pos"]["pos_embed"][:t]
     return x, torch.arange(t, device=x.device).expand(b, t)
+
+
+def _encode(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+    """whisper's encoder over batch["frames"] [B, T, D] (cast to the model
+    dtype, plus enc_pos[:T]), its layers without the causal mask, then
+    enc_norm."""
+    if "frames" not in batch:
+        raise KeyError(
+            "frames: the encoder reads batch['frames'] (the stub frontend's "
+            "frame embeddings) and this batch holds none; the Servers pass "
+            "tokens only, so whisper is served through prefill / "
+            "decode_step, as in the reference")
+    frames = batch["frames"]
+    b, t = frames.shape[:2]
+    h = frames.to(dtype_of(cfg)) + params["enc_pos"]["pos_embed"][:t]
+    positions = torch.arange(t, device=h.device).expand(b, t)
+    for lp in params["enc_layers"]:
+        h, _ = _layer(lp, h, cfg, positions=positions, causal=False)
+    return norm(params["enc_norm"], h, cfg)
 
 
 def _ffn(p: dict, x, cfg: ModelConfig):
@@ -128,11 +173,13 @@ def _ffn(p: dict, x, cfg: ModelConfig):
 
 
 def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
-           cache_index=0):
-    """One decoder layer; `cache` is None (the padded forward), {} (prefill:
-    the layer's cache entries come back) or the layer's slot cache {"k",
-    "v"} / {"latent"} (decode: written in place). Returns (h, the entries
-    or None)."""
+           cache_index=0, causal: bool = True, enc_out=None, cross=None):
+    """One layer; `cache` is None (the padded forward), {} (prefill: the
+    layer's cache entries come back) or the layer's slot cache {"k", "v"}
+    / {"latent"} (decode: written in place). A decoder layer with
+    cross-attention attends to `enc_out` (forward, prefill: its K/V come
+    back as "xk" / "xv") or to its cached encoder K/V `cross` (decode).
+    Returns (h, the entries or None)."""
     hn = norm(lp["norm1"], h, cfg)
     if cfg.mla is not None:
         a, kv = mla.apply(lp["attn"], hn, cfg, positions=positions,
@@ -140,22 +187,34 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
                           return_cache=cache == {})
     else:
         a, kv = attention_apply(lp["attn"], hn, cfg, positions=positions,
-                                cache=cache, cache_index=cache_index)
+                                causal=causal, cache=cache,
+                                cache_index=cache_index)
     h = h + a
+    if enc_out is not None or cross is not None:
+        prefill = cache == {}
+        xa, xkv = attention_apply(
+            lp["xattn"], norm(lp["norm_x"], h, cfg), cfg,
+            positions=positions, causal=False,
+            kv_x=h if enc_out is None else enc_out,
+            cache=cross if cross is not None else ({} if prefill else None))
+        h = h + xa
+        if prefill:
+            kv = {**kv, "xk": xkv["k"], "xv": xkv["v"]}
     return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
     """Full-sequence causal forward → (hidden [B,T,D] after the final norm,
-    aux_loss 0.0, enc_out None), the reference's triple. Inference only:
-    `train=True` raises (A10)."""
+    aux_loss 0.0, the encoder's output or None), the reference's triple.
+    Inference only: `train=True` raises (A10)."""
     if train:
         raise NotImplementedError("training is not ported yet (ROADMAP A10)")
     x, positions = _embed_inputs(params, batch, cfg)
+    enc_out = _encode(params, batch, cfg) if cfg.encoder_layers else None
     for _, stack in _stacks(params):
         for lp in stack:
-            x, _ = _layer(lp, x, cfg, positions=positions)
-    return norm(params["final_norm"], x, cfg), 0.0, None
+            x, _ = _layer(lp, x, cfg, positions=positions, enc_out=enc_out)
+    return norm(params["final_norm"], x, cfg), 0.0, enc_out
 
 
 def _cache_stacks(cfg: ModelConfig, lead: tuple, device) -> dict:
@@ -179,13 +238,20 @@ def _cache_stacks(cfg: ModelConfig, lead: tuple, device) -> dict:
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """The slot cache (zeros): "pos" an int32 scalar on the device, and per
+    """The slot cache (zeros): "pos" an int32 scalar on the device, per
     layer stack K/V [L, batch, max_len, KH, dh] (the latent [L, batch,
-    max_len, kv_lora + rope] under MLA)."""
-    _check_arch(cfg)
+    max_len, kv_lora + rope] under MLA), and with cross-attention the
+    encoder's K/V "cross" [n_layers, batch, encoder_len, KH, dh]."""
     dev = resolve_device(device)
-    return {"pos": torch.zeros((), dtype=torch.int32, device=dev),
-            **_cache_stacks(cfg, (batch, max_len), dev)}
+    cache = {"pos": torch.zeros((), dtype=torch.int32, device=dev),
+             **_cache_stacks(cfg, (batch, max_len), dev)}
+    if cfg.cross_attention:
+        shape = (cfg.n_layers, batch, cfg.encoder_len, cfg.n_kv_heads,
+                 cfg.head_dim)
+        cache["cross"] = {leaf: torch.zeros(shape, dtype=dtype_of(cfg),
+                                            device=dev)
+                          for leaf in ("k", "v")}
+    return cache
 
 
 def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
@@ -193,16 +259,27 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     """One decode step at the shared position cache["pos"] for every slot:
     tokens [B, 1] → (logits [B, V], cache). K/V rows are written in place
     (at row max_len − 1 once pos reaches max_len, as the reference's
-    dynamic_update_slice clamps); the returned dict carries pos + 1."""
+    dynamic_update_slice clamps); the returned dict carries pos + 1.
+    Learned positions are read at row pos, clamped into [0, max_seq − 1] as
+    dynamic_slice clamps its start; a decoder with cross-attention attends
+    to cache["cross"], which comes back unchanged."""
     pos = cache["pos"]
-    x, positions = _embed_inputs(params, {"tokens": tokens}, cfg)
-    positions = positions + pos
+    x = embed_lookup(params["tok"], tokens.long(), cfg)
+    b = x.shape[0]
+    positions = torch.arange(1, device=x.device).expand(b, 1) + pos
+    if cfg.pos_embed == "learned":
+        table = params["dec_pos"]["pos_embed"]
+        x = x + table.index_select(
+            0, pos.long().clamp(0, table.shape[0] - 1).reshape(1))
+    cross = cache.get("cross")
     for name, stack in _stacks(params):
         kv = cache[name]
         for i, lp in enumerate(stack):
             x, _ = _layer(lp, x, cfg, positions=positions,
                           cache={leaf: t[i] for leaf, t in kv.items()},
-                          cache_index=pos)
+                          cache_index=pos,
+                          cross=None if cross is None
+                          else {leaf: t[i] for leaf, t in cross.items()})
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params["tok"], x[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}
@@ -213,20 +290,25 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     """A whole prompt in one forward → (last-token logits [B, V], its
     cache): per layer stack K/V [L, B, T, KH, dh] (the latent [L, B, T,
     lat] under MLA) zero-padded to max_len (left as is when T >= max_len),
-    "pos" = T."""
+    "pos" = T; with cross-attention also "cross" {"k", "v": [L, B, frames,
+    KH, dh]}, the encoder's K/V per decoder layer, unpadded."""
     x, positions = _embed_inputs(params, batch, cfg)
     t = x.shape[1]
     max_len = max_len or t
+    enc_out = _encode(params, batch, cfg) if cfg.encoder_layers else None
     cache = {"pos": torch.full((), t, dtype=torch.int32, device=x.device)}
     h = x
     for name, stack in _stacks(params):
         entries = []
         for lp in stack:
-            h, kv = _layer(lp, h, cfg, positions=positions, cache={})
+            h, kv = _layer(lp, h, cfg, positions=positions, cache={},
+                           enc_out=enc_out)
             entries.append(kv)
-        cache[name] = pad_cache({leaf: torch.stack([e[leaf]
-                                                     for e in entries])
-                                  for leaf in entries[0]}, max_len)
+        kv = {leaf: torch.stack([e[leaf] for e in entries])
+              for leaf in entries[0]}
+        if "xk" in kv:
+            cache["cross"] = {"k": kv.pop("xk"), "v": kv.pop("xv")}
+        cache[name] = pad_cache(kv, max_len)
     h = norm(params["final_norm"], h, cfg)
     return unembed(params["tok"], h[:, -1], cfg), cache
 
@@ -247,7 +329,6 @@ def init_paged_cache(cfg: ModelConfig, num_blocks: int, block_size: int,
         raise NotImplementedError(
             f"paged KV serving not implemented for arch {cfg.arch!r} "
             "(MLA latent / cross-attention caches)")
-    _check_arch(cfg)
     return _cache_stacks(cfg, (num_blocks, block_size),
                          resolve_device(device))
 
@@ -281,7 +362,8 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     its block table (masked lanes → the trash block), attends per slot, and
     returns (logits, cache) with the cache updated in place. Logits are
     [B, V] at each slot's last valid position, or [B, C, V] with
-    `all_logits`.
+    `all_logits`. It adds no learned positions: whisper, the one arch
+    with them, has no paged cache (`supports_paged`).
     """
     b, c = tokens.shape
     block_size = cache["layers"]["k"].shape[2]

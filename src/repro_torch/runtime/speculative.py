@@ -282,7 +282,8 @@ class ModelDrafter:
         self.max_len = max_len
         self.device = resolve_device(device)
         self.params = params if params is not None else \
-            model_registry.init_params(cfg, seed=seed, device=self.device)
+            model_registry.init_params(cfg, seed=seed, device=self.device,
+                                       max_seq=max_len)
         self._mod = model_registry.get_module(cfg)
 
     def propose(self, tokens: Sequence[int], k: int) -> list[int]:

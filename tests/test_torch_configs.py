@@ -2,7 +2,7 @@
 ported arch's full and smoke config (internlm2-1.8b, stablelm-3b,
 llama3-8b, granite-3-8b, qwen2-moe-a2.7b with its MoEConfig, deepseek-v3
 with its MoEConfig and MLAConfig, internvl2-26b, rwkv6-7b and zamba2-2.7b
-with their SSMConfigs)."""
+with their SSMConfigs, whisper-large-v3), and the KWS GRU's."""
 import dataclasses
 import importlib
 
@@ -28,7 +28,7 @@ ref_cim = importlib.import_module("repro.core.cim_matmul")
 
 ARCH_MODULES = ("stablelm_3b", "llama3_8b", "granite_3_8b",
                 "qwen2_moe_a2_7b", "deepseek_v3_671b", "internvl2_26b",
-                "rwkv6_7b", "zamba2_2_7b")
+                "rwkv6_7b", "zamba2_2_7b", "whisper_large_v3")
 
 PAIRS = {
     "CONFIG": (ref_arch.CONFIG, t_arch.CONFIG),
@@ -43,6 +43,9 @@ PAIRS = {
     "TRAIN_4K": (ref_base.TRAIN_4K, t_base.TRAIN_4K),
     "DECODE_32K": (ref_base.DECODE_32K, t_base.DECODE_32K),
     "TrainConfig": (ref_base.TrainConfig(), t_base.TrainConfig()),
+    "gru_config": (importlib.import_module("repro.models.gru").gru_config(),
+                   importlib.import_module(
+                       "repro_torch.models.gru").gru_config()),
 }
 for _mod in ARCH_MODULES:
     _ref = importlib.import_module(f"repro.configs.{_mod}")
@@ -97,12 +100,16 @@ def test_model_config_widths():
 
 
 def test_registry_unported_arch_raises():
-    with pytest.raises(KeyError, match="A9b"):
-        t_registry.get("whisper-large-v3")
-    assert sorted(t_registry.ARCHS) == sorted(t_registry.SMOKES) == [
+    """Every arch of the reference is ported (whisper-large-v3 last, ROADMAP
+    A9b); an unknown arch raises KeyError, as the reference's does."""
+    from repro.configs import registry as ref_registry
+    with pytest.raises(KeyError, match="unknown arch"):
+        t_registry.get("whisper-large-v4")
+    assert sorted(t_registry.ARCHS) == sorted(t_registry.SMOKES) \
+        == sorted(ref_registry.ARCHS) == [
         "deepseek-v3-671b", "granite-3-8b", "internlm2-1.8b",
         "internvl2-26b", "llama3-8b", "qwen2-moe-a2.7b", "rwkv6-7b",
-        "stablelm-3b", "zamba2-2.7b"]
+        "stablelm-3b", "whisper-large-v3", "zamba2-2.7b"]
 
 
 def test_cim_config_site_overrides_raise():

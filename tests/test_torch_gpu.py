@@ -31,8 +31,12 @@ prefill, decode step and serve (MLA, a leading dense layer, the experts
 through B2 / B5's expert-batched entry). So are the smoke rwkv6-7b's and
 zamba2-2.7b's slot prefill and decode step (their recurrent caches too)
 and internvl2-26b's image-prefix prefill and decode step, at IDEAL (B1)
-and NOISY (B6), and zamba2's at --cim bp-noisy (B5). Inputs come from
-numpy seeds. This file needs no JAX.
+and NOISY (B6), and zamba2's at --cim bp-noisy (B5); so is one
+full-width whisper-large-v3 layer's prefill (an encoder layer over 300
+frames, a decoder layer with cross-attention) and decode step at IDEAL,
+NOISY and bp-noisy, and the KWS GRU's forward at IDEAL and FULL from
+float weights (B2, B5) and stored codes (B1, B6). Inputs come from numpy
+seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -341,6 +345,92 @@ def test_a9b_slot_steps_kernels_bit_exact_vs_plain(arch, level):
     assert build.launch_counts()[kname] == 2 * per_fwd
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "bp-noisy"])
+def test_whisper_layer_kernels_bit_exact_vs_plain(level):
+    """whisper-large-v3 at full width (d_model 1280, 20 heads of 64, d_ff
+    5120, vocab 51866) cut to one encoder and one decoder layer, in bf16:
+    a prefill of 2 x 4 tokens over 300 numpy-seeded frames and a decode
+    step are identical with the kernels (packed prequant: B1, NOISY B6;
+    bp-noisy: float weights through B5) and with their plain versions,
+    logits and every cache leaf (self and cross K/V); 6 + 10 + 1 launches
+    a prefill (the encoder layer, the decoder layer with its cross K/V
+    over the frames, the head), 8 + 1 a decode step."""
+    import dataclasses
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import build
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.quantize import quantize_params
+    dev = gpu_device()
+    cim = CIMConfig(enabled=True)
+    if level != "ideal":
+        cim = dataclasses.replace(cim, noise_seed=0, macro=dataclasses.replace(
+            cim.macro, sim_level=SimLevel.NOISY))
+    cfg = ARCHS["whisper-large-v3"].replace(n_layers=1, encoder_layers=1,
+                                            cim=cim)
+    plain = cfg.replace(cim=dataclasses.replace(cim, backend="plain"))
+    params = registry.init_params(cfg, seed=0, device=dev, max_seq=448)
+    if level != "bp-noisy":
+        params = quantize_params(params, cfg)
+    rng = np.random.RandomState(29)
+    batch = {"tokens": torch.from_numpy(rng.randint(0, cfg.vocab,
+                                                    (2, 4))).to(dev),
+             "frames": torch.from_numpy(rng.standard_normal(
+                 (2, 300, cfg.d_model)).astype(np.float32)).to(dev)}
+    outs = []
+    build.reset_launch_counts()
+    for c in (cfg, plain):
+        l1, cache = transformer.prefill(params, batch, c, max_len=448)
+        l2, cache = transformer.decode_step(params, l1.argmax(-1)[:, None],
+                                            cache, c)
+        outs.append([l1, l2] + [cache[st][leaf] for st in ("layers", "cross")
+                                for leaf in ("k", "v")])
+    kname = {"ideal": "cim_mvm_grouped_packed",
+             "noisy": "cim_mvm_grouped_noisy_packed",
+             "bp-noisy": "cim_mvm_grouped_noisy"}[level]
+    assert build.launch_counts()[kname] == (6 + 10 + 1) + (8 + 1)
+    assert outs[0][4].shape == (1, 2, 300, 20, 64)
+    for a, b in zip(*outs):
+        assert torch.isfinite(a.float()).all()
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("level,stored", [("ideal", False), ("ideal", True),
+                                          ("full", False), ("full", True)])
+def test_gru_forward_kernels_bit_exact_vs_plain(level, stored):
+    """The KWS GRU (d 144, gates [288, 144], 12 classes) over 64 x 12
+    numpy-seeded frames on the macro at gain 3 and 0.65 V (FULL with
+    noise_seed 0): logits identical with the kernels (B2 / B1 at IDEAL,
+    B5 / B6 at FULL) and with their plain versions, 3 launches a frame
+    and one for the head."""
+    import dataclasses
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.examples.kws_gru import macro_cfg
+    from repro_torch.kernels import build
+    from repro_torch.models import gru
+    from repro_torch.models.quantize import quantize_params
+    dev = gpu_device()
+    cfg = macro_cfg(gru.gru_config(n_classes=12), vdd=0.65,
+                    level=SimLevel(level),
+                    noise_seed=0 if level == "full" else None)
+    plain = cfg.replace(cim=dataclasses.replace(cfg.cim, backend="plain"))
+    params = gru.init(cfg, seed=3, device=dev)
+    if stored:
+        params = quantize_params(params, cfg)
+    frames = torch.from_numpy(np.maximum(np.random.RandomState(31)
+                                         .standard_normal((64, 12, 144)),
+                                         0).astype(np.float32)).to(dev)
+    build.reset_launch_counts()
+    out = gru.forward(params, frames, cfg)
+    kname = {(False, "ideal"): "cim_mvm_grouped",
+             (True, "ideal"): "cim_mvm_grouped_packed",
+             (False, "full"): "cim_mvm_grouped_noisy",
+             (True, "full"): "cim_mvm_grouped_noisy_packed"}[stored, level]
+    assert build.launch_counts()[kname] == 3 * 12 + 1
+    assert torch.equal(out, gru.forward(params, frames, plain))
 
 
 @pytest.mark.parametrize("level", ["ideal", "noisy"])

@@ -327,8 +327,9 @@ def test_first_dense_layers_raise():
     """Leading dense layers (MoEConfig.first_dense) are ported: qwen2-moe
     with one builds one dense layer of width d_ff_dense and n_layers − 1
     MoE layers, as the reference's init does, and its paged pool gets a
-    "dense_layers" stack; what still raises is an arch feature queued in
-    A9b (here learned positions, whisper's)."""
+    "dense_layers" stack; what still raises is an arch feature without
+    what it needs (here learned positions, whisper's, without max_seq, as
+    the reference's init asserts)."""
     moe_cfg = dataclasses.replace(SMOKES[ARCH].moe, first_dense=1,
                                   d_ff_dense=96)
     cfg = SMOKES[ARCH].replace(moe=moe_cfg)
@@ -343,7 +344,7 @@ def test_first_dense_layers_raise():
     pools = transformer.init_paged_cache(cfg, 5, 8, device="cpu")
     assert pools["dense_layers"]["k"].shape[0] == 1
     assert pools["layers"]["k"].shape[0] == 1
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(ValueError, match="max_seq"):
         registry.init_params(cfg.replace(pos_embed="learned"), device="cpu")
 
 

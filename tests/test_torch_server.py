@@ -258,9 +258,11 @@ def test_dense_arch_streams_match_reference(arch, engine):
 def test_port_imports_no_jax_and_no_reference():
     """Every module of the port, chip_smoke, a serve on each engine (the
     paged one with the model drafter), a paged prequant serve of the MoE
-    family, a --cim bp slot serve of deepseek-v3 and prequant slot serves
-    of rwkv6-7b, zamba2-2.7b and internvl2-26b leave no JAX and no
-    reference module in sys.modules."""
+    family, a --cim bp slot serve of deepseek-v3, prequant slot serves
+    of rwkv6-7b, zamba2-2.7b and internvl2-26b, whisper-large-v3's
+    prequant prefill and decode step over frames and the KWS GRU's
+    forward on the macro leave no JAX and no reference module in
+    sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
@@ -307,6 +309,20 @@ def test_port_imports_no_jax_and_no_reference():
         "    srv.submit(r)\n"
         "    srv.run_until_drained()\n"
         "    assert len(r.output) == 4, r.output\n"
+        "import torch\n"
+        "from repro_torch.models import gru, transformer\n"
+        "from repro_torch.models.quantize import quantize_params\n"
+        "wcfg = SMOKES['whisper-large-v3'].replace(cim=CIMConfig(enabled=True))\n"
+        "wp = quantize_params(registry.init_params(wcfg, seed=0, device='cpu',\n"
+        "                                          max_seq=32), wcfg)\n"
+        "b = {'tokens': torch.tensor([[1, 2, 3]]),\n"
+        "     'frames': torch.zeros(1, wcfg.encoder_len, wcfg.d_model)}\n"
+        "lg, c = transformer.prefill(wp, b, wcfg, max_len=32)\n"
+        "lg, c = transformer.decode_step(wp, lg.argmax(-1)[:, None], c, wcfg)\n"
+        "assert lg.shape == (1, wcfg.vocab), lg.shape\n"
+        "gcfg = gru.gru_config(cim=CIMConfig(enabled=True))\n"
+        "gp = gru.init(gcfg, seed=0, device='cpu')\n"
+        "assert gru.forward(gp, torch.ones(2, 3, 144), gcfg).shape == (2, 16)\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
@@ -314,7 +330,9 @@ def test_port_imports_no_jax_and_no_reference():
         "          'repro_torch.runtime.telemetry', 'repro_torch.runtime.obs',\n"
         "          'repro_torch.core.energy', 'repro_torch.core.sqnr',\n"
         "          'repro_torch.analysis.calibrate',\n"
-        "          'repro_torch.analysis.precision_search'):\n"
+        "          'repro_torch.analysis.precision_search',\n"
+        "          'repro_torch.models.gru', 'repro_torch.examples.kws_gru',\n"
+        "          'repro_torch.configs.whisper_large_v3'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"

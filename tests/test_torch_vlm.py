@@ -4,8 +4,9 @@ weights of the float32 smoke config (2 layers, d_model 128, GQA 4 / 2,
 16 image tokens) carried across by `params_from_numpy`, inputs from
 numpy seeds; the slot cache's `_splice` on every cache layout the port
 serves; the launcher's --cim bp-prequant route (each layer quantized as
-it is made) on internvl2-26b, rwkv6-7b and zamba2-2.7b; what still
-raises for whisper-large-v3 (ROADMAP A9b).
+it is made) on internvl2-26b, rwkv6-7b and zamba2-2.7b (and the same
+layer-by-layer quantization on whisper-large-v3's encoder and decoder);
+the registries' families, whisper-large-v3 included.
 
 Exact (bit for bit): the slot Server's greedy streams at --cim off,
 bp-prequant and bp-noisy (noise_seed 0) and the paged Server's at
@@ -201,25 +202,29 @@ def test_splice_matches_reference(arch, t):
 # the registries
 # ---------------------------------------------------------------------------
 def test_families_and_whisper_still_raises():
-    """vlm, ssm and hybrid resolve to their modules; whisper-large-v3
-    (family audio: an encoder, cross-attention, learned positions) still
-    raises NotImplementedError naming A9b, and is not in the arch
-    registry."""
+    """vlm, ssm, hybrid and audio resolve to their modules, as in the
+    reference's registry; whisper-large-v3 (family audio: an encoder,
+    cross-attention, learned positions; ported last, ROADMAP A9b) no
+    longer raises: it is in the arch registry and its smoke model
+    initialises with its learned positions (what raises now is learned
+    positions without max_seq, as the reference's init asserts)."""
     for arch, mod in (("internvl2-26b", transformer), ("rwkv6-7b", rwkv6),
-                      ("zamba2-2.7b", mamba2)):
+                      ("zamba2-2.7b", mamba2),
+                      ("whisper-large-v3", transformer)):
         assert registry.get_module(SMOKES[arch]) is mod
+        assert ref_registry.get_module(REF_SMOKES[arch]).__name__ \
+            == "repro.models." + mod.__name__.rsplit(".", 1)[1]
         assert cfg_registry.get(arch) == cfg_registry.ARCHS[arch]
     whisper = REF_SMOKES["whisper-large-v3"]
     fields = {f.name: getattr(whisper, f.name)
               for f in dataclasses.fields(whisper) if f.name != "cim"}
     cfg = SMOKES[ARCH].replace(**fields)
+    assert cfg == SMOKES["whisper-large-v3"]
     assert cfg.family == "audio" and cfg.encoder_layers > 0
-    with pytest.raises(NotImplementedError, match="A9b"):
-        registry.get_module(cfg)
-    with pytest.raises(NotImplementedError, match="A9b"):
-        transformer.init(cfg.replace(family="dense"), device="cpu")
-    with pytest.raises(KeyError, match="A9b"):
-        cfg_registry.get("whisper-large-v3")
+    with pytest.raises(ValueError, match="max_seq"):
+        transformer.init(cfg, device="cpu")
+    p = transformer.init(cfg, device="cpu", max_seq=MAX_LEN)
+    assert len(p["enc_layers"]) == cfg.encoder_layers
 
 
 def _leaves(tree, path=""):
@@ -234,17 +239,17 @@ def _leaves(tree, path=""):
 
 
 @pytest.mark.parametrize("arch", ["internvl2-26b", "rwkv6-7b",
-                                  "zamba2-2.7b"])
+                                  "zamba2-2.7b", "whisper-large-v3"])
 def test_layer_by_layer_quantization_equals_the_whole_tree(arch):
     """The launcher's --cim bp-prequant route quantizes each layer as it is
     made and the Server then quantizes what is left (the embedding and
     head), passing the stored codes through: the same tree, leaf for leaf,
     as quantizing the whole float model at once."""
     cfg = leg_cfgs(arch, "bp-prequant")[1]
-    whole = quantize_params(registry.init_params(cfg, seed=3, device="cpu"),
-                            cfg)
+    whole = quantize_params(registry.init_params(
+        cfg, seed=3, device="cpu", max_seq=MAX_LEN), cfg)
     by_layer = quantize_params(registry.init_params(
-        cfg, seed=3, device="cpu",
+        cfg, seed=3, device="cpu", max_seq=MAX_LEN,
         layer_fn=lambda lp: quantize_params(lp, cfg)), cfg)
     a, b = list(_leaves(whole)), list(_leaves(by_layer))
     assert [p for p, _ in a] == [p for p, _ in b]
