@@ -202,14 +202,32 @@ of which fails the run when it fails:
      noise_seed 0 at the example's five PVT corners (B6), each with the
      kernels and with their plain versions: identical logits, 37 launches
      a forward; accuracies logged;
+  3x. training (`phase_train`): (a) one AdamW train step of
+     internlm2-1.8b at full width with n_layers cut to 2 (the full-vocab
+     head kept), batch 2 x seq 64, --cim bp, with the kernels and with
+     their plain versions (CIM backend "plain"): identical loss,
+     gradients, grad norm and updated params / m / v; B2 launched 29
+     times (7 a layer, twice under per-layer remat, + the head); (b)
+     cim_matmul's gradients through the einsum VJP at a layer's shapes,
+     kernels vs plain identical, one B2 launch a forward and none in the
+     backward; (c) the full 24-layer model through launch.train's Trainer
+     (--cim bp, batch 2 x seq 256, AdamW) for 4 steps: finite losses, 337
+     B2 launches a step, step times and peak memory, then steps 2-3 run
+     again from the step-2 state held on the card (a step never writes
+     its input state): identical losses and params; one profiled step
+     (kernel time against the step's wall: the card's idle share); (d)
+     the train_cim_qat example for 40 steps (float, then --cim bp), its
+     final-loss gap;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
      B2e from phase 3d's --cim bp serve and B5e from its first --cim
-     bp-noisy serve), then the result line.
+     bp-noisy serve; B2's launches in a train step are on phase 3x's
+     lines), then the result line.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import math
@@ -338,6 +356,239 @@ def copies(t, min_total: int = 128 << 20):
     """Enough clones of `t` to exceed the L2 cache when cycled."""
     n = max(1, math.ceil(min_total / (t.numel() * t.element_size())))
     return [t] + [t.clone() for _ in range(n - 1)]
+
+
+# phase 3x: training; (a)'s depth and batch, (c)'s batch x seq and steps,
+# (d)'s QAT steps
+X_LAYERS, X_BATCH, X_SEQ = 2, 2, 64
+X_FULL_BATCH, X_FULL_SEQ, X_FULL_STEPS = 2, 256, 4
+X_QAT_STEPS = 40
+
+
+def tree_equal(torch, a, b) -> bool:
+    """Two trees of tensors (dicts, lists) equal bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(tree_equal(torch, a[k], b[k])
+                                            for k in a)
+    if isinstance(a, list):
+        return len(a) == len(b) and all(tree_equal(torch, x, y)
+                                        for x, y in zip(a, b))
+    if a.dtype.is_floating_point and a.element_size() == 2:
+        return torch.equal(a.view(torch.int16), b.view(torch.int16))
+    return torch.equal(a, b)
+
+
+def phase_train(torch, np, dev, card: str) -> dict:
+    """Phase 3x, training on the card (the module docstring); returns
+    {"B2 per step": launches of one full-depth train step}."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cim_matmul import CIMConfig, cim_matmul
+    from repro_torch.data.tokens import SyntheticLMDataset
+    from repro_torch.examples import train_cim_qat
+    from repro_torch.kernels import build
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime import trainer as trainer_mod
+
+    t3x = time.monotonic()
+    base = ARCHS["internlm2-1.8b"]
+    bp = CIMConfig(enabled=True)
+    plain = dataclasses.replace(bp, backend="plain")
+
+    # (a) one train step at full width, X_LAYERS layers (the full vocab
+    # head kept), kernels vs plain versions
+    cfg = base.replace(n_layers=X_LAYERS, cim=bp)
+    tc = TrainConfig(steps=100, lr=3e-4)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticLMDataset(
+        cfg.vocab, X_SEQ, X_BATCH, seed=0).batch(0).items()}
+    out = {}
+    for tag, c in (("kernels", cfg), ("plain", cfg.replace(cim=plain))):
+        step, opt = trainer_mod.make_train_step(c, tc)
+
+        def loss_fn(p, b, c=c):
+            return registry.train_loss(p, b, c)
+
+        build.reset_launch_counts()
+        loss, grads = trainer_mod.value_and_grad(loss_fn, params, batch)
+        torch.cuda.synchronize()
+        n_grad = build.launch_counts()["cim_mvm_grouped"]
+        state = {"params": params, "opt": opt.init(params)}
+        build.reset_launch_counts()
+        t0 = time.monotonic()
+        new_state, metrics = step(state, batch)
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        n_step = build.launch_counts()["cim_mvm_grouped"]
+        out[tag] = (loss, grads, new_state, metrics)
+        log(f"phase 3x (a): {tag}: loss {float(loss):.6f}, one train step "
+            f"{dt * 1e3:.1f} ms; B2 launches: {n_grad} in the loss and its "
+            f"gradients, {n_step} in the step")
+        if tag == "kernels":
+            want = 2 * 7 * X_LAYERS + 1
+            check(n_grad == want and n_step == want,
+                  f"phase 3x (a): B2 launched {n_grad} / {n_step} times, "
+                  f"expected {want} (7 a layer, twice under remat, + head)")
+        else:
+            check(n_grad == 0 and n_step == 0,
+                  "phase 3x (a): the plain step launched B2")
+        del state, new_state
+    (lk, gk, sk, mk), (lp, gp, sp, mp) = out["kernels"], out["plain"]
+    max_dg = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    log(f"phase 3x (a): {cfg.arch} x {X_LAYERS} layers at full width, batch "
+        f"{X_BATCH} x seq {X_SEQ}, --cim bp, AdamW: kernels vs plain "
+        f"versions: loss equal {torch.equal(lk, lp)}, max |dgrad| {max_dg}, "
+        f"updated params / m / v identical {tree_equal(torch, sk, sp)} "
+        f"(tolerance 0)")
+    check(torch.equal(lk, lp) and tree_equal(torch, gk, gp)
+          and tree_equal(torch, sk, sp)
+          and torch.equal(mk["grad_norm"], mp["grad_norm"]),
+          "phase 3x (a): the kernel and plain train steps differ")
+    del out, gk, gp, sk, sp, params
+    torch.cuda.empty_cache()
+    log(f"phase 3x (a): {time.monotonic() - t3x:.1f} s")
+
+    # (b) cim_matmul's gradient through _EinsumVJP on the card: kernels
+    # (B2) vs plain versions at a layer's shapes
+    rng = np.random.RandomState(5)
+    worst = 0.0
+    for k, n in ((2048, 2048), (2048, 8192)):
+        xs = torch.from_numpy(rng.randn(64, k).astype(np.float32)).to(dev)
+        ws = torch.from_numpy((rng.randn(k, n) * 0.02).astype(
+            np.float32)).to(dev)
+        cs = torch.from_numpy(rng.randn(64, n).astype(np.float32)).to(dev)
+        res = []
+        for c in (bp, plain):
+            x1 = xs.clone().requires_grad_()
+            w1 = ws.clone().requires_grad_()
+            build.reset_launch_counts()
+            y = cim_matmul(x1, w1, c)
+            check(y.grad_fn is not None, "phase 3x (b): the kernel output "
+                  "came back detached")
+            (y * cs).sum().backward()
+            torch.cuda.synchronize()
+            res.append((y.detach(), x1.grad, w1.grad,
+                        build.launch_counts()["cim_mvm_grouped"]))
+        (yk, gxk, gwk, nk), (yp, gxp, gwp, npl) = res
+        check(nk == 1 and npl == 0, f"phase 3x (b): B2 launched {nk} times "
+              "(a backward must launch none)")
+        worst = max(worst, (gxk - gxp).abs().max().item(),
+                    (gwk - gwp).abs().max().item())
+        check(torch.equal(yk, yp) and torch.equal(gxk, gxp)
+              and torch.equal(gwk, gwp), f"phase 3x (b): cim_matmul's "
+              f"gradients differ kernels vs plain at K={k} N={n}")
+    log(f"phase 3x (b): cim_matmul gradients through the einsum VJP, B2 vs "
+        f"plain at M 64, K 2048, N in {{2048, 8192}}: max |dgrad| {worst} "
+        f"(tolerance 0), one B2 launch per forward and none in the backward")
+
+    # (c) the full model through launch.train's code path
+    args = launch_train.parser().parse_args([
+        "--arch", "internlm2-1.8b", "--cim", "bp", "--batch",
+        str(X_FULL_BATCH), "--seq", str(X_FULL_SEQ), "--steps",
+        str(X_FULL_STEPS), "--ckpt", str(ROOT / "build" / "train_ckpt"),
+        "--device", dev.type])
+    tr = launch_train.build(args)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"phase 3x (c): {tr.cfg.arch} ({tr.cfg.n_layers} layers, d_model "
+        f"{tr.cfg.d_model}, d_ff {tr.cfg.d_ff}, vocab {tr.cfg.vocab}; "
+        f"{n_params / 1e9:.3f} G params in bf16, AdamW m / v in f32) "
+        f"initialised in {time.monotonic() - t0:.1f} s")
+    losses, times, counts = [], [], []
+    saved = peak = None
+    t0_steps = time.monotonic()
+    for i in range(X_FULL_STEPS):
+        if i == 2:
+            # the saved state both 2-step runs start from, held on the
+            # card: a step writes new tensors and never its input state
+            saved = state
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        b = tr.batch(i)
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = tr.step_fn(state, b)
+        loss = float(metrics["loss"])
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        counts.append(build.launch_counts()["cim_mvm_grouped"])
+        losses.append(loss)
+    want = 2 * 7 * tr.cfg.n_layers + 1
+    log(f"phase 3x (c) ({card}): {X_FULL_STEPS} train steps, batch "
+        f"{X_FULL_BATCH} x seq {X_FULL_SEQ}, --cim bp: losses {losses}; "
+        f"step times {[round(t * 1e3, 1) for t in times]} ms; B2 launches "
+        f"per step {counts}; peak {peak:.2f} GiB over steps 0-1 "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} with the saved "
+        f"state held)")
+    check(all(math.isfinite(v) for v in losses), "phase 3x (c): loss not "
+          "finite")
+    check(all(c == want for c in counts), f"phase 3x (c): B2 launched "
+          f"{counts} times a step, expected {want}")
+    first_params = state["params"]
+    del state
+    again, state = [], saved
+    for i in range(2, X_FULL_STEPS):
+        state, metrics = tr.step_fn(state, tr.batch(i))
+        again.append(float(metrics["loss"]))
+    same = again == losses[2:] and tree_equal(torch, state["params"],
+                                              first_params)
+    log(f"phase 3x (c): two runs of steps 2-{X_FULL_STEPS - 1} from one "
+        f"saved state: losses {losses[2:]} and {again}, parameters "
+        f"identical: {same}; {time.monotonic() - t0_steps:.1f} s for the "
+        f"{X_FULL_STEPS + X_FULL_STEPS - 2} steps")
+    check(same, "phase 3x (c): two runs from one saved state differ")
+    del saved, first_params
+    # where a step's time goes: kernel time (profiler) against the wall
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = tr.step_fn(state, tr.batch(X_FULL_STEPS))
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    total_us = sum(dev_us(e) for e in rows)
+    wall = statistics.median(times[1:])
+    if total_us <= 0:
+        log("phase 3x (c): profiler recorded no device time (idle share "
+            "not measured)")
+    else:
+        log(f"phase 3x (c) ({card}): one train step: {total_us / 1e3:.1f} "
+            f"ms of kernel time in {sum(e.count for e in rows)} launches "
+            f"against a median step of {wall * 1e3:.1f} ms -> the card is "
+            f"idle {100 * (1 - total_us / 1e6 / wall):.1f} % of the step")
+        for e in rows[:10]:
+            log(f"  profile: {dev_us(e) / 1e3:9.3f} ms "
+                f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<6d} "
+                f"{e.key[:90]}")
+    del state, tr
+    torch.cuda.empty_cache()
+
+    # (d) the QAT example, shortened: float vs --cim bp
+    t0 = time.monotonic()
+    qat = train_cim_qat.run(argparse.Namespace(
+        steps=X_QAT_STEPS, batch=8, seq=64, arch="llama3-8b",
+        device=dev.type),
+        log=lambda m: log(f"phase 3x (d): {m}"))
+    gap = qat["cim_bp"][-1] - qat["float"][-1]
+    log(f"phase 3x (d): train_cim_qat, {X_QAT_STEPS} steps each: "
+        f"final-loss gap (CIM-QAT - float) {gap:+.4f} nats in "
+        f"{time.monotonic() - t0:.1f} s")
+    check(all(math.isfinite(v) for v in qat["float"] + qat["cim_bp"]),
+          "phase 3x (d): a QAT loss is not finite")
+    log(f"phase 3x: {time.monotonic() - t3x:.1f} s in all")
+    return {"B2 per step": counts[-1]}
 
 
 def main() -> int:
@@ -2607,6 +2858,12 @@ def main() -> int:
               f"phase 3g: {tag}: {g_launch[tag]} {kname} launches, expected "
               f"{3 * kws_gru.FRAMES + 1}")
     log(f"phase 3g: {time.monotonic() - t3g:.1f} s in all")
+
+    # ---- phase 3x: training ------------------------------------------------
+    train_launches = phase_train(torch, np, dev, card)
+    log(f"phase 3x: B2 launches of one full-depth train step (not in the "
+        f"kernels line, whose B2 count is phase 4's serve): "
+        f"{train_launches['B2 per step']}")
 
     # ---- phase 6: report -------------------------------------------------
     meta = {

@@ -14,8 +14,9 @@ fused multiply-adds when it runs the reference kernel are fused here too
 reference only to a stated tolerance (tests/test_torch_noisy.py).
 
 `adc_energy_j` is the converter's share of the Eq. 4 energy model
-(`core/energy.py`), pure float64 arithmetic as in the reference. The
-straight-through estimators of QAT wait for training (ROADMAP A10).
+(`core/energy.py`), pure float64 arithmetic as in the reference.
+`adc_quantize` rounds and clips with the straight-through estimators of
+QAT (`quant.round_ste` / `clip_ste`), as the reference does.
 """
 from __future__ import annotations
 
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from .macro import MacroConfig, SimLevel
-from .quant import _f32
+from .quant import _f32, clip_ste, round_ste
 
 # --- measured ADC constants (the reference's single source of truth) -------
 # Every consumer (adc_energy_j below, energy._solve_e_mac_ref's absolute
@@ -151,7 +152,9 @@ def adc_quantize(v_analog: torch.Tensor, cfg: MacroConfig, *,
     reference's jax.random key: the thermal term is σ·torch.randn drawn
     from it. Its draws differ from jax.random's, so the two agree in
     distribution, not draw for draw. Without a key no noise is added (the
-    INL still applies at FULL).
+    INL still applies at FULL). The round and the clip are the STE ones,
+    so the transfer is differentiable for QAT (d code·lsb / d v = 1 inside
+    the range, and outside it).
     """
     levels = cfg.effective_adc_levels()
     lsb = cfg.full_scale(act_bits_active, weight_bits_active) \
@@ -165,7 +168,7 @@ def adc_quantize(v_analog: torch.Tensor, cfg: MacroConfig, *,
         if key is not None:
             x = x + _to_f32(st["sigma"]) * torch.randn(
                 x.shape, generator=key, dtype=x.dtype, device=x.device)
-    code = torch.clamp(torch.round(x), 0.0, float(levels - 1))
+    code = clip_ste(round_ste(x), 0.0, float(levels - 1))
     return code * _f32(lsb, code)
 
 

@@ -12,8 +12,13 @@ Serving uses `cim_matmul_prequant` against offline-quantized stored codes
 (nibble-packed uint8 or an int8 container). Each entry point first
 resolves the enclosing `quant.act_site` through `CIMConfig.site_overrides`
 (`resolve_site_cfg`), so a precision manifest's per-site grid, ADC levels,
-scheme and per-channel scales reach the engine and the kernels. The STE
-training wrapper is queued with training (ROADMAP A10).
+scheme and per-channel scales reach the engine and the kernels.
+
+Training uses `cim_matmul_ste`: an autograd.Function whose forward is the
+whole analog pipeline (`cim_matmul`, kernel B2 on the card) and whose
+backward is the float matmul's (the paper's STE QAT, §II-B: BP needs this
+one quantization step and no bit-level GSTE). `cim_matmul` itself stays
+differentiable through its STE quantizers and the engine's einsum VJP.
 """
 from __future__ import annotations
 
@@ -202,3 +207,40 @@ def quantize_weight_offline(w: torch.Tensor, cfg: CIMConfig):
     codes = quantize_weight(wf, s_w, cfg.weight)
     return codes.to(torch.int8), s_w.to(torch.float32)
 
+
+# ---------------------------------------------------------------------------
+# STE (QAT) wrapper: analog forward, float-matmul backward
+# ---------------------------------------------------------------------------
+class _STEMatmul(torch.autograd.Function):
+    """Forward: `cim_matmul` (no autograd graph inside: the kernel runs as
+    it does at inference). Backward: the float matmul's, gx = g·wᵀ and
+    gw = xᵀ·g summed over x's leading axes, cast to x's and w's dtypes (the
+    reference's `_ste_bwd`). No second analog forward."""
+
+    @staticmethod
+    def forward(ctx, x, w, cfg, key, inl_seed):
+        ctx.save_for_backward(x, w)
+        return cim_matmul(x, w, cfg, key=key, inl_seed=inl_seed)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gx = (g @ w.T).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            gw = (x.reshape(-1, x.shape[-1]).T
+                  @ g.reshape(-1, g.shape[-1])).to(w.dtype)
+        return gx, gw, None, None, None
+
+
+def cim_matmul_ste(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
+                   key: torch.Generator | None = None,
+                   inl_seed: int = 0) -> torch.Tensor:
+    """CIM forward value with float-matmul gradients: x [..., K] float, w
+    [K, M] float → f32 [..., M], the value `cim_matmul`'s, the gradient
+    d(x @ w)'s (Eq. 5's identity-derivative quantizers compose to exactly
+    this). With CIM off it is x @ w."""
+    if not cfg.enabled:
+        return x @ w
+    return _STEMatmul.apply(x, w, cfg, key, inl_seed)

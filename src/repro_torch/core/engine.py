@@ -52,6 +52,20 @@ stochastic instance of the converter chain, as in the reference:
     distribution only; the kernels' counter hash is bit-exact against the
     reference's Pallas kernels.
 
+Gradients
+---------
+The kernel backends ("cuda*") and their plain versions ("plain") have no
+autograd of their own: the kernels fill their output through ctypes, and
+the plain versions round with torch.round. When an operand carries a
+gradient, `execute_mvm` runs them inside `_EinsumVJP`, an
+autograd.Function whose forward is the backend itself (one launch, as
+without it) and whose backward is the autograd of the "einsum" backend on
+the same codes with no key (the reference's `custom_vjp`s,
+`_pallas_mvm_bwd` and its stochastic and packed twins): its STE round and
+clip make dŷ/dX̃ = W̃ᵀ group by group. Stored codes (PackedCodes) and the
+seed get no gradient. A backward launches no MVM kernel. Without an
+operand that needs a gradient the backend is called directly.
+
 `s_w` may be per-matrix or per-output-channel ([..., 1, M]); the Eq. 7
 integer correction is scale-free, so per-channel dequant broadcasts
 s_w[..., 0, :] over the output after the correction.
@@ -118,19 +132,22 @@ class BackendSpec:
     sim_levels: frozenset
     packed: bool | None = False   # True: PackedCodes; None: either container
     experts: bool = False         # takes x [E, C, K] x weights [E, ., M]
+    einsum_vjp: bool = False      # no autograd: backward is einsum's VJP
 
 
 _REGISTRY: dict[str, BackendSpec] = {}
 
 
 def register_backend(name: str, *, schemes, sim_levels, packed=False,
-                     experts=False):
+                     experts=False, einsum_vjp=False):
     """Register a backend fn(x_codes, weights, macro, *, key, inl_seed,
     noise_seed) under `name`; `experts`: fn also takes expert-batched
-    operands in one call."""
+    operands in one call; `einsum_vjp`: fn has no autograd of its own, and
+    its gradient is the einsum backend's (`_EinsumVJP`)."""
     def deco(fn):
         _REGISTRY[name] = BackendSpec(name, fn, frozenset(schemes),
-                                      frozenset(sim_levels), packed, experts)
+                                      frozenset(sim_levels), packed, experts,
+                                      einsum_vjp)
         return fn
     return deco
 
@@ -230,7 +247,7 @@ def _scan_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
 # ---------------------------------------------------------------------------
 # Hopper kernels
 # ---------------------------------------------------------------------------
-@register_backend("cuda", schemes=_BP, sim_levels=_IDEAL, experts=True)
+@register_backend("cuda", schemes=_BP, sim_levels=_IDEAL, experts=True, einsum_vjp=True)
 def _cuda_backend(x_codes, w_codes, cfg: MacroConfig, **_):
     if w_codes.ndim == 3:
         return ops.cim_mvm_dense_experts(x_codes, w_codes, cfg)
@@ -238,7 +255,7 @@ def _cuda_backend(x_codes, w_codes, cfg: MacroConfig, **_):
 
 
 @register_backend("cuda_packed", schemes=_BP, sim_levels=_IDEAL, packed=True,
-                  experts=True)
+                  experts=True, einsum_vjp=True)
 def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig,
                          **_):
     if weights.data.ndim == 3:
@@ -247,7 +264,7 @@ def _cuda_packed_backend(x_codes, weights: PackedCodes, cfg: MacroConfig,
 
 
 @register_backend("cuda_noisy", schemes=_BP, sim_levels=_STOCHASTIC,
-                  experts=True)
+                  experts=True, einsum_vjp=True)
 def _cuda_noisy_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
                         inl_seed=0, noise_seed=None):
     seed = _resolve_noise_seed(noise_seed, key, x_codes.device)
@@ -257,7 +274,7 @@ def _cuda_noisy_backend(x_codes, w_codes, cfg: MacroConfig, *, key=None,
 
 
 @register_backend("cuda_noisy_packed", schemes=_BP, sim_levels=_STOCHASTIC,
-                  packed=True, experts=True)
+                  packed=True, experts=True, einsum_vjp=True)
 def _cuda_noisy_packed_backend(x_codes, weights: PackedCodes,
                                cfg: MacroConfig, *, key=None, inl_seed=0,
                                noise_seed=None):
@@ -269,7 +286,7 @@ def _cuda_noisy_packed_backend(x_codes, weights: PackedCodes,
 
 
 @register_backend("plain", schemes=_ALL_SCHEMES, sim_levels=_ALL_LEVELS,
-                  packed=None)
+                  packed=None, einsum_vjp=True)
 def _plain_backend(x_codes, weights, cfg: MacroConfig, *, key=None,
                    inl_seed=0, noise_seed=None):
     """The kernels' plain versions on any device: B1/B2 at IDEAL, B6/B5 at
@@ -297,6 +314,53 @@ def _plain_backend(x_codes, weights, cfg: MacroConfig, *, key=None,
         out = fn(x2, w2, _resolve_noise_seed(noise_seed, key, x2.device),
                  inl_seed=inl_seed, **kw)
     return out.reshape(*lead, w2.shape[1])
+
+
+# ---------------------------------------------------------------------------
+# gradients of the backends without autograd
+# ---------------------------------------------------------------------------
+class _EinsumVJP(torch.autograd.Function):
+    """Forward: `run(x_codes, w)`, a backend without autograd (a kernel
+    launch, or its plain version). Backward: the autograd of the einsum
+    backend on the same codes under the same macro config with no key (no
+    noise draw; at FULL the INL curve stays, as in the reference's
+    `_noisy_mvm_bwd`), per expert for expert-batched operands. `k` is the
+    logical depth of nibble-packed stored codes `w` (then w gets no
+    gradient), None for dense codes."""
+
+    @staticmethod
+    def forward(ctx, x_codes, w, run, macro, inl_seed, k):
+        ctx.save_for_backward(x_codes, w)
+        ctx.macro, ctx.inl_seed, ctx.k = macro, inl_seed, k
+        return run(x_codes, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x_codes, w = ctx.saved_tensors
+        packed = ctx.k is not None
+        w_codes = ops.unpack_codes(w, ctx.k) if packed else w
+        want_w = not packed and ctx.needs_input_grad[1]
+        with torch.enable_grad():
+            xr = x_codes.detach().requires_grad_(ctx.needs_input_grad[0])
+            wr = w_codes.detach().requires_grad_(want_w)
+
+            def einsum(xe, we):
+                return _einsum_backend(xe, we, ctx.macro,
+                                       inl_seed=ctx.inl_seed)
+
+            y = torch.stack([einsum(xr[e], wr[e])
+                             for e in range(wr.shape[0])]) \
+                if wr.ndim == 3 else einsum(xr, wr)
+            inputs = [t for t in (xr, wr) if t.requires_grad]
+            grads = iter(torch.autograd.grad(y, inputs, g))
+        gx = next(grads) if xr.requires_grad else None
+        gw = next(grads) if want_w else None
+        return gx, gw, None, None, None, None
+
+
+def _needs_grad(x_codes: torch.Tensor, w: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and (x_codes.requires_grad
+                                        or w.requires_grad)
 
 
 # ---------------------------------------------------------------------------
@@ -433,10 +497,19 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
     experts = _expert_count(weights)
     if not packed:
         weights = weights.to(torch.float32)
-    if experts and not spec.experts:
-        y_codes = _per_expert(spec, x_codes, weights, macro, kw)
+    data = weights.data if packed else weights
+
+    def run(xc, wd):
+        wt = PackedCodes(wd, weights.k) if packed else wd
+        if experts and not spec.experts:
+            return _per_expert(spec, xc, wt, macro, kw)
+        return spec.fn(xc, wt, macro, **kw)
+
+    if spec.einsum_vjp and _needs_grad(x_codes, data):
+        y_codes = _EinsumVJP.apply(x_codes, data, run, macro, inl_seed,
+                                   weights.k if packed else None)
     else:
-        y_codes = spec.fn(x_codes, weights, macro, **kw)
+        y_codes = run(x_codes, data)
     if packed:
         sum_w = ops.packed_col_sums(weights.data)
         k = weights.k

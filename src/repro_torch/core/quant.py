@@ -1,11 +1,14 @@
-"""Quantizers for CIM-aware arithmetic (inference side).
+"""Quantizers and straight-through estimators (STE) for CIM-aware
+arithmetic.
 
 The paper stores 4-bit weights (signed, offset-encoded per Eq. 7) and drives
 4-bit DAC activations. This module holds the configs, the dynamic
 activation range and the calibrated static grid, the affine activation
 quantizer, the weight quantizer, the call-site scope and the span
-recorder that calibration (analysis.calibrate) reads. The straight-through
-estimators used for training are queued with training (ROADMAP A10).
+recorder that calibration (analysis.calibrate) reads. Training uses the
+standard STE (Eq. 5): `round_ste` / `clip_ste` pass the gradient straight
+through, so `cim_matmul` stays differentiable end to end (the reference's
+quantizers use them at the same places).
 """
 from __future__ import annotations
 
@@ -130,6 +133,30 @@ def record_act_spans():
         _SPAN_RECORDER[:] = [r for r in _SPAN_RECORDER if r is not spans]
 
 
+def _tracks_grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """round() with a straight-through gradient (Eq. 5: d round(x)/dx := 1):
+    x + (round(x) − x) with the bracket detached, the reference's form. Off
+    the autograd graph it is torch.round itself (the same value: round(x) −
+    x is exact in f32, and so is adding it back)."""
+    if not _tracks_grad(x):
+        return torch.round(x)
+    return x + (torch.round(x) - x).detach()
+
+
+def clip_ste(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
+    """clip() whose gradient is 1 inside and outside the range (the pure
+    STE of Eq. 5), as x + (clip(x) − x) with the bracket detached; off the
+    autograd graph torch.clamp itself (the same value wherever |x| stays
+    below 2²³, as the codes' do)."""
+    if not _tracks_grad(x):
+        return torch.clamp(x, lo, hi)
+    return x + (torch.clamp(x, lo, hi) - x).detach()
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """v as an f32 tensor on like's device: dividing by a tensor is a true
     division on every device (a Python divisor becomes a multiply by its
@@ -217,7 +244,8 @@ def quantize_act(x: torch.Tensor, scale: torch.Tensor, cfg: ActQuantConfig,
     under `per_expert` (see act_scale). Static grid: z is the calibrated
     `static_zero_point`, rounded to f32 as the reference's
     jnp.asarray(float, f32) rounds it, on x's device. round is
-    half-to-even, as in the reference."""
+    half-to-even, as in the reference; the round and the clip of the
+    codes are the STE ones (d q / d x = 1 / s)."""
     qmax = float(cfg.qmax)
     if cfg.static_scale is not None:
         zp = _f32(float(cfg.static_zero_point), x)
@@ -226,15 +254,16 @@ def quantize_act(x: torch.Tensor, scale: torch.Tensor, cfg: ActQuantConfig,
         lo = torch.amin(xs, dim=_expert_dims(xs), keepdim=True) \
             if per_expert else xs.min()
         zp = torch.round(torch.clamp(-lo / scale, 0, qmax))
-    q = torch.clamp(torch.round(x / scale) + zp, 0.0, qmax)
+    q = clip_ste(round_ste(x / scale) + zp, 0.0, qmax)
     return q, zp
 
 
 def quantize_weight(w: torch.Tensor, scale: torch.Tensor,
                     cfg: WeightQuantConfig) -> torch.Tensor:
-    """w → unsigned stored codes W̃ ∈ [0, 2^b-1] per the paper's Eq. 7."""
-    q_signed = torch.clamp(torch.round(w / scale), float(cfg.qmin),
-                           float(cfg.qmax))
+    """w → unsigned stored codes W̃ ∈ [0, 2^b-1] per the paper's Eq. 7
+    (STE round and clip, as the reference's)."""
+    q_signed = clip_ste(round_ste(w / scale), float(cfg.qmin),
+                        float(cfg.qmax))
     return q_signed + cfg.offset
 
 

@@ -18,7 +18,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.core.cim_matmul import cim_matmul, cim_matmul_prequant
+from repro_torch.core.cim_matmul import (cim_matmul, cim_matmul_prequant,
+                                         cim_matmul_ste)
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 Params = dict
@@ -103,19 +104,24 @@ def embed_init(gen, cfg: ModelConfig, *, device) -> Params:
 # ---------------------------------------------------------------------------
 # primitive layers
 # ---------------------------------------------------------------------------
-def dense(p: Params, x: torch.Tensor, cfg: ModelConfig, *, w: str = "w",
+def dense(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+          train: bool = False, w: str = "w",
           b: str | None = "b") -> torch.Tensor:
     """y = x @ W (+bias) — on the simulated PICO-RAM macro when
     cfg.cim.enabled. CIM runs in f32 (integer-code arithmetic) and casts
-    back to the compute dtype; the float path runs in the compute dtype."""
+    back to the compute dtype; the float path runs in the compute dtype.
+    Under `train` the float weights run `cim_matmul_ste` (the analog
+    forward, the float matmul's gradient); stored codes run as at
+    inference."""
     if cfg.cim.enabled and (w + "_q") in p:
         with quant.act_site(w):
             y = cim_matmul_prequant(x.float(), p[w + "_q"], p[w + "_scale"],
                                     cfg.cim)
         y = y.to(dtype_of(cfg))
     elif cfg.cim.enabled:
+        fn = cim_matmul_ste if train else cim_matmul
         with quant.act_site(w):
-            y = cim_matmul(x.float(), p[w].float(), cfg.cim)
+            y = fn(x.float(), p[w].float(), cfg.cim)
         y = y.to(dtype_of(cfg))
     else:
         y = x @ p[w]
@@ -212,22 +218,60 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return x * cdf
 
 
-def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    up = dense(p, x, cfg, w="w_up", b=None)
+def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
+              train: bool = False) -> torch.Tensor:
+    up = dense(p, x, cfg, train=train, w="w_up", b=None)
     if cfg.mlp == "swiglu":
-        gate = dense(p, x, cfg, w="w_gate", b=None)
+        gate = dense(p, x, cfg, train=train, w="w_gate", b=None)
         h = F.silu(gate) * up
     else:
         h = gelu(up)
-    return dense(p, h, cfg, w="w_down", b=None)
+    return dense(p, h, cfg, train=train, w="w_down", b=None)
+
+
+class _RowGather(torch.autograd.Function):
+    """table[idx] whose backward adds each row's cotangents in ascending
+    token order with no atomics: the indices are sorted (stable), and the
+    k-th occurrence of every distinct index is added in the k-th pass, so
+    the gradient is the same bits on every run (advanced indexing's
+    backward, index_put_ with accumulate, adds with atomics on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = table.shape
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        flat = idx.reshape(-1)
+        g2 = g.reshape(flat.numel(), -1)
+        order = torch.argsort(flat, stable=True)
+        uniq, counts = torch.unique_consecutive(flat[order],
+                                                return_counts=True)
+        starts = torch.cumsum(counts, 0) - counts
+        acc = g2[order[starts]]
+        for j in range(1, int(counts.max())):
+            more = counts > j
+            acc[more] = acc[more] + g2[order[starts[more] + j]]
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        out[uniq] = acc
+        return out, None
 
 
 def embed_lookup(p: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
-    return p["embed"][tokens]
+    """Embedding rows of `tokens`; under autograd with a deterministic
+    backward (`_RowGather`)."""
+    table = p["embed"]
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _RowGather.apply(table, tokens)
+    return table[tokens]
 
 
-def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
+            train: bool = False) -> torch.Tensor:
     if cfg.cim.enabled and "head_q" in p:
         with quant.act_site("head"):
             logits = cim_matmul_prequant(h.float(), p["head_q"],
@@ -235,11 +279,48 @@ def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     else:
         w = p["embed"].T if cfg.tie_embeddings else p["head"]
         if cfg.cim.enabled:
+            fn = cim_matmul_ste if train else cim_matmul
             with quant.act_site("head"):
-                logits = cim_matmul(h.float(), w.float(), cfg.cim)
+                logits = fn(h.float(), w.float(), cfg.cim)
         else:
             logits = h @ w
     return logits.float()
+
+
+class _PickLabel(torch.autograd.Function):
+    """logits.gather(-1, labels) whose backward writes each row's one
+    cotangent with scatter_ (no scatter_add: every row has one index, so
+    no two writes meet and no atomics are needed)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels):
+        ctx.save_for_backward(labels)
+        ctx.shape, ctx.dtype = logits.shape, logits.dtype
+        return logits.gather(-1, labels)
+
+    @staticmethod
+    def backward(ctx, g):
+        (labels,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        return out.scatter_(-1, labels, g), None
+
+
+def nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Per-token negative log-likelihood logsumexp − picked: logits [.., V],
+    labels [..] → [..], the reference's jax.nn.logsumexp (max-shifted)
+    less take_along_axis."""
+    picked = _PickLabel.apply(logits, labels.long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - picked
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Token-mean CE. logits [.., V] f32, labels [..] int; with `mask`,
+    Σ nll·mask / max(Σ mask, 1)."""
+    per = nll(logits, labels)
+    if mask is not None:
+        return torch.sum(per * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return torch.mean(per)
 
 
 # ---------------------------------------------------------------------------
@@ -339,7 +420,8 @@ def pad_cache(kv: dict, max_len: int) -> dict:
 
 
 def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
-                    positions: torch.Tensor, causal: bool = True,
+                    positions: torch.Tensor, train: bool = False,
+                    causal: bool = True,
                     kv_x: torch.Tensor | None = None,
                     cache: dict | None = None,
                     cache_index: torch.Tensor | int = 0):
@@ -358,12 +440,14 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     - otherwise the whole sequence attends through `chunked_attention`,
       K/V projected from `kv_x` when given (RoPE and the causal mask only
       for self-attention); with `cache={}` (prefill) the K/V come back as
-      {"k", "v"}.
+      {"k", "v"}. This route is the training forward's (`train`: every
+      projection through `dense(train=True)`).
     """
     b, t, _ = x.shape
     dh = cfg.head_dim
     rope_on = cfg.pos_embed == "rope" and kv_x is None
-    q = dense(p, x, cfg, w="wq", b="bq").reshape(b, t, cfg.n_heads, dh)
+    q = dense(p, x, cfg, train=train, w="wq", b="bq").reshape(
+        b, t, cfg.n_heads, dh)
     if rope_on:
         q = rope(q, positions, cfg.rope_theta, _rope_dims(cfg))
     new_cache = None
@@ -386,10 +470,10 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     else:
         src = x if kv_x is None else kv_x
         ts = src.shape[1]
-        k = dense(p, src, cfg, w="wk", b="bk").reshape(b, ts,
-                                                       cfg.n_kv_heads, dh)
-        v = dense(p, src, cfg, w="wv", b="bv").reshape(b, ts,
-                                                       cfg.n_kv_heads, dh)
+        k = dense(p, src, cfg, train=train, w="wk", b="bk").reshape(
+            b, ts, cfg.n_kv_heads, dh)
+        v = dense(p, src, cfg, train=train, w="wv", b="bv").reshape(
+            b, ts, cfg.n_kv_heads, dh)
         if rope_on:
             k = rope(k, positions, cfg.rope_theta, _rope_dims(cfg))
         o = chunked_attention(q, k, v, causal=causal and kv_x is None,
@@ -397,7 +481,8 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                               triangular_max=cfg.attn_triangular_max)
         if cache is not None:      # prefill: hand back the K/V
             new_cache = {"k": k, "v": v}
-    y = dense(p, o.reshape(b, t, cfg.n_heads * dh), cfg, w="wo", b="bo")
+    y = dense(p, o.reshape(b, t, cfg.n_heads * dh), cfg, train=train,
+              w="wo", b="bo")
     return y, new_cache
 
 

@@ -7,10 +7,11 @@ the recurrence; a linear head classifies keywords.
 
 Every gate matmul routes through `_mm`, the CIM switch of `common.dense`:
 stored codes (`<name>_q`, `<name>_scale` from models.quantize) run B1, or
-B6 under a noise_seed at NOISY/FULL; float weights under CIM run B2 / B5;
-with CIM off the float matmul. The same model trains in float (plain
-autograd) and deploys on the simulated macro. The reference scans over
-time; `forward` here is a Python loop over T.
+B6 under a noise_seed at NOISY/FULL; float weights under CIM run B2 / B5,
+and under `train` the STE wrapper (`cim_matmul_ste`: the analog forward,
+the float matmul's gradient); with CIM off the float matmul. The same
+model trains in float or on the macro (QAT) and deploys on the macro. The
+reference scans over time; `forward` here is a Python loop over T.
 """
 from __future__ import annotations
 
@@ -21,7 +22,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.cim_matmul import (CIMConfig, cim_matmul,
-                                         cim_matmul_prequant)
+                                         cim_matmul_prequant, cim_matmul_ste)
 from repro_torch.device import resolve_device
 
 from .common import _normal
@@ -55,20 +56,16 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None) -> dict:
 def _mm(p: dict, name: str, x: torch.Tensor, cfg: ModelConfig,
         train: bool) -> torch.Tensor:
     """Gate / head matmul: stored codes when the params hold them, else the
-    float weights, on the macro when cfg.cim.enabled. Float weights under
-    CIM with `train` route to the STE wrapper in the reference, which is
-    not ported yet (ROADMAP A10): that raises."""
+    float weights, on the macro when cfg.cim.enabled (through the STE
+    wrapper under `train`)."""
     if cfg.cim.enabled and name + "_q" in p:
         with quant.act_site(name):
             return cim_matmul_prequant(x, p[name + "_q"], p[name + "_scale"],
                                        cfg.cim)
     if cfg.cim.enabled:
-        if train:
-            raise NotImplementedError(
-                "training on the macro needs cim_matmul_ste, not ported yet "
-                "(ROADMAP A10); train in float (CIM off)")
+        fn = cim_matmul_ste if train else cim_matmul
         with quant.act_site(name):
-            return cim_matmul(x, p[name], cfg.cim)
+            return fn(x, p[name], cfg.cim)
     return x @ p[name]
 
 
@@ -93,8 +90,10 @@ def forward(p: dict, frames: torch.Tensor, cfg: ModelConfig, *,
     return _mm(p, "head", h, cfg, train)
 
 
-def train_loss(p: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
-    """Mean cross-entropy of the keyword labels."""
+def train_loss(p: dict, batch: dict, cfg: ModelConfig,
+               rng=None) -> torch.Tensor:
+    """Mean cross-entropy of the keyword labels (`rng` is taken for the
+    reference's signature)."""
     logits = forward(p, batch["frames"], cfg, train=True)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(1, batch["labels"].long()[:, None]).mean()

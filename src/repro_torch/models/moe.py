@@ -32,8 +32,9 @@ The numerics follow the reference op by op (ROADMAP Queue C):
     choice order starting from zero (the reference's scatter-add; not
     index_add_, whose CUDA atomics add in a run-dependent order); then
     y_shared + y.
-The load-balance loss is a training term (ROADMAP A10): `apply` returns
-the FFN output only.
+The load-balance loss is a training term, not ported yet (ROADMAP A10b):
+`apply` returns the FFN output only, and the transformer's training
+forward raises on a MoE FFN.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Model registry: ModelConfig.family → implementation module, plus the
-bridge that carries the reference package's weights across.
+"""Model registry: ModelConfig.family → implementation module, the training
+loss dispatch, plus the bridge that carries the reference package's
+weights and training state across.
 
 Every family is ported: the dense, MoE, VLM and audio (whisper's
 encoder-decoder) transformers, RWKV6 ("ssm") and the Mamba2 / Zamba2
@@ -22,6 +23,12 @@ _FAMILY = {"dense": transformer, "moe": transformer, "vlm": transformer,
 
 def get_module(cfg: ModelConfig):
     return _FAMILY[cfg.family]
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
+    """The family module's training loss: a scalar f32 tensor to
+    differentiate (the reference's `train_loss(params, batch, cfg, rng)`)."""
+    return get_module(cfg).train_loss(params, batch, cfg, rng)
 
 
 def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, **kw):
@@ -51,14 +58,13 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     "enc_norm", "enc_pos" and "dec_pos", deepseek's "mtp", zamba2's one
     weight-shared block "shared") is carried as it is; bf16 leaves arrive
     as uint16 views (the checkpoint format's encoding).
+
+    The port's own layout is taken too: a layer stack read back from the
+    port's checkpoint (`checkpoint.ckpt.load_numpy_tree`) is a dict keyed
+    by layer index 0 ... L − 1, and becomes the list of those layers.
     """
     get_module(cfg)
     dev = resolve_device(device)
-
-    def conv(node):
-        if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _to_tensor(node, dev)
 
     def split(node, i):
         if isinstance(node, dict):
@@ -68,5 +74,48 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
     n_dense = cfg.moe.first_dense if cfg.moe is not None else 0
     depth = {"dense_layers": n_dense, "layers": cfg.n_layers - n_dense,
              "enc_layers": cfg.encoder_layers}
-    return {k: [split(v, i) for i in range(depth[k])] if k in depth
-            else conv(v) for k, v in tree.items()}
+    out = {}
+    for k, v in tree.items():
+        if k in depth and _per_layer(v):
+            out[k] = [_conv(v[i], dev) for i in range(len(v))]
+        elif k in depth:
+            out[k] = [split(v, i) for i in range(depth[k])]
+        else:
+            out[k] = _conv(v, dev)
+    return out
+
+
+def _conv(node, dev):
+    if isinstance(node, dict):
+        return {k: _conv(v, dev) for k, v in node.items()}
+    return _to_tensor(node, dev)
+
+
+def _per_layer(node) -> bool:
+    """A layer stack in the port's layout: a dict keyed by layer index."""
+    return isinstance(node, dict) and bool(node) \
+        and all(isinstance(k, int) for k in node)
+
+
+def state_from_numpy(tree: dict, cfg: ModelConfig, device=None) -> dict:
+    """A trainer state read back as numpy ({"params", "opt", ("err")}, from
+    the reference's CheckpointManager or from the port's) → the port's
+    state on `device`. params, AdamW's {"m", "v"} and the error-feedback
+    buffers "err" are parameter-shaped and split per layer like the params
+    (`params_from_numpy`); "step" becomes a 0-dim tensor; Adafactor's
+    "stats" stay in the reference's stacked layout, which the port's
+    Adafactor keeps (optim.optimizers: a stacked leaf's factored
+    statistics and RMS clip span its layers)."""
+    dev = resolve_device(device)
+    opt = tree["opt"]
+    out_opt = {"step": _to_tensor(opt["step"], dev)}
+    for k in ("m", "v"):
+        if k in opt:
+            out_opt[k] = params_from_numpy(opt[k], cfg, dev)
+    if "stats" in opt:
+        out_opt["stats"] = _conv(opt["stats"], dev)
+    state = {"params": params_from_numpy(tree["params"], cfg, dev),
+             "opt": out_opt}
+    if "err" in tree:
+        state["err"] = params_from_numpy(tree["err"], cfg, dev)
+    return state

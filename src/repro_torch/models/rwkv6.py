@@ -234,6 +234,12 @@ def supports_paged(cfg: ModelConfig) -> bool:
     return False
 
 
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
+    """The reference's rwkv6 training loss: not ported yet (ROADMAP A10b)."""
+    raise NotImplementedError("training rwkv6 is not ported yet (ROADMAP "
+                              "A10b)")
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """The slot cache (zeros): "pos" an int32 scalar on the device, the

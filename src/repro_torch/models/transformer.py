@@ -1,6 +1,7 @@
-"""Transformer for serving (dense GQA LMs, the MoE family, deepseek-v3's
-MLA, the VLM prefix and whisper's encoder-decoder): the padded `forward`,
-the slot engine's `prefill` / `decode_step` and the paged `paged_step`. A
+"""Transformer (dense GQA LMs, the MoE family, deepseek-v3's MLA, the VLM
+prefix and whisper's encoder-decoder): the padded `forward` and the
+training loss `train_loss`, the slot engine's `prefill` / `decode_step`
+and the paged `paged_step`. A
 layer's FFN is the MLP, or the MoE FFN (`models.moe`) where its params
 hold a router; its attention is GQA, or MLA (`models.mla`) where cfg.mla
 is set.
@@ -19,11 +20,18 @@ Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
 "dense_layers": [...], "layers": [per-layer dict, ...], "enc_layers":
 [...], "enc_norm", "enc_pos" / "dec_pos": {"pos_embed"}, "mtp": {...}} —
 the reference's stacked [L, ...] leaves become one dict of tensors per
-layer, and its layer scans become Python loops (inference only).
+layer, and its layer scans become Python loops.
+
+Training (`forward(train=True)`, `train_loss`) covers the dense archs: every
+float weight runs `dense(train=True)` (cim_matmul_ste under CIM), each layer
+is recomputed in the backward under cfg.remat (torch.utils.checkpoint), and
+the LM loss is taken in cfg.ce_chunks recomputed sequence chunks. The MoE
+FFN, MLA, deepseek's MTP loss, whisper's encoder and internvl2's image
+prefix raise NotImplementedError under training (ROADMAP A10b).
 "dense_layers" holds MoEConfig.first_dense leading layers with a dense FFN
 of width d_ff_dense (deepseek-v3's first three), run before "layers";
-"mtp" (the multi-token-prediction block) is carried for training (ROADMAP
-A10) and never read here. The caches keep the reference's stacked
+"mtp" (the multi-token-prediction block) is carried for its training loss
+(ROADMAP A10b) and never read here. The caches keep the reference's stacked
 layouts, one entry per layer stack: slot {"pos", "dense_layers", "layers":
 {"k", "v": [L, B, max_len, KH, dh]}} ({"latent": [L, B, max_len, lat]}
 under MLA; whisper's "cross": {"k", "v": [L, B, frames, KH, dh]}, the
@@ -34,6 +42,7 @@ place.
 from __future__ import annotations
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -167,19 +176,27 @@ def _encode(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     return norm(params["enc_norm"], h, cfg)
 
 
-def _ffn(p: dict, x, cfg: ModelConfig):
+def _ffn(p: dict, x, cfg: ModelConfig, train: bool = False):
     """The layer's FFN: the MoE FFN where its params hold a router."""
-    return moe.apply(p, x, cfg) if "router" in p else mlp_apply(p, x, cfg)
+    if "router" in p:
+        if train:
+            raise NotImplementedError(
+                "training the MoE FFN (its load-balance loss and the "
+                "expert STE) is not ported yet (ROADMAP A10b)")
+        return moe.apply(p, x, cfg)
+    return mlp_apply(p, x, cfg, train=train)
 
 
 def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
-           cache_index=0, causal: bool = True, enc_out=None, cross=None):
+           cache_index=0, causal: bool = True, enc_out=None, cross=None,
+           train: bool = False):
     """One layer; `cache` is None (the padded forward), {} (prefill: the
     layer's cache entries come back) or the layer's slot cache {"k", "v"}
     / {"latent"} (decode: written in place). A decoder layer with
     cross-attention attends to `enc_out` (forward, prefill: its K/V come
     back as "xk" / "xv") or to its cached encoder K/V `cross` (decode).
-    Returns (h, the entries or None)."""
+    `train` (full-sequence only) routes every projection through
+    dense(train=True). Returns (h, the entries or None)."""
     hn = norm(lp["norm1"], h, cfg)
     if cfg.mla is not None:
         a, kv = mla.apply(lp["attn"], hn, cfg, positions=positions,
@@ -187,7 +204,7 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
                           return_cache=cache == {})
     else:
         a, kv = attention_apply(lp["attn"], hn, cfg, positions=positions,
-                                causal=causal, cache=cache,
+                                train=train, causal=causal, cache=cache,
                                 cache_index=cache_index)
     h = h + a
     if enc_out is not None or cross is not None:
@@ -200,21 +217,88 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
         h = h + xa
         if prefill:
             kv = {**kv, "xk": xkv["k"], "xv": xkv["v"]}
-    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg), kv
+    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg, train), kv
+
+
+def _check_trainable(batch: dict, cfg: ModelConfig) -> None:
+    """The training legs that wait for ROADMAP A10b raise."""
+    leg = ("MLA" if cfg.mla is not None else
+           "deepseek's MTP loss" if cfg.mtp else
+           "whisper's encoder" if cfg.encoder_layers else
+           "internvl2's image-prefix loss"
+           if cfg.n_image_tokens and "image_embeds" in batch else None)
+    if leg is not None:
+        raise NotImplementedError(f"training {leg} is not ported yet "
+                                  "(ROADMAP A10b)")
+
+
+def _train_layer(lp: dict, h, cfg: ModelConfig, positions):
+    """One layer of the training forward, recomputed in the backward under
+    cfg.remat (both remat_policy values recompute the whole layer: the
+    policy is a memory choice, and the recomputed forward is the same bits,
+    so losses and gradients do not depend on it)."""
+    def body(hh, pos):
+        return _layer(lp, hh, cfg, positions=pos, train=True)[0]
+
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(body, h, positions,
+                                                 use_reentrant=False)
+    return body(h, positions)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
     """Full-sequence causal forward → (hidden [B,T,D] after the final norm,
     aux_loss 0.0, the encoder's output or None), the reference's triple.
-    Inference only: `train=True` raises (A10)."""
+    `train` runs the training forward (dense archs; the A10b legs raise)."""
     if train:
-        raise NotImplementedError("training is not ported yet (ROADMAP A10)")
+        _check_trainable(batch, cfg)
     x, positions = _embed_inputs(params, batch, cfg)
     enc_out = _encode(params, batch, cfg) if cfg.encoder_layers else None
     for _, stack in _stacks(params):
         for lp in stack:
-            x, _ = _layer(lp, x, cfg, positions=positions, enc_out=enc_out)
+            if train:
+                x = _train_layer(lp, x, cfg, positions)
+            else:
+                x, _ = _layer(lp, x, cfg, positions=positions,
+                              enc_out=enc_out)
     return norm(params["final_norm"], x, cfg), 0.0, enc_out
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig,
+               rng=None) -> torch.Tensor:
+    """Next-token cross-entropy of batch["tokens"] against batch["labels"]
+    (both [B, T]) plus 0.01 × the aux loss (0 for the dense archs), a
+    scalar f32 tensor to differentiate. `rng` is the reference's PRNG key
+    argument; no ported leg draws from it."""
+    h, aux, _ = forward(params, batch, cfg, train=True)
+    return _lm_loss(params, h, batch["labels"].long(), cfg) + 0.01 * aux
+
+
+def _lm_loss(params: dict, h, labels, cfg: ModelConfig) -> torch.Tensor:
+    """Token-mean next-token CE. With cfg.ce_chunks = n > 1 dividing T, the
+    [tokens, vocab] logits are made and consumed one sequence chunk at a
+    time, each chunk recomputed in the backward, so the whole tensor never
+    lives at once: the chunks' NLL sums are added in chunk order from 0,
+    then divided by B·T, as the reference's scan does."""
+    n = cfg.ce_chunks
+    t = h.shape[1]
+    if n <= 1 or t % n != 0:
+        return common.cross_entropy(unembed(params["tok"], h, cfg,
+                                            train=True), labels)
+
+    def chunk_nll(hx, lx):
+        return torch.sum(common.nll(unembed(params["tok"], hx, cfg,
+                                            train=True), lx))
+
+    c = t // n
+    total = torch.zeros((), dtype=torch.float32, device=h.device)
+    for i in range(n):
+        hx, lx = h[:, i * c:(i + 1) * c], labels[:, i * c:(i + 1) * c]
+        total = total + (torch.utils.checkpoint.checkpoint(
+            chunk_nll, hx, lx, use_reentrant=False)
+            if torch.is_grad_enabled() else chunk_nll(hx, lx))
+    return total / torch.full((), float(labels.shape[0] * t),
+                              device=h.device)
 
 
 def _cache_stacks(cfg: ModelConfig, lead: tuple, device) -> dict:

@@ -35,8 +35,14 @@ and NOISY (B6), and zamba2's at --cim bp-noisy (B5); so is one
 full-width whisper-large-v3 layer's prefill (an encoder layer over 300
 frames, a decoder layer with cross-attention) and decode step at IDEAL,
 NOISY and bp-noisy, and the KWS GRU's forward at IDEAL and FULL from
-float weights (B2, B5) and stored codes (B1, B6). Inputs come from numpy
-seeds. This file needs no JAX.
+float weights (B2, B5) and stored codes (B1, B6). Training: cim_matmul's
+and cim_matmul_prequant's gradients (through the einsum VJP) and
+cim_matmul_ste's are identical with the kernels and with their plain
+versions, no kernel launching in a backward; two train steps of the
+smoke internlm2 at --cim bp (IDEAL and NOISY) are identical with the
+kernels and with their plain versions (29 launches a step), a step is
+deterministic run to run, and the embedding gather's backward equals the
+CPU's bit for bit. Inputs come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -1094,3 +1100,153 @@ def test_static_grid_lane_decoupled_on_the_card():
         srv.run_until_drained()
         outs.append(probe.output)
     assert outs[0] == outs[1] and len(outs[0]) == 6
+
+
+# ---------------------------------------------------------------------------
+# training (ROADMAP A10a): gradients through the kernels, train steps
+# ---------------------------------------------------------------------------
+def _cim(level, backend="auto"):
+    import dataclasses
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    cim = CIMConfig(enabled=True, backend=backend,
+                    noise_seed=None if level == "ideal" else 0)
+    return dataclasses.replace(cim, macro=dataclasses.replace(
+        cim.macro, sim_level=SimLevel(level)))
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
+@pytest.mark.parametrize("stored", [False, True])
+def test_cim_matmul_gradient_kernels_equal_plain(level, stored):
+    """cim_matmul (float weights: B2 / B5) and cim_matmul_prequant
+    (nibble-packed codes: B1 / B6) under autograd: the output keeps its
+    grad_fn, the forward and the gradients (x's, and w's from float
+    weights) are identical with the kernels and with their plain versions,
+    one launch per forward and none in the backward."""
+    from repro_torch.core import cim_matmul as cm
+    from repro_torch.kernels import build
+    dev = gpu_device()
+    rng = np.random.RandomState(11)
+    x = torch.from_numpy(rng.randn(24, 600).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(600, 136) * 0.05).astype(
+        np.float32)).to(dev)
+    c = torch.from_numpy(rng.randn(24, 136).astype(np.float32)).to(dev)
+    outs = []
+    for backend in ("auto", "plain"):
+        cim = _cim(level, backend)
+        x1 = x.clone().requires_grad_()
+        w1 = w.clone().requires_grad_()
+        build.reset_launch_counts()
+        if stored:
+            q, s = cm.quantize_weight_offline(w, cim)
+            y = cm.cim_matmul_prequant(x1, ops.pack_codes(q), s, cim)
+        else:
+            y = cm.cim_matmul(x1, w1, cim)
+        assert y.grad_fn is not None
+        n_fwd = sum(build.launch_counts().values())
+        (y * c).sum().backward()
+        torch.cuda.synchronize()
+        assert sum(build.launch_counts().values()) == n_fwd
+        assert n_fwd == (1 if backend == "auto" else 0)
+        outs.append((y.detach(), x1.grad, w1.grad))
+    (yk, gxk, gwk), (yp, gxp, gwp) = outs
+    assert torch.equal(yk, yp) and torch.equal(gxk, gxp)
+    assert (gwk is None and gwp is None) if stored else torch.equal(gwk, gwp)
+
+
+def test_cim_matmul_ste_kernel_equals_plain():
+    from repro_torch.core import cim_matmul as cm
+    dev = gpu_device()
+    rng = np.random.RandomState(12)
+    x = torch.from_numpy(rng.randn(40, 2048).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(2048, 1024) * 0.02).astype(
+        np.float32)).to(dev)
+    outs = []
+    for backend in ("auto", "plain"):
+        x1 = x.clone().requires_grad_()
+        w1 = w.clone().requires_grad_()
+        y = cm.cim_matmul_ste(x1, w1, _cim("ideal", backend))
+        y.square().sum().backward()
+        outs.append((y.detach(), x1.grad, w1.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def _smoke_train(cim):
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.data.tokens import SyntheticLMDataset
+    from repro_torch.models import registry
+    from repro_torch.runtime.trainer import make_train_step
+    dev = gpu_device()
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=cim)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    step, opt = make_train_step(cfg, TrainConfig(steps=10, lr=1e-3))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in
+             SyntheticLMDataset(cfg.vocab, 32, 4, seed=0).batch(0).items()}
+    return step, {"params": params, "opt": opt.init(params)}, batch
+
+
+def _same_tree(a, b):
+    from repro_torch.optim.optimizers import tree_leaves
+    return all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+               if x.element_size() == 2 else torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+@pytest.mark.parametrize("level", ["ideal", "noisy"])
+def test_train_step_kernels_bit_exact_vs_plain(level):
+    """Two steps of the smoke internlm2 (bf16, --cim bp; NOISY at
+    noise_seed 0) with the kernels (B2 / B5 under cim_matmul_ste) and with
+    their plain versions: losses, grad norms and the whole state (params,
+    AdamW m / v) identical; 2 · 7 · 2 + 1 = 29 launches a step (per-layer
+    remat re-runs each layer's 7 MVMs)."""
+    from repro_torch.kernels import build
+    kname = "cim_mvm_grouped" if level == "ideal" else "cim_mvm_grouped_noisy"
+    runs = []
+    for backend in ("auto", "plain"):
+        step, state, batch = _smoke_train(_cim(level, backend))
+        metrics = []
+        for _ in range(2):
+            build.reset_launch_counts()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            assert build.launch_counts()[kname] == (
+                29 if backend == "auto" else 0)
+            metrics.append(m)
+        runs.append((state, metrics))
+    (sk, mk), (sp, mp) = runs
+    for a, b in zip(mk, mp):
+        assert torch.equal(a["loss"], b["loss"])
+        assert torch.equal(a["grad_norm"], b["grad_norm"])
+    assert _same_tree(sk, sp)
+
+
+def test_train_steps_are_deterministic():
+    """The same two steps twice from one state give the same bits: the
+    embedding gather's and the CE gather's backward add without atomics."""
+    step, state0, batch = _smoke_train(_cim("ideal"))
+    finals = []
+    for _ in range(2):
+        state = state0
+        for _ in range(2):
+            state, _ = step(state, batch)
+        finals.append(state)
+    assert _same_tree(*finals)
+
+
+def test_row_gather_backward_deterministic_and_ordered():
+    """The embedding backward on the card equals the CPU's (tokens added in
+    ascending position order) bit for bit, with many repeated tokens."""
+    from repro_torch.models.common import _RowGather
+    dev = gpu_device()
+    rng = np.random.RandomState(13)
+    table = torch.from_numpy(rng.randn(50, 64).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 12, (8, 96)))
+    g = torch.from_numpy(rng.randn(8, 96, 64).astype(np.float32))
+    grads = []
+    for d in ("cpu", dev, dev):
+        t = table.detach().to(d).requires_grad_()
+        _RowGather.apply(t, idx.to(d)).backward(g.to(d))
+        grads.append(t.grad.cpu())
+    assert torch.equal(grads[0], grads[1]) and torch.equal(grads[1], grads[2])

@@ -165,11 +165,23 @@ def test_sgd_steps_match_jax_grad(model):
 
 
 def test_train_under_cim_raises_naming_a10(model):
+    """Training on the macro was A10's and raised until the STE wrapper was
+    ported; it now runs cim_matmul_ste: the loss is the IDEAL forward's
+    cross-entropy, within TOL of the reference's jax.value_and_grad, and
+    every gate and head weight gets a gradient within TOL of the
+    reference's (tests/test_torch_train.py holds the legs)."""
     ref_p, np_p, x, y = model
-    _, tc, _, tp = _cfgs("ideal", False, ref_p, np_p)
+    rc, tc, _, tp = _cfgs("ideal", False, ref_p, np_p)
     batch = {"frames": torch.from_numpy(x), "labels": torch.from_numpy(y)}
-    with pytest.raises(NotImplementedError, match="A10"):
-        gru.train_loss(tp, batch, tc)
+    rl, rg = jax.value_and_grad(ref_gru.train_loss)(
+        ref_p, {"frames": jnp.asarray(x), "labels": jnp.asarray(y)}, rc)
+    tp = {k: v.requires_grad_() for k, v in tp.items()}
+    loss = gru.train_loss(tp, batch, tc)
+    loss.backward()
+    assert abs(float(loss.detach()) - float(rl)) <= TOL * abs(float(rl))
+    for k in ("w_z", "w_r", "w_h", "head"):
+        assert float(tp[k].grad.abs().max()) > 0, k
+        assert rel_err(np32(tp[k].grad), np.asarray(rg[k])) <= TOL, k
 
 
 @pytest.mark.parametrize("prequant", [False, True])

@@ -260,9 +260,10 @@ def test_port_imports_no_jax_and_no_reference():
     paged one with the model drafter), a paged prequant serve of the MoE
     family, a --cim bp slot serve of deepseek-v3, prequant slot serves
     of rwkv6-7b, zamba2-2.7b and internvl2-26b, whisper-large-v3's
-    prequant prefill and decode step over frames and the KWS GRU's
-    forward on the macro leave no JAX and no reference module in
-    sys.modules."""
+    prequant prefill and decode step over frames, the KWS GRU's forward
+    on the macro and two --cim bp training steps through launch.train
+    (microbatches, int8 gradient compression, checkpoints) leave no JAX
+    and no reference module in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
@@ -323,6 +324,13 @@ def test_port_imports_no_jax_and_no_reference():
         "gcfg = gru.gru_config(cim=CIMConfig(enabled=True))\n"
         "gp = gru.init(gcfg, seed=0, device='cpu')\n"
         "assert gru.forward(gp, torch.ones(2, 3, 144), gcfg).shape == (2, 16)\n"
+        "import tempfile\n"
+        "from repro_torch.launch import train\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    train.main(['--arch', 'internlm2-1.8b', '--smoke', '--steps', '2',\n"
+        "                '--batch', '2', '--seq', '8', '--cim', 'bp',\n"
+        "                '--microbatch', '1', '--grad-compression',\n"
+        "                '--device', 'cpu', '--ckpt', d])\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
@@ -332,7 +340,12 @@ def test_port_imports_no_jax_and_no_reference():
         "          'repro_torch.analysis.calibrate',\n"
         "          'repro_torch.analysis.precision_search',\n"
         "          'repro_torch.models.gru', 'repro_torch.examples.kws_gru',\n"
-        "          'repro_torch.configs.whisper_large_v3'):\n"
+        "          'repro_torch.configs.whisper_large_v3',\n"
+        "          'repro_torch.optim.optimizers', 'repro_torch.optim.schedule',\n"
+        "          'repro_torch.data.tokens', 'repro_torch.parallel.collectives',\n"
+        "          'repro_torch.checkpoint.ckpt', 'repro_torch.runtime.trainer',\n"
+        "          'repro_torch.launch.train',\n"
+        "          'repro_torch.examples.train_cim_qat'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro'))\n"
