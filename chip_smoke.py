@@ -218,12 +218,29 @@ of which fails the run when it fails:
      (kernel time against the step's wall: the card's idle share); (d)
      the train_cim_qat example for 40 steps (float, then --cim bp), its
      final-loss gap;
+  3y. the remaining training legs (`phase_train_legs`): (0) B2's
+     expert-batched entry (B2e) at qwen2-moe-a2.7b's train capacity (64
+     experts x 40 rows) and B2 at M = 512, one MoE layer's forward MVMs
+     each, bit-exact against their plain versions and timed against their
+     bounds; (a) qwen2-moe-a2.7b at full width, --cim bp, batch 2 x seq
+     256: a 1-layer AdamW step with the kernels and with their plain
+     versions (identical loss, gradients, grad norm, params, m and v; B2e
+     launched 6 times, B2 15), then 2 layers through the Trainer for 3
+     steps (12 B2e and 29 B2 launches a step, step times, peak memory),
+     steps 1-2 again from the state held before step 1 (identical), and
+     one profiled step (the card's idle share); (b) one step each, kernels
+     vs plain identical, of deepseek-v3 at its 3 dense MLA layers with the
+     MTP loss (Adafactor), rwkv6-7b at 2 layers, zamba2-2.7b at 6 (one
+     shared-block application), whisper-large-v3 at 2 + 2 layers over 2 x
+     1500 frames and internvl2-26b at 1 layer behind 256 image tokens, all
+     at full width;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
      B2e from phase 3d's --cim bp serve and B5e from its first --cim
      bp-noisy serve; B2's launches in a train step are on phase 3x's
-     lines), then the result line.
+     lines, B2e's and B2's in a MoE train step on phase 3y's), then the
+     result line.
 """
 from __future__ import annotations
 
@@ -589,6 +606,287 @@ def phase_train(torch, np, dev, card: str) -> dict:
           "phase 3x (d): a QAT loss is not finite")
     log(f"phase 3x: {time.monotonic() - t3x:.1f} s in all")
     return {"B2 per step": counts[-1]}
+
+
+# phase 3y: the A10b training legs. (a) qwen2-moe-a2.7b at full width:
+# batch x seq of its steps (T = 512 tokens: capacity 40), the depth of the
+# kernels-vs-plain step and of the Trainer's, the Trainer's steps; (b) the
+# other legs: (arch, n_layers, batch, seq, optimizer)
+Y_BATCH, Y_SEQ = 2, 256
+Y_PARITY_LAYERS, Y_LAYERS, Y_STEPS = 1, 2, 3
+Y_LEGS = (("deepseek-v3-671b", 3, 1, 64, "adafactor"),
+          ("rwkv6-7b", 2, 2, 64, "adamw"),
+          ("zamba2-2.7b", 6, 2, 64, "adamw"),
+          ("whisper-large-v3", 2, 2, 64, "adamw"),
+          ("internvl2-26b", 1, 1, 384, "adamw"))
+# qwen2-moe's routed experts and dense MVMs in a train step: (label, K, N,
+# launches per layer forward)
+Y_EXPERT_MVMS = [("e_gate+e_up", 2048, 1408, 2), ("e_down", 1408, 2048, 1)]
+Y_DENSE_MVMS = [("wq+wk+wv+wo", 2048, 2048, 4), ("w_gate+w_up", 2048, 5632, 2),
+                ("w_down", 5632, 2048, 1)]
+
+
+def _mvm_time(torch, kern, plain, x, w, kw):
+    """(kernel ms, plain ms, the kernel's max |diff| from its plain
+    version) of one MVM at these operands; bit-exact or the run fails."""
+    y, yp = kern(x, w, **kw), plain(x, w, **kw)
+    torch.cuda.synchronize()
+    check(torch.equal(y, yp), f"{kern.__name__} differs from its plain "
+          f"version at x {tuple(x.shape)}, w {tuple(w.shape)}")
+    args = [(x, wi) for wi in copies(w)]
+    t_k = graph_ms(torch, lambda a, b: kern(a, b, **kw), args)
+    t_p = graph_ms(torch, lambda a, b: plain(a, b, **kw), args[:2], reps=3,
+                   min_iters=2)
+    return t_k, t_p, (y - yp).abs().max().item()
+
+
+def phase_train_legs(torch, np, dev, card: str) -> dict:
+    """Phase 3y, the training legs of ROADMAP A10b on the card (the module
+    docstring); returns {"B2e per step", "B2 per step"} of qwen2-moe's
+    Trainer step."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cim_mvm as cm
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime import trainer as trainer_mod
+
+    t3y = time.monotonic()
+    bp = CIMConfig(enabled=True)
+    plain = dataclasses.replace(bp, backend="plain")
+    kw = dict(n_rows=144, levels=362, gain=1.0, full_scale=32400.0)
+    base = ARCHS["qwen2-moe-a2.7b"]
+    shape = ShapeConfig("train", Y_SEQ, Y_BATCH, "train")
+    n_exp = moe_mod.padded_experts(base.moe.n_experts)
+    cap = moe_mod._capacity(Y_BATCH * Y_SEQ, base)
+    rng = np.random.default_rng(25)
+
+    def codes(shape_):
+        return torch.from_numpy(rng.integers(0, 16, size=shape_,
+                                             dtype=np.uint8)).to(dev).float()
+
+    # (0) B2e at the train step's capacity and B2 at its M = T, one MoE
+    # layer's forward MVMs each: bit-exact vs plain, timed against bounds
+    for kid, kern, plain_fn, mvms, lead in (
+            ("B2e", cm.cim_mvm_grouped_experts,
+             cm.cim_mvm_grouped_experts_plain, Y_EXPERT_MVMS, (n_exp, cap)),
+            ("B2", cm.cim_mvm_grouped, cm.cim_mvm_grouped_plain,
+             Y_DENSE_MVMS, (Y_BATCH * Y_SEQ,))):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+               "err": 0.0}
+        for label, k, n, count in mvms:
+            x = codes(lead + (k,))
+            w = codes(((n_exp,) if kid == "B2e" else ()) + (k, n))
+            t_k, t_p, e = _mvm_time(torch, kern, plain_fn, x, w, kw)
+            rows = x.numel() // k
+            wbytes = w.numel() * 4
+            log(f"  phase 3y (0): {kid} {label:12s} x {tuple(x.shape)} w "
+                f"{tuple(w.shape)} x{count}/layer: kernel {t_k * 1e3:.2f} "
+                f"us ({wbytes / (t_k * 1e-3) / 1e12:.3f} TB/s of "
+                f"{wbytes / 1e6:.1f} MB codes), plain {t_p * 1e3:.2f} us")
+            tot["ms"] += count * t_k
+            tot["plain_ms"] += count * t_p
+            tot["bytes"] += count * (wbytes + rows * (k + n) * 4)
+            tot["ops"] += count * 2 * rows * k * n
+            tot["err"] = max(tot["err"], e)
+            del x, w
+            torch.cuda.empty_cache()
+        b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
+        b_ops = tot["ops"] / INT_OP_S * 1e3
+        log(f"phase 3y (0) ({card}): {kid} bit-exact vs plain (max |diff| "
+            f"{tot['err']}); one "
+            f"qwen2-moe layer's forward at {'C' if kid == 'B2e' else 'M'} "
+            f"= {lead[-1]}: kernel {tot['ms']:.3f} ms, plain "
+            f"{tot['plain_ms']:.3f} ms, bound {max(b_bytes, b_ops):.3f} ms "
+            f"(bytes {b_bytes:.3f}, operations {b_ops:.3f})")
+
+    # (a) one train step at full width, Y_PARITY_LAYERS layer(s), kernels
+    # vs plain versions: loss, gradients, grad norm, params, m and v
+    t0 = time.monotonic()
+    cfg = base.replace(n_layers=Y_PARITY_LAYERS, cim=bp)
+    tc = TrainConfig(steps=100, lr=3e-4)
+    params = registry.init_params(cfg, seed=0, device=dev)
+    batch = synthetic_batch(cfg, shape, device=dev)
+    out = {}
+    want = {"cim_mvm_grouped_experts": 3 * 2 * Y_PARITY_LAYERS,
+            "cim_mvm_grouped": 7 * 2 * Y_PARITY_LAYERS + 1}
+    for tag, c in (("kernels", cfg), ("plain", cfg.replace(cim=plain))):
+        step, opt = trainer_mod.make_train_step(c, tc)
+        build.reset_launch_counts()
+        loss, grads = trainer_mod.value_and_grad(
+            lambda p, b, c=c: registry.train_loss(p, b, c), params, batch)
+        torch.cuda.synchronize()
+        n_grad = {k_: build.launch_counts()[k_] for k_ in want}
+        build.reset_launch_counts()
+        new_state, metrics = step({"params": params,
+                                   "opt": opt.init(params)}, batch)
+        torch.cuda.synchronize()
+        n_step = {k_: build.launch_counts()[k_] for k_ in want}
+        out[tag] = (loss, grads, new_state, metrics)
+        log(f"phase 3y (a): {tag}: loss {float(loss):.6f}; launches in the "
+            f"loss and its gradients {n_grad}, in the step {n_step}")
+        expect = want if tag == "kernels" else {k_: 0 for k_ in want}
+        check(n_grad == expect and n_step == expect,
+              f"phase 3y (a): {tag} launches {n_grad} / {n_step}, expected "
+              f"{expect} (B2e 3 a MoE layer, B2 7 a layer, twice under "
+              "remat, + the head)")
+        del loss, grads, new_state, metrics
+    (lk, gk, sk, mk), (lp, gp, sp, mp) = out["kernels"], out["plain"]
+    max_dg = max((a.float() - b.float()).abs().max().item()
+                 for a, b in zip(tree_leaves(gk), tree_leaves(gp)))
+    same = torch.equal(lk, lp) and tree_equal(torch, gk, gp) \
+        and tree_equal(torch, sk, sp) \
+        and torch.equal(mk["grad_norm"], mp["grad_norm"])
+    log(f"phase 3y (a): {cfg.arch} x {Y_PARITY_LAYERS} layer at full width "
+        f"({cfg.moe.n_experts} routed experts padded to {n_exp}, capacity "
+        f"{cap}, top-"
+        f"{cfg.moe.top_k}; shared expert {cfg.moe.d_ff_shared}), batch "
+        f"{Y_BATCH} x seq {Y_SEQ}, --cim bp, AdamW: kernels vs plain: loss "
+        f"equal {torch.equal(lk, lp)}, max |dgrad| {max_dg}, params / m / v "
+        f"identical {tree_equal(torch, sk, sp)} (tolerance 0); "
+        f"{time.monotonic() - t0:.1f} s")
+    check(same and math.isfinite(float(mk["grad_norm"])),
+          "phase 3y (a): the kernel and plain train steps differ")
+    del out, gk, gp, sk, sp, params
+    torch.cuda.empty_cache()
+
+    # (a) Y_LAYERS layers through the Trainer: Y_STEPS steps, then steps
+    # 1 .. Y_STEPS - 1 again from the state held before step 1
+    cfg = base.replace(n_layers=Y_LAYERS, cim=bp)
+    tr = trainer_mod.Trainer(cfg, shape, TrainConfig(steps=Y_STEPS,
+                                                     lr=3e-4),
+                             str(ROOT / "build" / "train_moe_ckpt"),
+                             device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    state = tr.init_state()
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(state["params"]))
+    log(f"phase 3y (a): {cfg.arch} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab}; {n_params / 1e9:.3f} G params "
+        f"in bf16, AdamW m / v in f32) initialised in "
+        f"{time.monotonic() - t0:.1f} s")
+    losses, times, counts = [], [], []
+    saved = peak = None
+    for i in range(Y_STEPS):
+        if i == 1:
+            saved = state
+            peak = torch.cuda.max_memory_allocated() / 2**30
+        b = tr.batch(i)
+        build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        state, metrics = tr.step_fn(state, b)
+        losses.append(float(metrics["loss"]))
+        torch.cuda.synchronize()
+        times.append(time.monotonic() - t0)
+        lc = build.launch_counts()
+        counts.append((lc["cim_mvm_grouped_experts"], lc["cim_mvm_grouped"]))
+    want_step = (3 * 2 * Y_LAYERS, 7 * 2 * Y_LAYERS + 1)
+    log(f"phase 3y (a) ({card}): {Y_STEPS} Trainer steps, batch {Y_BATCH} x "
+        f"seq {Y_SEQ}, --cim bp: losses {losses}; step times "
+        f"{[round(t * 1e3, 1) for t in times]} ms; (B2e, B2) launches per "
+        f"step {counts}; peak {peak:.2f} GiB over step 0 "
+        f"({torch.cuda.max_memory_allocated() / 2**30:.2f} with the saved "
+        f"state held)")
+    check(all(math.isfinite(v) for v in losses), "phase 3y (a): loss not "
+          "finite")
+    check(all(c == want_step for c in counts), f"phase 3y (a): launches "
+          f"{counts} a step, expected {want_step}")
+    first_params = state["params"]
+    del state
+    again, state = [], saved
+    for i in range(1, Y_STEPS):
+        state, metrics = tr.step_fn(state, tr.batch(i))
+        again.append(float(metrics["loss"]))
+    same = again == losses[1:] and tree_equal(torch, state["params"],
+                                              first_params)
+    log(f"phase 3y (a): two runs of steps 1-{Y_STEPS - 1} from one saved "
+        f"state: losses {losses[1:]} and {again}, parameters identical: "
+        f"{same}")
+    check(same, "phase 3y (a): two runs from one saved state differ")
+    del saved, first_params
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = tr.step_fn(state, tr.batch(Y_STEPS))
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    rows = sorted((e for e in prof.key_averages()
+                   if str(getattr(e, "device_type", "")).endswith("CUDA")),
+                  key=dev_us, reverse=True)
+    total_us = sum(dev_us(e) for e in rows)
+    wall = statistics.median(times[1:])
+    if total_us <= 0:
+        log("phase 3y (a): profiler recorded no device time (idle share "
+            "not measured)")
+    else:
+        log(f"phase 3y (a) ({card}): one train step: {total_us / 1e3:.1f} "
+            f"ms of kernel time in {sum(e.count for e in rows)} launches "
+            f"against a median step of {wall * 1e3:.1f} ms -> the card is "
+            f"idle {100 * (1 - total_us / 1e6 / wall):.1f} % of the step")
+        for e in rows[:12]:
+            log(f"  profile: {dev_us(e) / 1e3:9.3f} ms "
+                f"{100 * dev_us(e) / total_us:5.1f} %  x{e.count:<6d} "
+                f"{e.key[:90]}")
+    del state, tr
+    torch.cuda.empty_cache()
+
+    # (b) the other legs: one step each at full width, its depth cut,
+    # kernels vs plain versions
+    for arch, depth, bsz, seq, opt_name in Y_LEGS:
+        t0 = time.monotonic()
+        torch.cuda.reset_peak_memory_stats()
+        lcfg = ARCHS[arch].replace(n_layers=depth, cim=bp)
+        if lcfg.encoder_layers:
+            lcfg = lcfg.replace(encoder_layers=depth)
+        lshape = ShapeConfig("train", seq, bsz, "train")
+        ltc = TrainConfig(steps=100, lr=3e-4, optimizer=opt_name)
+        params = registry.init_params(lcfg, seed=0, device=dev,
+                                      max_seq=seq + 8)
+        batch = synthetic_batch(lcfg, lshape, device=dev)
+        res = []
+        for c in (lcfg, lcfg.replace(cim=plain)):
+            step, opt = trainer_mod.make_train_step(c, ltc)
+            build.reset_launch_counts()
+            new_state, m = step({"params": params, "opt": opt.init(params)},
+                                batch)
+            torch.cuda.synchronize()
+            res.append((new_state, m, {k_: v for k_, v in
+                                       build.launch_counts().items() if v}))
+            del new_state
+        (sk, mk, ck), (sp, mp, cp) = res
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        same = torch.equal(mk["loss"], mp["loss"]) \
+            and torch.equal(mk["grad_norm"], mp["grad_norm"]) \
+            and tree_equal(torch, sk, sp)
+        log(f"phase 3y (b) ({card}): {arch} x {depth} layers"
+            + (f" (+ {depth} encoder layers over {lcfg.encoder_len} frames)"
+               if lcfg.encoder_layers else "")
+            + f" at full width ({n_params / 1e9:.3f} G params), batch {bsz} "
+            f"x seq {seq}, --cim bp, {opt_name}: loss {float(mk['loss']):.6f}"
+            f", kernels vs plain identical {same} (loss, grad norm, params, "
+            f"optimizer state; tolerance 0); launches {ck} (plain {cp}); "
+            f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"{time.monotonic() - t0:.1f} s")
+        check(same, f"phase 3y (b): {arch}'s kernel and plain steps differ")
+        check(ck.get("cim_mvm_grouped", 0) > 0 and not cp,
+              f"phase 3y (b): {arch}: launches {ck} / plain {cp}")
+        check(math.isfinite(float(mk["loss"]))
+              and math.isfinite(float(mk["grad_norm"])),
+              f"phase 3y (b): {arch}'s loss or gradient is not finite")
+        del res, sk, sp, params, batch
+        torch.cuda.empty_cache()
+    log(f"phase 3y: {time.monotonic() - t3y:.1f} s in all")
+    return {"B2e per step": counts[-1][0], "B2 per step": counts[-1][1]}
 
 
 def main() -> int:
@@ -2864,6 +3162,12 @@ def main() -> int:
     log(f"phase 3x: B2 launches of one full-depth train step (not in the "
         f"kernels line, whose B2 count is phase 4's serve): "
         f"{train_launches['B2 per step']}")
+
+    # ---- phase 3y: the remaining training legs -----------------------------
+    legs = phase_train_legs(torch, np, dev, card)
+    log(f"phase 3y: launches of one qwen2-moe Trainer step (not in the "
+        f"kernels line, whose B2e count is phase 3d's serve): B2e "
+        f"{legs['B2e per step']}, B2 {legs['B2 per step']}")
 
     # ---- phase 6: report -------------------------------------------------
     meta = {

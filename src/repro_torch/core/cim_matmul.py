@@ -213,9 +213,16 @@ def quantize_weight_offline(w: torch.Tensor, cfg: CIMConfig):
 # ---------------------------------------------------------------------------
 class _STEMatmul(torch.autograd.Function):
     """Forward: `cim_matmul` (no autograd graph inside: the kernel runs as
-    it does at inference). Backward: the float matmul's, gx = g·wᵀ and
-    gw = xᵀ·g summed over x's leading axes, cast to x's and w's dtypes (the
-    reference's `_ste_bwd`). No second analog forward."""
+    it does at inference). Backward: the float matmul's (the reference's
+    `_ste_bwd`), cast to x's and w's dtypes; no second analog forward.
+
+    2-D w [K, M]: gx = g·wᵀ, gw = xᵀ·g summed over x's leading axes.
+    Expert-batched w [E, K, M] with x [E, C, K]: per expert, gx[e] =
+    g[e]·w[e]ᵀ and gw[e] = x[e]ᵀ·g[e], as the reference's vmap of
+    `_ste_bwd` gives them. The expert stack may stay in the model dtype
+    (only it is saved, no f32 copy): the products run in f32, and gw is
+    rounded to w's dtype last, as the reference's f32 cast of w before its
+    STE rounds its f32 gradient in the cast's VJP."""
 
     @staticmethod
     def forward(ctx, x, w, cfg, key, inl_seed):
@@ -226,6 +233,13 @@ class _STEMatmul(torch.autograd.Function):
     def backward(ctx, g):
         x, w = ctx.saved_tensors
         gx = gw = None
+        if w.ndim == 3:
+            g = g.float()
+            if ctx.needs_input_grad[0]:
+                gx = torch.matmul(g, w.float().transpose(1, 2)).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                gw = torch.matmul(x.float().transpose(1, 2), g).to(w.dtype)
+            return gx, gw, None, None, None
         if ctx.needs_input_grad[0]:
             gx = (g @ w.T).to(x.dtype)
         if ctx.needs_input_grad[1]:
@@ -240,7 +254,9 @@ def cim_matmul_ste(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
     """CIM forward value with float-matmul gradients: x [..., K] float, w
     [K, M] float → f32 [..., M], the value `cim_matmul`'s, the gradient
     d(x @ w)'s (Eq. 5's identity-derivative quantizers compose to exactly
-    this). With CIM off it is x @ w."""
+    this). Expert-batched, x [E, C, K] with w [E, K, M] (float, the model
+    dtype allowed) → [E, C, M]: one expert-batched call forward (B2e on
+    the card), per-expert products backward. With CIM off it is x @ w."""
     if not cfg.enabled:
         return x @ w
     return _STEMatmul.apply(x, w, cfg, key, inl_seed)

@@ -15,6 +15,7 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
@@ -164,6 +165,18 @@ def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
     before = F.pad(totals[..., :-1], (1, 0))
     out = (inner + before[..., None]).reshape(*x.shape[:-1], -1)
     return out[..., :n].movedim(-1, dim)
+
+
+def remat(cfg: ModelConfig, fn, *args):
+    """fn(*args), recomputed in the backward under cfg.remat while autograd
+    records (one layer of a training forward). Both remat_policy values
+    recompute the whole call: the policy is a memory choice, and the
+    recomputed forward is the same bits, so losses and gradients do not
+    depend on it."""
+    if cfg.remat and torch.is_grad_enabled():
+        return torch.utils.checkpoint.checkpoint(fn, *args,
+                                                 use_reentrant=False)
+    return fn(*args)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

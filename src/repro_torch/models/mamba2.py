@@ -1,11 +1,14 @@
-"""Mamba2 (SSD) blocks and the Zamba2 hybrid for serving: a Mamba2 backbone
-with one weight-shared attention + MLP block after every `shared_every`
-layers, on the slot engine only.
+"""Mamba2 (SSD) blocks and the Zamba2 hybrid: a Mamba2 backbone with one
+weight-shared attention + MLP block after every `shared_every` layers,
+served on the slot engine only, and trained (`train_loss`).
 
 Prefill runs the chunked SSD schedule (`ssd_chunked`: intra-chunk matmuls
 with scalar per-head decays plus an inter-chunk state scan); decode is the
-exact single-token recurrence. The SSD state math, the causal depthwise
-conv and the gated norm are digital (plain PyTorch, as the reference
+exact single-token recurrence; training runs the chunked form under
+autograd (each Mamba layer recomputed in the backward under cfg.remat, as
+the reference's run_span; the shared block, used at every application,
+sums its weights' gradients over them). The SSD state math, the causal
+depthwise conv and the gated norm are digital (plain PyTorch, as the reference
 computes them in jnp outside any Pallas kernel); the fused in-projection
 [z | x | B | C | dt], the out-projection and the shared block's matmuls go
 through `common.dense`, so onto the macro under CIM.
@@ -147,9 +150,14 @@ def ssd_chunked(xh, dt, a, B, C, *, chunk: int, state0=None):
     ys = []
     for c in range(nc):
         xcc, dcc, bcc, ccc, lcc = (z[:, c] for z in (xc, dtc, bc, cc, l))
-        # decay matrix exp(l_i − l_j) for j ≤ i, else 0
-        dec = torch.exp(lcc[:, :, None, :] - lcc[:, None, :, :])
-        dec = torch.where(mask, dec, 0.0)
+        # decay matrix exp(l_i − l_j) for j ≤ i, else 0. The exponent is
+        # masked before the exp: above the diagonal l_i − l_j > 0 overflows
+        # to inf once a chunk's decays add past ~88, and the masked-out
+        # cotangent 0 · inf would be NaN in the backward (the reference
+        # masks after the exp and gets NaN gradients there, ROADMAP Queue
+        # C); the forward is the same bits
+        dec = torch.exp(torch.where(mask, lcc[:, :, None, :]
+                                    - lcc[:, None, :, :], -math.inf))
         cb = torch.einsum("bin,bjn->bij", ccc, bcc)   # C_i·B_j
         att = cb[..., None] * dec * dcc[:, None, :, :]    # [B, i, j, H]
         y = torch.einsum("bijh,bjhd->bihd", att, xcc)
@@ -186,12 +194,12 @@ def _gated_norm(y, z, g):
 
 
 def _mamba_block(p: dict, x, cfg: ModelConfig, *, cache=None,
-                 chunked: bool = True):
+                 chunked: bool = True, train: bool = False):
     """x [B, T, D] → (y, {"conv": [B, k−1, conv_dim], "S": [B, H, dh, N]})."""
     s = cfg.ssm
     d_in, n_h, conv_dim = _dims(cfg)
     b, t, _ = x.shape
-    proj = dense(p, x, cfg, w="w_in", b=None)
+    proj = dense(p, x, cfg, train=train, w="w_in", b=None)
     z, xbc, dt_raw = torch.split(proj, [d_in, conv_dim, n_h], dim=-1)
     c = cache or {}
     xbc, conv_state = _conv1d(xbc, p["conv_w"].to(xbc.dtype),
@@ -209,29 +217,34 @@ def _mamba_block(p: dict, x, cfg: ModelConfig, *, cache=None,
         y = y[:, None]
     y = y + p["d_skip"][..., None] * xh.float()
     y = _gated_norm(y.reshape(b, t, d_in).to(x.dtype), z, p["norm_g"])
-    return dense(p, y, cfg, w="w_out", b=None), {"conv": conv_state, "S": S}
+    return dense(p, y, cfg, train=train, w="w_out", b=None), \
+        {"conv": conv_state, "S": S}
 
 
 # ---------------------------------------------------------------------------
 # the zamba2 plumbing
 # ---------------------------------------------------------------------------
 def _shared_block(sp: dict, h, cfg: ModelConfig, *, positions, cache=None,
-                  pos_idx=0):
+                  pos_idx=0, train: bool = False):
     a, new_kv = attention_apply(sp["attn"], norm(sp["norm1"], h, cfg), cfg,
-                                positions=positions, cache=cache,
+                                positions=positions, train=train, cache=cache,
                                 cache_index=pos_idx)
     h = h + a
-    return h + mlp_apply(sp["mlp"], norm(sp["norm2"], h, cfg), cfg), new_kv
+    return h + mlp_apply(sp["mlp"], norm(sp["norm2"], h, cfg), cfg,
+                         train=train), new_kv
+
 
 
 def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
-             shared_kv=None, pos0=0, chunked: bool = True):
+             shared_kv=None, pos0=0, chunked: bool = True,
+             train: bool = False):
     """Layer spans of `shared_every` with the shared block after each whole
     span (at most _n_shared_apps times). caches: the stacked SSM caches
     (decode: written in place) or None (prefill); shared_kv: the stacked
     [A, ...] shared K/V (decode: written in place) or None (prefill: each
-    application's K/V come back). Returns (h after the final norm, the
-    per-layer cache entries, the per-application K/V)."""
+    application's K/V come back). `train` runs the training forward
+    (chunked, no cache entries or K/V kept). Returns (h after the final
+    norm, the per-layer cache entries, the per-application K/V)."""
     x = embed_lookup(params["tok"], tokens.long(), cfg)
     b, t = x.shape[:2]
     positions = pos0 + torch.arange(t, device=x.device).expand(b, t)
@@ -243,6 +256,11 @@ def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
         hi = min(lo + se, cfg.n_layers)
         for i in range(lo, hi):
             lp = params["layers"][i]
+            if train:       # recomputed in the backward under cfg.remat
+                h = common.remat(cfg, lambda hh, lp=lp: _mamba_block(
+                    lp["ssm"], norm(lp["norm1"], hh, cfg), cfg,
+                    train=True)[0], h)
+                continue
             c = None if caches is None else \
                 {leaf: st[i] for leaf, st in caches.items()}
             # no residual around the block, as in the reference
@@ -251,12 +269,13 @@ def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
             entries.append(nc)
         if cfg.ssm.shared_every and hi - lo == se \
                 and app < _n_shared_apps(cfg):
-            kv = {} if shared_kv is None else \
+            kv = None if train else {} if shared_kv is None else \
                 {leaf: st[app] for leaf, st in shared_kv.items()}
             h, new_kv = _shared_block(params["shared"], h, cfg,
                                       positions=positions, cache=kv,
-                                      pos_idx=pos0)
-            shared.append(new_kv)
+                                      pos_idx=pos0, train=train)
+            if not train:
+                shared.append(new_kv)
             app += 1
     return norm(params["final_norm"], h, cfg), entries, shared
 
@@ -270,9 +289,12 @@ def supports_paged(cfg: ModelConfig) -> bool:
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
-    """The reference's mamba2 training loss: not ported yet (ROADMAP A10b)."""
-    raise NotImplementedError("training mamba2 is not ported yet (ROADMAP "
-                              "A10b)")
+    """Next-token cross-entropy of batch["tokens"] against batch["labels"]
+    through the training forward and the head, a scalar f32 tensor to
+    differentiate (`rng` is the reference's PRNG key argument, unread)."""
+    h, _, _ = _forward(params, batch["tokens"], cfg, train=True)
+    return common.cross_entropy(unembed(params["tok"], h, cfg, train=True),
+                                batch["labels"].long())
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:

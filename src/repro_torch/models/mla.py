@@ -1,8 +1,10 @@
-"""DeepSeek-V3 Multi-head Latent Attention (MLA) for serving.
+"""DeepSeek-V3 Multi-head Latent Attention (MLA).
 
-The padded forward and the slot engine's prefill rebuild per-head K/V from
-the compressed latent through w_uk / w_uv (both on the macro under CIM)
-and run the chunked attention, V padded to the qk head dim. Decode is
+The padded forward, the training forward and the slot engine's prefill
+rebuild per-head K/V from the compressed latent through w_uk / w_uv (both
+on the macro under CIM) and run the chunked attention, V padded to the qk
+head dim; under `train` the seven projections run `dense(train=True)`
+(cim_matmul_ste under CIM). Decode, inference only, is
 the reference's *absorbed* form: the cache holds only the latent (kv_lora
 + rope = 576 values per position at full width), the query goes through
 the float w_uk, scores are taken against the latent and the context goes
@@ -58,26 +60,29 @@ def _rms(cfg: ModelConfig) -> ModelConfig:
     return cfg if cfg.norm == "rmsnorm" else cfg.replace(norm="rmsnorm")
 
 
-def _project_q(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+def _project_q(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+               train: bool = False):
     """The q LoRA: (q_nope [B,T,H,dn], q_rope [B,T,H,dr], RoPE applied)."""
     m = cfg.mla
     b, t, _ = x.shape
     qk = m.qk_nope_head_dim + m.qk_rope_head_dim
-    cq = common.norm(p["q_norm"], dense(p, x, cfg, w="w_dq", b=None),
-                     _rms(cfg))
-    q = dense(p, cq, cfg, w="w_uq", b=None).reshape(b, t, cfg.n_heads, qk)
+    cq = common.norm(p["q_norm"], dense(p, x, cfg, train=train, w="w_dq",
+                                        b=None), _rms(cfg))
+    q = dense(p, cq, cfg, train=train, w="w_uq", b=None).reshape(
+        b, t, cfg.n_heads, qk)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     return q_nope, rope(q_rope, positions, cfg.rope_theta,
                         m.qk_rope_head_dim)
 
 
-def _latent(p: dict, x: torch.Tensor, cfg: ModelConfig, positions):
+def _latent(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
+            train: bool = False):
     """The compressed KV latent and the shared rope key: [B,T,kv_lora],
     [B,T,dr]."""
     m = cfg.mla
-    ckv = common.norm(p["kv_norm"], dense(p, x, cfg, w="w_dkv", b=None),
-                      _rms(cfg))
-    kr = dense(p, x, cfg, w="w_kr", b=None)
+    ckv = common.norm(p["kv_norm"], dense(p, x, cfg, train=train, w="w_dkv",
+                                          b=None), _rms(cfg))
+    kr = dense(p, x, cfg, train=train, w="w_kr", b=None)
     kr = rope(kr[:, :, None, :], positions, cfg.rope_theta,
               m.qk_rope_head_dim)[:, :, 0, :]
     return ckv, kr
@@ -133,15 +138,17 @@ def _absorbed_decode(p: dict, x: torch.Tensor, cfg: ModelConfig, positions,
 
 
 def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
-          positions: torch.Tensor, cache: dict | None = None,
-          cache_index: torch.Tensor | int = 0, return_cache: bool = False):
+          positions: torch.Tensor, train: bool = False,
+          cache: dict | None = None, cache_index: torch.Tensor | int = 0,
+          return_cache: bool = False):
     """MLA attention → (y, cache entries | None).
 
     Decode (T = 1 with a cache {"latent": [B, S, lat]}, no return_cache):
     the absorbed form over the latent cache, written in place; the cache
     comes back. Otherwise K/V are rebuilt from the latent and the sequence
     attends through `chunked_attention`; with return_cache its
-    {"latent": [B, T, lat]} entries come back.
+    {"latent": [B, T, lat]} entries come back. `train` (this route only)
+    runs the seven projections through dense(train=True).
     """
     if cache is not None and x.shape[1] == 1 and not return_cache \
             and "latent" in cache:
@@ -151,11 +158,12 @@ def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     m = cfg.mla
     b, t, _ = x.shape
     h = cfg.n_heads
-    q_nope, q_rope = _project_q(p, x, cfg, positions)
-    ckv, kr = _latent(p, x, cfg, positions)
-    k_nope = dense(p, ckv, cfg, w="w_uk", b=None).reshape(
+    q_nope, q_rope = _project_q(p, x, cfg, positions, train)
+    ckv, kr = _latent(p, x, cfg, positions, train)
+    k_nope = dense(p, ckv, cfg, train=train, w="w_uk", b=None).reshape(
         b, t, h, m.qk_nope_head_dim)
-    v = dense(p, ckv, cfg, w="w_uv", b=None).reshape(b, t, h, m.v_head_dim)
+    v = dense(p, ckv, cfg, train=train, w="w_uv", b=None).reshape(
+        b, t, h, m.v_head_dim)
     k = torch.cat([k_nope, kr[:, :, None, :].expand(
         b, t, h, m.qk_rope_head_dim)], -1)
     q = torch.cat([q_nope, q_rope], -1)
@@ -165,6 +173,6 @@ def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
     o = common.chunked_attention(q, k, v_p, causal=True, chunk=cfg.attn_chunk,
                                  triangular_max=cfg.attn_triangular_max)
     o = o[..., :m.v_head_dim].reshape(b, t, h * m.v_head_dim)
-    y = dense(p, o, cfg, w="wo", b=None)
+    y = dense(p, o, cfg, train=train, w="wo", b=None)
     entries = {"latent": torch.cat([ckv, kr], -1)} if return_cache else None
     return y, entries

@@ -32,9 +32,18 @@ The numerics follow the reference op by op (ROADMAP Queue C):
     choice order starting from zero (the reference's scatter-add; not
     index_add_, whose CUDA atomics add in a run-dependent order); then
     y_shared + y.
-The load-balance loss is a training term, not ported yet (ROADMAP A10b):
-`apply` returns the FFN output only, and the transformer's training
-forward raises on a MoE FFN.
+
+`apply` returns (y, aux), aux the Switch-style load-balance loss of the
+reference, n_experts · Σ_e me_e·pe_e over the real experts (me the share
+of (token, choice) pairs routed to e, pe the mean routing probability),
+each mean a sum then a division by the count, as jnp.mean computes it.
+Under `train` the routed experts' float weights run `cim_matmul_ste` (one
+expert-batched B2 forward per projection, per-expert float products
+backward) and the shared expert `mlp_apply(train=True)`. The dispatch and
+the combine are deterministic under autograd: the k copies of a token are
+an expand whose gradient adds the k choices in choice order, and the
+gathers of the capacity buffers write their gradients without atomics
+(each real slot holds one (token, choice); the overflow row is dropped).
 """
 from __future__ import annotations
 
@@ -45,7 +54,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
-from repro_torch.core.cim_matmul import cim_matmul, cim_matmul_prequant
+from repro_torch.core.cim_matmul import (cim_matmul, cim_matmul_prequant,
+                                         cim_matmul_ste)
 from repro_torch.core.engine import PackedCodes
 
 from .common import _normal, dtype_of, mlp_apply, mlp_init
@@ -148,20 +158,23 @@ def _expert_slice(wp: dict, e: int) -> dict:
     return {name: v[e] for name, v in wp.items()}
 
 
-def _cim_mvm(xb: torch.Tensor, wp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _cim_mvm(xb: torch.Tensor, wp: dict, cfg: ModelConfig,
+             train: bool = False) -> torch.Tensor:
     """One _expert_weights dict on the macro, expert-batched ([E, C, K]) or
     for one expert ([C, K]). Float weights stay in the model dtype: the
-    quantizer widens them a few experts at a time."""
+    quantizer widens them a few experts at a time; under `train` they run
+    the STE."""
     if "pk" in wp:
         return cim_matmul_prequant(xb.float(), wp["pk"], None, cfg.cim)
     if "q" in wp:
         return cim_matmul_prequant(xb.float(), wp["q"], wp["s"], cfg.cim)
     w = wp["w"]
-    return cim_matmul(xb.float(), w if w.ndim == 3 else w.float(), cfg.cim)
+    mm = cim_matmul_ste if train else cim_matmul
+    return mm(xb.float(), w if w.ndim == 3 else w.float(), cfg.cim)
 
 
 def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
-                cfg: ModelConfig) -> torch.Tensor:
+                cfg: ModelConfig, train: bool = False) -> torch.Tensor:
     """Batched expert MLP: buf [E, C, D] → [E, C, D].
 
     Under CIM the three projections run under the e_gate / e_up / e_down
@@ -173,9 +186,9 @@ def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
             with quant.act_site(site):
                 if quant.recording_active():
                     return torch.stack([
-                        _cim_mvm(xb[e], _expert_slice(wp, e), cfg)
+                        _cim_mvm(xb[e], _expert_slice(wp, e), cfg, train)
                         for e in range(xb.shape[0])])
-                return _cim_mvm(xb, wp, cfg)
+                return _cim_mvm(xb, wp, cfg, train)
         h = F.silu(f(buf, wg, "e_gate")) * f(buf, wu, "e_up")
         return f(h, wd, "e_down").to(buf.dtype)
     h = F.silu(torch.einsum("ecd,edf->ecf", buf, wg["w"])) \
@@ -183,45 +196,104 @@ def _expert_ffn(buf: torch.Tensor, wg: dict, wu: dict, wd: dict,
     return torch.einsum("ecf,efd->ecd", h, wd["w"])
 
 
+class _RepeatRows(torch.autograd.Function):
+    """x2 [T, D] → each row k times, [T·k, D] (the reference's
+    x2[repeat(arange(T), k)]); the backward adds a token's k cotangents in
+    choice order from zero, as the combine adds its choices."""
+
+    @staticmethod
+    def forward(ctx, x2, k):
+        ctx.k = k
+        t, d = x2.shape
+        return x2[:, None, :].expand(t, k, d).reshape(t * k, d)
+
+    @staticmethod
+    def backward(ctx, g):
+        g3 = g.reshape(-1, ctx.k, g.shape[-1])
+        acc = torch.zeros_like(g3[:, 0])
+        for j in range(ctx.k):
+            acc = acc + g3[:, j]
+        return acc, None
+
+
+class _SlotGather(torch.autograd.Function):
+    """table[slot] for a capacity buffer whose rows other than the last
+    (the overflow row) each appear at most once in `slot`: the backward
+    writes each row's one cotangent (index_put_ without accumulation, no
+    atomics) and zeroes the overflow row, where several meet."""
+
+    @staticmethod
+    def forward(ctx, table, slot):
+        ctx.save_for_backward(slot)
+        ctx.shape = table.shape
+        return table[slot]
+
+    @staticmethod
+    def backward(ctx, g):
+        (slot,) = ctx.saved_tensors
+        out = torch.zeros(ctx.shape, dtype=g.dtype, device=g.device)
+        out.index_put_((slot,), g)
+        out[-1] = 0
+        return out, None
+
+
+def _load_balance(probs: torch.Tensor, ids_flat: torch.Tensor,
+                  n_experts: int) -> torch.Tensor:
+    """n_experts · Σ_e me_e·pe_e: me the mean over (token, choice) of
+    one_hot(ids) over the real experts, pe the mean of probs over the
+    tokens; each mean a sum divided by the count (jnp.mean)."""
+    onehot = (ids_flat[:, None] == torch.arange(
+        n_experts, device=ids_flat.device)[None, :]).to(torch.float32)
+    me = torch.sum(onehot, dim=0) / torch.full(
+        (), float(ids_flat.shape[0]), device=probs.device)
+    pe = torch.sum(probs, dim=0) / torch.full(
+        (), float(probs.shape[0]), device=probs.device)
+    return n_experts * torch.sum(me * pe)
+
+
 def _local_moe(x2: torch.Tensor, router_w: torch.Tensor, wg: dict, wu: dict,
-               wd: dict, cfg: ModelConfig, *, capacity: int) -> torch.Tensor:
+               wd: dict, cfg: ModelConfig, *, capacity: int,
+               train: bool = False):
     """Dispatch x2's tokens [T, D] to every expert, compute and combine →
-    [T, D] in the experts' output dtype."""
+    (y2 [T, D] in the experts' output dtype, the load-balance loss)."""
     t, d = x2.shape
     e_pad = padded_experts(cfg.moe.n_experts)
     k = cfg.moe.top_k
-    _, ids, weights = _route(x2, router_w, k)
+    probs, ids, weights = _route(x2, router_w, k)
     ids_flat = ids.reshape(-1)                                  # [T·k]
     pos = _positions_in_expert(ids_flat, e_pad)
     slot = torch.where(pos < capacity, ids_flat * capacity + pos,
                        e_pad * capacity)                        # overflow row
-    token_idx = torch.arange(t * k, device=x2.device) // k
-    buf = x2.new_zeros((e_pad * capacity + 1, d))
-    buf[slot] = x2[token_idx]
-    out = _expert_ffn(buf[:-1].reshape(e_pad, capacity, d), wg, wu, wd, cfg)
+    buf = x2.new_zeros((e_pad * capacity + 1, d)).index_put(
+        (slot,), _RepeatRows.apply(x2, k))
+    out = _expert_ffn(buf[:-1].reshape(e_pad, capacity, d), wg, wu, wd, cfg,
+                      train)
     out_flat = torch.cat([out.reshape(e_pad * capacity, d),
                           out.new_zeros((1, d))])
-    y_choices = (out_flat[slot] * weights.reshape(-1, 1).to(out.dtype)
-                 ).reshape(t, k, d)
+    y_choices = (_SlotGather.apply(out_flat, slot)
+                 * weights.reshape(-1, 1).to(out.dtype)).reshape(t, k, d)
     y2 = out.new_zeros((t, d))
     for j in range(k):                  # the scatter-add's order
         y2 = y2 + y_choices[:, j]
-    return y2
+    return y2, _load_balance(probs, ids_flat, cfg.moe.n_experts)
 
 
-def _shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig):
-    y = mlp_apply(p["shared"], x, cfg)
+def _shared_expert(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                   train: bool = False):
+    y = mlp_apply(p["shared"], x, cfg, train=train)
     if cfg.moe.shared_gate:
         y = y * torch.sigmoid(x @ p["shared"]["w_sg"].to(x.dtype))
     return y
 
 
-def apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """MoE FFN: x [B, T, D] → y [B, T, D]."""
+def apply(p: dict, x: torch.Tensor, cfg: ModelConfig, *,
+          train: bool = False):
+    """MoE FFN: x [B, T, D] → (y [B, T, D], the load-balance loss, an f32
+    scalar tensor)."""
     b, t, d = x.shape
-    y_shared = _shared_expert(p, x, cfg) if cfg.moe.n_shared else 0.0
+    y_shared = _shared_expert(p, x, cfg, train) if cfg.moe.n_shared else 0.0
     wg, wu, wd = (_expert_weights(p, name, cfg)
                   for name in ("e_gate", "e_up", "e_down"))
-    y2 = _local_moe(x.reshape(b * t, d), p["router"], wg, wu, wd, cfg,
-                    capacity=_capacity(b * t, cfg))
-    return y_shared + y2.reshape(b, t, d).to(x.dtype)
+    y2, aux = _local_moe(x.reshape(b * t, d), p["router"], wg, wu, wd, cfg,
+                         capacity=_capacity(b * t, cfg), train=train)
+    return y_shared + y2.reshape(b, t, d).to(x.dtype), aux

@@ -1,11 +1,14 @@
-"""RWKV6 ("Finch") for serving: an attention-free LM with a data-dependent
-per-channel decay, on the slot engine only.
+"""RWKV6 ("Finch"): an attention-free LM with a data-dependent per-channel
+decay, served on the slot engine only, and trained (`train_loss`).
 
 The WKV6 recurrence  S_t = diag(w_t)·S_{t−1} + k_tᵀv_t,
                      y_t = r_t·(S_{t−1} + diag(u)·k_tᵀv_t)
 runs in chunked-parallel form for prefill (intra-chunk matmuls plus an
 inter-chunk state scan, `wkv6_chunked`) and as the exact single-token
-recurrence for decode. The recurrence, the token shift, the decay LoRA and
+recurrence for decode; training runs the chunked form under autograd
+(every layer recomputed in the backward under cfg.remat; the R/K/V/G/
+output and channel-mix projections through `dense(train=True)`, the
+STE under CIM). The recurrence, the token shift, the decay LoRA and
 the group norm are digital (plain PyTorch, as the reference computes them
 in jnp outside any Pallas kernel); the R/K/V/G/output projections and the
 channel-mix FFN go through `common.dense`, so onto the macro under CIM.
@@ -170,7 +173,7 @@ def wkv6_recurrent(r, k, v, logw, u, state):
 # blocks
 # ---------------------------------------------------------------------------
 def _time_mix(p: dict, x, cfg: ModelConfig, *, prev_x=None, state=None,
-              chunked: bool = True):
+              chunked: bool = True, train: bool = False):
     """Returns (out, (last_x, state))."""
     b, t, d = x.shape
     hd = cfg.ssm.head_dim
@@ -181,10 +184,10 @@ def _time_mix(p: dict, x, cfg: ModelConfig, *, prev_x=None, state=None,
     def mix(i):
         return x + mu[i] * (xs - x)
 
-    rr = dense(p, mix(0), cfg, w="w_r", b=None)
-    kk = dense(p, mix(1), cfg, w="w_k", b=None)
-    vv = dense(p, mix(2), cfg, w="w_v", b=None)
-    gg = dense(p, mix(3), cfg, w="w_g", b=None)
+    rr = dense(p, mix(0), cfg, train=train, w="w_r", b=None)
+    kk = dense(p, mix(1), cfg, train=train, w="w_k", b=None)
+    vv = dense(p, mix(2), cfg, train=train, w="w_v", b=None)
+    gg = dense(p, mix(3), cfg, train=train, w="w_g", b=None)
     logw = _decay(p, mix(4))                          # [B, T, D] f32
     sh = (b, t, h, hd)
     r4, k4, v4, lw4 = (a.reshape(sh) for a in (rr, kk, vv, logw))
@@ -198,33 +201,49 @@ def _time_mix(p: dict, x, cfg: ModelConfig, *, prev_x=None, state=None,
         y = y[:, None]
     y = _group_norm(y.reshape(b, t, d).to(x.dtype), p["norm_g"], h)
     y = y * silu(gg)
-    return dense(p, y, cfg, w="w_out", b=None), (x[:, -1:], state)
+    return dense(p, y, cfg, train=train, w="w_out", b=None), \
+        (x[:, -1:], state)
 
 
 def _channel_mix(p: dict, x, cfg: ModelConfig, *, prev_x=None,
-                 chunked: bool = True):
+                 chunked: bool = True, train: bool = False):
     xs = _token_shift(x, prev_x) if chunked else prev_x
     mu = p["mu"].to(x.dtype)
     xk = x + mu[0] * (xs - x)
     xr = x + mu[1] * (xs - x)
-    kk = torch.relu(dense(p, xk, cfg, w="w_up", b=None)) ** 2
-    vv = dense(p, kk, cfg, w="w_down", b=None)
-    rr = torch.sigmoid(dense(p, xr, cfg, w="w_r", b=None))
+    kk = torch.relu(dense(p, xk, cfg, train=train, w="w_up", b=None)) ** 2
+    vv = dense(p, kk, cfg, train=train, w="w_down", b=None)
+    rr = torch.sigmoid(dense(p, xr, cfg, train=train, w="w_r", b=None))
     return rr * vv, x[:, -1:]
 
 
 def _layer(lp: dict, h, cfg: ModelConfig, *, cache=None,
-           chunked: bool = True):
+           chunked: bool = True, train: bool = False):
     """cache: {"tm_x", "cm_x": [B, 1, D], "S": [B, H, dh, dh]} or None
     (zeros). Returns (h, the layer's new cache entries)."""
     c = cache or {}
     a, (tm_x, s) = _time_mix(lp["tm"], norm(lp["norm1"], h, cfg), cfg,
                              prev_x=c.get("tm_x"), state=c.get("S"),
-                             chunked=chunked)
+                             chunked=chunked, train=train)
     h = h + a
     f, cm_x = _channel_mix(lp["cm"], norm(lp["norm2"], h, cfg), cfg,
-                           prev_x=c.get("cm_x"), chunked=chunked)
+                           prev_x=c.get("cm_x"), chunked=chunked,
+                           train=train)
     return h + f, {"tm_x": tm_x, "cm_x": cm_x, "S": s}
+
+
+def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
+    """Next-token cross-entropy of batch["tokens"] against batch["labels"]:
+    embed → layers (chunked, zero carries; each recomputed in the backward
+    under cfg.remat) → final_norm → head, a scalar f32 tensor to
+    differentiate (`rng` is the reference's PRNG key argument, unread)."""
+    h = embed_lookup(params["tok"], batch["tokens"].long(), cfg)
+    for lp in params["layers"]:
+        h = common.remat(cfg, lambda hh, lp=lp: _layer(lp, hh, cfg,
+                                                       train=True)[0], h)
+    h = norm(params["final_norm"], h, cfg)
+    return common.cross_entropy(unembed(params["tok"], h, cfg, train=True),
+                                batch["labels"].long())
 
 
 # ---------------------------------------------------------------------------
@@ -233,12 +252,6 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, cache=None,
 def supports_paged(cfg: ModelConfig) -> bool:
     return False
 
-
-
-def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
-    """The reference's rwkv6 training loss: not ported yet (ROADMAP A10b)."""
-    raise NotImplementedError("training rwkv6 is not ported yet (ROADMAP "
-                              "A10b)")
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:

@@ -22,16 +22,20 @@ Parameters are a dict: {"tok": {"embed", "head"}, "final_norm": {"scale"},
 the reference's stacked [L, ...] leaves become one dict of tensors per
 layer, and its layer scans become Python loops.
 
-Training (`forward(train=True)`, `train_loss`) covers the dense archs: every
-float weight runs `dense(train=True)` (cim_matmul_ste under CIM), each layer
-is recomputed in the backward under cfg.remat (torch.utils.checkpoint), and
-the LM loss is taken in cfg.ce_chunks recomputed sequence chunks. The MoE
-FFN, MLA, deepseek's MTP loss, whisper's encoder and internvl2's image
-prefix raise NotImplementedError under training (ROADMAP A10b).
+Training (`forward(train=True)`, `train_loss`) covers every arch: every
+float weight runs `dense(train=True)` (cim_matmul_ste under CIM; MLA's
+seven projections, whisper's cross-attention and encoder, the MoE FFN's
+routed experts through `moe.apply(train=True)`), each layer is
+recomputed in the backward under cfg.remat (torch.utils.checkpoint), and
+the LM loss is taken in cfg.ce_chunks recomputed sequence chunks, on the
+text positions only behind a VLM's image prefix; the MoE layers'
+load-balance losses are summed per stack in layer order (0.01 · aux in
+the loss), and deepseek adds its MTP loss (`_mtp_loss`, weighted by
+cfg.mtp_weight).
 "dense_layers" holds MoEConfig.first_dense leading layers with a dense FFN
 of width d_ff_dense (deepseek-v3's first three), run before "layers";
-"mtp" (the multi-token-prediction block) is carried for its training loss
-(ROADMAP A10b) and never read here. The caches keep the reference's stacked
+"mtp" (the multi-token-prediction block) is read by the training loss
+only. The caches keep the reference's stacked
 layouts, one entry per layer stack: slot {"pos", "dense_layers", "layers":
 {"k", "v": [L, B, max_len, KH, dh]}} ({"latent": [L, B, max_len, lat]}
 under MLA; whisper's "cross": {"k", "v": [L, B, frames, KH, dh]}, the
@@ -157,9 +161,11 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
     return x, torch.arange(t, device=x.device).expand(b, t)
 
 
-def _encode(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
+def _encode(params: dict, batch: dict, cfg: ModelConfig, *,
+            train: bool = False) -> torch.Tensor:
     """whisper's encoder over batch["frames"] [B, T, D] (cast to the model
-    dtype, plus enc_pos[:T]), its layers without the causal mask, then
+    dtype, plus enc_pos[:T]), its layers without the causal mask (each
+    recomputed in the backward under `train` and cfg.remat), then
     enc_norm."""
     if "frames" not in batch:
         raise KeyError(
@@ -172,19 +178,19 @@ def _encode(params: dict, batch: dict, cfg: ModelConfig) -> torch.Tensor:
     h = frames.to(dtype_of(cfg)) + params["enc_pos"]["pos_embed"][:t]
     positions = torch.arange(t, device=h.device).expand(b, t)
     for lp in params["enc_layers"]:
-        h, _ = _layer(lp, h, cfg, positions=positions, causal=False)
+        if train:
+            h, _ = _train_layer(lp, h, cfg, positions, causal=False)
+        else:
+            h, _, _ = _layer(lp, h, cfg, positions=positions, causal=False)
     return norm(params["enc_norm"], h, cfg)
 
 
 def _ffn(p: dict, x, cfg: ModelConfig, train: bool = False):
-    """The layer's FFN: the MoE FFN where its params hold a router."""
+    """The layer's FFN → (y, its load-balance loss): the MoE FFN where its
+    params hold a router, else the MLP (aux 0.0)."""
     if "router" in p:
-        if train:
-            raise NotImplementedError(
-                "training the MoE FFN (its load-balance loss and the "
-                "expert STE) is not ported yet (ROADMAP A10b)")
-        return moe.apply(p, x, cfg)
-    return mlp_apply(p, x, cfg, train=train)
+        return moe.apply(p, x, cfg, train=train)
+    return mlp_apply(p, x, cfg, train=train), 0.0
 
 
 def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
@@ -196,11 +202,13 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
     cross-attention attends to `enc_out` (forward, prefill: its K/V come
     back as "xk" / "xv") or to its cached encoder K/V `cross` (decode).
     `train` (full-sequence only) routes every projection through
-    dense(train=True). Returns (h, the entries or None)."""
+    dense(train=True). Returns (h, the entries or None, the FFN's
+    load-balance loss)."""
     hn = norm(lp["norm1"], h, cfg)
     if cfg.mla is not None:
         a, kv = mla.apply(lp["attn"], hn, cfg, positions=positions,
-                          cache=cache or None, cache_index=cache_index,
+                          train=train, cache=cache or None,
+                          cache_index=cache_index,
                           return_cache=cache == {})
     else:
         a, kv = attention_apply(lp["attn"], hn, cfg, positions=positions,
@@ -211,67 +219,85 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
         prefill = cache == {}
         xa, xkv = attention_apply(
             lp["xattn"], norm(lp["norm_x"], h, cfg), cfg,
-            positions=positions, causal=False,
+            positions=positions, train=train, causal=False,
             kv_x=h if enc_out is None else enc_out,
             cache=cross if cross is not None else ({} if prefill else None))
         h = h + xa
         if prefill:
             kv = {**kv, "xk": xkv["k"], "xv": xkv["v"]}
-    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg, train), kv
+    f, aux = _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg, train)
+    return h + f, kv, aux
 
 
-def _check_trainable(batch: dict, cfg: ModelConfig) -> None:
-    """The training legs that wait for ROADMAP A10b raise."""
-    leg = ("MLA" if cfg.mla is not None else
-           "deepseek's MTP loss" if cfg.mtp else
-           "whisper's encoder" if cfg.encoder_layers else
-           "internvl2's image-prefix loss"
-           if cfg.n_image_tokens and "image_embeds" in batch else None)
-    if leg is not None:
-        raise NotImplementedError(f"training {leg} is not ported yet "
-                                  "(ROADMAP A10b)")
+def _train_layer(lp: dict, h, cfg: ModelConfig, positions, *,
+                 causal: bool = True, enc_out=None):
+    """One layer of the training forward → (h, its load-balance loss),
+    recomputed in the backward under cfg.remat (`common.remat`)."""
+    def body(hh, pos, enc):
+        out, _, aux = _layer(lp, hh, cfg, positions=pos, causal=causal,
+                             enc_out=enc, train=True)
+        return out, aux
 
-
-def _train_layer(lp: dict, h, cfg: ModelConfig, positions):
-    """One layer of the training forward, recomputed in the backward under
-    cfg.remat (both remat_policy values recompute the whole layer: the
-    policy is a memory choice, and the recomputed forward is the same bits,
-    so losses and gradients do not depend on it)."""
-    def body(hh, pos):
-        return _layer(lp, hh, cfg, positions=pos, train=True)[0]
-
-    if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(body, h, positions,
-                                                 use_reentrant=False)
-    return body(h, positions)
+    return common.remat(cfg, body, h, positions, enc_out)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
     """Full-sequence causal forward → (hidden [B,T,D] after the final norm,
-    aux_loss 0.0, the encoder's output or None), the reference's triple.
-    `train` runs the training forward (dense archs; the A10b legs raise)."""
-    if train:
-        _check_trainable(batch, cfg)
+    aux_loss, the encoder's output or None), the reference's triple. aux is
+    the MoE layers' load-balance losses summed per stack from 0.0 in layer
+    order, dense_layers first (0.0 without a MoE layer). `train` runs the
+    training forward."""
     x, positions = _embed_inputs(params, batch, cfg)
-    enc_out = _encode(params, batch, cfg) if cfg.encoder_layers else None
+    enc_out = _encode(params, batch, cfg, train=train) \
+        if cfg.encoder_layers else None
+    aux_total = 0.0
     for _, stack in _stacks(params):
+        aux_stack = 0.0
         for lp in stack:
             if train:
-                x = _train_layer(lp, x, cfg, positions)
+                x, aux = _train_layer(lp, x, cfg, positions, enc_out=enc_out)
             else:
-                x, _ = _layer(lp, x, cfg, positions=positions,
-                              enc_out=enc_out)
-    return norm(params["final_norm"], x, cfg), 0.0, enc_out
+                x, _, aux = _layer(lp, x, cfg, positions=positions,
+                                   enc_out=enc_out)
+            aux_stack = aux_stack + aux
+        aux_total = aux_total + aux_stack
+    return norm(params["final_norm"], x, cfg), aux_total, enc_out
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig,
                rng=None) -> torch.Tensor:
     """Next-token cross-entropy of batch["tokens"] against batch["labels"]
-    (both [B, T]) plus 0.01 × the aux loss (0 for the dense archs), a
-    scalar f32 tensor to differentiate. `rng` is the reference's PRNG key
-    argument; no ported leg draws from it."""
+    (both [B, T]; behind a VLM's image prefix the loss is taken on the text
+    positions only), plus cfg.mtp_weight × deepseek's MTP loss, plus 0.01 ×
+    the aux loss; a scalar f32 tensor to differentiate. `rng` is the
+    reference's PRNG key argument; no leg draws from it."""
     h, aux, _ = forward(params, batch, cfg, train=True)
-    return _lm_loss(params, h, batch["labels"].long(), cfg) + 0.01 * aux
+    if cfg.n_image_tokens and "image_embeds" in batch:
+        h = h[:, cfg.n_image_tokens:]
+    loss = _lm_loss(params, h, batch["labels"].long(), cfg)
+    if cfg.mtp:
+        loss = loss + cfg.mtp_weight * _mtp_loss(params, h, batch, cfg)
+    return loss + 0.01 * aux
+
+
+def _mtp_loss(params: dict, h, batch: dict, cfg: ModelConfig):
+    """deepseek-v3's multi-token prediction: position t predicts token t + 2
+    (labels[:, t + 1]) from norm_h(h_t) ∥ norm_e(embed(token_{t+1})),
+    through w_proj, one block (not recomputed in the backward, as in the
+    reference) and the shared head."""
+    mp = params["mtp"]
+    tokens, labels = batch["tokens"].long(), batch["labels"].long()
+    h_in = norm(mp["norm_h"], h[:, :-1], cfg)
+    e_next = norm(mp["norm_e"], embed_lookup(params["tok"], tokens[:, 1:],
+                                             cfg), cfg)
+    merged = common.dense(mp["proj"], torch.cat([h_in, e_next], -1), cfg,
+                          train=True, w="w_proj", b=None)
+    b, t = merged.shape[:2]
+    positions = torch.arange(t, device=merged.device).expand(b, t)
+    h2, _, _ = _layer(mp["block"], merged, cfg, positions=positions,
+                      train=True)
+    return common.cross_entropy(unembed(params["tok"], h2, cfg, train=True),
+                                labels[:, 1:])
 
 
 def _lm_loss(params: dict, h, labels, cfg: ModelConfig) -> torch.Tensor:
@@ -359,11 +385,11 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     for name, stack in _stacks(params):
         kv = cache[name]
         for i, lp in enumerate(stack):
-            x, _ = _layer(lp, x, cfg, positions=positions,
-                          cache={leaf: t[i] for leaf, t in kv.items()},
-                          cache_index=pos,
-                          cross=None if cross is None
-                          else {leaf: t[i] for leaf, t in cross.items()})
+            x, _, _ = _layer(lp, x, cfg, positions=positions,
+                             cache={leaf: t[i] for leaf, t in kv.items()},
+                             cache_index=pos,
+                             cross=None if cross is None
+                             else {leaf: t[i] for leaf, t in cross.items()})
     x = norm(params["final_norm"], x, cfg)
     logits = unembed(params["tok"], x[:, 0], cfg)
     return logits, {**cache, "pos": pos + 1}
@@ -385,8 +411,8 @@ def prefill(params: dict, batch: dict, cfg: ModelConfig,
     for name, stack in _stacks(params):
         entries = []
         for lp in stack:
-            h, kv = _layer(lp, h, cfg, positions=positions, cache={},
-                           enc_out=enc_out)
+            h, kv, _ = _layer(lp, h, cfg, positions=positions, cache={},
+                              enc_out=enc_out)
             entries.append(kv)
         kv = {leaf: torch.stack([e[leaf] for e in entries])
               for leaf in entries[0]}
@@ -432,7 +458,7 @@ def _layer_paged(lp: dict, h, layer_pool: dict, cfg: ModelConfig, *,
         lp["attn"], norm(lp["norm1"], h, cfg), cfg, cache=layer_pool,
         index=index)
     h = h + a
-    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg)
+    return h + _ffn(lp["ffn"], norm(lp["norm2"], h, cfg), cfg)[0]
 
 
 def paged_step(params: dict, tokens: torch.Tensor, cache: dict,

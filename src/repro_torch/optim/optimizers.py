@@ -88,7 +88,8 @@ def stacked_groups(tree) -> list:
             for k in sorted(node):
                 walk(node[k], prefix + (k,))
         elif isinstance(node, list):
-            for lp in _leaf_paths(node[0]):
+            # an empty stack (deepseek cut to its dense layers) has no leaf
+            for lp in _leaf_paths(node[0]) if node else ():
                 out.append((prefix + lp,
                             [(prefix + (i,) + lp) for i in range(len(node))]))
         else:

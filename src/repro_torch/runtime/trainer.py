@@ -52,14 +52,22 @@ def make_optimizer(tc: TrainConfig):
 
 
 def value_and_grad(loss_fn: Callable, params, batch):
-    """(loss, grads in each parameter's dtype) of loss_fn(params, batch)."""
+    """(loss, grads in each parameter's dtype) of loss_fn(params, batch). A
+    parameter the loss does not read gets zeros, as jax.grad gives it
+    (zamba2 cut below `shared_every` layers never applies its shared
+    block)."""
     leaves = tree_leaves(params)
     live = [p.detach().requires_grad_() for p in leaves]
     it = iter(live)
     tracked = tree_map(lambda _: next(it), params)
     loss = loss_fn(tracked, batch)
-    grads = iter(torch.autograd.grad(loss, live))
-    return loss.detach(), tree_map(lambda _: next(grads), params)
+    grads = iter(torch.autograd.grad(loss, live, allow_unused=True))
+
+    def grad_of(p):
+        g = next(grads)
+        return torch.zeros_like(p) if g is None else g
+
+    return loss.detach(), tree_map(grad_of, params)
 
 
 def _compress(grads, err):

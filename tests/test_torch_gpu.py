@@ -42,7 +42,13 @@ versions, no kernel launching in a backward; two train steps of the
 smoke internlm2 at --cim bp (IDEAL and NOISY) are identical with the
 kernels and with their plain versions (29 launches a step), a step is
 deterministic run to run, and the embedding gather's backward equals the
-CPU's bit for bit. Inputs come from numpy seeds. This file needs no JAX.
+CPU's bit for bit. The A10b legs: cim_matmul_ste on an expert stack (B2e
+forward, per-expert products backward) is identical with the kernel and
+with its plain version, the MoE dispatch's backward equals the CPU's, one
+step of each smoke qwen2-moe, deepseek-v3, rwkv6, zamba2, whisper and
+internvl2 at --cim bp is identical with the kernels and with their plain
+versions, and the MoE archs' steps are deterministic run to run. Inputs
+come from numpy seeds. This file needs no JAX.
 """
 import numpy as np
 import pytest
@@ -1250,3 +1256,115 @@ def test_row_gather_backward_deterministic_and_ordered():
         _RowGather.apply(t, idx.to(d)).backward(g.to(d))
         grads.append(t.grad.cpu())
     assert torch.equal(grads[0], grads[1]) and torch.equal(grads[1], grads[2])
+
+
+# ---------------------------------------------------------------------------
+# training, the A10b legs: the expert STE through B2e, every arch's step
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_expert_ste_kernel_equals_plain(dtype):
+    """cim_matmul_ste on an expert stack (x [E, C, K], w [E, K, M] in f32
+    or bf16): forward and per-expert gradients identical with B2e and with
+    its plain version; one launch forward, none in the backward."""
+    from repro_torch.core import cim_matmul as cm
+    from repro_torch.kernels import build
+    dev = gpu_device()
+    rng = np.random.RandomState(14)
+    x = torch.from_numpy(rng.randn(16, 40, 300).astype(np.float32)).to(dev)
+    w = torch.from_numpy((rng.randn(16, 300, 88) * 0.05).astype(
+        np.float32)).to(dev, dtype)
+    c = torch.from_numpy(rng.randn(16, 40, 88).astype(np.float32)).to(dev)
+    outs = []
+    for backend in ("auto", "plain"):
+        x1 = x.clone().requires_grad_()
+        w1 = w.clone().requires_grad_()
+        build.reset_launch_counts()
+        y = cm.cim_matmul_ste(x1, w1, _cim("ideal", backend))
+        (y * c).sum().backward()
+        torch.cuda.synchronize()
+        assert build.launch_counts()["cim_mvm_grouped_experts"] == (
+            1 if backend == "auto" else 0)
+        assert w1.grad.dtype == dtype
+        outs.append((y.detach(), x1.grad, w1.grad))
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_moe_dispatch_backward_equals_cpu():
+    """The MoE dispatch's expand and the capacity buffer's gather: their
+    backward on the card equals the CPU's bit for bit, twice."""
+    from repro_torch.models import moe
+    dev = gpu_device()
+    rng = np.random.RandomState(15)
+    x2 = torch.from_numpy(rng.randn(64, 32).astype(np.float32))
+    g = torch.from_numpy(rng.randn(256, 32).astype(np.float32))
+    table = torch.from_numpy(rng.randn(41, 32).astype(np.float32))
+    slot = torch.from_numpy(np.r_[rng.permutation(40)[:30], [40] * 10])
+    gs = torch.from_numpy(rng.randn(40, 32).astype(np.float32))
+    out = []
+    for d in ("cpu", dev, dev):
+        a = x2.to(d).clone().requires_grad_()
+        moe._RepeatRows.apply(a, 4).backward(g.to(d))
+        t = table.to(d).clone().requires_grad_()
+        moe._SlotGather.apply(t, slot.to(d)).backward(gs.to(d))
+        out.append((a.grad.cpu(), t.grad.cpu()))
+    for later in out[1:]:
+        assert all(torch.equal(p, q) for p, q in zip(out[0], later))
+
+
+A10B_ARCHS = ("qwen2-moe-a2.7b", "deepseek-v3-671b", "rwkv6-7b",
+              "zamba2-2.7b", "whisper-large-v3", "internvl2-26b")
+
+
+def _smoke_leg(arch, cim, seq=32):
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.data.tokens import synthetic_batch
+    from repro_torch.models import registry
+    from repro_torch.runtime.trainer import make_train_step
+    dev = gpu_device()
+    cfg = SMOKES[arch].replace(cim=cim)
+    params = registry.init_params(cfg, seed=0, device=dev, max_seq=seq + 8)
+    step, opt = make_train_step(cfg, TrainConfig(steps=10, lr=1e-3))
+    batch = synthetic_batch(cfg, ShapeConfig("t", seq + cfg.n_image_tokens,
+                                             2, "train"), device=dev)
+    return step, {"params": params, "opt": opt.init(params)}, batch
+
+
+@pytest.mark.parametrize("arch", A10B_ARCHS)
+def test_a10b_train_step_kernels_bit_exact_vs_plain(arch):
+    """One step of each A10b smoke arch (bf16, --cim bp) with the kernels
+    and with their plain versions: loss, grad norm and the whole state
+    identical; the MoE archs launch B2e 3 times a MoE layer forward, twice
+    under per-layer remat."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.kernels import build
+    runs = []
+    for backend in ("auto", "plain"):
+        step, state, batch = _smoke_leg(arch, _cim("ideal", backend))
+        build.reset_launch_counts()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        runs.append((state, m, build.launch_counts()))
+    (sk, mk, ck), (sp, mp, cp) = runs
+    cfg = SMOKES[arch]
+    n_moe = cfg.n_layers - cfg.moe.first_dense if cfg.moe else 0
+    assert ck["cim_mvm_grouped_experts"] == 3 * 2 * n_moe
+    assert ck["cim_mvm_grouped"] > 0 and not any(cp.values())
+    assert torch.equal(mk["loss"], mp["loss"])
+    assert torch.equal(mk["grad_norm"], mp["grad_norm"])
+    assert _same_tree(sk, sp)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b"])
+def test_a10b_train_steps_are_deterministic(arch):
+    """Two steps twice from one state give the same bits (the MoE
+    dispatch and combine add without atomics)."""
+    step, state0, batch = _smoke_leg(arch, _cim("ideal"))
+    finals = []
+    for _ in range(2):
+        state = state0
+        for _ in range(2):
+            state, _ = step(state, batch)
+        finals.append(state)
+    assert _same_tree(*finals)

@@ -270,11 +270,13 @@ def test_apply_matches_reference(weights, leg):
     ref_cfg, rp, cfg, tp = _ffn_params(weights, leg, layer=1)
     x = np.random.RandomState(5).standard_normal((4, 16, cfg.d_model)) \
         .astype(np.float32)
-    y_ref, _ = ref_moe.apply(rp, jnp.asarray(x), ref_cfg)
-    y = moe.apply(tp, torch.from_numpy(x), cfg)
+    y_ref, aux_ref = ref_moe.apply(rp, jnp.asarray(x), ref_cfg)
+    y, aux = moe.apply(tp, torch.from_numpy(x), cfg)
     assert y.shape == x.shape and y.dtype == torch.float32
     y_ref = np.asarray(y_ref)
     assert np.abs(np32(y) - y_ref).max() <= APPLY_RTOL * np.abs(y_ref).max()
+    # the load-balance loss (returned at inference too, as the reference's)
+    assert abs(float(aux) - float(aux_ref)) <= APPLY_RTOL * float(aux_ref)
 
 
 def test_capacity_overflow_matches_reference(weights):
@@ -295,7 +297,7 @@ def test_capacity_overflow_matches_reference(weights):
     pos = moe._positions_in_expert(ids.reshape(-1), 16)
     assert cap == 16 and int((pos >= cap).sum()) == 2 * (64 - 16)
     y_ref, _ = ref_moe.apply(rp, jnp.asarray(x), ref_cfg)
-    y = np32(moe.apply(tp, torch.from_numpy(x), cfg))
+    y = np32(moe.apply(tp, torch.from_numpy(x), cfg)[0])
     y_ref = np.asarray(y_ref)
     assert np.abs(y - y_ref).max() <= APPLY_RTOL * np.abs(y_ref).max()
 

@@ -1,6 +1,7 @@
 """Training in the port (ROADMAP A10a) against the reference package: the
 STE quantizers, gradients through every CIM backend, `cim_matmul_ste`,
-`train_loss` of the dense archs and the KWS GRU, the Trainer (resuming a
+`train_loss` of the dense archs and the KWS GRU (the other archs' legs,
+A10b, are in test_torch_train_moe.py and test_torch_train_recurrent.py), the Trainer (resuming a
 reference checkpoint, its own contracts) and the `launch.train` CLI.
 
 Weights come from a reference init carried across by `params_from_numpy`,
@@ -38,7 +39,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_helpers import leg_cfgs, np32, rel_err, to_numpy_tree
+from _torch_helpers import (compare_grads, leg_cfgs, np32, rel_err,
+                            to_numpy_tree)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -228,33 +230,6 @@ def _require_grad(params):
     return tree_map(lambda p: p.requires_grad_(), params)
 
 
-def _compare_grads(port_g, ref_g, cfg):
-    """Every port gradient against the reference's stacked one."""
-    ref_np = to_numpy_tree(ref_g)
-    worst = 0.0
-    for name in ("embed", "head"):
-        if name in port_g["tok"]:
-            worst = max(worst, rel_err(np32(port_g["tok"][name]),
-                                       ref_np["tok"][name]))
-    worst = max(worst, rel_err(np32(port_g["final_norm"]["scale"]),
-                               ref_np["final_norm"]["scale"]))
-    for i, lg in enumerate(port_g["layers"]):
-        for path, g in _walk(lg):
-            r = ref_np["layers"]
-            for k in path:
-                r = r[k]
-            worst = max(worst, rel_err(np32(g), r[i]))
-    return worst
-
-
-def _walk(node, prefix=()):
-    if isinstance(node, dict):
-        for k, v in node.items():
-            yield from _walk(v, prefix + (k,))
-    else:
-        yield prefix, node
-
-
 @pytest.mark.parametrize("arch,leg,ce", [
     ("internlm2-1.8b", "off", 1), ("internlm2-1.8b", "off", 2),
     ("internlm2-1.8b", "bp", 1), ("internlm2-1.8b", "bp", 2),
@@ -284,25 +259,7 @@ def test_train_loss_and_gradients_match_reference(ref_weights, arch, leg,
         assert torch.equal(a, g)
     loss, grads = out[True]
     assert abs(float(loss) - float(rl)) <= LOSS_TOL * abs(float(rl))
-    assert _compare_grads(grads, rg, pc) <= TRAIN_GRAD_TOL
-
-
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "deepseek-v3-671b",
-                                  "rwkv6-7b", "zamba2-2.7b",
-                                  "whisper-large-v3", "internvl2-26b"])
-def test_a10b_legs_raise(arch):
-    cfg = SMOKES[arch]
-    p = registry.init_params(cfg, seed=0, device="cpu", max_seq=SEQ + 8)
-    rng = np.random.RandomState(0)
-    batch = {"tokens": torch.from_numpy(rng.randint(0, 64, (1, 8))),
-             "labels": torch.from_numpy(rng.randint(0, 64, (1, 8)))}
-    if cfg.encoder_layers:
-        batch["frames"] = torch.zeros(1, cfg.encoder_len, cfg.d_model)
-    if cfg.n_image_tokens:
-        batch["image_embeds"] = torch.zeros(1, cfg.n_image_tokens,
-                                            cfg.d_model)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        registry.train_loss(p, batch, cfg)
+    assert compare_grads(grads, rg) <= TRAIN_GRAD_TOL
 
 
 # ---------------------------------------------------------------------------

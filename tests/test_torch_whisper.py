@@ -211,8 +211,12 @@ def test_forward_matches_reference(weights, leg):
     assert aux == 0.0 and th.shape == (2, 5, 128)
     assert rel_err(np32(th), np32(rh)) <= TOL
     assert rel_err(np32(tenc), np32(renc)) <= TOL
-    with pytest.raises(NotImplementedError, match="A10"):
-        transformer.forward(tp, tb, cfg, train=True)
+    # the training forward (encoder and decoder layers recomputed under
+    # remat, the STE under CIM) gives the same values
+    th_train, aux_train, tenc_train = transformer.forward(tp, tb, cfg,
+                                                          train=True)
+    assert torch.equal(th_train, th) and torch.equal(tenc_train, tenc)
+    assert aux_train == 0.0
 
 
 @pytest.mark.parametrize("leg", LEGS)
