@@ -37,8 +37,11 @@ of which fails the run when it fails:
   3. full-width internlm2-1.8b (24 layers, d_model 2048, vocab 92544,
      random weights from a torch.Generator seed) served through `Server`
      with --cim bp-prequant and the kernel attention: 8 requests, two
-     sharing a 32-token prefix. Launch counts are reset just before and
-     read just after; B1, B3 (prefill) and the B3+B4 decode launch must
+     sharing a 32-token prefix, SERVE_NEW_TOKENS (16) new tokens each (as
+     in phases 3p, 4b and 3l; the repeated serves of phases 3s, 3m and 3r
+     serve SHORT_NEW_TOKENS, 8, since phase 3f was added, to keep the
+     script's time). Launch counts are reset just before and read just
+     after; B1, B3 (prefill) and the B3+B4 decode launch must
      each have launched. Then one prefill and one decode `paged_step`
      with the kernels and with their plain versions, which must give
      identical logits, and where one decode step's time goes (CUDA graph
@@ -183,7 +186,8 @@ of which fails the run when it fails:
      random weights from a torch.Generator seed, initialised and quantized
      layer by layer in bf16 (stored codes and packed bytes logged): (a) one
      prefill of 2 requests (1500 numpy-seeded stub frames each, 4 prompt
-     tokens) and 8 greedy decode steps at IDEAL (B1), then twice at NOISY
+     tokens) and W_STEPS (4; 8 before phase 3f was added) greedy decode
+     steps at IDEAL (B1), then twice at NOISY
      (B6, noise_seed 0), each with the kernels and with their plain
      versions: identical logits, streams and caches (self and cross K/V),
      the two NOISY runs identical, B1 / B6 launched exactly 513 times a
@@ -234,13 +238,39 @@ of which fails the run when it fails:
      shared-block application), whisper-large-v3 at 2 + 2 layers over 2 x
      1500 frames and internvl2-26b at 1 layer behind 256 image tokens, all
      at full width;
+  3f. the paper's figures and the examples (after 3y): (a)
+     `repro_torch.figures.run` once, in process, on the card: its 74 rows
+     (Figs. 1b-21 and Table I at the reference's sizes: Fig. 2's 8192
+     Monte-Carlo samples, the 64 -> 144 -> 16 classifier on 4096 / 1024
+     points trained three times, Fig. 16's 50 x 256 x 8 conversions, Fig.
+     15's 32,768-point sweeps), each module's seconds, no ERROR and no
+     non-finite number; the paper anchors recomputed in the port (sigma_E
+     0.59 LSB, 40.2 / 18.6 TOPS/W at 0.65 / 1.2 V); B2 launched exactly 16
+     times (once per IDEAL BP cim_matmul: Fig. 1b's BP row 2, Fig. 10's
+     seven ladder rungs 14), no other kernel; (b) B2 bit-exact against its
+     plain version at the figures' shapes (x [1024, 64] x [64, 144], a
+     single partial group; [1024, 144] x [144, 16]; quickstart's [8, 288]
+     x [288, 16]) at each of Fig. 10's seven ladders (L 32 ... 1024),
+     timed at L 362 against its bound, with its kernel body (torch.profiler,
+     read right after phase 2: at the end of the script the profiler
+     records no rows for these calls); (c) the quickstart, sqnr_study and
+     serve_decode examples on the card (serve_decode --cim on the slot
+     engine and --cim --paged), their output, seconds and launches (B2 3
+     in quickstart, none in sqnr_study; B2, and with --paged B3 and the
+     decode launch, in the serves); before each serve, one prefill and
+     one decode step of its engine on its model (the smoke internlm2:
+     d_model 128, d_ff 256, heads of 32, blocks of 8) with the kernels and
+     with their plain versions: identical logits and K/V (tolerance 0),
+     B2 (and B3 and the decode launch) launched, the plain steps
+     launching nothing;
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
      B2e from phase 3d's --cim bp serve and B5e from its first --cim
      bp-noisy serve; B2's launches in a train step are on phase 3x's
-     lines, B2e's and B2's in a MoE train step on phase 3y's), then the
-     result line.
+     lines, B2e's and B2's in a MoE train step on phase 3y's; phase 3f's
+     launches of B2, B3 and the decode launch are added to theirs), then
+     the result line.
 """
 from __future__ import annotations
 
@@ -249,6 +279,7 @@ import dataclasses
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -301,11 +332,15 @@ MOE_MVMS = [("e_gate+e_up", 2048, 1408, 2), ("e_down", 1408, 2048, 1)]
 DS_EXPERTS, DS_CAPACITY = 256, 8
 DS_MVMS = [("e_gate+e_up", 7168, 2048, 2), ("e_down", 2048, 7168, 1)]
 DS_NEW_TOKENS = 8              # per request in phase 3d's serves
+# new tokens per request in the 8-request serves: phases 3, 3p, 4b and 3l
+# serve SERVE_NEW_TOKENS; the repeated serves of phases 3s, 3m and 3r serve
+# SHORT_NEW_TOKENS (16 up to phase 3f, cut to keep the script's time)
+SERVE_NEW_TOKENS, SHORT_NEW_TOKENS = 16, 8
 # phase 3m(e)'s depth cuts, to keep the script's time (full width kept)
 E_DEPTH = {"llama3-8b": 4, "granite-3-8b": 4}
 # whisper-large-v3: its published text context (arXiv:2212.04356) and the
 # greedy decode steps after each prefill of phase 3w
-W_MAX_SEQ, W_STEPS = 448, 8
+W_MAX_SEQ, W_STEPS = 448, 4   # 8 steps cut to 4 to keep the script's time
 
 
 def log(msg: str) -> None:
@@ -889,6 +924,285 @@ def phase_train_legs(torch, np, dev, card: str) -> dict:
     return {"B2e per step": counts[-1][0], "B2 per step": counts[-1][1]}
 
 
+# phase 3f: Fig. 10's ADC ladder and the figures' B2 shapes (x [M, K] x
+# w [K, N]): the classifier's two layers, quickstart's matmul
+F_LADDER = (32, 64, 128, 256, 362, 512, 1024)
+F_SHAPES = [(1024, 64, 144), (1024, 144, 16), (8, 288, 16)]
+F_ROWS = 74                    # the reference's figure rows
+F_KW = dict(n_rows=144, levels=362, gain=1.0, full_scale=32400.0)
+
+
+def f_operands(torch, np, dev):
+    """[((M, K, N), x, w)]: codes at phase 3f's B2 shapes, seed 26."""
+    rng = np.random.default_rng(26)
+    out = []
+    for m, k, n in F_SHAPES:
+        x = torch.from_numpy(rng.integers(0, 16, (m, k)).astype(
+            np.float32)).to(dev)
+        w = torch.from_numpy(rng.integers(0, 16, (k, n)).astype(
+            np.float32)).to(dev)
+        out.append(((m, k, n), x, w))
+    return out
+
+
+def _fmt_us(us) -> str:
+    return "not measured" if us is None else f"{us:.2f} us a call"
+
+
+def b2_bodies(torch, np, dev, calls: int = 20) -> dict:
+    """{shape: B2's own device time per call at L 362 in us, or None}:
+    torch.profiler's CUPTI rows over `calls` eager calls at each of phase
+    3f's shapes. Read right after phase 2: at the end of the script the
+    profiler records no kernel rows for these calls (unexplained). What a
+    graph replay takes beyond the body lies between the kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import cim_mvm as cm
+    out = {}
+    for shape, x, w in f_operands(torch, np, dev):
+        cm.cim_mvm_grouped(x, w, **F_KW)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                cm.cim_mvm_grouped(x, w, **F_KW)
+            torch.cuda.synchronize()
+        rows_ = [e for e in prof.key_averages()
+                 if "cim_mvm_dense_kernel" in e.key]
+        us = sum(getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0.0))
+                 for e in rows_)
+        n_ = sum(e.count for e in rows_)
+        out[shape] = us / n_ if us > 0 and n_ == calls else None
+    return out
+
+
+def phase_figures(torch, np, dev, card: str, bodies: dict) -> dict:
+    """Phase 3f, the paper's figures and the examples on the card (the
+    module docstring); `bodies` is b2_bodies' reading. Returns the B2, B3
+    and decode launches of (a) and (c)."""
+    import contextlib
+    import io
+    import types
+
+    from repro_torch.core import PROTOTYPE
+    from repro_torch.core.energy import mvm_energy
+    from repro_torch.core.macro import OperatingPoint
+    from repro_torch.examples import quickstart, serve_decode, sqnr_study
+    from repro_torch.figures import run as fig_run
+    from repro_torch.kernels import build
+    from repro_torch.kernels import cim_mvm as cm
+    from repro_torch.runtime.server import _splice as splice
+
+    t3f = time.monotonic()
+    kinds = {"B2": "cim_mvm_grouped", "B3": "paged_attn_call",
+             "B4": "decode_write_attend_call"}
+    launched = dict.fromkeys(kinds, 0)
+
+    def take(tag: str, want: dict) -> dict:
+        """This part's launches (the counts were reset before it), checked
+        against `want` ({kernel id: count, or None for "at least one"}),
+        every other kernel 0."""
+        counts = build.launch_counts()
+        got = {kid: counts[name] for kid, name in kinds.items()}
+        for kid, n in want.items():
+            check(got[kid] > 0 if n is None else got[kid] == n,
+                  f"phase 3f: {tag}: {kid} launched {got[kid]} times, "
+                  f"expected {'> 0' if n is None else n}")
+        rest = sum(counts.values()) - sum(got[k] for k in want)
+        check(rest == 0, f"phase 3f: {tag}: {rest} launches of kernels "
+              f"other than {sorted(want)}: {counts}")
+        for kid in want:
+            launched[kid] += got[kid]
+        return got
+
+    # (a) the figures, through figures.run, each module timed
+    secs = {}
+
+    def timed(name, mod):
+        def run(device=None):
+            t0 = time.monotonic()
+            try:
+                return mod.run(device=device)
+            finally:
+                torch.cuda.synchronize()
+                secs[name] = time.monotonic() - t0
+        return types.SimpleNamespace(run=run)
+
+    modules = list(fig_run.MODULES)
+    fig_run.MODULES[:] = [(n, timed(n, m)) for n, m in modules]
+    out = io.StringIO()
+    build.reset_launch_counts()
+    t0 = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            fig_run.main(["--device", str(dev)])
+    except SystemExit as e:
+        check(False, f"phase 3f: figures.run exited {e.code}")
+    finally:
+        fig_run.MODULES[:] = modules
+    t_fig = time.monotonic() - t0
+    lines = out.getvalue().strip().splitlines()
+    for ln in lines:
+        log(f"phase 3f: {ln}")
+    check(lines[0] == "name,us_per_call,derived" and len(lines) == F_ROWS + 1,
+          f"phase 3f: figures.run printed {len(lines) - 1} rows, expected "
+          f"{F_ROWS}")
+    rows = {}
+    for ln in lines[1:]:
+        name, _, derived = ln.split(",", 2)
+        check("ERROR" not in derived, f"phase 3f: {ln}")
+        nums = [float(v) for v in re.findall(
+            r"[-+]?\d+\.?\d*(?:e[-+]?\d+)?", derived)]
+        check(all(math.isfinite(v) for v in nums), f"phase 3f: not finite: "
+              f"{ln}")
+        rows[name] = derived
+    sig_e = PROTOTYPE.sigma_e_lsb()
+    topsw = {v: mvm_energy(dataclasses.replace(
+        PROTOTYPE, op=OperatingPoint(vdd=v)), 144).tops_per_w
+        for v in (0.65, 1.2)}
+    check(abs(sig_e - 0.59) <= 0.59e-3 and "model=0.590" in
+          rows["fig16b_total_sigma_e"], f"phase 3f: sigma_E {sig_e}, "
+          "paper 0.59 LSB")
+    for v, paper in ((0.65, 40.2), (1.2, 18.6)):
+        check(abs(topsw[v] - paper) <= 0.01 * paper and
+              f"TOPSW={paper}" in rows[f"fig21_vdd{v:g}"],
+              f"phase 3f: {topsw[v]} TOPS/W at {v} V, paper {paper}")
+    fig_launches = take("figures.run", {"B2": 16})
+    log(f"phase 3f: (a) figures.run: {len(lines) - 1} rows in {t_fig:.2f} s "
+        f"({', '.join(f'{k} {v:.2f} s' for k, v in secs.items())}); anchors "
+        f"sigma_E {sig_e:.4f} LSB, {topsw[0.65]:.2f} / {topsw[1.2]:.2f} "
+        f"TOPS/W at 0.65 / 1.2 V; B2 {fig_launches['B2']} launches (one per "
+        "IDEAL BP cim_matmul: fig1b 2, fig10 14), no other kernel")
+
+    # (b) B2 at the figures' shapes and ladder, kernel vs plain, timed
+    err, times = 0.0, {}
+    for (m, k, n), x, w in f_operands(torch, np, dev):
+        for levels in F_LADDER:
+            kw = dict(n_rows=144, levels=levels, gain=1.0, full_scale=32400.0)
+            y, yp = cm.cim_mvm_grouped(x, w, **kw), \
+                cm.cim_mvm_grouped_plain(x, w, **kw)
+            torch.cuda.synchronize()
+            e = (y - yp).abs().max().item()
+            check(torch.equal(y, yp), f"phase 3f: B2 differs from its plain "
+                  f"version at x [{m}, {k}] x [{k}, {n}], L {levels}: {e}")
+            err = max(err, e)
+        t_k, t_p, _ = _mvm_time(torch, cm.cim_mvm_grouped,
+                                cm.cim_mvm_grouped_plain, x, w, F_KW)
+        bound = (m * k + k * n + m * n) * 4 / HBM_BYTES_S * 1e3
+        times[(m, k, n)] = (t_k, t_p, bound)
+        log(f"phase 3f: (b) B2 at x [{m}, {k}] x [{k}, {n}], L 362: "
+            f"{t_k * 1e3:.2f} us on the card (CUDA graph), plain "
+            f"{t_p * 1e3:.2f} us, bound {bound * 1e3:.3f} us (bytes; "
+            f"{card}); kernel body {_fmt_us(bodies[(m, k, n)])} "
+            "(profiler, after phase 2)")
+    build.reset_launch_counts()
+    log(f"phase 3f: (b) B2 bit-exact vs plain at {len(F_SHAPES)} shapes x L "
+        f"in {F_LADDER} (max |err| {err})")
+
+    # (c) the examples on the card; before each serve_decode serve, one
+    # prefill and one decode step of its engine with the kernels and with
+    # their plain versions, at the shapes the serve gives them
+    def decode_steps(server, step_cfg):
+        """serve_decode's model (3 slots, max_len 96): one prefill and one
+        decode step of `server`'s engine (slots: a 19-token prompt spliced
+        into slot 1, then all 3 slots; paged: a C = 8 chunk of 8 / 5 / 0
+        tokens, then C = 1, blocks of 8); (the two logits, K and V)."""
+        mod, n, max_len = server.mod, server.n_slots, server.max_len
+        srng = np.random.RandomState(11)
+        nxt = torch.from_numpy(srng.randint(0, step_cfg.vocab, (n, 1))).to(
+            dev)
+        if not server.paged:
+            toks = torch.from_numpy(srng.randint(
+                0, step_cfg.vocab, (1, 19))).to(dev)
+            l1, rcache = mod.prefill(server.params, {"tokens": toks},
+                                     step_cfg, max_len=max_len)
+            cache = splice(mod.init_cache(step_cfg, n, max_len, device=dev),
+                           rcache, 1)
+            l2, cache = mod.decode_step(server.params, nxt, cache, step_cfg)
+            return (l1, l2), cache["layers"]
+        nb = max_len // 8
+        cache = mod.init_paged_cache(step_cfg, n * nb + 1, 8, device=dev)
+        tb = torch.arange(1, n * nb + 1, dtype=torch.int32,
+                          device=dev).reshape(n, nb)
+        toks = torch.from_numpy(srng.randint(0, step_cfg.vocab, (n, 8))).to(
+            dev)
+        valid = torch.tensor([8, 5, 0], device=dev)
+        l1, cache = mod.paged_step(
+            server.params, toks, cache, tb,
+            torch.zeros(n, device=dev, dtype=torch.long), valid, step_cfg)
+        l2, cache = mod.paged_step(server.params, nxt, cache, tb, valid,
+                                   torch.tensor([1, 1, 0], device=dev),
+                                   step_cfg)
+        # the trash block (0) takes masked writes by design; the empty
+        # slot's rows are not compared
+        return (l1[:2], l2[:2]), {n_: cache["layers"][n_][:, 1:]
+                                  for n_ in ("k", "v")}
+
+    def check_decode_steps(server, tag, want):
+        """The steps above with the kernels (launching each kernel of
+        `want`) and with their plain versions (launching none): identical
+        logits and K/V (tolerance 0). Not counted as the serve's launches."""
+        build.reset_launch_counts()
+        l_k, kv_k = decode_steps(server, server.cfg)
+        torch.cuda.synchronize()
+        k_counts = build.launch_counts()
+        l_p, kv_p = decode_steps(server, server.cfg.replace(
+            attn_backend="plain",
+            cim=dataclasses.replace(server.cfg.cim, backend="plain")))
+        torch.cuda.synchronize()
+        p_counts = build.launch_counts()
+        check(all(bool(torch.isfinite(a).all()) for a in l_k),
+              f"phase 3f: {tag}: step logits not finite")
+        d_err = max((a - b).abs().max().item() for a, b in zip(l_k, l_p))
+        same = all(torch.equal(kv_k[n_], kv_p[n_]) for n_ in ("k", "v"))
+        got = {kid: k_counts[kinds[kid]] for kid in want}
+        log(f"phase 3f: (c) {tag}: prefill + decode step, kernels vs plain "
+            f"versions: max |dlogit| = {d_err}, K/V identical: {same} "
+            f"(tolerance 0); kernel launches {got}")
+        check(d_err == 0.0 and same, f"phase 3f: {tag}: kernel and plain "
+              "steps differ")
+        check(all(n_ > 0 for n_ in got.values()), f"phase 3f: {tag}: the "
+              f"kernel steps launched {got}, expected each > 0")
+        check(p_counts == k_counts, f"phase 3f: {tag}: the plain steps "
+              f"launched kernels: {p_counts} after {k_counts}")
+        build.reset_launch_counts()
+
+    for tag, fn, argv, want in (
+            ("quickstart", quickstart.main, [], {"B2": 3}),
+            ("sqnr_study", sqnr_study.main, [], {}),
+            ("serve_decode --cim", serve_decode.main, ["--cim"],
+             {"B2": None}),
+            ("serve_decode --cim --paged", serve_decode.main,
+             ["--cim", "--paged"], {"B2": None, "B3": None, "B4": None})):
+        if tag.startswith("serve_decode"):
+            check_decode_steps(serve_decode.make_server(
+                True, "--paged" in argv, 3, dev), tag, want)
+        build.reset_launch_counts()
+        out = io.StringIO()
+        t0 = time.monotonic()
+        with contextlib.redirect_stdout(out):
+            fn(argv + ["--device", str(dev)])
+        torch.cuda.synchronize()
+        dt = time.monotonic() - t0
+        text = out.getvalue().strip().splitlines()
+        for ln in text:
+            if ln.strip():
+                log(f"phase 3f: {tag}: {ln}")
+        got = take(tag, want)
+        if tag.startswith("serve_decode"):
+            check(re.fullmatch(r"mode=CIM-BP: 48 tokens in \d+ batched "
+                               r"decode steps, [\d.]+ tok/s", text[-1])
+                  is not None, f"phase 3f: {tag}: {text[-1]}")
+        if tag == "quickstart":
+            check(text[-2] == "B2 kernel output: (8, 16), finite=True",
+                  f"phase 3f: quickstart: {text[-2]}")
+        log(f"phase 3f: (c) {tag}: {dt:.2f} s, launches B2 {got['B2']}, B3 "
+            f"{got['B3']}, decode {got['B4']}")
+    log(f"phase 3f: {time.monotonic() - t3f:.1f} s in all")
+    return {"launches": launched, "times": times}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1462,13 +1776,15 @@ def main() -> int:
         del kp_, vp_
 
     # ---- shared by phases 3, 4 and 4b ------------------------------------
-    def serve_mix(server, prompts, tag, sampling=None):
-        """Phase 3's 8-request mix, 16 new tokens each (request i sampled
+    def serve_mix(server, prompts, tag, sampling=None,
+                  new_tokens=SERVE_NEW_TOKENS):
+        """Phase 3's 8-request mix, `new_tokens` each (request i sampled
         with `sampling` and seed i, greedy without); launch counts are
         reset just before and read just after. Returns (the counts, the
         token streams)."""
-        reqs = [Request(prompt=p, max_new_tokens=16) if sampling is None
-                else Request(prompt=p, max_new_tokens=16,
+        reqs = [Request(prompt=p, max_new_tokens=new_tokens)
+                if sampling is None
+                else Request(prompt=p, max_new_tokens=new_tokens,
                              sampling=SamplingParams(**sampling, seed=i))
                 for i, p in enumerate(prompts)]
         # host wall time of each scheduler step (each ends by reading the
@@ -1501,8 +1817,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-            check(len(r.output) == 16 and all(0 <= t < server.cfg.vocab
-                                              for t in r.output),
+            check(len(r.output) == new_tokens
+                  and all(0 <= t < server.cfg.vocab for t in r.output),
                   f"{tag} req{r.rid}: bad output {r.output}")
         total = sum(len(r.output) for r in reqs)
         m = server.metrics.summary()
@@ -1638,6 +1954,14 @@ def main() -> int:
         log(f"{tag}: 2 requests x 4 tokens in {dt:.2f} s; launches {counts}")
         return counts
 
+    # B2's kernel body at phase 3f's shapes, while the profiler records it
+    f_bodies = b2_bodies(torch, np, dev)
+    build.reset_launch_counts()
+    log(f"phase 2: B2's kernel body at phase 3f's shapes (x [M, K] x [K, N], "
+        f"L 362; {card}): " + ", ".join(
+            f"[{m}, {k}] x [{k}, {n}] {_fmt_us(us)}"
+            for (m, k, n), us in f_bodies.items()) + " (profiler)")
+
     # ---- phase 3: full-width paged serve, --cim bp-prequant --------------
     cfg = ARCHS["internlm2-1.8b"].replace(cim=CIMConfig(enabled=True))
     t0 = time.monotonic()
@@ -1716,14 +2040,16 @@ def main() -> int:
     spec_serving = dataclasses.replace(serving, drafter="ngram",
                                        spec_k=SPEC_K)
     counts, _ = serve_mix(Server(params, cfg, spec_serving, device=dev),
-                          prompts, "phase 3s: greedy ngram")
+                          prompts, "phase 3s: greedy ngram",
+                          new_tokens=SHORT_NEW_TOKENS)
     check(counts["cim_mvm_grouped_packed"] > 0
           and counts["paged_attn_call"] > 0,
           "phase 3s: the spec serve did not launch B1 and B3")
     sampled = dict(temperature=0.7, top_k=8)
     streams = [serve_mix(Server(params, cfg, spec_serving, device=dev),
                          prompts, f"phase 3s: sampled ngram run {i}",
-                         sampling=sampled)[1] for i in (1, 2)]
+                         sampling=sampled, new_tokens=SHORT_NEW_TOKENS)[1]
+               for i in (1, 2)]
     check(streams[0] == streams[1], "phase 3s: two sampled spec serves gave "
           "different streams")
     log("phase 3s: the two sampled spec serves (temperature 0.7, top-k 8, "
@@ -1929,14 +2255,16 @@ def main() -> int:
     slot_serving = ServingConfig(prequant=True, packed=True, n_slots=4,
                                  max_len=256)
 
-    def slot_serve(server, prompts_, tag, kname, per_fwd):
-        """Phase 3's 8 requests (`prompts_`), 16 new tokens each, greedy,
+    def slot_serve(server, prompts_, tag, kname, per_fwd,
+                   new_tokens=SERVE_NEW_TOKENS):
+        """Phase 3's 8 requests (`prompts_`), `new_tokens` each, greedy,
         through a slot-engine Server; launch counts are reset just before
         and read just after: `kname` must launch `per_fwd` times per decode
         step and per prefill, the paged attention kernel never. Returns
         (the counts, the streams)."""
         check(not server.paged, f"{tag}: not the slot engine")
-        reqs = [Request(prompt=p, max_new_tokens=16) for p in prompts_]
+        reqs = [Request(prompt=p, max_new_tokens=new_tokens)
+                for p in prompts_]
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launch_counts()
@@ -1950,8 +2278,8 @@ def main() -> int:
         peak = torch.cuda.max_memory_allocated() / 2**30
         for r in reqs:
             log(f"{tag} req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-            check(len(r.output) == 16 and all(0 <= t < server.cfg.vocab
-                                              for t in r.output),
+            check(len(r.output) == new_tokens
+                  and all(0 <= t < server.cfg.vocab for t in r.output),
                   f"{tag} req{r.rid}: bad output {r.output}")
         m = server.metrics.summary()
         total = sum(len(r.output) for r in reqs)
@@ -2536,7 +2864,8 @@ def main() -> int:
     # (c) a prefill chunk and a decode step, kernels vs plain
     check_steps(mserver, "phase 3m")
     # (d) phase 3's 8 requests, IDEAL, then NOISY (noise_seed 0) twice
-    counts, _ = serve_mix(mserver, prompts, "phase 3m: IDEAL")
+    counts, _ = serve_mix(mserver, prompts, "phase 3m: IDEAL",
+                          new_tokens=SHORT_NEW_TOKENS)
     for name, n in (("B1", counts["cim_mvm_grouped_packed"]),
                     ("B1e", counts["cim_mvm_grouped_packed_experts"]),
                     ("B3", counts["paged_attn_call"]),
@@ -2546,7 +2875,8 @@ def main() -> int:
     decode_breakdown(mserver, f"phase 3m ({card}): IDEAL")
     nserver = Server(mserver.params, mcfg.replace(cim=noisy), serving,
                      device=dev)
-    counts, streams_n = serve_mix(nserver, prompts, "phase 3m: NOISY run 1")
+    counts, streams_n = serve_mix(nserver, prompts, "phase 3m: NOISY run 1",
+                                  new_tokens=SHORT_NEW_TOKENS)
     for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
                     ("B6e", counts["cim_mvm_grouped_noisy_packed_experts"]),
                     ("B3", counts["paged_attn_call"]),
@@ -2558,7 +2888,8 @@ def main() -> int:
     del nserver
     nserver = Server(mserver.params, mcfg.replace(cim=noisy), serving,
                      device=dev)
-    _, streams_n2 = serve_mix(nserver, prompts, "phase 3m: NOISY run 2")
+    _, streams_n2 = serve_mix(nserver, prompts, "phase 3m: NOISY run 2",
+                              new_tokens=SHORT_NEW_TOKENS)
     check(streams_n2 == streams_n, "phase 3m: two same-seed NOISY serves "
           "gave different streams")
     log("phase 3m: the two same-seed NOISY serves gave identical streams")
@@ -2884,13 +3215,15 @@ def main() -> int:
             torch.cuda.empty_cache()
         # (b) phase 3's 8 requests at IDEAL, then twice at NOISY
         slot_serve(rserver, r_prompts, f"phase 3r (b): {arch} IDEAL",
-                   "cim_mvm_grouped_packed", per_fwd)
+                   "cim_mvm_grouped_packed", per_fwd,
+                   new_tokens=SHORT_NEW_TOKENS)
         streams = []
         for run in (1, 2):
             nserver = Server(rserver.params, rnoisy, r_serving, device=dev)
             streams.append(slot_serve(
                 nserver, r_prompts, f"phase 3r (b): {arch} NOISY run {run}",
-                "cim_mvm_grouped_noisy_packed", per_fwd)[1])
+                "cim_mvm_grouped_noisy_packed", per_fwd,
+                new_tokens=SHORT_NEW_TOKENS)[1])
             del nserver
         check(streams[0] == streams[1], f"phase 3r: {arch}'s two same-seed "
               "NOISY serves gave different streams")
@@ -3168,6 +3501,11 @@ def main() -> int:
     log(f"phase 3y: launches of one qwen2-moe Trainer step (not in the "
         f"kernels line, whose B2e count is phase 3d's serve): B2e "
         f"{legs['B2e per step']}, B2 {legs['B2 per step']}")
+
+    # ---- phase 3f: the paper's figures and the examples ---------------------
+    figs = phase_figures(torch, np, dev, card, f_bodies)
+    for kid, n in figs["launches"].items():
+        main_launches[kid] += n
 
     # ---- phase 6: report -------------------------------------------------
     meta = {

@@ -144,9 +144,11 @@ def adc_quantize(v_analog: torch.Tensor, cfg: MacroConfig, *,
                  key: torch.Generator | None = None,
                  act_bits_active: int | None = None,
                  weight_bits_active: int | None = None,
-                 inl_seed: int = 0) -> torch.Tensor:
+                 inl_seed: int = 0,
+                 dequantize: bool = True) -> torch.Tensor:
     """Quantize analog MAC values (integer MAC units) through the TD-ADC
-    transfer; returns the reconstructed value code × LSB.
+    transfer; returns the reconstructed value code × LSB, or the raw code
+    with `dequantize=False`.
 
     `key` is a torch.Generator on v_analog's device, the counterpart of the
     reference's jax.random key: the thermal term is σ·torch.randn drawn
@@ -169,7 +171,7 @@ def adc_quantize(v_analog: torch.Tensor, cfg: MacroConfig, *,
             x = x + _to_f32(st["sigma"]) * torch.randn(
                 x.shape, generator=key, dtype=x.dtype, device=x.device)
     code = clip_ste(round_ste(x), 0.0, float(levels - 1))
-    return code * _f32(lsb, code)
+    return code * _f32(lsb, code) if dequantize else code
 
 
 def adc_energy_j(cfg: MacroConfig, *, dual_threshold: bool = True) -> float:

@@ -129,6 +129,10 @@ def resolve_site_cfg(cfg: CIMConfig) -> CIMConfig:
     return resolved
 
 
+OFF = CIMConfig(enabled=False)
+BP_IDEAL = CIMConfig(enabled=True)
+
+
 def cim_matmul(x: torch.Tensor, w: torch.Tensor, cfg: CIMConfig, *,
                key: torch.Generator | None = None,
                inl_seed: int = 0) -> torch.Tensor:

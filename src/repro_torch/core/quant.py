@@ -157,6 +157,17 @@ def clip_ste(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return x + (torch.clamp(x, lo, hi) - x).detach()
 
 
+def fake_quant_unsigned(x: torch.Tensor, bits: int,
+                        scale: torch.Tensor) -> torch.Tensor:
+    """Fake-quantize to unsigned `bits` levels with STE: x ≈ scale * q
+    (the round and the clip pass the gradient straight through)."""
+    qmax = (1 << bits) - 1
+    if not torch.is_tensor(scale):
+        scale = _f32(float(scale), x)
+    q = clip_ste(round_ste(x / scale), 0.0, float(qmax))
+    return q * scale
+
+
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
     """v as an f32 tensor on like's device: dividing by a tensor is a true
     division on every device (a Python divisor becomes a multiply by its

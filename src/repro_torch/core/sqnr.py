@@ -23,7 +23,7 @@ import torch
 from repro_torch.device import resolve_device
 
 from .energy import mvm_energy
-from .macro import MacroConfig, SimLevel
+from .macro import MacroConfig, Scheme, SimLevel
 from .schemes import cim_mvm_codes, exact_mvm_codes, signed_correction
 
 
@@ -122,3 +122,14 @@ def simulate_sqnr(cfg: MacroConfig, *, k: int = 144, n_samples: int = 1 << 16,
     return SqnrResult(sqnr_db=sqnr_db, energy_per_mvm_j=rep.e_mvm_j,
                       tops_per_w=rep.tops_per_w)
 
+
+def sweep(base: MacroConfig, axis: str, values, **kw) -> list[tuple]:
+    """Sweep one MacroConfig field (paper Fig. 2a: n_rows; Fig. 2b:
+    adc_levels) for each scheme; returns (scheme, value, SqnrResult)
+    tuples. `kw` (device included) goes to simulate_sqnr."""
+    out = []
+    for scheme in (Scheme.BP, Scheme.WBS, Scheme.BS):
+        for v in values:
+            cfg = dataclasses.replace(base, scheme=scheme, **{axis: v})
+            out.append((scheme.value, v, simulate_sqnr(cfg, **kw)))
+    return out

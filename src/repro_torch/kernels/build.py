@@ -22,8 +22,11 @@ CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[3] / "build" \
     / "repro_torch_kernels"
 SOURCES = {"cim_mvm": "cim_mvm.cu", "paged_attention": "paged_attention.cu"}
+# --split-compile=0 optimises the device code on every core: the paged
+# attention source's many template instances make it the longest build
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v"]
 
 _SIGNATURES: dict[str, dict[str, list]] = {}
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -7,6 +7,21 @@ import dataclasses
 import enum
 
 import numpy as np
+import pytest
+
+
+@pytest.fixture(autouse=True)
+def one_intra_op_thread():
+    """One intra-op thread in each test of a module that imports this
+    fixture: the suite runs several test processes on the machine's cores,
+    and their thread pools otherwise oversubscribe them (thousands of small
+    eager ops slow by tens of times). Each comparison runs both sides at
+    one thread count; restored after."""
+    import torch
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def normalize(obj):

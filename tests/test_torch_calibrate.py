@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from _torch_helpers import to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -36,7 +37,8 @@ from repro.models import registry as ref_registry  # noqa: E402
 from repro.runtime import server as rserver  # noqa: E402
 from repro_torch.analysis import calibrate as tcal  # noqa: E402
 from repro_torch.configs.registry import SMOKES  # noqa: E402
-from repro_torch.core import cim_matmul as tcim  # noqa: E402
+# the module, not the function the package re-exports under its name
+tcim = importlib.import_module("repro_torch.core.cim_matmul")
 from repro_torch.core import quant  # noqa: E402
 from repro_torch.models import registry  # noqa: E402
 from repro_torch.runtime import server as tserver  # noqa: E402

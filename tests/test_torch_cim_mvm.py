@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
+
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 

@@ -19,7 +19,8 @@ from repro.core import quant as ref_quant  # noqa: E402
 from repro_torch.configs import base as t_base  # noqa: E402
 from repro_torch.configs import internlm2_1_8b as t_arch  # noqa: E402
 from repro_torch.configs import registry as t_registry  # noqa: E402
-from repro_torch.core import cim_matmul as t_cim  # noqa: E402
+# the module, not the function the package re-exports under its name
+t_cim = importlib.import_module("repro_torch.core.cim_matmul")
 from repro_torch.core import macro as t_macro  # noqa: E402
 from repro_torch.core import quant as t_quant  # noqa: E402
 

@@ -47,9 +47,17 @@ forward, per-expert products backward) is identical with the kernel and
 with its plain version, the MoE dispatch's backward equals the CPU's, one
 step of each smoke qwen2-moe, deepseek-v3, rwkv6, zamba2, whisper and
 internvl2 at --cim bp is identical with the kernels and with their plain
-versions, and the MoE archs' steps are deterministic run to run. Inputs
-come from numpy seeds. This file needs no JAX.
+versions, and the MoE archs' steps are deterministic run to run. The
+paper's figures: B2 at their shapes (the classifier's x [1024, 64] x
+[64, 144], a single partial group, and [1024, 144] x [144, 16];
+quickstart's [8, 288] x [288, 16]) at each of Fig. 10's ADC ladders (32
+... 1024) equals its plain version, and Fig. 10 through figures.run on the
+card launches B2 14 times, each rung's logits equal with the kernel and
+with its plain version. Inputs come from numpy seeds. This file needs no
+JAX.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -1129,7 +1137,7 @@ def test_cim_matmul_gradient_kernels_equal_plain(level, stored):
     grad_fn, the forward and the gradients (x's, and w's from float
     weights) are identical with the kernels and with their plain versions,
     one launch per forward and none in the backward."""
-    from repro_torch.core import cim_matmul as cm
+    cm = importlib.import_module("repro_torch.core.cim_matmul")
     from repro_torch.kernels import build
     dev = gpu_device()
     rng = np.random.RandomState(11)
@@ -1161,7 +1169,7 @@ def test_cim_matmul_gradient_kernels_equal_plain(level, stored):
 
 
 def test_cim_matmul_ste_kernel_equals_plain():
-    from repro_torch.core import cim_matmul as cm
+    cm = importlib.import_module("repro_torch.core.cim_matmul")
     dev = gpu_device()
     rng = np.random.RandomState(12)
     x = torch.from_numpy(rng.randn(40, 2048).astype(np.float32)).to(dev)
@@ -1266,7 +1274,7 @@ def test_expert_ste_kernel_equals_plain(dtype):
     """cim_matmul_ste on an expert stack (x [E, C, K], w [E, K, M] in f32
     or bf16): forward and per-expert gradients identical with B2e and with
     its plain version; one launch forward, none in the backward."""
-    from repro_torch.core import cim_matmul as cm
+    cm = importlib.import_module("repro_torch.core.cim_matmul")
     from repro_torch.kernels import build
     dev = gpu_device()
     rng = np.random.RandomState(14)
@@ -1368,3 +1376,51 @@ def test_a10b_train_steps_are_deterministic(arch):
             state, _ = step(state, batch)
         finals.append(state)
     assert _same_tree(*finals)
+
+
+# the figures' B2 shapes (BP at IDEAL from float weights): Fig. 10's and
+# Fig. 1b's classifier layers (x [1024, 64] x [64, 144], a single partial
+# group, and [1024, 144] x [144, 16]) and quickstart's x [8, 288] x [288, 16]
+FIG_LADDER = (32, 64, 128, 256, 362, 512, 1024)
+FIG_SHAPES = [(1024, 64, 144), (1024, 144, 16), (8, 288, 16)]
+
+
+@pytest.mark.parametrize("levels", FIG_LADDER)
+@pytest.mark.parametrize("m,k,n", FIG_SHAPES)
+def test_b2_bit_exact_at_the_figure_shapes(m, k, n, levels):
+    dev = gpu_device()
+    x = _codes(m + levels, (m, k)).to(dev)
+    w = _codes(n + levels, (k, n)).to(dev)
+    kw = dict(KW, levels=levels)
+    assert torch.equal(cim_mvm.cim_mvm_grouped(x, w, **kw),
+                       cim_mvm.cim_mvm_grouped_plain(x, w, **kw))
+
+
+def test_figures_fig10_on_the_card(capsys):
+    """Fig. 10 through figures.run on the card: its 7 rows, one B2 launch
+    per layer and ladder rung (14), and each rung's accuracy equal to the
+    one its plain version gives on the same weights."""
+    import dataclasses
+    from repro_torch.core import PROTOTYPE, CIMConfig, cim_matmul
+    from repro_torch.figures import common, run
+    from repro_torch.kernels import build
+    dev = gpu_device()
+    build.reset_launch_counts()
+    run.main(["--only", "fig10"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert [ln.split(",")[0] for ln in lines[1:]] == [
+        f"fig10_adc{b}b" for b in ("5", "6", "7", "8", "8.5", "9", "10")]
+    assert all("ERROR" not in ln for ln in lines)
+    counts = build.launch_counts()
+    assert counts["cim_mvm_grouped"] == 14
+    assert sum(counts.values()) == 14
+    task = common.make_task(device=dev)
+    params = common.train_mlp(task)
+    for levels in (32, 362, 1024):
+        macro = dataclasses.replace(PROTOTYPE, adc_levels=levels)
+        outs = []
+        for backend in ("auto", "plain"):
+            cfg = CIMConfig(enabled=True, macro=macro, backend=backend)
+            h = torch.relu(cim_matmul(task.x_test, params["w1"], cfg))
+            outs.append(cim_matmul(h, params["w2"], cfg))
+        assert torch.equal(outs[0], outs[1]), levels

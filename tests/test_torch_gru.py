@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from _torch_helpers import np32, rel_err, to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402

@@ -26,6 +26,7 @@ import pytest
 import torch
 
 from _torch_helpers import normalize, to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -46,7 +47,8 @@ from repro.kernels import ref as ref_kref  # noqa: E402
 from repro.models import registry as ref_registry  # noqa: E402
 from repro_torch.analysis import precision_search as tps  # noqa: E402
 from repro_torch.configs.registry import SMOKES  # noqa: E402
-from repro_torch.core import cim_matmul as tcim  # noqa: E402
+# the module, not the function the package re-exports under its name
+tcim = importlib.import_module("repro_torch.core.cim_matmul")
 from repro_torch.core import dac, mapping, precision  # noqa: E402
 from repro_torch.core import quant, schemes, sqnr  # noqa: E402
 from repro_torch.core.macro import MacroConfig, Scheme, SimLevel  # noqa: E402

@@ -22,6 +22,7 @@ import pytest
 import torch
 
 from _torch_helpers import to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro_torch.configs.registry import SMOKES
 from repro_torch.core.cim_matmul import CIMConfig
@@ -261,9 +262,11 @@ def test_port_imports_no_jax_and_no_reference():
     family, a --cim bp slot serve of deepseek-v3, prequant slot serves
     of rwkv6-7b, zamba2-2.7b and internvl2-26b, whisper-large-v3's
     prequant prefill and decode step over frames, the KWS GRU's forward
-    on the macro and two --cim bp training steps through launch.train
-    (microbatches, int8 gradient compression, checkpoints) leave no JAX
-    and no reference module in sys.modules."""
+    on the macro, two --cim bp training steps through launch.train
+    (microbatches, int8 gradient compression, checkpoints), the Fig. 18
+    rows through figures.run and the quickstart example leave no JAX and
+    no reference module (`repro`, or its figure modules under
+    `benchmarks`) in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
         "import repro_torch\n"
@@ -331,6 +334,10 @@ def test_port_imports_no_jax_and_no_reference():
         "                '--batch', '2', '--seq', '8', '--cim', 'bp',\n"
         "                '--microbatch', '1', '--grad-compression',\n"
         "                '--device', 'cpu', '--ckpt', d])\n"
+        "from repro_torch.figures import run as figures_run\n"
+        "figures_run.main(['--only', 'fig18', '--device', 'cpu'])\n"
+        "from repro_torch.examples import quickstart\n"
+        "quickstart.main(['--device', 'cpu'])\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
@@ -345,10 +352,24 @@ def test_port_imports_no_jax_and_no_reference():
         "          'repro_torch.data.tokens', 'repro_torch.parallel.collectives',\n"
         "          'repro_torch.checkpoint.ckpt', 'repro_torch.runtime.trainer',\n"
         "          'repro_torch.launch.train',\n"
-        "          'repro_torch.examples.train_cim_qat'):\n"
+        "          'repro_torch.examples.train_cim_qat',\n"
+        "          'repro_torch.examples.quickstart',\n"
+        "          'repro_torch.examples.sqnr_study',\n"
+        "          'repro_torch.examples.serve_decode',\n"
+        "          'repro_torch.figures.common', 'repro_torch.figures.run',\n"
+        "          'repro_torch.figures.fig1b_schemes',\n"
+        "          'repro_torch.figures.fig2_sqnr',\n"
+        "          'repro_torch.figures.fig7_9_linearity',\n"
+        "          'repro_torch.figures.fig10_adc_bits',\n"
+        "          'repro_torch.figures.fig15_17_transfer',\n"
+        "          'repro_torch.figures.fig16_noise',\n"
+        "          'repro_torch.figures.fig18_pvt',\n"
+        "          'repro_torch.figures.fig19_inference',\n"
+        "          'repro_torch.figures.fig21_energy',\n"
+        "          'repro_torch.figures.table1_summary'):\n"
         "    assert m in sys.modules, m\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'repro'))\n"
+        "('jax', 'jaxlib', 'repro', 'benchmarks'))\n"
         "print(bad)\n"
         "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(

@@ -21,6 +21,7 @@ import numpy as np
 import pytest
 
 from _torch_helpers import to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro_torch.configs.registry import SMOKES
 from repro_torch.core.cim_matmul import CIMConfig

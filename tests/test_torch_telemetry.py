@@ -33,6 +33,7 @@ import pytest
 import torch
 
 from _torch_helpers import to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 from repro_torch.configs.registry import SMOKES
 from repro_torch.core import energy as tenergy

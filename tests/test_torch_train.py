@@ -41,6 +41,7 @@ import torch
 
 from _torch_helpers import (compare_grads, leg_cfgs, np32, rel_err,
                             to_numpy_tree)
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -80,18 +81,6 @@ TRAIN_GRAD_TOL = 1e-5
 RESUME_TOL = 1e-5
 SHAPE = ShapeConfig("tiny", 32, 4, "train")
 SEQ, BATCH = 16, 2
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """The steps here are thousands of small eager ops: one intra-op thread
-    each, since the suite runs several test processes on the machine's
-    cores and their thread pools otherwise oversubscribe them. Each
-    comparison runs both sides at one thread count; restored after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

@@ -13,19 +13,12 @@ tolerances of the --cim off leg hold.
 import pytest
 import torch
 
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
+
 jax = pytest.importorskip("jax")
 
 from test_torch_train_mla import (check_deepseek_train_loss,  # noqa: E402
                                   check_mla_apply, reference_params)
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread per test process (tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

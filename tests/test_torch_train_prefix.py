@@ -28,6 +28,7 @@ import pytest
 import torch
 
 from _torch_helpers import check_train_loss, to_numpy_tree
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 
@@ -41,15 +42,6 @@ LOSS_TOL = 1e-6
 TRAIN_GRAD_TOL = 1e-5
 SEQ, BATCH = 16, 2
 ARCHS = ("whisper-large-v3", "internvl2-26b")
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread per test process (tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

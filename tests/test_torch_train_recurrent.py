@@ -34,6 +34,7 @@ import torch
 
 from _torch_helpers import (check_train_loss, compare_grads, rel_err,
                             to_numpy_tree)
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
@@ -57,15 +58,6 @@ GRAD_FLOOR = 1e-5
 GRAD_TOL = 1e-5
 SEQ, BATCH = 16, 2
 ARCHS = ("rwkv6-7b", "zamba2-2.7b")
-
-
-@pytest.fixture(autouse=True)
-def _one_intra_op_thread():
-    """One intra-op thread per test process (tests/test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ import torch
 
 from _torch_helpers import (leg_cfgs, mixed_depth, np32, rel_err,
                             to_numpy_tree)
+from _torch_helpers import one_intra_op_thread  # noqa: F401 (autouse)
 
 jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
