@@ -106,6 +106,26 @@ of which fails the run when it fails:
      check and the decode
      step breakdown again, then a short --cim bp-noisy serve with weights
      quantized on the fly, which must launch B5;
+  tune. the kernel tuning cache (`phase_tune_mesh`, after phase 4b, on
+     phase 3's model and settings): B1 at the decode MVM shapes (M = 4:
+     the layer widths and the head) at every cluster size x column-warp
+     candidate of `kernels.autotune.mvm_candidates`, each bit-exact
+     against the default launch and the plain version, timed (CUDA
+     graph); the decode launch (B3 + B4, dh 128, bs 16, MB 16, bf16) at
+     every split S from 1 to 8, each bit-exact against B4 then B3 plain
+     at that S, timed; the winners written with `save_cache` to a
+     temporary file; phase 3's 8 requests (SHORT_NEW_TOKENS) served
+     untuned and under the cache (hits counted, no clamp, the same
+     launches; identical streams if the default S won, else the tuned
+     steps held kernels vs plain at that S); a malformed cache serves
+     with one warning and one counted fallback;
+  mesh. a 1-rank mesh (`make_host_smoke_mesh`, nccl): B1 and B6 through
+     the sharded dispatch at the decode and prefill shapes (M 4 and 64)
+     of every layer MVM and the head, bit-identical to no mesh; the
+     sharded dispatch's host cost (one decode MVM, MESH_PAIRS pairs of
+     passes of MESH_CALLS calls without and with the mesh); phase 3's serve on the mesh (`serve.py --mesh host`'s mesh), whose
+     streams and B1 / B3 / decode launch counts must equal the untuned
+     serve's;
   5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
      against their plain versions, B1/B6 equal to them at the even depth;
   3m. the MoE family at full width (run after phase 5, once phase 3's
@@ -278,12 +298,17 @@ import argparse
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+import types
+import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
@@ -306,6 +331,8 @@ DECODE_MVMS = [("wq+wo", 2048, 2048, 48), ("wk+wv", 2048, 1024, 48),
                ("head", 2048, 92544, 1)]
 PARITY_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
              (2048, 92544)]
+MESH_CALLS = 100               # calls a pass of phase mesh's host timing
+MESH_PAIRS = 10                # (no mesh, mesh) pairs of those passes
 DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 # B3's head dims and block sizes past its fast case (dh in {32, 64, 128,
 # 256}, bs <= 32): bf16 rows of dh 20 are 40 bytes; dh 56 is deepseek-v3's
@@ -1201,6 +1228,293 @@ def phase_figures(torch, np, dev, card: str, bodies: dict) -> dict:
             f"{got['B3']}, decode {got['B4']}")
     log(f"phase 3f: {time.monotonic() - t3f:.1f} s in all")
     return {"launches": launched, "times": times}
+
+
+def phase_tune_mesh(torch, np, dev, card: str, ctx) -> None:
+    """Phases "tune" and "mesh" at phase 3's width and settings (`ctx`:
+    phase 3's float params, cfg, serving config and prompts, the MVM
+    kernel keywords `kw`, the `codes` maker and main's serve helpers
+    serve_mix, check_steps and short_serve). A script under build/
+    can call it after `build.build_all()`."""
+    import torch.distributed as dist
+
+    from repro_torch.core.cim_matmul import (CIMConfig, cim_matmul_prequant,
+                                             quantize_weight_offline)
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import autotune, ops
+    from repro_torch.kernels import cim_mvm as cm
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_host_smoke_mesh, make_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.collectives import compressed_psum
+    from repro_torch.parallel.pipeline import pipeline_apply
+    from repro_torch.runtime.server import Server
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+
+    # ---- phase "tune": the kernel tuning cache on the main path ------------
+    t_tune = time.monotonic()
+    tune_entries, mvm_won = {}, False
+    plat = autotune.platform_of(dev)
+    step_ms = {"default": 0.0, "tuned": 0.0}
+    for label, k, n, count in DECODE_MVMS:
+        groups = -(-k // 144)
+        x = ctx.codes((4, k))
+        wp = ops.pack_codes(ctx.codes((k, n))).contiguous()
+        default = cm.cim_mvm_grouped_packed(x, wp, **ctx.kw)
+        check(torch.equal(default, cm.cim_mvm_grouped_packed_plain(
+            x, wp, **ctx.kw)),
+              f"phase tune: B1 differs from its plain version at {label}")
+        args = [(x, wi) for wi in copies(wp)]
+        rows = []
+        for cand in autotune.mvm_candidates(groups):
+            def run(a, b, cand=cand):
+                return cm.cim_mvm_grouped_packed(a, b, **ctx.kw, **cand)
+            check(torch.equal(run(x, wp), default), f"phase tune: B1 at "
+                  f"{label} with {cand} differs from the default launch")
+            rows.append((graph_ms(torch, run, args, reps=3), cand))
+        t_def = rows[0][0]
+        t_win, win = min(rows, key=lambda r: r[0])
+        mvm_won |= win != rows[0][1]
+        fam = autotune.mvm_family(4, groups, n)
+        tune_entries[autotune.cache_key("cim_mvm", fam, "cuda_packed",
+                                        plat)] = dict(
+            win, us=t_win * 1e3, default_us=t_def * 1e3)
+        step_ms["default"] += count * t_def
+        step_ms["tuned"] += count * t_win
+        log(f"phase tune ({card}): B1 {label} M=4 K={k} N={n} ({fam}), "
+            f"bit-exact vs default and plain at every candidate; us by "
+            f"(cluster, wcols), 0 = the launcher's choice: " + ", ".join(
+                f"({c['cluster']}, {c['wcols']}) {t * 1e3:.2f}"
+                for t, c in rows) + f" -> ({win['cluster']}, "
+            f"{win['wcols']})")
+        del x, wp, args, default
+    log(f"phase tune ({card}): B1 over one decode step's 169 MVMs: default "
+        f"{step_ms['default']:.3f} ms, tuned {step_ms['tuned']:.3f} ms")
+    # B3 (and the decode launch, B4 folded in) at the decode window: dh
+    # 128, bs 16, MB 16, bf16 pools, 4 slots
+    b, kh, g, dh, bs, mb = 4, 8, 2, 128, 16, 16
+    nb = b * mb + 1
+    trng = np.random.RandomState(21)
+    pools = [torch.from_numpy(trng.standard_normal((nb, bs, kh, dh))
+                              .astype(np.float32)).to(dev).bfloat16()
+             for _ in range(2)]
+    for pool in pools:
+        pool[0] = float("nan")
+    tables = torch.from_numpy(trng.permutation(np.arange(1, nb)).astype(
+        np.int32).reshape(b, mb)).to(dev)
+    lens = torch.tensor([0, 37, 130, 224], dtype=torch.int32, device=dev)
+    kvl = lens + torch.tensor([0, 1, 1, 1], dtype=torch.int32, device=dev)
+    q = torch.from_numpy(trng.standard_normal((b, 1, kh * g, dh)).astype(
+        np.float32)).to(dev).bfloat16()
+    new = [torch.from_numpy(trng.standard_normal((b, 1, kh, dh)).astype(
+        np.float32)).to(dev).bfloat16() for _ in range(2)]
+    flat = (tables[:, 2].long() * bs + 5).to(torch.int32)
+    flat[0] = 0
+    pool_copies = [tuple(p.clone() for p in pools) for _ in range(8)]
+    s_rows = []
+    for cand in autotune.attn_candidates(mb):
+        sp = cand["splits"]
+        check(torch.equal(pa.paged_attn_call(q, *pools, tables, lens, kvl,
+                                             splits=sp),
+                          pa.paged_attn_plain(q, *pools, tables, lens, kvl,
+                                              sp)),
+              f"phase tune: B3 at S={sp} differs from its plain version")
+        kp_k, vp_k = (p.clone() for p in pools)
+        kp_p, vp_p = (p.clone() for p in pools)
+        out_k = pa.decode_write_attend_call(q, kp_k, vp_k, *new, flat,
+                                            tables, lens, kvl, splits=sp)
+        out_p = pa.decode_write_attend_plain(q, kp_p, vp_p, *new, flat,
+                                             tables, lens, kvl, sp)
+        check(torch.equal(out_k, out_p) and tree_equal(
+            torch, [kp_k, vp_k], [kp_p, vp_p]), f"phase tune: the decode "
+            f"launch at S={sp} differs from B4 then B3 plain at S={sp}")
+
+        def fused(kp, vp, sp=sp):
+            return pa.decode_write_attend_call(q, kp, vp, *new, flat, tables,
+                                               lens, kvl,
+                                               out_dtype=torch.bfloat16,
+                                               splits=sp)
+        s_rows.append((graph_ms(torch, fused, pool_copies, reps=3), sp))
+    t_s_def = s_rows[0][0]
+    t_s_win, s_win = min(s_rows)
+    tune_entries[autotune.cache_key("paged_attn",
+                                    autotune.attn_family(mb * bs, 1),
+                                    "kernel", plat)] = {
+        "splits": s_win, "block_size": None, "us": t_s_win * 1e3,
+        "default_us": t_s_def * 1e3}
+    log(f"phase tune ({card}): the decode launch (B3 + B4, dh {dh}, bs "
+        f"{bs}, MB {mb}, bf16), bit-exact vs plain at the same S for every "
+        f"S; us by S: " + ", ".join(f"S={sp} {t * 1e3:.2f}"
+                                    for t, sp in sorted(s_rows, key=lambda r:
+                                                        r[1]))
+        + f" -> S={s_win} (default {s_rows[0][1]})")
+    del pools, pool_copies, q, new
+    tune_dir = tempfile.mkdtemp(prefix="tune_")
+    tune_path = os.path.join(tune_dir, "tune_cache.json")
+    autotune.save_cache(tune_path, tune_entries)
+    log(f"phase tune: {len(tune_entries)} winners written to the cache")
+    # the phase-3 configuration served untuned, then under the cache
+    short_mix = dict(new_tokens=SHORT_NEW_TOKENS)
+    server = Server(ctx.params, ctx.cfg, ctx.serving, device=dev)
+    counts_a, streams_a = ctx.serve_mix(server, ctx.prompts,
+                                        "phase tune: untuned", **short_mix)
+    del server
+    os.environ[autotune.CACHE_ENV] = tune_path
+    KERNEL_COUNTERS.reset()
+    server = Server(ctx.params, ctx.cfg, ctx.serving, device=dev)
+    counts_t, streams_t = ctx.serve_mix(server, ctx.prompts,
+                                        "phase tune: --tune-cache",
+                                        **short_mix)
+    log(f"phase tune: tune_cache lookups of the tuned serve "
+        f"{dict(KERNEL_COUNTERS.tune_cache)}")
+    check(KERNEL_COUNTERS.tune_cache["cim_mvm:hit"] > 0
+          and KERNEL_COUNTERS.tune_cache["paged_attn:hit"] > 0
+          and not any(k.endswith("clamp")
+                      for k in KERNEL_COUNTERS.tune_cache),
+          "phase tune: the tuned serve did not hit the cache (or clamped)")
+    check(counts_t == counts_a, "phase tune: the tuned serve launched "
+          f"otherwise: {counts_t} vs {counts_a}")
+    if s_win == s_rows[0][1]:
+        check(streams_t == streams_a, "phase tune: only launch knobs won, "
+              "but the tuned serve's streams differ from the untuned")
+        log(f"phase tune: the default S won; tuned streams identical to "
+            f"the untuned (MVM knobs {'won' if mvm_won else 'default'})")
+    else:
+        log(f"phase tune: S={s_win} won: streams "
+            f"{'identical' if streams_t == streams_a else 'differ'} (a "
+            "last-bit change may move a DAC code); its steps held kernels "
+            "vs plain at that S instead")
+        ctx.check_steps(server, "phase tune: at the tuned S")
+    del server
+    # a malformed cache: the defaults, one warning, one counted fallback
+    bad_path = os.path.join(tune_dir, "malformed.json")
+    with open(bad_path, "w") as f:
+        f.write("{not json")
+    os.environ[autotune.CACHE_ENV] = bad_path
+    KERNEL_COUNTERS.reset()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        server = Server(ctx.params, ctx.cfg, ctx.serving, device=dev)
+        counts_b = ctx.short_serve(server, ctx.prompts,
+                                   "phase tune: malformed cache")
+    n_warn = sum("ignoring tune cache" in str(w.message) for w in caught)
+    log(f"phase tune: malformed cache: {n_warn} warning(s), "
+        f"{KERNEL_COUNTERS.fallback_warnings} counted fallback(s), "
+        f"lookups {dict(KERNEL_COUNTERS.tune_cache)}")
+    check(n_warn == 1 and KERNEL_COUNTERS.fallback_warnings == 1
+          and counts_b["cim_mvm_grouped_packed"] > 0,
+          "phase tune: a malformed cache must serve the defaults with one "
+          "warning and one counted fallback")
+    del server
+    os.environ.pop(autotune.CACHE_ENV)
+    shutil.rmtree(tune_dir)
+    log(f"phase tune: {time.monotonic() - t_tune:.1f} s in all")
+
+    # ---- phase "mesh": a 1-rank mesh (nccl) is no mesh, bit for bit -------
+    t_mesh = time.monotonic()
+    mesh, m_data, m_model = make_host_smoke_mesh()
+    log(f"phase mesh: serving on host mesh data={m_data} model={m_model} "
+        f"({dist.get_backend()}, world {dist.get_world_size()})")
+    mrng = np.random.RandomState(31)
+    for level in (SimLevel.IDEAL, SimLevel.NOISY):
+        mcfg = CIMConfig(enabled=True, noise_seed=0, macro=dataclasses.replace(
+            CIMConfig().macro, sim_level=level))
+        for label, k, n, _ in DECODE_MVMS:
+            w = torch.from_numpy((mrng.standard_normal((k, n)) * 0.02)
+                                 .astype(np.float32)).to(dev)
+            codes_, s_w = quantize_weight_offline(w, mcfg)
+            wpk = ops.pack_codes(codes_)
+            del w, codes_
+            for m in (4, 64):
+                x = torch.from_numpy(mrng.standard_normal((m, k)).astype(
+                    np.float32)).to(dev)
+                y0 = cim_matmul_prequant(x, wpk, s_w, mcfg)
+                sharding.set_mesh(mesh)
+                y1 = cim_matmul_prequant(x, wpk, s_w, mcfg)
+                sharding.set_mesh(None)
+                check(torch.equal(y0, y1), f"phase mesh: {level.name} "
+                      f"{label} M={m} differs under the 1-rank mesh")
+    log("phase mesh: B1 (IDEAL) and B6 (NOISY, seed 0, salt 0) through "
+        "the sharded dispatch at the decode (M=4) and prefill (M=64) "
+        "shapes of every layer MVM and the head: bit-identical to no mesh")
+    # the sharded dispatch's host cost: one decode MVM (the first of
+    # DECODE_MVMS, M = 4, IDEAL) called MESH_CALLS times a pass, without
+    # and with the 1-rank mesh, MESH_PAIRS pairs of passes in alternating
+    # order (none, mesh, mesh, none, ...) so the host's drift falls on
+    # both; each pass ends with a synchronize, so µs a call is the host's
+    # enqueue cost where it exceeds the card's
+    label, k, n, _ = DECODE_MVMS[0]
+    icfg = CIMConfig(enabled=True)
+    w = torch.from_numpy((mrng.standard_normal((k, n)) * 0.02).astype(
+        np.float32)).to(dev)
+    codes_, s_w = quantize_weight_offline(w, icfg)
+    wpk = ops.pack_codes(codes_)
+    x = torch.from_numpy(mrng.standard_normal((4, k)).astype(np.float32)
+                         ).to(dev)
+    for _ in range(20):                                  # warm both paths
+        cim_matmul_prequant(x, wpk, s_w, icfg)
+    host_us = {"none": [], "mesh": []}
+    for i in range(MESH_PAIRS):
+        for tag in (("none", "mesh") if i % 2 == 0 else ("mesh", "none")):
+            sharding.set_mesh(mesh if tag == "mesh" else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(MESH_CALLS):
+                cim_matmul_prequant(x, wpk, s_w, icfg)
+            torch.cuda.synchronize()
+            host_us[tag].append((time.perf_counter() - t0) / MESH_CALLS
+                                * 1e6)
+    sharding.set_mesh(None)
+    diffs = [b_ - a_ for a_, b_ in zip(host_us["none"], host_us["mesh"])]
+    extra = statistics.median(diffs)
+    log(f"phase mesh ({card}): one {label} MVM (M=4, K={k}, N={n}, IDEAL, "
+        f"B1), {MESH_PAIRS} pairs of passes of {MESH_CALLS} calls, us a "
+        f"call: no mesh median {statistics.median(host_us['none']):.2f} "
+        f"(passes {min(host_us['none']):.2f}-{max(host_us['none']):.2f}), "
+        f"1-rank mesh median {statistics.median(host_us['mesh']):.2f} "
+        f"({min(host_us['mesh']):.2f}-{max(host_us['mesh']):.2f}); mesh "
+        f"less no mesh within a pair: median {extra:.2f} us "
+        f"({min(diffs):.2f} to {max(diffs):.2f}), {extra * 169 / 1e3:.3f} "
+        f"ms over a decode step's 169 MVMs")
+    del w, codes_, wpk, x
+    # a size-1 mesh axis runs no collective in the sharded MVM: nccl's are
+    # exercised here, compressed_psum over "data" and a 1-stage pipeline
+    xg = torch.from_numpy(mrng.standard_normal(4096).astype(np.float32)
+                          ).to(dev)
+    err0 = torch.from_numpy(mrng.standard_normal(4096).astype(np.float32)
+                            * 1e-3).to(dev)
+    y, err = compressed_psum(xg, mesh.get_group("data"), err0)
+    xf = xg + err0
+    scale = torch.clamp(xf.abs().max() / torch.full((), 127.0, device=dev),
+                        min=1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    pipe = pipeline_apply(lambda p_, h: h * p_, torch.full((1,), 3.0,
+                                                           device=dev),
+                          xg.reshape(4, 1, 1024),
+                          mesh=make_mesh((1,), ("stage",)))
+    check(torch.equal(y, q * scale / 1.0)
+          and torch.equal(pipe, xg.reshape(4, 1, 1024) * 3.0),
+          "phase mesh: compressed_psum or the pipeline on nccl is wrong")
+    log("phase mesh: compressed_psum over the 1-rank nccl group (MAX and "
+        "int32 SUM all-reduces) and a 1-stage pipeline (broadcast): as "
+        "their formulas")
+    sharding.set_mesh(mesh)
+    server = Server(ctx.params, ctx.cfg, ctx.serving, device=dev)
+    counts_m, streams_m = ctx.serve_mix(server, ctx.prompts,
+                                        "phase mesh: --mesh host",
+                                        **short_mix)
+    sharding.set_mesh(None)
+    del server
+    same = {k_: counts_m[k_] == counts_a[k_] for k_ in
+            ("cim_mvm_grouped_packed", "paged_attn_call",
+             "decode_write_attend_call")}
+    log(f"phase mesh: --mesh host vs no mesh (phase tune's untuned serve): "
+        f"streams identical: {streams_m == streams_a}; launches equal: "
+        f"{same}")
+    check(streams_m == streams_a and all(same.values()),
+          "phase mesh: the 1-rank mesh serve differs from no mesh")
+    dist.destroy_process_group()
+    log(f"phase mesh: {time.monotonic() - t_mesh:.1f} s in all")
 
 
 def main() -> int:
@@ -2662,6 +2976,12 @@ def main() -> int:
     check(main_launches["B5"] > 0,
           "B5 was not launched on the --cim bp-noisy path")
     del server
+
+    # ---- phases "tune" and "mesh" (phase 3's model and settings) ---------
+    phase_tune_mesh(torch, np, dev, card, types.SimpleNamespace(
+        params=params, cfg=cfg, serving=serving, prompts=prompts, kw=kw,
+        codes=codes, serve_mix=serve_mix, check_steps=check_steps,
+        short_serve=short_serve))
 
     # ---- phase 5: macro depths other than 144 -----------------------------
     # B2/B5 take every depth the reference takes, B1/B6 every even one;

@@ -70,6 +70,22 @@ operand that needs a gradient the backend is called directly.
 integer correction is scale-free, so per-channel dequant broadcasts
 s_w[..., 0, :] over the output after the correction.
 
+Mesh dispatch
+-------------
+Under an active mesh (`parallel.sharding.set_mesh`) and outside a
+per-shard region, a kernel backend ("cuda*": the kernel on the card, its
+plain version on a CPU tensor) runs one MVM per rank on its shard
+(`_sharded_mvm`, the reference's shard_map): K over "data", the output
+channels over "model", rows over the batch axes (`sharding.mvm_plan`).
+Each shard evaluates its own macro groups and draws its own converter
+noise (the seed salted with the shard's linear index over the axes that
+partition this MVM; salt 0 is the identity, so a 1-rank mesh is
+bit-identical to no mesh), applies the Eq. 7 correction with its local
+sums, and the partial outputs are summed over "data" in ascending rank
+order, then gathered; o·z·K is added once, outside. Expert-batched
+weights run unpartitioned (the reference's vmap does not enter its
+shard_map either).
+
 Expert-batched MVMs (the MoE routed experts)
 --------------------------------------------
 Weights with a leading expert axis (PackedCodes data [E, K2, M], or
@@ -92,6 +108,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels import cim_mvm, ops
+from repro_torch.parallel import sharding
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 from .adc import adc_quantize
@@ -426,6 +443,14 @@ def _record_dispatch(name: str, x_codes: torch.Tensor, weights,
                                     e_dot * rows * m, rows * m)
 
 
+def _dequant_scale(s_w: torch.Tensor, cfg, experts: int) -> torch.Tensor:
+    """s_w against the [..., M] output: a per-channel scale's [..., 1, M]
+    loses its reduction axis (the expert-batched [E, 1, M] keeps it)."""
+    if cfg.weight.per_channel and s_w.ndim >= 2 and not experts:
+        return s_w[..., 0, :]
+    return s_w
+
+
 def _expert_count(weights) -> int:
     """E for expert-batched weights ([E, K2, M] packed, [E, K, M] dense),
     0 for a single matrix."""
@@ -442,6 +467,55 @@ def _per_expert(spec: BackendSpec, x_codes, weights, macro, kw):
             if isinstance(weights, PackedCodes) else weights[e]
         outs.append(spec.fn(x_codes[e], w_e, macro, **kw))
     return torch.stack(outs)
+
+
+def _sharded_mvm(spec: BackendSpec, x_codes: torch.Tensor, weights, cfg, *,
+                 key, inl_seed: int, noise_seed, x_zero_point):
+    """One MVM on the active mesh, this rank's shard of it (module
+    docstring): returns the whole Eq. 7-corrected integer output [..., M]
+    on every rank; dequantization stays in execute_mvm."""
+    macro: MacroConfig = cfg.macro
+    packed = isinstance(weights, PackedCodes)
+    data = weights.data if packed else weights
+    k_logical = weights.k if packed else data.shape[-2]
+    plan = sharding.mvm_plan(x_codes.shape, k_logical, data.shape[-1],
+                             k_unit=2 if packed else 1)
+    part = plan.axes
+    x_slices = [(-1, plan.ctr_axes)]
+    if x_codes.ndim > 1:
+        x_slices.append((0, plan.row_axes))
+    x_l = sharding.shard(x_codes, x_slices, part)
+    w_l = sharding.shard(data, [(0, plan.ctr_axes), (-1, plan.col_axes)],
+                         part)
+    n_ctr = sharding.shard_index(plan.ctr_axes)[1]
+    shard_seed = None
+    if SimLevel.IDEAL not in spec.sim_levels:
+        base = noise_seed if noise_seed is not None \
+            else int(_resolve_noise_seed(None, key, "cpu"))
+        salt = sharding.shard_index(part)[0]
+        shard_seed = int(cim_mvm.salt_seed(base, salt))
+    kw = dict(key=None, inl_seed=inl_seed, noise_seed=shard_seed)
+    k_local = k_logical // n_ctr
+
+    def run(xc, wd):
+        wt = PackedCodes(wd, k_local) if packed else wd
+        return spec.fn(xc, wt, macro, **kw)
+
+    with sharding.shard_context():
+        if spec.einsum_vjp and _needs_grad(x_l, w_l):
+            y_codes = _EinsumVJP.apply(x_l, w_l, run, macro, inl_seed,
+                                       k_local if packed else None)
+        else:
+            y_codes = run(x_l, w_l)
+        sum_w = ops.packed_col_sums(w_l) if packed else torch.sum(w_l, -2)
+        y_int = signed_correction(y_codes, x_l, None,
+                                  w_offset=cfg.weight.offset,
+                                  x_zero_point=x_zero_point, sum_w=sum_w, k=0)
+    y_int = sharding.ordered_sum(y_int, plan.ctr_axes)
+    y_int = sharding.gather(y_int, -1, plan.col_axes)
+    if x_codes.ndim > 1:
+        y_int = sharding.gather(y_int, 0, plan.row_axes)
+    return y_int + cfg.weight.offset * x_zero_point * k_logical
 
 
 def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
@@ -498,6 +572,13 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
     if not packed:
         weights = weights.to(torch.float32)
     data = weights.data if packed else weights
+    if (name.startswith("cuda") and not experts
+            and sharding.get_mesh() is not None
+            and not sharding.in_shard_context()):
+        y_int = _sharded_mvm(spec, x_codes, weights, cfg, key=key,
+                             inl_seed=inl_seed, noise_seed=noise_seed,
+                             x_zero_point=x_zero_point)
+        return y_int * s_x * _dequant_scale(s_w, cfg, experts)
 
     def run(xc, wd):
         wt = PackedCodes(wd, weights.k) if packed else wd
@@ -521,7 +602,4 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
     y_int = signed_correction(y_codes, x_codes, None,
                               w_offset=cfg.weight.offset,
                               x_zero_point=x_zero_point, sum_w=sum_w, k=k)
-    s_w_out = s_w
-    if cfg.weight.per_channel and s_w.ndim >= 2 and not experts:
-        s_w_out = s_w[..., 0, :]
-    return y_int * s_x * s_w_out
+    return y_int * s_x * _dequant_scale(s_w, cfg, experts)

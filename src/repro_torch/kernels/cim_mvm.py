@@ -36,11 +36,14 @@ that launches the Hopper kernel in `csrc/cim_mvm.cu` on a CUDA tensor and
 runs the plain version on a CPU tensor. Each kernel also has an
 expert-batched entry (`*_experts`: x [E, M, K], w [E, K2, N] or dense
 [E, K, N] in one launch, for the MoE routed experts), each expert
-bit-identical to the 2-D kernel on its own operands. The wrappers count their launches
-(`<wrapper>.launches`). The macro depth n_rows may be any depth >= 1 for
-the dense kernels B2/B5, as in the reference; the packed B1/B6 need an
-even depth (the reference's packed kernels assert it) of at most
-PACKED_MAX_ROWS (`check_depth`).
+bit-identical to the 2-D kernel on its own operands. The wrappers count
+their launches (`<wrapper>.launches`). Each wrapper takes the launch knobs
+`cluster` and `wcols` (0: the launcher's own choice; `kernels.autotune`):
+any value gives the same bits, and one the launcher cannot take is
+clamped and counted (`KERNEL_COUNTERS.tune_cache["cim_mvm:clamp"]`). The
+macro depth n_rows may be any depth >= 1 for the dense kernels B2/B5, as
+in the reference; the packed B1/B6 need an even depth (the reference's
+packed kernels assert it) of at most PACKED_MAX_ROWS (`check_depth`).
 """
 from __future__ import annotations
 
@@ -53,6 +56,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.adc import fma_f32, inl_curve, inl_instance
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 from . import build
 
@@ -298,6 +302,25 @@ def _check_launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def _knob_args(cluster: int, wcols: int) -> tuple:
+    """(cluster, wcols, used) as the C entry points take them; `used`, an
+    int[2], receives the cluster size and column warps launched when a
+    knob is set."""
+    return (int(cluster), int(wcols),
+            (ctypes.c_int * 2)() if cluster or wcols else None)
+
+
+def _count_clamp(knobs: tuple) -> None:
+    """Count a launch whose knobs the launcher did not take as given: the
+    only clamp of a tuned value (a cluster above 8 or the group count,
+    column warps not a power of two up to 8, codes that do not fit, the
+    packed fallback body)."""
+    cluster, wcols, used = knobs
+    if used is not None and ((cluster and used[0] != cluster)
+                             or (wcols and used[1] != wcols)):
+        KERNEL_COUNTERS.tune_clamp("cim_mvm")
+
+
 # The packed kernels' fallback body stages one macro group of activation
 # codes for 8 rows, plus 32 columns of codes, in a CTA's 227 KB of shared
 # memory: 8 * (n_rows + 32) f32 values.
@@ -355,7 +378,8 @@ def _check_expert_operands(x: torch.Tensor, w: torch.Tensor, wdtype,
 
 def cim_mvm_grouped(x: torch.Tensor, w: torch.Tensor, *, n_rows: int,
                     levels: int, gain: float,
-                    full_scale: float) -> torch.Tensor:
+                    full_scale: float, cluster: int = 0,
+                    wcols: int = 0) -> torch.Tensor:
     """B2: grouped ADC MVM over dense codes, x [M, K] f32 × w [K, N] f32 →
     [M, N] f32. Replaces `kernels/cim_mvm.py:cim_mvm_grouped` of the JAX
     package."""
@@ -370,19 +394,22 @@ def cim_mvm_grouped(x: torch.Tensor, w: torch.Tensor, *, n_rows: int,
     n = w.shape[1]
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_dense_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, n_rows,
         inv_lsb, lsb, float(levels - 1),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *knobs, torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped.launches += 1
     _check_launch("cim_mvm_grouped", rc)
+    _count_clamp(knobs)
     return out
 
 
 def cim_mvm_grouped_packed(x: torch.Tensor, w_packed: torch.Tensor, *,
                            n_rows: int, levels: int, gain: float,
-                           full_scale: float) -> torch.Tensor:
+                           full_scale: float, cluster: int = 0,
+                           wcols: int = 0) -> torch.Tensor:
     """B1: grouped ADC MVM over nibble-packed codes, x [M, K] f32 × w
     [K2, N] uint8 (K ≤ 2·K2) → [M, N] f32. Replaces
     `kernels/cim_mvm.py:cim_mvm_grouped_packed` of the JAX package."""
@@ -397,13 +424,15 @@ def cim_mvm_grouped_packed(x: torch.Tensor, w_packed: torch.Tensor, *,
                          f"{tuple(w_packed.shape)}")
     out = torch.empty(m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_packed_launch(
         x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, n, k, k2,
         n_rows, inv_lsb, lsb, float(levels - 1),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *knobs, torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_packed.launches += 1
     _check_launch("cim_mvm_grouped_packed", rc)
+    _count_clamp(knobs)
     return out
 
 
@@ -430,7 +459,8 @@ def cim_mvm_grouped_noisy(x: torch.Tensor, w: torch.Tensor,
                           seed: torch.Tensor, *, n_rows: int, levels: int,
                           gain: float, full_scale: float, sigma: float,
                           inl_amp: float = 0.0, inl_seed: int = 0,
-                          apply_inl: bool = False) -> torch.Tensor:
+                          apply_inl: bool = False, cluster: int = 0,
+                          wcols: int = 0) -> torch.Tensor:
     """B5: grouped ADC MVM over dense codes with the NOISY/FULL converter,
     x [M, K] f32 × w [K, N] f32 → [M, N] f32. `seed` is a 1-element int32
     tensor on the card (read by the kernel: a new seed needs no rebuild
@@ -452,13 +482,16 @@ def cim_mvm_grouped_noisy(x: torch.Tensor, w: torch.Tensor,
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
     mode, salt, sig, inl = _stochastic_args(inv_lsb, levels, sigma,
                                             inl_amp, inl_seed, apply_inl)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_noisy_dense_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), m, n, k, n_rows,
         inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt, sig,
-        inl, torch.cuda.current_stream(x.device).cuda_stream)
+        inl, *knobs,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_noisy.launches += 1
     _check_launch("cim_mvm_grouped_noisy", rc)
+    _count_clamp(knobs)
     return out
 
 
@@ -467,7 +500,8 @@ def cim_mvm_grouped_noisy_packed(x: torch.Tensor, w_packed: torch.Tensor,
                                  levels: int, gain: float, full_scale: float,
                                  sigma: float, inl_amp: float = 0.0,
                                  inl_seed: int = 0,
-                                 apply_inl: bool = False) -> torch.Tensor:
+                                 apply_inl: bool = False, cluster: int = 0,
+                                 wcols: int = 0) -> torch.Tensor:
     """B6: B5 over nibble-packed codes, x [M, K] f32 × w [K2, N] uint8
     (K ≤ 2·K2) → [M, N] f32, bit-identical to B5 under one seed. Replaces
     `kernels/cim_mvm.py:cim_mvm_grouped_noisy_packed` of the JAX
@@ -488,19 +522,23 @@ def cim_mvm_grouped_noisy_packed(x: torch.Tensor, w_packed: torch.Tensor,
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
     mode, salt, sig, inl = _stochastic_args(inv_lsb, levels, sigma,
                                             inl_amp, inl_seed, apply_inl)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_noisy_packed_launch(
         x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), m, n, k, k2,
         n_rows, inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt,
-        sig, inl, torch.cuda.current_stream(x.device).cuda_stream)
+        sig, inl, *knobs,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_noisy_packed.launches += 1
     _check_launch("cim_mvm_grouped_noisy_packed", rc)
+    _count_clamp(knobs)
     return out
 
 
 def cim_mvm_grouped_packed_experts(x: torch.Tensor, w_packed: torch.Tensor,
                                    *, n_rows: int, levels: int, gain: float,
-                                   full_scale: float) -> torch.Tensor:
+                                   full_scale: float, cluster: int = 0,
+                                   wcols: int = 0) -> torch.Tensor:
     """B1, expert-batched: x [E, M, K] f32 × w [E, K2, N] uint8 → [E, M, N]
     f32 in one launch, expert e bit-identical to B1 on (x[e], w[e]).
     Replaces `kernels/cim_mvm.py:cim_mvm_grouped_packed` of the JAX package
@@ -512,13 +550,15 @@ def cim_mvm_grouped_packed_experts(x: torch.Tensor, w_packed: torch.Tensor,
                                             n_rows)
     out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_packed_experts_launch(
         x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), e, m, n, k, k2,
         n_rows, inv_lsb, lsb, float(levels - 1),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *knobs, torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_packed_experts.launches += 1
     _check_launch("cim_mvm_grouped_packed_experts", rc)
+    _count_clamp(knobs)
     return out
 
 
@@ -529,7 +569,8 @@ def cim_mvm_grouped_noisy_packed_experts(x: torch.Tensor,
                                          full_scale: float, sigma: float,
                                          inl_amp: float = 0.0,
                                          inl_seed: int = 0,
-                                         apply_inl: bool = False
+                                         apply_inl: bool = False,
+                                         cluster: int = 0, wcols: int = 0
                                          ) -> torch.Tensor:
     """B6, expert-batched: x [E, M, K] f32 × w [E, K2, N] uint8 → [E, M, N]
     f32 in one launch, expert e bit-identical to B6 on (x[e], w[e]) under
@@ -549,19 +590,23 @@ def cim_mvm_grouped_noisy_packed_experts(x: torch.Tensor,
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
     mode, salt, sig, inl = _stochastic_args(inv_lsb, levels, sigma,
                                             inl_amp, inl_seed, apply_inl)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_noisy_packed_experts_launch(
         x.data_ptr(), w_packed.data_ptr(), out.data_ptr(), e, m, n, k, k2,
         n_rows, inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt,
-        sig, inl, torch.cuda.current_stream(x.device).cuda_stream)
+        sig, inl, *knobs,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_noisy_packed_experts.launches += 1
     _check_launch("cim_mvm_grouped_noisy_packed_experts", rc)
+    _count_clamp(knobs)
     return out
 
 
 def cim_mvm_grouped_experts(x: torch.Tensor, w: torch.Tensor, *,
                             n_rows: int, levels: int, gain: float,
-                            full_scale: float) -> torch.Tensor:
+                            full_scale: float, cluster: int = 0,
+                            wcols: int = 0) -> torch.Tensor:
     """B2, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
     [E, M, N] f32 in one launch, expert e bit-identical to B2 on (x[e],
     w[e]). Replaces `kernels/cim_mvm.py:cim_mvm_grouped` of the JAX package
@@ -572,13 +617,15 @@ def cim_mvm_grouped_experts(x: torch.Tensor, w: torch.Tensor, *,
     e, m, k, _, n = _check_expert_operands(x, w, torch.float32, n_rows)
     out = torch.empty(e, m, n, dtype=torch.float32, device=x.device)
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_dense_experts_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
         inv_lsb, lsb, float(levels - 1),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        *knobs, torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_experts.launches += 1
     _check_launch("cim_mvm_grouped_experts", rc)
+    _count_clamp(knobs)
     return out
 
 
@@ -587,7 +634,8 @@ def cim_mvm_grouped_noisy_experts(x: torch.Tensor, w: torch.Tensor,
                                   levels: int, gain: float, full_scale: float,
                                   sigma: float, inl_amp: float = 0.0,
                                   inl_seed: int = 0,
-                                  apply_inl: bool = False) -> torch.Tensor:
+                                  apply_inl: bool = False, cluster: int = 0,
+                                  wcols: int = 0) -> torch.Tensor:
     """B5, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
     [E, M, N] f32 in one launch, expert e bit-identical to B5 on (x[e],
     w[e]) under the same seed: the counter hash takes the row within the
@@ -604,13 +652,16 @@ def cim_mvm_grouped_noisy_experts(x: torch.Tensor, w: torch.Tensor,
     lsb, inv_lsb = adc_constants(levels, gain, full_scale)
     mode, salt, sig, inl = _stochastic_args(inv_lsb, levels, sigma,
                                             inl_amp, inl_seed, apply_inl)
+    knobs = _knob_args(cluster, wcols)
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_noisy_dense_experts_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
         inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt, sig,
-        inl, torch.cuda.current_stream(x.device).cuda_stream)
+        inl, *knobs,
+        torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_noisy_experts.launches += 1
     _check_launch("cim_mvm_grouped_noisy_experts", rc)
+    _count_clamp(knobs)
     return out
 
 
@@ -627,21 +678,22 @@ cim_mvm_grouped_noisy_experts.launches = 0
 _P, _I, _U, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint, ctypes.c_float
 _FA = ctypes.POINTER(ctypes.c_float)
 build.declare("cim_mvm", {
-    "cim_mvm_dense_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _P],
+    "cim_mvm_dense_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F, _I, _I,
+                             _P, _P],
     "cim_mvm_packed_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _F,
-                              _P],
+                              _I, _I, _P, _P],
     "cim_mvm_noisy_dense_launch": [_P, _P, _P, _I, _I, _I, _I, _F, _F, _F,
-                                   _I, _P, _U, _F, _FA, _P],
+                                   _I, _P, _U, _F, _FA, _I, _I, _P, _P],
     "cim_mvm_noisy_packed_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                    _F, _I, _P, _U, _F, _FA, _P],
+                                    _F, _I, _P, _U, _F, _FA, _I, _I, _P, _P],
     "cim_mvm_packed_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                      _F, _F, _F, _P],
+                                      _F, _F, _F, _I, _I, _P, _P],
     "cim_mvm_noisy_packed_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
                                             _I, _F, _F, _F, _I, _P, _U, _F,
-                                            _FA, _P],
+                                            _FA, _I, _I, _P, _P],
     "cim_mvm_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                     _F, _P],
+                                     _F, _I, _I, _P, _P],
     "cim_mvm_noisy_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _F, _F, _F, _I, _P, _U, _F, _FA,
-                                           _P],
+                                           _I, _I, _P, _P],
 })

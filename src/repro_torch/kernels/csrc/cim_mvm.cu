@@ -341,6 +341,24 @@ constexpr int kMaxCluster = 8;        // portable cluster size
 constexpr int kCtaTarget = 64;        // CTAs the cluster split aims for
 constexpr int kWideTiles = 256;       // CTA tiles left after widening
 
+// Launch knobs from the tuning cache (kernels/autotune.py): the cluster
+// size and the column warps a launcher asks for, 0 for its own choice.
+// Neither changes a bit of the output: a group's sum is an exact integer,
+// and the codes are added to each output in one ascending chain however
+// the groups are split over ranks and warps. `used`, when not null,
+// receives the cluster size and the column warps launched ({0, 0}: the
+// packed fallback body, which takes neither).
+struct Knobs {
+  int cluster, wcols;
+  int* used;
+  void report(int cs, int wc) const {
+    if (used) {
+      used[0] = cs;
+      used[1] = wc;
+    }
+  }
+};
+
 // One step of the reduce-scatter: lanes `mask` apart swap halves of their
 // first 2W columns; the lane with `upper` set keeps the upper half.
 template <int W, int VB, int BM>
@@ -596,12 +614,15 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
 
 // The cluster launch of the packed kernel; returns -1 for shapes it does
 // not take (groups of rows that are no multiple of four, or more shared
-// memory than a CTA has): the caller then takes the fallback body.
+// memory than a CTA has): the caller then takes the fallback body. `kn`
+// may set the cluster size and the column warps (0: the choice below); a
+// tuned geometry whose codes do not fit in shared memory falls back to
+// that choice.
 template <int BM, int VB, int MODE, bool EXPERTS>
 int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
                   int N, int K, int KW, int n_rows, int G, float inv_lsb,
                   float lsb, float code_max, const Stochastic& st,
-                  cudaStream_t stream) {
+                  const Knobs& kn, cudaStream_t stream) {
   constexpr int NC = kChunks * VB;
   // Wide matrices: up to 8 warps side by side along the columns share one
   // CTA's staged activations. Then the groups split over just enough
@@ -613,20 +634,32 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
   const long mt = (long)((M + BM - 1) / BM) * E;   // (expert, row) tiles
   if (mt > 65535) return (int)cudaErrorInvalidValue;
   const long warp_tiles = (long)((N + NC - 1) / NC) * mt;
-  int wcols = 1;
-  while (wcols < kGroupWarps && warp_tiles >= 2L * wcols * kWideTiles)
-    wcols *= 2;
-  const long tiles = (long)((N + wcols * NC - 1) / (wcols * NC)) * mt;
-  int cs = 1;
-  while (cs < kMaxCluster && cs * tiles < kCtaTarget) cs *= 2;
-  if (cs > G) cs = G;
-  const int gpc = (G + cs - 1) / cs;
-  cs = (G + gpc - 1) / gpc;                 // no rank without a group
+  int wcols, cs, gpc;
+  size_t smem;
+  auto plan = [&](int want_cs, int want_wc) {
+    wcols = want_wc;
+    if (wcols == 0) {
+      wcols = 1;
+      while (wcols < kGroupWarps && warp_tiles >= 2L * wcols * kWideTiles)
+        wcols *= 2;
+    }
+    const long tiles = (long)((N + wcols * NC - 1) / (wcols * NC)) * mt;
+    cs = want_cs;
+    if (cs == 0) {
+      cs = 1;
+      while (cs < kMaxCluster && cs * tiles < kCtaTarget) cs *= 2;
+    }
+    if (cs > G) cs = G;
+    gpc = (G + cs - 1) / cs;
+    cs = (G + gpc - 1) / gpc;               // no rank without a group
+    smem = sizeof(float) * (size_t)gpc * BM * (n_rows / 4 + wcols * NC);
+  };
+  plan(kn.cluster, kn.wcols);
+  if (smem > kSmemMax && (kn.cluster || kn.wcols)) plan(0, 0);
+  if (smem > kSmemMax || n_rows % 4) return -1;
+  kn.report(cs, wcols);
   int wgs = kGroupWarps / wcols;
   if (wgs > gpc) wgs = gpc;
-  const size_t smem =
-      sizeof(float) * (size_t)gpc * BM * (n_rows / 4 + wcols * NC);
-  if (smem > kSmemMax || n_rows % 4) return -1;
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -953,11 +986,15 @@ cim_mvm_dense_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
-// The cluster launch of the dense kernel; takes every shape.
+// The cluster launch of the dense kernel; takes every shape. `kn` may set
+// the cluster size asked for and the column warps (0: the choice below);
+// a tuned cluster whose codes do not fit in shared memory takes more
+// ranks.
 template <int BM, int MODE, bool EXPERTS>
 int launch_dense(const float* x, const float* w, float* out, int E, int M,
                  int N, int K, int n_rows, int G, float inv_lsb, float lsb,
-                 float code_max, const Stochastic& st, cudaStream_t stream) {
+                 float code_max, const Stochastic& st, const Knobs& kn,
+                 cudaStream_t stream) {
   // Wide matrices: up to 8 warps side by side along the columns share one
   // CTA's staged activations. Then the groups split over the fewest
   // cluster ranks that give the most warps, up to ~kDenseWarpTarget (two
@@ -967,9 +1004,12 @@ int launch_dense(const float* x, const float* w, float* out, int E, int M,
   const long mt = (long)((M + BM - 1) / BM) * E;   // (expert, row) tiles
   if (mt > 65535) return (int)cudaErrorInvalidValue;
   const long warp_tiles = (long)((N + kCols - 1) / kCols) * mt;
-  int wcols = 1;
-  while (wcols < kDenseWarps && warp_tiles >= 2L * wcols * kDenseWideTiles)
-    wcols *= 2;
+  int wcols = kn.wcols;
+  if (wcols == 0) {
+    wcols = 1;
+    while (wcols < kDenseWarps && warp_tiles >= 2L * wcols * kDenseWideTiles)
+      wcols *= 2;
+  }
   const int nct = wcols * kCols;
   const long tiles = (long)((N + nct - 1) / nct) * mt;
   int req = 1;                              // cluster size asked for
@@ -981,27 +1021,36 @@ int launch_dense(const float* x, const float* w, float* out, int E, int M,
   auto warps = [&]() {
     return tiles * cs * wcols * std::min(kDenseWarps / wcols, gpc);
   };
-  split();
-  long most = warps();
-  for (int r = 2; r <= kMaxCluster && most < kDenseWarpTarget; r *= 2) {
-    const int keep = req;
-    req = r;
-    split();
-    if (warps() > most) {
-      most = warps();
-    } else {
-      req = keep;
-      split();
-    }
-  }
   auto smem_of = [&](long groups, long rows) {
     return sizeof(float) * (size_t)groups * BM * (rows + nct);
   };
-  // fewer groups per rank where a rank's would keep two CTAs from
-  // sharing an SM (or do not fit at all)
-  while (smem_of(gpc, n_rows) > kSmemMax / 2 && req < kMaxCluster) {
-    req *= 2;
+  if (kn.cluster) {
+    req = kn.cluster;
     split();
+    while (smem_of(gpc, n_rows) > kSmemMax && req < kMaxCluster) {
+      req *= 2;
+      split();
+    }
+  } else {
+    split();
+    long most = warps();
+    for (int r = 2; r <= kMaxCluster && most < kDenseWarpTarget; r *= 2) {
+      const int keep = req;
+      req = r;
+      split();
+      if (warps() > most) {
+        most = warps();
+      } else {
+        req = keep;
+        split();
+      }
+    }
+    // fewer groups per rank where a rank's would keep two CTAs from
+    // sharing an SM (or do not fit at all)
+    while (smem_of(gpc, n_rows) > kSmemMax / 2 && req < kMaxCluster) {
+      req *= 2;
+      split();
+    }
   }
   int gpp = gpc, rpp = n_rows;
   if (smem_of(gpc, n_rows) > kSmemMax) {
@@ -1016,6 +1065,7 @@ int launch_dense(const float* x, const float* w, float* out, int E, int M,
       rpp = (int)(kSmemMax / (sizeof(float) * BM)) - nct;
     }
   }
+  kn.report(cs, wcols);
   const int wgs = std::min(kDenseWarps / wcols, gpp);
   const size_t smem = smem_of(gpp, rpp);
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
@@ -1050,24 +1100,26 @@ template <bool PACKED, int MODE, bool EXPERTS>
 int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
                   int N, int K, int KW, int n_rows, int G, float inv_lsb,
                   float lsb, float code_max, const Stochastic& st,
-                  cudaStream_t stream) {
+                  const Knobs& kn, cudaStream_t stream) {
   if constexpr (!PACKED) {
     const float* wf = static_cast<const float*>(w);
     return M <= 4 ? launch_dense<4, MODE, EXPERTS>(x, wf, out, E, M, N, K,
                                                    n_rows, G, inv_lsb, lsb,
-                                                   code_max, st, stream)
+                                                   code_max, st, kn, stream)
                   : launch_dense<8, MODE, EXPERTS>(x, wf, out, E, M, N, K,
                                                    n_rows, G, inv_lsb, lsb,
-                                                   code_max, st, stream);
+                                                   code_max, st, kn, stream);
   } else {
     const uint8_t* wp = static_cast<const uint8_t*>(w);
     const int rc =
         M <= 4 ? launch_packed<4, 16, MODE, EXPERTS>(x, wp, out, E, M, N, K,
                                                      KW, n_rows, G, inv_lsb,
-                                                     lsb, code_max, st, stream)
+                                                     lsb, code_max, st, kn,
+                                                     stream)
                : launch_packed<8, 8, MODE, EXPERTS>(x, wp, out, E, M, N, K,
                                                     KW, n_rows, G, inv_lsb,
-                                                    lsb, code_max, st, stream);
+                                                    lsb, code_max, st, kn,
+                                                    stream);
     if (rc != -1) return rc;
     return M <= 4 ? launch_fallback<4, MODE, EXPERTS>(
                         x, wp, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb,
@@ -1083,22 +1135,22 @@ int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
 template <bool PACKED, bool EXPERTS = false>
 int dispatch(const float* x, const void* w, float* out, int E, int M, int N,
              int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
-             float code_max, int mode, const Stochastic& st,
+             float code_max, int mode, const Stochastic& st, const Knobs& kn,
              cudaStream_t stream) {
   if (E <= 0 || M <= 0 || N <= 0) return 0;
   switch (mode) {
     case kIdeal:
       return dispatch_rows<PACKED, kIdeal, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          stream);
+          kn, stream);
     case kNoisy:
       return dispatch_rows<PACKED, kNoisy, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          stream);
+          kn, stream);
     case kFull:
       return dispatch_rows<PACKED, kFull, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          stream);
+          kn, stream);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1117,28 +1169,51 @@ int groups(int K, int n_rows) {
   return G < 1 ? 1 : G;
 }
 
+// The knobs as a launcher takes them: a cluster of at most kMaxCluster,
+// column warps a power of two up to kGroupWarps (the largest not above
+// the value asked for); negative values mean 0, the launcher's choice.
+Knobs make_knobs(int cluster, int wcols, int* used) {
+  cluster = cluster < 0 ? 0 : std::min(cluster, kMaxCluster);
+  int wc = 0;
+  if (wcols > 0) {
+    wc = 1;
+    while (wc * 2 <= std::min(wcols, kGroupWarps)) wc *= 2;
+  }
+  Knobs kn{cluster, wc, used};
+  kn.report(0, 0);
+  return kn;
+}
+
 }  // namespace
 
 extern "C" {
 
+// Every entry point takes the tuning knobs `cluster` and `wcols` (0: the
+// launcher's own choice; see Knobs) and `used`, null or a host int[2]
+// that receives the cluster size and the column warps launched.
+
 // B2: x [M, K] f32, w [K, N] f32 codes, out [M, N] f32.
 int cim_mvm_dense_launch(const float* x, const float* w, float* out, int M,
                          int N, int K, int n_rows, float inv_lsb, float lsb,
-                         float code_max, cudaStream_t stream) {
+                         float code_max, int cluster, int wcols, int* used,
+                         cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   const Stochastic none{};
   return dispatch<false>(x, w, out, 1, M, N, K, K, n_rows, groups(K, n_rows),
-                         inv_lsb, lsb, code_max, kIdeal, none, stream);
+                         inv_lsb, lsb, code_max, kIdeal, none, kn, stream);
 }
 
 // B1: x [M, K] f32, w [K2, N] uint8 nibble pairs (K <= 2 K2), out [M, N] f32.
 int cim_mvm_packed_launch(const float* x, const uint8_t* w, float* out,
                           int M, int N, int K, int K2, int n_rows,
                           float inv_lsb, float lsb, float code_max,
+                          int cluster, int wcols, int* used,
                           cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   const Stochastic none{};
   return dispatch<true>(x, w, out, 1, M, N, K, K2, n_rows,
                         groups(2 * K2, n_rows), inv_lsb, lsb, code_max, kIdeal,
-                        none, stream);
+                        none, kn, stream);
 }
 
 // B5: B2 with the stochastic converter; mode 1 = NOISY, 2 = FULL; seed is a
@@ -1148,11 +1223,13 @@ int cim_mvm_noisy_dense_launch(const float* x, const float* w, float* out,
                                float inv_lsb, float lsb, float code_max,
                                int mode, const int* seed, unsigned salt,
                                float sigma, const float* inl,
+                               int cluster, int wcols, int* used,
                                cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
   return dispatch<false>(x, w, out, 1, M, N, K, K, n_rows, groups(K, n_rows),
-                         inv_lsb, lsb, code_max, mode, st, stream);
+                         inv_lsb, lsb, code_max, mode, st, kn, stream);
 }
 
 // B6: B1 with the stochastic converter (bit-identical to B5).
@@ -1161,12 +1238,14 @@ int cim_mvm_noisy_packed_launch(const float* x, const uint8_t* w, float* out,
                                 float inv_lsb, float lsb, float code_max,
                                 int mode, const int* seed, unsigned salt,
                                 float sigma, const float* inl,
+                                int cluster, int wcols, int* used,
                                 cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
   return dispatch<true>(x, w, out, 1, M, N, K, K2, n_rows,
                         groups(2 * K2, n_rows), inv_lsb, lsb, code_max, mode,
-                        st, stream);
+                        st, kn, stream);
 }
 
 // B2, expert-batched: x [E, M, K] f32, w [E, K, N] f32 codes, out [E, M,
@@ -1175,11 +1254,13 @@ int cim_mvm_noisy_packed_launch(const float* x, const uint8_t* w, float* out,
 int cim_mvm_dense_experts_launch(const float* x, const float* w, float* out,
                                  int E, int M, int N, int K, int n_rows,
                                  float inv_lsb, float lsb, float code_max,
+                                 int cluster, int wcols, int* used,
                                  cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   const Stochastic none{};
   return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
                                groups(K, n_rows), inv_lsb, lsb, code_max,
-                               kIdeal, none, stream);
+                               kIdeal, none, kn, stream);
 }
 
 // B5, expert-batched. The counter hash takes the row within the expert and
@@ -1190,12 +1271,14 @@ int cim_mvm_noisy_dense_experts_launch(const float* x, const float* w,
                                        float lsb, float code_max, int mode,
                                        const int* seed, unsigned salt,
                                        float sigma, const float* inl,
+                                       int cluster, int wcols, int* used,
                                        cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
   return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
                                groups(K, n_rows), inv_lsb, lsb, code_max,
-                               mode, st, stream);
+                               mode, st, kn, stream);
 }
 
 // B1, expert-batched: x [E, M, K] f32, w [E, K2, N] uint8, out [E, M, N]
@@ -1205,11 +1288,13 @@ int cim_mvm_packed_experts_launch(const float* x, const uint8_t* w,
                                   float* out, int E, int M, int N, int K,
                                   int K2, int n_rows, float inv_lsb,
                                   float lsb, float code_max,
+                                  int cluster, int wcols, int* used,
                                   cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   const Stochastic none{};
   return dispatch<true, true>(x, w, out, E, M, N, K, K2, n_rows,
                               groups(2 * K2, n_rows), inv_lsb, lsb, code_max,
-                              kIdeal, none, stream);
+                              kIdeal, none, kn, stream);
 }
 
 // B6, expert-batched. The counter hash takes the row within the expert and
@@ -1221,12 +1306,14 @@ int cim_mvm_noisy_packed_experts_launch(const float* x, const uint8_t* w,
                                         float code_max, int mode,
                                         const int* seed, unsigned salt,
                                         float sigma, const float* inl,
+                                        int cluster, int wcols, int* used,
                                         cudaStream_t stream) {
+  const Knobs kn = make_knobs(cluster, wcols, used);
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
   return dispatch<true, true>(x, w, out, E, M, N, K, K2, n_rows,
                               groups(2 * K2, n_rows), inv_lsb, lsb, code_max,
-                              mode, st, stream);
+                              mode, st, kn, stream);
 }
 
 }  // extern "C"

@@ -15,6 +15,8 @@ import torch.nn.functional as F
 from repro_torch.core.adc import stochastic_transfer_params
 from repro_torch.core.macro import MacroConfig, Scheme, SimLevel
 
+from . import autotune
+
 from .cim_mvm import (cim_mvm_grouped, cim_mvm_grouped_experts,
                       cim_mvm_grouped_noisy, cim_mvm_grouped_noisy_experts,
                       cim_mvm_grouped_noisy_packed,
@@ -103,54 +105,93 @@ def _prep_dense_experts(x_codes: torch.Tensor, w_codes: torch.Tensor):
             w_codes.to(torch.float32).contiguous())
 
 
+_NO_KNOBS = {"cluster": 0, "wcols": 0}
+
+
+def _resolve_knobs(backend: str, x: torch.Tensor, n: int, cfg: MacroConfig,
+                   cluster: int | None, wcols: int | None) -> dict:
+    """The launch knobs of one MVM: explicit values win; None consults the
+    tuning cache under "cim_mvm" and the shape family of x's rows (the
+    row count of one expert for expert-batched x), K's group count and N
+    (how core.engine's kernel backends, which pass no knobs, pick up a
+    tuned launch); a miss keeps 0, the launcher's choice. The values go
+    to the launcher as they are: it clamps what the geometry cannot take,
+    and the wrapper counts each such launch once (`cim_mvm._count_clamp`).
+    """
+    if (cluster is None or wcols is None) and autotune.cache_path():
+        k = x.shape[-1]
+        m = x.shape[1] if backend.endswith("_experts") \
+            else x.numel() // max(k, 1)
+        entry = autotune.tuned(
+            "cim_mvm", autotune.mvm_family(m, max(1, -(-k // cfg.n_rows)),
+                                           n), backend, x.device)
+        cluster = entry.get("cluster", 0) if cluster is None else cluster
+        wcols = entry.get("wcols", 0) if wcols is None else wcols
+    cluster, wcols = int(cluster or 0), int(wcols or 0)
+    return dict(cluster=cluster, wcols=wcols) if cluster or wcols \
+        else _NO_KNOBS
+
+
 def _kernel_kw(cfg: MacroConfig) -> dict:
     return dict(n_rows=cfg.n_rows, levels=cfg.effective_adc_levels(),
                 gain=cfg.gain, full_scale=cfg.full_scale())
 
 
 def cim_mvm_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,
-                   cfg: MacroConfig) -> torch.Tensor:
+                   cfg: MacroConfig, *, cluster: int | None = None,
+                   wcols: int | None = None) -> torch.Tensor:
     """ŷ ≈ Σ X̃ W̃ with 4-bit-packed weights: x [..., K], w_packed [K2, M]
     (K ≤ 2·K2) → f32 [..., M], through kernel B1."""
     if cfg.scheme != Scheme.BP or cfg.n_rows % 2:
         raise ValueError("the packed kernel implements BP over an even "
                          "macro depth")
+    knobs = _resolve_knobs("cuda_packed", x_codes, w_packed.shape[-1], cfg,
+                           cluster, wcols)
     x2, w2, lead = _prep_packed(x_codes, w_packed)
-    out = cim_mvm_grouped_packed(x2, w2, **_kernel_kw(cfg))
+    out = cim_mvm_grouped_packed(x2, w2, **_kernel_kw(cfg), **knobs)
     return out.reshape(*lead, w2.shape[1])
 
 
 def cim_mvm_packed_experts(x_codes: torch.Tensor, w_packed: torch.Tensor,
-                           cfg: MacroConfig) -> torch.Tensor:
+                           cfg: MacroConfig, *, cluster: int | None = None,
+                           wcols: int | None = None) -> torch.Tensor:
     """B1 over E experts in one launch: x [E, C, K], w_packed [E, K2, M] →
     f32 [E, C, M], expert e exactly `cim_mvm_packed(x[e], w_packed[e])`."""
     if cfg.scheme != Scheme.BP or cfg.n_rows % 2:
         raise ValueError("the packed kernel implements BP over an even "
                          "macro depth")
     x3, w3 = _prep_experts(x_codes, w_packed)
-    return cim_mvm_grouped_packed_experts(x3, w3, **_kernel_kw(cfg))
+    knobs = _resolve_knobs("cuda_packed_experts", x3, w3.shape[-1], cfg,
+                           cluster, wcols)
+    return cim_mvm_grouped_packed_experts(x3, w3, **_kernel_kw(cfg), **knobs)
 
 
 def cim_mvm_dense(x_codes: torch.Tensor, w_codes: torch.Tensor,
-                  cfg: MacroConfig) -> torch.Tensor:
+                  cfg: MacroConfig, *, cluster: int | None = None,
+                  wcols: int | None = None) -> torch.Tensor:
     """ŷ ≈ Σ X̃ W̃ through the fused BP kernel B2: x [..., K] DAC codes,
     w [K, M] stored codes → f32 [..., M]."""
     if cfg.scheme != Scheme.BP:
         raise ValueError("the fused kernel implements BP only")
+    knobs = _resolve_knobs("cuda", x_codes, w_codes.shape[-1], cfg, cluster,
+                           wcols)
     x2, w2, lead = _prep_dense(x_codes, w_codes)
-    out = cim_mvm_grouped(x2, w2, **_kernel_kw(cfg))
+    out = cim_mvm_grouped(x2, w2, **_kernel_kw(cfg), **knobs)
     return out.reshape(*lead, w2.shape[1])
 
 
 def cim_mvm_dense_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
-                          cfg: MacroConfig) -> torch.Tensor:
+                          cfg: MacroConfig, *, cluster: int | None = None,
+                          wcols: int | None = None) -> torch.Tensor:
     """B2 over E experts in one launch: x [E, C, K], w [E, K, M] stored
     codes → f32 [E, C, M], expert e exactly `cim_mvm_dense(x[e],
     w_codes[e])`."""
     if cfg.scheme != Scheme.BP:
         raise ValueError("the fused kernel implements BP only")
     x3, w3 = _prep_dense_experts(x_codes, w_codes)
-    return cim_mvm_grouped_experts(x3, w3, **_kernel_kw(cfg))
+    knobs = _resolve_knobs("cuda_experts", x3, w3.shape[-1], cfg, cluster,
+                           wcols)
+    return cim_mvm_grouped_experts(x3, w3, **_kernel_kw(cfg), **knobs)
 
 
 def _check_stochastic(cfg: MacroConfig) -> dict:
@@ -166,48 +207,59 @@ def _check_stochastic(cfg: MacroConfig) -> dict:
 
 def cim_mvm_noisy(x_codes: torch.Tensor, w_codes: torch.Tensor,
                   cfg: MacroConfig, *, noise_seed: torch.Tensor,
-                  inl_seed: int = 0) -> torch.Tensor:
+                  inl_seed: int = 0, cluster: int | None = None,
+                  wcols: int | None = None) -> torch.Tensor:
     """Stochastic (NOISY/FULL) fused BP MVM through kernel B5: per-conversion
     thermal noise (and, at FULL, the Fig. 15 INL instance of inl_seed) drawn
     inside the kernel. `noise_seed` is an int32 scalar tensor on x's device
     (a CPU tensor or an int on the CPU); σ/INL come from
     core.adc.stochastic_transfer_params, as adc_quantize takes them."""
     kw = _check_stochastic(cfg)
+    knobs = _resolve_knobs("cuda_noisy", x_codes, w_codes.shape[-1], cfg,
+                           cluster, wcols)
     x2, w2, lead = _prep_dense(x_codes, w_codes)
-    out = cim_mvm_grouped_noisy(x2, w2, noise_seed, inl_seed=inl_seed, **kw)
+    out = cim_mvm_grouped_noisy(x2, w2, noise_seed, inl_seed=inl_seed, **kw,
+                                **knobs)
     return out.reshape(*lead, w2.shape[1])
 
 
 def cim_mvm_noisy_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
                           cfg: MacroConfig, *, noise_seed: torch.Tensor,
-                          inl_seed: int = 0) -> torch.Tensor:
+                          inl_seed: int = 0, cluster: int | None = None,
+                          wcols: int | None = None) -> torch.Tensor:
     """B5 over E experts in one launch: x [E, C, K], w [E, K, M] → f32
     [E, C, M], expert e exactly `cim_mvm_noisy(x[e], w_codes[e])` under the
     same seed."""
     kw = _check_stochastic(cfg)
     x3, w3 = _prep_dense_experts(x_codes, w_codes)
+    knobs = _resolve_knobs("cuda_noisy_experts", x3, w3.shape[-1], cfg,
+                           cluster, wcols)
     return cim_mvm_grouped_noisy_experts(x3, w3, noise_seed,
-                                         inl_seed=inl_seed, **kw)
+                                         inl_seed=inl_seed, **kw, **knobs)
 
 
 def cim_mvm_noisy_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,
                          cfg: MacroConfig, *, noise_seed: torch.Tensor,
-                         inl_seed: int = 0) -> torch.Tensor:
+                         inl_seed: int = 0, cluster: int | None = None,
+                         wcols: int | None = None) -> torch.Tensor:
     """Stochastic fused BP MVM over nibble-packed weights (kernel B6):
     bit-identical to cim_mvm_noisy on the unpacked codes under one seed."""
     kw = _check_stochastic(cfg)
     if cfg.n_rows % 2:
         raise ValueError("nibble packing needs an even macro depth")
+    knobs = _resolve_knobs("cuda_noisy_packed", x_codes, w_packed.shape[-1],
+                           cfg, cluster, wcols)
     x2, w2, lead = _prep_packed(x_codes, w_packed)
     out = cim_mvm_grouped_noisy_packed(x2, w2, noise_seed, inl_seed=inl_seed,
-                                       **kw)
+                                       **kw, **knobs)
     return out.reshape(*lead, w2.shape[1])
 
 
 def cim_mvm_noisy_packed_experts(x_codes: torch.Tensor,
                                  w_packed: torch.Tensor, cfg: MacroConfig, *,
-                                 noise_seed: torch.Tensor,
-                                 inl_seed: int = 0) -> torch.Tensor:
+                                 noise_seed: torch.Tensor, inl_seed: int = 0,
+                                 cluster: int | None = None,
+                                 wcols: int | None = None) -> torch.Tensor:
     """B6 over E experts in one launch: x [E, C, K], w_packed [E, K2, M] →
     f32 [E, C, M], expert e exactly `cim_mvm_noisy_packed(x[e],
     w_packed[e])` under the same seed."""
@@ -215,5 +267,8 @@ def cim_mvm_noisy_packed_experts(x_codes: torch.Tensor,
     if cfg.n_rows % 2:
         raise ValueError("nibble packing needs an even macro depth")
     x3, w3 = _prep_experts(x_codes, w_packed)
+    knobs = _resolve_knobs("cuda_noisy_packed_experts", x3, w3.shape[-1],
+                           cfg, cluster, wcols)
     return cim_mvm_grouped_noisy_packed_experts(x3, w3, noise_seed,
-                                                inl_seed=inl_seed, **kw)
+                                                inl_seed=inl_seed, **kw,
+                                                **knobs)

@@ -35,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
-from . import build
+from . import autotune, build
 
 
 # ---------------------------------------------------------------------------
@@ -45,16 +45,17 @@ from . import build
 class AttnBackendSpec:
     """One paged-attention evaluation strategy.
 
-    fn(q, k_pool, v_pool, tables, positions, kv_len, lens) -> o
+    fn(q, k_pool, v_pool, tables, positions, kv_len, lens, splits) -> o
       q [B, C, H, dh]; pools [NB, bs, KH, dh]; tables [B, MB] physical
       block ids; positions [B, C] absolute query positions; kv_len [B]
       tokens valid INCLUDING this step's writes; lens [B] the chunk base
-      positions[:, 0]. Returns [B, C, H, dh] in q's dtype.
+      positions[:, 0]; splits B3's S (`resolve_splits`). Returns [B, C,
+      H, dh] in q's dtype.
     `decode_write_attend`, when set, is the decode step (C = 1) in one
     call: write each slot's new K/V row into the pools in place (flat
     target 0: no write), then attend.
       decode_write_attend(q, k_pool, v_pool, new_k, new_v, flat_idx,
-                          tables, lens, kv_len) -> o
+                          tables, lens, kv_len, splits) -> o
     It replaces `models.common.paged_write` + `fn` on this backend.
     """
 
@@ -97,10 +98,11 @@ def choose_attn_backend(backend: str) -> str:
 # "exact" backend: window gather + one-pass softmax
 # ---------------------------------------------------------------------------
 @register_attn_backend("exact")
-def _exact_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
+def _exact_attention(q, k_pool, v_pool, tables, positions, kv_len, lens,
+                     splits=None):
     """Window gather through the table + the dense-cache attention math,
     with V rows at positions >= kv_len zeroed (by `where`: 0 · NaN is NaN)
-    before the PV contraction."""
+    before the PV contraction (one pass: `splits` has no meaning here)."""
     from repro_torch.models import common  # kernels must not import models
     k_win = common.paged_gather(k_pool, tables)
     v_win = common.paged_gather(v_pool, tables)
@@ -126,24 +128,44 @@ def _butterfly(v: torch.Tensor) -> torch.Tensor:
     return v[..., 0]
 
 
-def attn_splits(mb: int) -> tuple[int, int]:
-    """(S, per): B3 splits a slot's MB table columns over S = min(8, MB)
-    ranks of a thread-block cluster, rank r taking the contiguous columns
-    [r·per, min((r+1)·per, MB)), per = ceil(MB / S). S depends on the table
-    width only, never on the device-side kv_len."""
-    s = max(1, min(8, mb))
+def attn_splits(mb: int, splits: int | None = None) -> tuple[int, int]:
+    """(S, per): B3 splits a slot's MB table columns over S ranks of a
+    thread-block cluster, S = `splits` (the tuning cache's, see
+    `resolve_splits`) or by default min(8, MB), rank r taking the
+    contiguous columns [r·per, min((r+1)·per, MB)), per = ceil(MB / S). S
+    depends on the table width only, never on the device-side kv_len."""
+    s = max(1, min(8, mb)) if splits is None else splits
     return s, -(-mb // s)
 
 
-def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
+def resolve_splits(tables: torch.Tensor, c: int, bs: int) -> int:
+    """B3's S for this call: the tuning cache's `splits` under
+    "paged_attn", the shape family of the window (MB·bs tokens) and C,
+    backend "kernel" and the tables' platform; a miss keeps min(8, MB).
+    Clamped to 1..min(8, MB), each clamp counted. The dispatchers above
+    the kernel and the plain backend both call it, so the two combine the
+    ranks' states in the same order."""
+    mb = tables.shape[1]
+    top = max(1, min(8, mb))
+    if not autotune.cache_path():
+        return top
+    want = autotune.tuned("paged_attn", autotune.attn_family(mb * bs, c),
+                          "kernel", tables.device).get("splits") or top
+    s = min(max(int(want), 1), top)
+    if s != int(want):
+        KERNEL_COUNTERS.tune_clamp("paged_attn")
+    return s
+
+
+def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len, splits=None):
     """Plain version of B3, in the kernel's exact operation order.
 
-    The table columns split over S ranks (`attn_splits`); each rank runs an
-    online softmax over its own blocks in order, each block in pieces of
-    at most 32 tokens (one piece when bs <= 32), one update per piece: each
-    score is the lane-strided partial dot products (ceil(dh/32) per lane,
-    in order; q and k padded with zeros to whole lanes) summed by the warp
-    butterfly; the PV sum runs in token order. The ranks' states
+    The table columns split over S ranks (`attn_splits(MB, splits)`); each
+    rank runs an online softmax over its own blocks in order, each block in
+    pieces of at most 32 tokens (one piece when bs <= 32), one update per
+    piece: each score is the lane-strided partial dot products
+    (ceil(dh/32) per lane, in order; q and k padded with zeros to whole
+    lanes) summed by the warp butterfly; the PV sum runs in token order. The ranks' states
     (m_r, l_r, acc_r) then combine in rank order: m* = max_r m_r,
     l* = Σ_r l_r·exp(m_r − m*) and acc* = Σ_r acc_r·exp(m_r − m*), each
     added in r order from 0, and out = acc* / max(l*, 1e−30). All math is
@@ -163,7 +185,7 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
     dhp = 32 * dpl                   # the head dim padded to whole lanes
     dev = q.device
     mb = tables.shape[1]
-    n_split, per = attn_splits(mb)
+    n_split, per = attn_splits(mb, splits)
     f32 = dict(dtype=torch.float32, device=dev)
     # [B, KH, 1 (rank), CG, 1 (token), dpl, 32]
     q3 = F.pad(q.float(), (0, dhp - dh)).reshape(b, c, kh, g, dhp) \
@@ -224,10 +246,11 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len):
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
-def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write):
+def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write,
+            splits):
     """One launch of the B3 kernel on q's CUDA device; `write` is None (B3
-    alone) or (new_k, new_v, flat), B4's decode write folded in. Returns
-    (the CUDA status, the output)."""
+    alone) or (new_k, new_v, flat), B4's decode write folded in; `splits`
+    B3's S (None: min(8, MB)). Returns (the CUDA status, the output)."""
     b, c, h, dh = q.shape
     nb, bs, kh, dh_p = k_pool.shape
     if (v_pool.shape != k_pool.shape or v_pool.dtype != k_pool.dtype
@@ -286,23 +309,24 @@ def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write):
         int(out_dtype == bf16), q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), nk, nv, None if flat is None else flat.data_ptr(),
         tables.data_ptr(), lens.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), b, c, h, kh, dh, bs, mb, *attn_splits(mb),
+        out.data_ptr(), b, c, h, kh, dh, bs, mb, *attn_splits(mb, splits),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     return rc, out
 
 
 def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len, *,
-                    out_dtype=torch.float32):
+                    out_dtype=torch.float32, splits=None):
     """B3 wrapper: q [B, C, H, dh] (bfloat16 or float32, read as it is) ×
     pools [NB, bs, KH, dh] through tables [B, MB] → [B, C, H, dh] in
     `out_dtype` (float32, or bfloat16 rounded once from the f32 result as
-    `.to(torch.bfloat16)` rounds). Replaces
-    `kernels/paged_attention.py:_paged_attn_call` of the JAX package."""
+    `.to(torch.bfloat16)` rounds); `splits` is B3's S (`attn_splits`).
+    Replaces `kernels/paged_attention.py:_paged_attn_call` of the JAX
+    package."""
     if not q.is_cuda:
-        return paged_attn_plain(q, k_pool, v_pool, tables, lens,
-                                kv_len).to(out_dtype)
+        return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len,
+                                splits).to(out_dtype)
     rc, out = _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype,
-                      None)
+                      None, splits)
     paged_attn_call.launches += 1
     if rc != 0:
         raise RuntimeError(f"paged_attn_call kernel launch failed: CUDA "
@@ -331,16 +355,16 @@ def fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx):
 
 
 def decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v, flat_idx,
-                              tables, lens, kv_len):
+                              tables, lens, kv_len, splits=None):
     """Plain version of the fused decode launch: B4's write, then B3.
     Returns f32 [B, 1, H, dh]."""
     fused_write_plain(k_pool, v_pool, new_k, new_v, flat_idx)
-    return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len)
+    return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len, splits)
 
 
 def decode_write_attend_call(q, k_pool, v_pool, new_k, new_v, flat_idx,
                              tables, lens, kv_len, *,
-                             out_dtype=torch.float32):
+                             out_dtype=torch.float32, splits=None):
     """The decode step (C = 1) of one layer in one launch: B4 writes each
     slot's new row new_k / new_v [B, 1, KH, dh] (the pools' dtype) into
     pool row flat_idx [B] or [B, 1] IN PLACE (the TPU kernel aliased the
@@ -353,10 +377,10 @@ def decode_write_attend_call(q, k_pool, v_pool, new_k, new_v, flat_idx,
     `_paged_attn_call` of the JAX package."""
     if not q.is_cuda:
         return decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v,
-                                         flat_idx, tables, lens,
-                                         kv_len).to(out_dtype)
+                                         flat_idx, tables, lens, kv_len,
+                                         splits).to(out_dtype)
     rc, out = _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype,
-                      (new_k, new_v, flat_idx))
+                      (new_k, new_v, flat_idx), splits)
     decode_write_attend_call.launches += 1
     if rc != 0:
         raise RuntimeError(f"decode_write_attend_call kernel launch failed: "
@@ -365,29 +389,31 @@ def decode_write_attend_call(q, k_pool, v_pool, new_k, new_v, flat_idx,
 
 
 def _kernel_decode(q, k_pool, v_pool, new_k, new_v, flat_idx, tables, lens,
-                   kv_len):
+                   kv_len, splits=None):
     return decode_write_attend_call(q, k_pool, v_pool, new_k, new_v,
                                     flat_idx, tables, lens, kv_len,
-                                    out_dtype=q.dtype)
+                                    out_dtype=q.dtype, splits=splits)
 
 
 def _plain_decode(q, k_pool, v_pool, new_k, new_v, flat_idx, tables, lens,
-                  kv_len):
+                  kv_len, splits=None):
     return decode_write_attend_plain(q, k_pool, v_pool, new_k, new_v,
-                                     flat_idx, tables, lens,
-                                     kv_len).to(q.dtype)
+                                     flat_idx, tables, lens, kv_len,
+                                     splits).to(q.dtype)
 
 
 @register_attn_backend("kernel", decode_write_attend=_kernel_decode)
-def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
+def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len, lens,
+                      splits=None):
     return paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len,
-                           out_dtype=q.dtype)
+                           out_dtype=q.dtype, splits=splits)
 
 
 @register_attn_backend("plain", decode_write_attend=_plain_decode)
-def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len, lens):
-    return paged_attn_plain(q, k_pool, v_pool, tables, lens,
-                            kv_len).to(q.dtype)
+def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len, lens,
+                     splits=None):
+    return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len,
+                            splits).to(q.dtype)
 
 
 paged_attn_call.launches = 0
@@ -402,14 +428,17 @@ def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
     """Attend q [B, C, H, dh] over a paged KV pool through per-slot block
     tables; positions [B, C]; kv_len [B]; lens [B] the chunk base
     positions[:, 0], where the caller holds it (as int32 the kernel reads
-    it without a copy). Returns [B, C, H, dh]. Counts one call under the
-    backend's name (`KERNEL_COUNTERS.attn_dispatch`; the one-launch decode
-    of `models.common.paged_attention_apply` counts its own)."""
+    it without a copy). Returns [B, C, H, dh]. B3's S comes from the tuning
+    cache (`resolve_splits`) for the kernel and the plain backend alike.
+    Counts one call under the backend's name
+    (`KERNEL_COUNTERS.attn_dispatch`; the one-launch decode of
+    `models.common.paged_attention_apply` counts its own)."""
     spec = get_attn_backend(choose_attn_backend(backend))
     KERNEL_COUNTERS.count_attn(spec.name)
     if lens is None:
         lens = positions[:, 0]
-    return spec.fn(q, k_pool, v_pool, tables, positions, kv_len, lens)
+    splits = resolve_splits(tables, q.shape[1], k_pool.shape[1])
+    return spec.fn(q, k_pool, v_pool, tables, positions, kv_len, lens, splits)
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -64,6 +64,21 @@ reference's launcher does.
       [--events-out events.jsonl] \
       [--arrival poisson --arrival-rate 8 --arrival-seed 0]
 
+  # a kernel tuning cache (kernels.autotune): the launch knobs of B1/B2/
+  # B5/B6 and B3's split, and, without --block-size, a tuned pool block
+  # size that divides --max-len
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --cim bp-prequant --device cpu --tune-cache tune.json
+
+  # the mesh-sharded CIM engine (parallel.sharding): every rank builds the
+  # same weights from --seed, each CIM MVM runs per shard (K over "data",
+  # N over "model"), rank 0 prints; one process is a 1-rank mesh (on the
+  # card too), torchrun gives more (gloo on the CPU)
+  PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
+      --cim bp-prequant --mesh host
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --smoke --paged --cim bp-prequant --mesh host --device cpu
+
   # a static calibrated DAC grid (calibrated on a 2 x 16-token batch), or
   # a mixed-precision manifest's per-site grids and ADC levels
   PYTHONPATH=src python -m repro_torch.launch.serve --smoke --paged \
@@ -81,6 +96,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import numpy as np
@@ -90,6 +106,7 @@ from repro_torch.configs.registry import ARCHS, SMOKES
 from repro_torch.core.cim_matmul import CIMConfig
 from repro_torch.core.macro import SimLevel
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune
 from repro_torch.models import registry
 from repro_torch.models.quantize import quantize_params
 from repro_torch.runtime import obs
@@ -112,7 +129,16 @@ def main(argv=None):
                     help="paged-KV engine: block-pool cache + chunked "
                          "prefill through the unified step (decode is "
                          "C = 1); without it the slot engine serves")
-    ap.add_argument("--block-size", type=int, default=16)
+    ap.add_argument("--block-size", type=int, default=None,
+                    help="tokens per KV block (paged engine); default 16, "
+                         "or the tuned layout when --tune-cache has one "
+                         "for this window")
+    ap.add_argument("--tune-cache", default=None, metavar="PATH",
+                    help="kernel tuning cache (kernels.autotune), exported "
+                         "as $REPRO_TUNE_CACHE so the MVM and attention "
+                         "dispatchers take its launch knobs, and consulted "
+                         "for a tuned paged-pool block size when "
+                         "--block-size is not given")
     ap.add_argument("--num-blocks", type=int, default=None)
     ap.add_argument("--prefill-chunk", type=int, default=16)
     ap.add_argument("--token-budget", type=int, default=None)
@@ -192,6 +218,11 @@ def main(argv=None):
     ap.add_argument("--events-out", default=None, metavar="PATH",
                     help="write the raw structured event log + step "
                          "snapshots as JSONL")
+    ap.add_argument("--mesh", choices=("none", "host"), default="none",
+                    help="host = shard every CIM MVM over a data x model "
+                         "mesh of the world's ranks (launch.mesh: one "
+                         "process is a 1-rank mesh; torchrun starts more; "
+                         "nccl on the card, gloo on the CPU)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     ap.add_argument("--seed", type=int, default=0,
@@ -199,6 +230,49 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
+    if args.tune_cache:
+        os.environ[autotune.CACHE_ENV] = args.tune_cache
+    if args.block_size is None:
+        args.block_size = 16
+        if args.paged and args.tune_cache:
+            tuned = autotune.lookup("paged_attn",
+                                    autotune.attn_family(args.max_len, 1),
+                                    "kernel", autotune.platform_of(device))
+            if tuned and isinstance(tuned.get("block_size"), int) \
+                    and args.max_len % tuned["block_size"] == 0:
+                args.block_size = tuned["block_size"]
+                print(f"tuned paged-pool block_size={args.block_size} "
+                      f"(from {args.tune_cache})")
+    if args.mesh == "none":
+        return _serve(ap, args, device, lead=True)
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_smoke_mesh
+    from repro_torch.parallel import sharding
+    owned = not dist.is_initialized()
+    mesh, data, model = make_host_smoke_mesh(device=device)
+    if device.type == "cuda":       # this rank's card (LOCAL_RANK)
+        device = torch.device("cuda", torch.cuda.current_device())
+    sharding.set_mesh(mesh)
+    lead = dist.get_rank() == 0
+    if lead:
+        print(f"serving on host mesh data={data} model={model}")
+    try:
+        return _serve(ap, args, device, lead=lead)
+    finally:
+        sharding.set_mesh(None)
+        if owned:
+            dist.destroy_process_group()
+
+
+def _serve(ap, args, device, *, lead: bool):
+    """Build the model and the Server from the seed, serve the synthetic
+    requests and, on the lead rank, print the streams and the metrics
+    lines and write the telemetry files."""
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
     # float matmuls (--cim off) run in full f32, never TF32
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = (SMOKES if args.smoke else ARCHS)[args.arch]
@@ -228,10 +302,10 @@ def main(argv=None):
         cal = calibrate_act_scale(params, cal_tokens, cfg)
         act_scale = cal["scale"]
         act_zero_point = cal["zero_point"]
-        print(f"calibrated static act_scale={act_scale:.6f} "
-              f"zero_point={act_zero_point:.0f} "
-              f"(max span {cal['span']:.4f} over {len(cal['spans'])} "
-              f"matmul sites)")
+        say(f"calibrated static act_scale={act_scale:.6f} "
+            f"zero_point={act_zero_point:.0f} "
+            f"(max span {cal['span']:.4f} over {len(cal['spans'])} "
+            f"matmul sites)")
     serving = ServingConfig.from_flags(args, act_scale=act_scale,
                                        act_zero_point=act_zero_point)
     server = Server(params, cfg, serving, device=device)
@@ -253,8 +327,8 @@ def main(argv=None):
         gaps = arr_rng.exponential(1.0 / max(args.arrival_rate, 1e-9),
                                    size=len(reqs))
         due = np.cumsum(gaps)
-        print(f"arrival=poisson rate={args.arrival_rate}/s "
-              f"seed={args.arrival_seed} span={due[-1]:.2f}s")
+        say(f"arrival=poisson rate={args.arrival_rate}/s "
+            f"seed={args.arrival_seed} span={due[-1]:.2f}s")
     t0 = time.monotonic()
     if due is None:
         for r in reqs:
@@ -278,60 +352,62 @@ def main(argv=None):
     done = [s for r in reqs for s in (r, *r.samples)]
     total_new = sum(len(r.output) for r in done)
     for r in done:
-        print(f"req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
-    print(f"{args.requests} requests x{args.n_samples}, {total_new} tokens, "
-          f"{server.steps_run} steps, {dt:.2f}s "
-          f"({total_new / max(dt, 1e-9):.1f} tok/s) on {device}")
+        say(f"req{r.rid}: prompt_len={len(r.prompt)} -> {r.output}")
+    say(f"{args.requests} requests x{args.n_samples}, {total_new} tokens, "
+        f"{server.steps_run} steps, {dt:.2f}s "
+        f"({total_new / max(dt, 1e-9):.1f} tok/s) on {device}")
     m = server.metrics.summary()
     kv = server.kv_cache_bytes()
-    print(f"engine={'paged' if args.paged else 'slots'} "
-          f"attn={args.attn if args.paged else '-'} cim={args.cim} "
-          f"decode={m['decode_tok_s']:.1f} tok/s "
-          f"prefill={m['prefill_tok_s']:.1f} tok/s "
-          f"kv_bytes total={kv['total']} in_use={kv['in_use']}")
+    say(f"engine={'paged' if args.paged else 'slots'} "
+        f"attn={args.attn if args.paged else '-'} cim={args.cim} "
+        f"decode={m['decode_tok_s']:.1f} tok/s "
+        f"prefill={m['prefill_tok_s']:.1f} tok/s "
+        f"kv_bytes total={kv['total']} in_use={kv['in_use']}")
     ttft = [r.ttft_s for r in done]
     lat = [r.latency_s for r in done]
-    print(f"ttft p50={np.median(ttft) * 1e3:.1f}ms "
-          f"max={max(ttft) * 1e3:.1f}ms | latency "
-          f"p50={np.median(lat) * 1e3:.1f}ms max={max(lat) * 1e3:.1f}ms")
+    say(f"ttft p50={np.median(ttft) * 1e3:.1f}ms "
+        f"max={max(ttft) * 1e3:.1f}ms | latency "
+        f"p50={np.median(lat) * 1e3:.1f}ms max={max(lat) * 1e3:.1f}ms")
     if args.paged:
         st = server.alloc.stats
-        print(f"blocks: pool={st.num_blocks} peak={st.peak_in_use} "
-              f"shared={st.shared} allocs={st.total_allocs} "
-              f"frees={st.total_frees}")
-        print(f"sharing: prefix_hit_tokens={m['prefix_hit_tokens']} "
-              f"cow_forks={m['cow_forks']} preemptions={m['preemptions']} "
-              f"peak_active={m['peak_active']} "
-              f"trie_sweep_freed={m['trie_sweep_freed']}")
+        say(f"blocks: pool={st.num_blocks} peak={st.peak_in_use} "
+            f"shared={st.shared} allocs={st.total_allocs} "
+            f"frees={st.total_frees}")
+        say(f"sharing: prefix_hit_tokens={m['prefix_hit_tokens']} "
+            f"cow_forks={m['cow_forks']} preemptions={m['preemptions']} "
+            f"peak_active={m['peak_active']} "
+            f"trie_sweep_freed={m['trie_sweep_freed']}")
         if args.drafter != "off":
             hist = ",".join(f"{a}:{n}" for a, n in m["accept_hist"].items())
-            print(f"speculative: drafter={args.drafter} "
-                  f"spec_k={server.serving.spec_k} "
-                  f"verify_steps={m['spec_steps']} "
-                  f"accept_rate={m['accept_rate']:.2f} "
-                  f"mean_accept_len={m['mean_accept_len']:.2f} "
-                  f"accept_hist=[{hist}]")
+            say(f"speculative: drafter={args.drafter} "
+                f"spec_k={server.serving.spec_k} "
+                f"verify_steps={m['spec_steps']} "
+                f"accept_rate={m['accept_rate']:.2f} "
+                f"mean_accept_len={m['mean_accept_len']:.2f} "
+                f"accept_hist=[{hist}]")
 
     tel = server.telemetry
     if tel.enabled and tel.ttft.n:
-        print(f"slo: ttft p50={tel.ttft.percentile(50) * 1e3:.1f}ms "
-              f"p99={tel.ttft.percentile(99) * 1e3:.1f}ms | "
-              f"itl p50={tel.itl.percentile(50) * 1e3:.1f}ms "
-              f"p99={tel.itl.percentile(99) * 1e3:.1f}ms | "
-              f"step_wall p50={tel.step_wall.percentile(50) * 1e3:.1f}ms")
+        say(f"slo: ttft p50={tel.ttft.percentile(50) * 1e3:.1f}ms "
+            f"p99={tel.ttft.percentile(99) * 1e3:.1f}ms | "
+            f"itl p50={tel.itl.percentile(50) * 1e3:.1f}ms "
+            f"p99={tel.itl.percentile(99) * 1e3:.1f}ms | "
+            f"step_wall p50={tel.step_wall.percentile(50) * 1e3:.1f}ms")
+    if not lead:
+        return
     if args.trace_out:
         doc = obs.chrome_trace(tel)
         with open(args.trace_out, "w") as f:
             json.dump(doc, f)
-        print(f"wrote {args.trace_out} ({len(doc['traceEvents'])} trace "
-              "events) — load at https://ui.perfetto.dev")
+        say(f"wrote {args.trace_out} ({len(doc['traceEvents'])} trace "
+            "events) — load at https://ui.perfetto.dev")
     if args.metrics_out:
         with open(args.metrics_out, "w") as f:
             f.write(obs.prometheus_text(tel, server))
-        print(f"wrote {args.metrics_out}")
+        say(f"wrote {args.metrics_out}")
     if args.events_out:
         n = obs.write_events_jsonl(tel, args.events_out)
-        print(f"wrote {args.events_out} ({n} lines)")
+        say(f"wrote {args.events_out} ({n} lines)")
 
 if __name__ == "__main__":
     main()

@@ -21,6 +21,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import quant
 from repro_torch.core.cim_matmul import (cim_matmul, cim_matmul_prequant,
                                          cim_matmul_ste)
+from repro_torch.parallel import sharding
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 Params = dict
@@ -126,6 +127,47 @@ def dense(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         y = y.to(dtype_of(cfg))
     else:
         y = x @ p[w]
+    if b is not None and b in p:
+        y = y + p[b]
+    return y
+
+
+def _rs_applicable(cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """dense_rs applies with cfg.tp_reduce_scatter, CIM off and an active
+    mesh with a "model" axis that divides x [B, T, in]'s T and in, and
+    batch axes that divide B."""
+    mesh = sharding.get_mesh()
+    if not (cfg.tp_reduce_scatter and not cfg.cim.enabled
+            and mesh is not None):
+        return False
+    axes = sharding.mesh_axes(mesh)
+    if not ("model" in axes and x.ndim == 3
+            and x.shape[1] % axes["model"] == 0
+            and x.shape[2] % axes["model"] == 0):
+        return False
+    bsize = math.prod(axes[a] for a in sharding.resolve("batch") or ())
+    return x.shape[0] % bsize == 0
+
+
+def dense_rs(p: Params, x: torch.Tensor, cfg: ModelConfig, *, w: str,
+             b: str | None = None) -> torch.Tensor:
+    """TP output projection with an explicit reduce-scatter epilogue (the
+    Megatron-SP schedule; the reference's `shard_map` with `psum_scatter`).
+
+    x [B, T, in] is whole on every rank (`parallel.sharding`): each rank
+    takes its batch shard and its "model" slice of `in` and of the
+    weight's rows, forms the partial product [B_l, T, out], and the
+    partials are reduce-scattered over "model" along T ([B_l, T / model,
+    out], the layout the next norm would run in); the whole [B, T, out] is
+    then gathered back. The weight is whole on every rank, so the
+    reference's FSDP all-gather of it has nothing to gather."""
+    batch_axes = sharding.resolve("batch") or ()
+    part = batch_axes + ("model",)
+    x_l = sharding.shard(x, [(0, batch_axes), (-1, ("model",))], part)
+    w_l = sharding.shard(p[w], [(0, ("model",))], part)
+    y = sharding.reduce_scatter(torch.einsum("btk,km->btm", x_l, w_l), 1,
+                                "model")
+    y = sharding.gather(sharding.gather(y, 1, ("model",)), 0, batch_axes)
     if b is not None and b in p:
         y = y + p[b]
     return y
@@ -239,6 +281,8 @@ def mlp_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         h = F.silu(gate) * up
     else:
         h = gelu(up)
+    if _rs_applicable(cfg, h):
+        return dense_rs(p, h, cfg, w="w_down")
     return dense(p, h, cfg, train=train, w="w_down", b=None)
 
 
@@ -494,8 +538,11 @@ def attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
                               triangular_max=cfg.attn_triangular_max)
         if cache is not None:      # prefill: hand back the K/V
             new_cache = {"k": k, "v": v}
-    y = dense(p, o.reshape(b, t, cfg.n_heads * dh), cfg, train=train,
-              w="wo", b="bo")
+    o = o.reshape(b, t, cfg.n_heads * dh)
+    if _rs_applicable(cfg, o):
+        y = dense_rs(p, o, cfg, w="wo", b="bo")
+    else:
+        y = dense(p, o, cfg, train=train, w="wo", b="bo")
     return y, new_cache
 
 
@@ -596,7 +643,8 @@ def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     """
     from repro_torch.kernels.paged_attention import (choose_attn_backend,
                                                      get_attn_backend,
-                                                     paged_attention)
+                                                     paged_attention,
+                                                     resolve_splits)
     b, c, _ = x.shape
     dh = cfg.head_dim
     q = dense(p, x, cfg, w="wq", b="bq").reshape(b, c, cfg.n_heads, dh)
@@ -609,9 +657,10 @@ def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
     if c == 1 and spec.decode_write_attend is not None:
         # this route bypasses `paged_attention`, which counts the others
         KERNEL_COUNTERS.count_attn(spec.name)
+        splits = resolve_splits(index.tables, 1, cache["k"].shape[1])
         o = spec.decode_write_attend(q, cache["k"], cache["v"], k1, v1,
                                      index.flat, index.tables, index.lens,
-                                     index.kv_len)
+                                     index.kv_len, splits)
     else:
         paged_write(cache["k"], k1, index.flat_idx)
         paged_write(cache["v"], v1, index.flat_idx)

@@ -1,6 +1,7 @@
 """Gradient compression with error feedback: the int8 part of the
-reference's `parallel/collectives.py` (the expert-parallel all-to-all and
-`compressed_psum` wait for ROADMAP A11).
+reference's `parallel/collectives.py`, and `compressed_psum` on a
+torch.distributed process group (the expert-parallel all-to-all waits for
+its only users, the MoE expert-parallel paths, ROADMAP A11b).
 
 Each tensor is quantized to int8 with a per-tensor symmetric scale; the
 residue the codes cannot represent is carried into the next step's
@@ -12,6 +13,9 @@ format.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.adc import fma_f32
 
 
 def quantize_int8(x: torch.Tensor):
@@ -36,3 +40,26 @@ def compress_decompress(x: torch.Tensor, err: torch.Tensor):
     q, scale = quantize_int8(xf)
     y = dequantize_int8(q, scale)
     return y.to(x.dtype), xf - y
+
+
+def compressed_psum(x: torch.Tensor, group, err: torch.Tensor):
+    """Mean of x over the ranks of `group` through an int8 wire, with error
+    feedback: (the mean-reduced f32 result, the new residue).
+
+    The ranks first agree on one scale (a MAX all-reduce of max|x + err|,
+    then / 127, at least 1e-12), so the int32 sum of the int8 codes is
+    exact; the only loss is each rank's quantization, which the residue
+    carries into the next call. The result is total · scale / n; the
+    residue xf − q · scale is rounded once, as the fused multiply-add XLA
+    makes of it in the reference's shard_map body."""
+    xf = x.float() + err
+    amax = torch.max(torch.abs(xf))
+    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    scale = torch.clamp(amax / torch.full((), 127.0, device=xf.device),
+                        min=1e-12)
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    new_err = fma_f32(-q.float(), scale, xf)
+    total = q.to(torch.int32)
+    dist.all_reduce(total, group=group)
+    n = float(dist.get_world_size(group))
+    return total.float() * scale / n, new_err

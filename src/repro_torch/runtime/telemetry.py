@@ -259,6 +259,10 @@ class KernelCounters:
     def tune_lookup(self, kernel: str, hit: bool) -> None:
         self.tune_cache[f"{kernel}:{'hit' if hit else 'miss'}"] += 1
 
+    def tune_clamp(self, kernel: str) -> None:
+        """A tuned launch knob the geometry could not take, clamped."""
+        self.tune_cache[f"{kernel}:clamp"] += 1
+
     def count_fallback(self) -> None:
         self.fallback_warnings += 1
 

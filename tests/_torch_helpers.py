@@ -262,3 +262,38 @@ def check_resume(tmp_path, arch: str, opt: str, seq: int, batch: int, *,
         assert abs(a["loss"] - b["loss"]) <= tol * abs(b["loss"])
     assert int(out["state"]["opt"]["step"]) == 5
     return out["state"]
+
+
+def spawn_ranks(case: str, world: int, where, timeout: float = 300):
+    """Run `case` of tests/_torch_mesh_worker.py in `world` processes, one
+    gloo rank each (a FileStore in the directory `where`, one intra-op
+    thread each), and return each rank's outputs: a list of {name: numpy
+    array}. Fails with the ranks' output if one fails or the spawn
+    outlasts `timeout` seconds."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(here)
+    env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=os.pathsep.join(
+        [os.path.join(repo, "src"), repo]))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(here, "_torch_mesh_worker.py"), case,
+         str(r), str(world), str(where)], env=env, cwd=repo,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    bad = [(r, p.returncode) for r, p in enumerate(procs) if p.returncode]
+    assert not bad, (bad, "\n".join(x[-3000:] for x in logs))
+    out = []
+    for r in range(world):
+        with np.load(os.path.join(str(where), f"{case}_{r}.npz")) as z:
+            out.append({k: z[k] for k in z.files})
+    return out

@@ -53,8 +53,13 @@ paper's figures: B2 at their shapes (the classifier's x [1024, 64] x
 quickstart's [8, 288] x [288, 16]) at each of Fig. 10's ADC ladders (32
 ... 1024) equals its plain version, and Fig. 10 through figures.run on the
 card launches B2 14 times, each rung's logits equal with the kernel and
-with its plain version. Inputs come from numpy seeds. This file needs no
-JAX.
+with its plain version. The tuning cache's launch knobs: every cluster
+size and column-warp count bit-exact against the default launch and the
+plain version for B1, B2, B5, B6 and their expert-batched entries (a
+knob the launcher cannot take clamped and counted), B3 and the decode
+launch at every split S from 1 to 8 against their plain versions at that
+S; a 1-rank nccl mesh's sharded MVMs bit-identical to no mesh. Inputs
+come from numpy seeds. This file needs no JAX.
 """
 import importlib
 
@@ -1424,3 +1429,148 @@ def test_figures_fig10_on_the_card(capsys):
             h = torch.relu(cim_matmul(task.x_test, params["w1"], cfg))
             outs.append(cim_matmul(h, params["w2"], cfg))
         assert torch.equal(outs[0], outs[1]), levels
+
+
+# ---------------------------------------------------------------------------
+# the tuning cache's launch knobs (kernels.autotune) and the 1-rank mesh
+# ---------------------------------------------------------------------------
+KNOB_SHAPES = [(1, 1, 1), (4, 2048, 2048), (64, 1441, 160), (4, 9000, 48)]
+KNOBS = [(c, w) for c in (1, 2, 3, 4, 8) for w in (1, 2, 4, 8)]
+
+
+def _mvm_calls(x, w, dev):
+    """(name, kernel call(**knobs), plain value) of B1, B2, B5, B6 and
+    their expert-batched entries on x [M, K] and w [K, N] codes (the
+    experts: x and w stacked with their reverses)."""
+    wp = ops.pack_codes(w).contiguous()
+    xe = torch.stack([x, x.flip(0)]).contiguous()
+    we = torch.stack([w, w.flip(0)]).contiguous()
+    wpe = ops.pack_codes(we).contiguous()
+    seed = torch.tensor([5], dtype=torch.int32, device=dev)
+    cm = cim_mvm
+    return [
+        ("B2", lambda **k: cm.cim_mvm_grouped(x, w, **KW, **k),
+         cm.cim_mvm_grouped_plain(x, w, **KW)),
+        ("B1", lambda **k: cm.cim_mvm_grouped_packed(x, wp, **KW, **k),
+         cm.cim_mvm_grouped_packed_plain(x, wp, **KW)),
+        ("B5", lambda **k: cm.cim_mvm_grouped_noisy(x, w, seed, **NOISY, **k),
+         cm.cim_mvm_grouped_noisy_plain(x, w, seed, **NOISY)),
+        ("B6", lambda **k: cm.cim_mvm_grouped_noisy_packed(x, wp, seed,
+                                                           **NOISY, **k),
+         cm.cim_mvm_grouped_noisy_packed_plain(x, wp, seed, **NOISY)),
+        ("B2e", lambda **k: cm.cim_mvm_grouped_experts(xe, we, **KW, **k),
+         cm.cim_mvm_grouped_experts_plain(xe, we, **KW)),
+        ("B1e", lambda **k: cm.cim_mvm_grouped_packed_experts(xe, wpe, **KW,
+                                                              **k),
+         cm.cim_mvm_grouped_packed_experts_plain(xe, wpe, **KW)),
+        ("B5e", lambda **k: cm.cim_mvm_grouped_noisy_experts(
+            xe, we, seed, **NOISY, **k),
+         cm.cim_mvm_grouped_noisy_experts_plain(xe, we, seed, **NOISY)),
+        ("B6e", lambda **k: cm.cim_mvm_grouped_noisy_packed_experts(
+            xe, wpe, seed, **NOISY, **k),
+         cm.cim_mvm_grouped_noisy_packed_experts_plain(xe, wpe, seed,
+                                                       **NOISY)),
+    ]
+
+
+@pytest.mark.parametrize("m,k,n", KNOB_SHAPES)
+def test_mvm_knobs_bit_exact_vs_default_and_plain(m, k, n):
+    """Every cluster size and column-warp count the tuning cache may ask
+    for gives each MVM kernel (and its expert-batched entry) the default
+    launch's bits, which are its plain version's."""
+    dev = gpu_device()
+    x = _codes(m + 1, (m, k)).to(dev)
+    w = _codes(n + 2, (k, n)).to(dev)
+    for name, call, plain in _mvm_calls(x, w, dev):
+        default = call()
+        assert torch.equal(default, plain), name
+        for cluster, wcols in KNOBS:
+            assert torch.equal(call(cluster=cluster, wcols=wcols),
+                               default), (name, cluster, wcols)
+
+
+def test_mvm_knob_the_launcher_cannot_take_is_clamped_and_counted():
+    """A packed geometry whose codes do not fit in shared memory (57
+    groups on one rank with 8 column warps) falls back to the launcher's
+    choice: the same bits, one clamp counted, no error."""
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+    dev = gpu_device()
+    x = _codes(1, (64, 8192)).to(dev)
+    wp = ops.pack_codes(_codes(2, (8192, 256)).to(dev)).contiguous()
+    default = cim_mvm.cim_mvm_grouped_packed(x, wp, **KW)
+    KERNEL_COUNTERS.reset()
+    out = cim_mvm.cim_mvm_grouped_packed(x, wp, **KW, cluster=1, wcols=8)
+    assert torch.equal(out, default)
+    assert KERNEL_COUNTERS.tune_cache["cim_mvm:clamp"] == 1
+    KERNEL_COUNTERS.reset()
+
+
+@pytest.mark.parametrize("c", [1, 5, 16])
+@pytest.mark.parametrize("splits", range(1, 9))
+def test_b3_every_split_bit_exact_vs_plain_at_that_split(splits, c):
+    """B3 at every S the tuning cache may set (1 .. min(8, MB)) equals its
+    plain version at the same S, and the decode launch (B4 folded in)
+    equals B4 then B3 plain at that S."""
+    dev = gpu_device()
+    case = _attn_case(11, c, torch.float32, dev, mb=16)
+    assert torch.equal(pa.paged_attn_call(*case, splits=splits),
+                       pa.paged_attn_plain(*case, splits))
+    if c != 1:
+        return
+    q, kp, vp, tables, lens, kvl = case
+    rng = np.random.RandomState(12)
+    new = [torch.from_numpy(rng.standard_normal(
+        (q.shape[0], 1, kp.shape[2], kp.shape[3])).astype(np.float32))
+        .to(dev) for _ in range(2)]
+    flat = (tables[:, 0].long() * kp.shape[1] + 1).to(torch.int32)
+    flat[0] = 0
+    pools = [(kp.clone(), vp.clone()) for _ in range(2)]
+    out = pa.decode_write_attend_call(q, *pools[0], *new, flat, tables,
+                                      lens, kvl, splits=splits)
+    ref = pa.decode_write_attend_plain(q, *pools[1], *new, flat, tables,
+                                       lens, kvl, splits)
+    assert torch.equal(out, ref)
+    assert all(_same_bits(a, b) for a, b in zip(pools[0], pools[1]))
+
+
+def test_one_rank_nccl_mesh_mvm_identical_to_no_mesh():
+    """A 1-rank nccl mesh: cim_matmul and cim_matmul_prequant (dense and
+    packed codes) at IDEAL and NOISY give no mesh's bits (salt 0)."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.core.cim_matmul import (CIMConfig, cim_matmul,
+                                             cim_matmul_prequant,
+                                             quantize_weight_offline)
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    dev = gpu_device()
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(1, 1)
+    try:
+        rng = np.random.RandomState(9)
+        for m in (4, 64):
+            x = torch.from_numpy(rng.standard_normal((m, 2048))
+                                 .astype(np.float32)).to(dev)
+            w = torch.from_numpy((rng.standard_normal((2048, 1024)) * 0.02)
+                                 .astype(np.float32)).to(dev)
+            for level in (SimLevel.IDEAL, SimLevel.NOISY):
+                cfg = CIMConfig(enabled=True, noise_seed=0,
+                                macro=dataclasses.replace(
+                                    CIMConfig().macro, sim_level=level))
+                codes, s_w = quantize_weight_offline(w, cfg)
+                calls = (lambda: cim_matmul(x, w, cfg),
+                         lambda: cim_matmul_prequant(x, codes, s_w, cfg),
+                         lambda: cim_matmul_prequant(
+                             x, ops.pack_codes(codes), s_w, cfg))
+                for call in calls:
+                    sharding.set_mesh(None)
+                    plain = call()
+                    sharding.set_mesh(mesh)
+                    assert torch.equal(call(), plain), (m, level)
+    finally:
+        sharding.set_mesh(None)
+        if owned:
+            dist.destroy_process_group()

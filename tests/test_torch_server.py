@@ -264,8 +264,9 @@ def test_port_imports_no_jax_and_no_reference():
     prequant prefill and decode step over frames, the KWS GRU's forward
     on the macro, two --cim bp training steps through launch.train
     (microbatches, int8 gradient compression, checkpoints), the Fig. 18
-    rows through figures.run and the quickstart example leave no JAX and
-    no reference module (`repro`, or its figure modules under
+    rows through figures.run, the quickstart example, a tuned serve on a
+    1-rank host mesh, a pipeline and compressed_psum leave no JAX and no
+    reference module (`repro`, or its figure modules under
     `benchmarks`) in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -338,6 +339,27 @@ def test_port_imports_no_jax_and_no_reference():
         "figures_run.main(['--only', 'fig18', '--device', 'cpu'])\n"
         "from repro_torch.examples import quickstart\n"
         "quickstart.main(['--device', 'cpu'])\n"
+        "import os\n"
+        "from repro_torch.kernels import autotune\n"
+        "from repro_torch.launch import serve\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    tc = os.path.join(d, 'tc.json')\n"
+        "    autotune.save_cache(tc, {autotune.cache_key('paged_attn',\n"
+        "        'decode_w64', 'kernel'): {'splits': 2, 'block_size': 16}})\n"
+        "    serve.main(['--smoke', '--paged', '--requests', '1',\n"
+        "                '--max-new', '2', '--max-len', '64',\n"
+        "                '--cim', 'bp-prequant', '--device', 'cpu',\n"
+        "                '--tune-cache', tc, '--mesh', 'host'])\n"
+        "import torch.distributed as dist\n"
+        "from repro_torch.launch.mesh import make_mesh\n"
+        "from repro_torch.parallel.collectives import compressed_psum\n"
+        "from repro_torch.parallel.pipeline import pipeline_apply\n"
+        "mesh = make_mesh((1,), ('stage',), device='cpu')\n"
+        "x = torch.ones(2, 1, 4)\n"
+        "assert torch.equal(pipeline_apply(lambda p, h: h * p, torch.ones(1),\n"
+        "                                  x, mesh=mesh), x)\n"
+        "y, e = compressed_psum(x, mesh.get_group('stage'), torch.zeros_like(x))\n"
+        "dist.destroy_process_group()\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
@@ -351,6 +373,10 @@ def test_port_imports_no_jax_and_no_reference():
         "          'repro_torch.optim.optimizers', 'repro_torch.optim.schedule',\n"
         "          'repro_torch.data.tokens', 'repro_torch.parallel.collectives',\n"
         "          'repro_torch.checkpoint.ckpt', 'repro_torch.runtime.trainer',\n"
+        "          'repro_torch.kernels.autotune',\n"
+        "          'repro_torch.parallel.sharding',\n"
+        "          'repro_torch.parallel.pipeline', 'repro_torch.launch.mesh',\n"
+        "          'repro_torch.launch.serve',\n"
         "          'repro_torch.launch.train',\n"
         "          'repro_torch.examples.train_cim_qat',\n"
         "          'repro_torch.examples.quickstart',\n"
@@ -408,6 +434,51 @@ def test_serving_config_unported_options_raise(field, value, item):
     cfg, params = _smoke_params()
     with pytest.raises(AssertionError, match="cim.enabled"):
         tserver.Server(params, cfg, sc, device="cpu")
+
+
+def test_serve_launcher_mesh_host_serves_the_same_streams(capsys):
+    """`--mesh host` in one process is a 1-rank mesh (gloo on the CPU):
+    it says so and serves the same greedy streams as no mesh, every CIM
+    MVM through the sharded dispatch."""
+    from repro_torch.launch import serve
+    argv = ["--smoke", "--paged", "--requests", "3", "--max-new", "4",
+            "--cim", "bp-prequant", "--device", "cpu"]
+    streams = []
+    for extra in ([], ["--mesh", "host"]):
+        serve.main(argv + extra)
+        out = capsys.readouterr().out
+        streams.append([ln for ln in out.splitlines()
+                        if ln.startswith("req")])
+    assert "serving on host mesh data=1 model=1" in out
+    assert len(streams[0]) == 3 and streams[0] == streams[1]
+    import torch.distributed as dist
+    assert not dist.is_initialized()          # the launcher's group is gone
+
+
+def test_serve_launcher_tune_cache(capsys, tmp_path, monkeypatch):
+    """`--tune-cache` exports the cache and, with --paged and no
+    --block-size, takes a tuned block size that divides --max-len,
+    printing the reference's line; one that does not divide is
+    ignored."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+    # serve.main exports the variable: setenv records it as unset, so the
+    # test's end removes it again (delenv records nothing to restore)
+    monkeypatch.setenv(autotune.CACHE_ENV, "")
+    argv = ["--smoke", "--paged", "--requests", "2", "--max-new", "3",
+            "--max-len", "64", "--cim", "bp-prequant", "--device", "cpu"]
+    path = str(tmp_path / "tc.json")
+    autotune.save_cache(path, {autotune.cache_key(
+        "paged_attn", "decode_w64", "kernel"): {"block_size": 32}})
+    serve.main(argv + ["--tune-cache", path])
+    out = capsys.readouterr().out
+    assert f"tuned paged-pool block_size=32 (from {path})" in out
+    assert len([ln for ln in out.splitlines() if ln.startswith("req")]) == 2
+    assert os.environ[autotune.CACHE_ENV] == path
+    autotune.save_cache(path, {autotune.cache_key(
+        "paged_attn", "decode_w64", "kernel"): {"block_size": 48}})
+    serve.main(argv + ["--tune-cache", path])      # 64 % 48 != 0: ignored
+    assert "tuned paged-pool" not in capsys.readouterr().out
 
 
 def test_serve_launcher_on_cpu(capsys):
