@@ -144,7 +144,17 @@ of which fails the run when it fails:
      decode launch must launch), the decode step on the card (CUDA graph)
      vs eager, then twice at SimLevel.NOISY, noise_seed 0 (B6, B6e, B3 and
      the decode launch must launch; the kernel-vs-plain steps; the two
-     same-seed serves must give identical streams); (e) stablelm-3b
+     same-seed serves must give identical streams); then phase "ep"
+     (`phase_ep`, while the model is loaded): B1e / B6e / B2e / B5e on
+     every rank's expert slice of ep 2, 4 and 8 (a leading-dim narrow of
+     the 64 experts, launched as it is) bit-exact against the whole
+     launch and the plain version, rank 0's timed; B3 on every rank's
+     KV-head slice (KH 8 and 16, bs 16 and 64, C 1 and 16; the pools read
+     in place) bit-exact against the whole launch and the plain version,
+     timed beside the whole launch; the a2a exchange through nccl's
+     all_to_all_single on the 1-rank group; phase 3m's serves on the
+     1-rank nccl mesh, psum-EP at IDEAL and a2a-EP at NOISY, whose
+     streams and launch counts must equal (d)'s; (e) stablelm-3b
      (head dim 80 through B3's GEN instances, LayerNorm, qkv bias,
      partial rotary), llama3-8b (GQA 32 / 8, vocab 128256), granite-3-8b
      (the tied head: embed.T through B2) and internvl2-26b's decoder (48
@@ -286,6 +296,7 @@ of which fails the run when it fails:
   6. a `kernels` JSON line (launches: B1, B3 and the decode launch from
      phase 3t's first drain, B2 from phase 4, B5 and B6 from phase 4b,
      B1e from phase 3m's IDEAL serve and B6e from its first NOISY serve,
+     each plus phase "ep"'s serve on the 1-rank mesh,
      B2e from phase 3d's --cim bp serve and B5e from its first --cim
      bp-noisy serve; B2's launches in a train step are on phase 3x's
      lines, B2e's and B2's in a MoE train step on phase 3y's; phase 3f's
@@ -1515,6 +1526,225 @@ def phase_tune_mesh(torch, np, dev, card: str, ctx) -> None:
           "phase mesh: the 1-rank mesh serve differs from no mesh")
     dist.destroy_process_group()
     log(f"phase mesh: {time.monotonic() - t_mesh:.1f} s in all")
+
+
+# phase "ep": the per-rank launches of an ep-rank "model" axis
+EP_RANKS = (2, 4, 8)
+# B3 on a KV-head slice: (KH, G) of internlm2-1.8b and qwen2-moe-a2.7b
+EP_HEADS = ((8, 2), (16, 1))
+
+
+def phase_ep(torch, np, dev, card: str, ctx) -> dict:
+    """Phase "ep" on phase 3m's full-width qwen2-moe-a2.7b (`ctx`: its
+    server, serving config, prompts, the NOISY CIMConfig, the MVM keyword
+    sets kw / noisy_kw, the seed tensors, the `codes` maker, main's
+    serve_mix and phase 3m's no-mesh IDEAL and NOISY serves (counts,
+    streams)): (a) B1e / B6e / B2e / B5e on each rank's expert slice for
+    ep 2, 4, 8, against the whole launch and the plain version, timed;
+    (b) B3 on each rank's KV-head slice (read in place), against the whole
+    launch and the plain version, timed beside the whole launch; (c) the
+    a2a exchange through nccl on the 1-rank group; (d) phase 3m's serves
+    on the 1-rank nccl mesh, psum-EP at IDEAL and a2a-EP at NOISY: streams
+    and launch counts equal to no mesh's. Returns the serves' B1e / B6e
+    launches. A script under build/ can call it after phase 3m's
+    serves."""
+    import torch.distributed as dist
+
+    from repro_torch.kernels import cim_mvm as cm
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_host_smoke_mesh
+    from repro_torch.parallel import collectives, sharding
+    from repro_torch.runtime.server import Server
+
+    t_ep = time.monotonic()
+    e_pad = MOE_EXPERTS
+    # (a) the expert slices: rank r of ep takes experts [r·E/ep, (r+1)·E/ep)
+    specs = (("B1e", cm.cim_mvm_grouped_packed_experts,
+              cm.cim_mvm_grouped_packed_experts_plain, True, False),
+             ("B6e", cm.cim_mvm_grouped_noisy_packed_experts,
+              cm.cim_mvm_grouped_noisy_packed_experts_plain, True, True),
+             ("B2e", cm.cim_mvm_grouped_experts,
+              cm.cim_mvm_grouped_experts_plain, False, False),
+             ("B5e", cm.cim_mvm_grouped_noisy_experts,
+              cm.cim_mvm_grouped_noisy_experts_plain, False, True))
+    slices = {}
+    for kid, kern, plain, packed, noisy in specs:
+        t_kid = time.monotonic()
+        fkw = ctx.noisy_kw if noisy else ctx.kw
+        extra = (ctx.seeds[7],) if noisy else ()
+        per = {ep: {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
+                    "hash_ops": 0.0} for ep in EP_RANKS}
+        for label, k, n, count in MOE_MVMS:
+            x = ctx.codes((e_pad, MOE_CAPACITY, k))
+            w = ctx.codes((e_pad, k, n))
+            if packed:
+                w = ops.pack_codes(w).contiguous()
+            whole = kern(x, w, *extra, **fkw)
+            for ep in EP_RANKS:
+                el = e_pad // ep
+                for r in range(ep):
+                    xs, ws = x.narrow(0, r * el, el), w.narrow(0, r * el, el)
+                    y = kern(xs, ws, *extra, **fkw)
+                    check(torch.equal(y, whole[r * el:(r + 1) * el])
+                          and torch.equal(y, plain(xs, ws, *extra, **fkw)),
+                          f"phase ep: {kid} {label} rank {r} of {ep} "
+                          "differs from the whole launch or its plain "
+                          "version")
+                xs, ws = x[:el].contiguous(), w[:el].contiguous()
+                args = [(xs, wi) for wi in copies(ws)]
+                t_k = graph_ms(torch, lambda a, b: kern(a, b, *extra, **fkw),
+                               args)
+                t_p = graph_ms(torch, lambda a, b: plain(a, b, *extra,
+                                                         **fkw),
+                               args[:2], reps=3, min_iters=2)
+                rows = el * MOE_CAPACITY
+                d = per[ep]
+                d["ms"] += count * t_k
+                d["plain_ms"] += count * t_p
+                d["bytes"] += count * (ws.numel() * ws.element_size()
+                                       + rows * k * 4 + rows * n * 4)
+                d["ops"] += count * 2 * rows * k * n
+                if noisy:
+                    d["hash_ops"] += count * rows * n * (
+                        -(-k // fkw["n_rows"]) * HASH_OPS_PER_CONVERSION
+                        + HASH_OPS_PER_OUTPUT)
+                del args, xs, ws
+            del x, w, whole
+            torch.cuda.empty_cache()
+        for ep, d in per.items():
+            b_bytes = d["bytes"] / HBM_BYTES_S * 1e3
+            b_ops = max(d["ops"] / INT_OP_S, d["hash_ops"] / INT32_OP_S) * 1e3
+            d["bound_ms"] = max(b_bytes, b_ops)
+            d["bound_by"] = "bytes" if b_bytes >= b_ops else "operations"
+        slices[kid] = per
+        log(f"phase ep ({card}): {kid} on every rank's expert slice of ep "
+            f"{EP_RANKS} (qwen2-moe-a2.7b, {e_pad} padded experts, C "
+            f"{MOE_CAPACITY}, K 2048 <-> 1408): bit-exact vs the whole "
+            f"launch and its plain version; one layer's 3 expert MVMs on "
+            f"rank 0: " + "; ".join(
+                f"ep {ep} ({e_pad // ep} experts): kernel {d['ms']:.4f} ms, "
+                f"plain {d['plain_ms']:.3f} ms, bound {d['bound_ms']:.4f} "
+                f"ms ({d['bound_by']})" for ep, d in per.items())
+            + f"; {time.monotonic() - t_kid:.1f} s")
+
+    # (b) B3 on a KV-head slice of the pools, read in place (strided)
+    t_b3 = time.monotonic()
+    rng = np.random.RandomState(41)
+    b3_times = {}
+    for kh, g in EP_HEADS:
+        for bs in (16, 64):
+            mb = 256 // bs
+            nb = 4 * mb + 1
+            pools = [torch.from_numpy(rng.standard_normal(
+                (nb, bs, kh, 128)).astype(np.float32)).to(dev).bfloat16()
+                for _ in range(2)]
+            for p_ in pools:
+                p_[0] = float("nan")
+            tables = torch.from_numpy(rng.permutation(np.arange(1, nb))
+                                      .astype(np.int32).reshape(4, mb)).to(dev)
+            lens = torch.tensor([0, 37, 130, 224], dtype=torch.int32,
+                                device=dev)
+            for c in (1, 16):
+                kvl = lens + torch.tensor([0, c, c, c], dtype=torch.int32,
+                                          device=dev)
+                q = torch.from_numpy(rng.standard_normal(
+                    (4, c, kh * g, 128)).astype(np.float32)).to(dev)
+                whole = pa.paged_attn_call(q, *pools, tables, lens, kvl)
+                for ep in EP_RANKS:
+                    khl = kh // ep
+                    for r in range(ep):
+                        hs = slice(r * khl * g, (r + 1) * khl * g)
+                        qs = q[:, :, hs].contiguous()
+                        ks, vs = (p_.narrow(2, r * khl, khl) for p_ in pools)
+                        y = pa.paged_attn_call(qs, ks, vs, tables, lens, kvl)
+                        check(torch.equal(y, whole[:, :, hs])
+                              and torch.equal(y, pa.paged_attn_plain(
+                                  qs, ks, vs, tables, lens, kvl)),
+                              f"phase ep: B3 on KV heads {r * khl}.."
+                              f"{(r + 1) * khl - 1} of {kh} (bs {bs}, C "
+                              f"{c}) differs from the whole launch or its "
+                              "plain version")
+                if (kh, bs) == (8, 16):
+                    pc = list(zip(copies(pools[0]), copies(pools[1])))
+                    half = kh // 2
+                    qs = q[:, :, :half * g].contiguous()
+                    tag = "decode" if c == 1 else "prefill C=16"
+                    t_w = graph_ms(torch, lambda a, v: pa.paged_attn_call(
+                        q, a, v, tables, lens, kvl), pc)
+                    t_s = graph_ms(torch, lambda a, v: pa.paged_attn_call(
+                        qs, a.narrow(2, 0, half), v.narrow(2, 0, half),
+                        tables, lens, kvl), pc)
+                    t_sp = graph_ms(torch, lambda a, v: pa.paged_attn_plain(
+                        qs, a.narrow(2, 0, half), v.narrow(2, 0, half),
+                        tables, lens, kvl), pc[:2], reps=3, min_iters=2)
+                    att = torch.minimum(
+                        lens[:, None].long() + torch.arange(
+                            c, device=dev)[None, :] + 1,
+                        kvl[:, None].long()).sum().item()
+                    bb = (int(kvl.sum()) * half * 128 * 2 * 2
+                          + 2 * qs.numel() * 4) / HBM_BYTES_S * 1e3
+                    bo = att * g * half * 128 * 4 / F32_FLOP_S * 1e3
+                    b3_times[tag] = dict(ms=t_s, whole_ms=t_w, plain_ms=t_sp,
+                                         bound_ms=max(bb, bo))
+                    log(f"phase ep ({card}): B3 {tag}, dh 128, bs 16, KV "
+                        f"heads 0-{half - 1} of {kh} read in place (rank 0 "
+                        f"of 2): {t_s * 1e3:.2f} us on the card, the whole "
+                        f"launch {t_w * 1e3:.2f} us, plain on the slice "
+                        f"{t_sp * 1e3:.2f} us, bound {max(bb, bo) * 1e3:.2f}"
+                        f" us ({'bytes' if bb >= bo else 'operations'})")
+                    del pc
+            del pools
+    log(f"phase ep: B3 on every rank's KV-head slice (KH {EP_HEADS[0][0]} "
+        f"and {EP_HEADS[1][0]}, ep {EP_RANKS}, bs 16 and 64, C 1 and 16, "
+        f"dh 128, bf16 pools read in place): bit-exact vs the whole launch "
+        f"and its plain version; {time.monotonic() - t_b3:.1f} s")
+
+    # (c) the a2a exchange through nccl's all_to_all_single, 1-rank group
+    mesh, m_data, m_model = make_host_smoke_mesh()
+    group = mesh.get_group("model")
+    send = torch.from_numpy(rng.standard_normal(
+        (e_pad, MOE_CAPACITY, 2048)).astype(np.float32)).to(dev)
+    recv = collectives.dispatch_exchange(send, group)
+    back = collectives.combine_exchange(recv, group)
+    check(torch.equal(recv, send) and torch.equal(back, send),
+          "phase ep: a2a_dispatch then a2a_combine through nccl did not "
+          "give the send buffer back")
+    log(f"phase ep: a2a dispatch then combine through nccl's "
+        f"all_to_all_single on the 1-rank group ({dist.get_backend()}): "
+        f"send [{e_pad}, {MOE_CAPACITY}, 2048] back bit for bit")
+
+    # (d) phase 3m's serves on the 1-rank mesh, psum-EP and a2a-EP
+    mcfg = ctx.server.cfg
+    out = {}
+    for mode, cim, (counts0, streams0), kid, name in (
+            ("psum", mcfg.cim, ctx.ideal, "B1e",
+             "cim_mvm_grouped_packed_experts"),
+            ("a2a", ctx.noisy, ctx.noisy_run, "B6e",
+             "cim_mvm_grouped_noisy_packed_experts")):
+        ecfg = mcfg.replace(cim=cim, moe=dataclasses.replace(
+            mcfg.moe, ep_mode=mode))
+        sharding.set_mesh(mesh)
+        try:
+            server = Server(ctx.server.params, ecfg, ctx.serving, device=dev)
+            counts, streams = ctx.serve_mix(
+                server, ctx.prompts, f"phase ep: {mode}-EP, "
+                f"{'IDEAL' if cim is mcfg.cim else 'NOISY'}, host mesh "
+                f"data={m_data} model={m_model}",
+                new_tokens=SHORT_NEW_TOKENS)
+        finally:
+            sharding.set_mesh(None)
+        del server
+        same = {k_: counts[k_] == counts0[k_] for k_ in counts0}
+        log(f"phase ep: {mode}-EP on the 1-rank mesh vs phase 3m's serve "
+            f"without: streams identical: {streams == streams0}; launch "
+            f"counts equal: {all(same.values())} ({kid} {counts[name]})")
+        check(streams == streams0 and all(same.values()) and counts[name] > 0,
+              f"phase ep: the {mode}-EP serve differs from no mesh")
+        out[kid] = counts[name]
+    dist.destroy_process_group()
+    log(f"phase ep: {time.monotonic() - t_ep:.1f} s in all")
+    return out
 
 
 def main() -> int:
@@ -3184,8 +3414,9 @@ def main() -> int:
     # (c) a prefill chunk and a decode step, kernels vs plain
     check_steps(mserver, "phase 3m")
     # (d) phase 3's 8 requests, IDEAL, then NOISY (noise_seed 0) twice
-    counts, _ = serve_mix(mserver, prompts, "phase 3m: IDEAL",
-                          new_tokens=SHORT_NEW_TOKENS)
+    counts, streams_i = serve_mix(mserver, prompts, "phase 3m: IDEAL",
+                                  new_tokens=SHORT_NEW_TOKENS)
+    counts_i = counts
     for name, n in (("B1", counts["cim_mvm_grouped_packed"]),
                     ("B1e", counts["cim_mvm_grouped_packed_experts"]),
                     ("B3", counts["paged_attn_call"]),
@@ -3197,6 +3428,7 @@ def main() -> int:
                      device=dev)
     counts, streams_n = serve_mix(nserver, prompts, "phase 3m: NOISY run 1",
                                   new_tokens=SHORT_NEW_TOKENS)
+    counts_n = counts
     for name, n in (("B6", counts["cim_mvm_grouped_noisy_packed"]),
                     ("B6e", counts["cim_mvm_grouped_noisy_packed_experts"]),
                     ("B3", counts["paged_attn_call"]),
@@ -3213,7 +3445,18 @@ def main() -> int:
     check(streams_n2 == streams_n, "phase 3m: two same-seed NOISY serves "
           "gave different streams")
     log("phase 3m: the two same-seed NOISY serves gave identical streams")
-    del nserver, mserver
+    del nserver
+    torch.cuda.empty_cache()
+
+    # ---- phase "ep": expert parallelism and the KV-head split ------------
+    ep_launches = phase_ep(torch, np, dev, card, types.SimpleNamespace(
+        server=mserver, serving=serving, prompts=prompts, noisy=noisy,
+        kw=kw, noisy_kw=noisy_kw, seeds=seeds, codes=codes,
+        serve_mix=serve_mix, ideal=(counts_i, streams_i),
+        noisy_run=(counts_n, streams_n)))
+    for kid, n in ep_launches.items():
+        main_launches[kid] += n
+    del mserver
     torch.cuda.empty_cache()
 
     # (e) the dense archs: stablelm-3b (dh 80 through B3's GEN instances,

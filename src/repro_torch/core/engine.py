@@ -82,8 +82,11 @@ noise (the seed salted with the shard's linear index over the axes that
 partition this MVM; salt 0 is the identity, so a 1-rank mesh is
 bit-identical to no mesh), applies the Eq. 7 correction with its local
 sums, and the partial outputs are summed over "data" in ascending rank
-order, then gathered; o·z·K is added once, outside. Expert-batched
-weights run unpartitioned (the reference's vmap does not enter its
+order, then gathered; o·z·K is added once, outside. The engine does not
+partition an expert-batched MVM: MoE's mesh branches (`models.moe`) run
+their expert MVMs per shard, on a rank's expert slice inside
+`sharding.shard_context()`, unsalted; outside them an expert-batched MVM
+runs whole on every rank (the reference's vmap does not enter its
 shard_map either).
 
 Expert-batched MVMs (the MoE routed experts)

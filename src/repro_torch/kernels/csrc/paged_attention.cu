@@ -17,7 +17,10 @@
 // acc / max(l, 1e-30), so idle lanes (kv_len 0) emit 0. Math is f32 with
 // scale = 1/sqrt(dh); the pools are upcast as they are read. Any head dim
 // 1 <= dh <= 256 and any block size bs >= 1 (the GEN instances below; the
-// JAX kernel takes any dh and bs too).
+// JAX kernel takes any dh and bs too). The pools may be a head slice of
+// pools with KS >= KH heads a row, read in place (the STRIDED instances:
+// a mesh rank's KV heads, where the JAX package's shard_map hands each
+// shard its heads of the pools).
 //
 // What bounds B3 on the H100: the bytes of K/V it reads (each slot's
 // kv_len rows of one KV head), a few hundred KB at decode, so in practice
@@ -218,6 +221,7 @@ struct AttnArgs {
   const int* kvl;       // [B]
   void* out;            // [B, C, H, dh], bf16 if out_bf16 else f32
   int q_bf16, out_bf16, B, C, H, KH, G, dh, bs, MB, per;
+  int KS;               // the pools' row stride in heads (KS >= KH)
   float scale;
 };
 
@@ -307,7 +311,11 @@ __device__ __forceinline__ void attend_piece(
 //    online-softmax update, so shared memory holds 2 x 2 x min(bs, 32)
 //    rows whatever bs is. Pieces that start at or past kv_len are not read:
 //    like columns past kv_len they would be exact no-ops.
-template <typename T, int DPL, int RPW, bool WRITE, bool GEN>
+// STRIDED: the pools are a head slice [NB, bs, KH, dh] of pools of KS
+// heads a row (a mesh rank's KV heads, read in place; kpool / vpool
+// point at the slice's first head). Without it KS is KH, and the index
+// math is the unsliced pools' as before. Never with WRITE.
+template <typename T, int DPL, int RPW, bool WRITE, bool GEN, bool STRIDED>
 __global__ void __launch_bounds__(kMaxWarps * 32)
 paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
                   T* __restrict__ vpool, const T* __restrict__ nk,
@@ -316,12 +324,14 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
                   const int* __restrict__ lens, const int* __restrict__ kvl,
                   void* __restrict__ out, int q_bf16, int out_bf16, int C,
                   int H, int KH, int G, int dh_arg, int bs, int MB, int per,
-                  int tiles, float scale) {
+                  int tiles, float scale, int KS_arg) {
+  static_assert(!(STRIDED && WRITE), "the strided pools take no write");
   constexpr int DHP = DPL * 32;
   constexpr int EPC = 16 / (int)sizeof(T);   // elements per 16-byte chunk
   constexpr int CPR = DHP / EPC;             // chunks per row
   const int dh = GEN ? dh_arg : DHP;
   const int sb = GEN ? min(bs, 32) : bs;     // tokens per staged piece
+  const int KS = STRIDED ? KS_arg : KH;      // pool row stride in heads
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
   const int rank = (int)cluster.block_rank();
@@ -397,7 +407,7 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
         const int t = rem / CPR;
         const int c = rem - t * CPR;
         const T* pool = which ? vpool : kpool;
-        const T* src = pool + (((size_t)blk * bs + t) * KH + h) * dh +
+        const T* src = pool + (((size_t)blk * bs + t) * KS + h) * dh +
                        c * EPC;
         cp_async16(dst + (which * bs + t) * L.row_bytes + c * 16, src);
       }
@@ -458,7 +468,7 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
         const int u = rem - t * upr;
         const T* pool = which ? vpool : kpool;
         const unsigned char* src = reinterpret_cast<const unsigned char*>(
-            pool + (((size_t)blk * bs + t0 + t) * KH + h) * dh) + u * wu;
+            pool + (((size_t)blk * bs + t0 + t) * KS + h) * dh) + u * wu;
         copy_unit_async(dst + (which * sb + t) * L.row_bytes + u * wu, src,
                         wu);
       }
@@ -577,7 +587,7 @@ paged_attn_kernel(const void* __restrict__ q, T* __restrict__ kpool,
   cluster.sync();                 // peers may still read this CTA's state
 }
 
-template <typename T, int DPL, int RPW, bool WRITE, bool GEN>
+template <typename T, int DPL, int RPW, bool WRITE, bool GEN, bool STRIDED>
 int launch_attn(const AttnArgs& a, int n_split, int warps,
                 cudaStream_t stream) {
   const int tr = warps * RPW;
@@ -587,7 +597,7 @@ int launch_attn(const AttnArgs& a, int n_split, int warps,
   static size_t cap = 48 * 1024;   // raised once, not per (captured) launch
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        paged_attn_kernel<T, DPL, RPW, WRITE, GEN>,
+        paged_attn_kernel<T, DPL, RPW, WRITE, GEN, STRIDED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
@@ -606,28 +616,33 @@ int launch_attn(const AttnArgs& a, int n_split, int warps,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e = cudaLaunchKernelEx(
-      &cfg, paged_attn_kernel<T, DPL, RPW, WRITE, GEN>, a.q,
+      &cfg, paged_attn_kernel<T, DPL, RPW, WRITE, GEN, STRIDED>, a.q,
       static_cast<T*>(a.k), static_cast<T*>(a.v),
       static_cast<const T*>(a.nk), static_cast<const T*>(a.nv), a.flat,
       a.tables, a.lens, a.kvl, a.out, a.q_bf16, a.out_bf16, a.C, a.H, a.KH,
-      a.G, a.dh, a.bs, a.MB, a.per, tiles, a.scale);
+      a.G, a.dh, a.bs, a.MB, a.per, tiles, a.scale, a.KS);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 // Up to 8 query rows: one row per warp; more: 8 warps of 4 rows each.
-template <typename T, int DPL, bool WRITE, bool GEN>
+template <typename T, int DPL, bool WRITE, bool GEN, bool STRIDED>
 int launch_rows(const AttnArgs& a, int n_split, cudaStream_t stream) {
   const int rows = a.C * a.G;
   if (rows <= kMaxWarps)
-    return launch_attn<T, DPL, 1, WRITE, GEN>(a, n_split, rows, stream);
-  return launch_attn<T, DPL, 4, WRITE, GEN>(a, n_split, kMaxWarps, stream);
+    return launch_attn<T, DPL, 1, WRITE, GEN, STRIDED>(a, n_split, rows,
+                                                       stream);
+  return launch_attn<T, DPL, 4, WRITE, GEN, STRIDED>(a, n_split, kMaxWarps,
+                                                     stream);
 }
 
+// B3 alone on a head slice (KS > KH), B3 alone, or B3 with B4's write.
 template <typename T, int DPL, bool GEN>
 int launch_write(const AttnArgs& a, int n_split, cudaStream_t stream) {
-  return a.flat ? launch_rows<T, DPL, true, GEN>(a, n_split, stream)
-                : launch_rows<T, DPL, false, GEN>(a, n_split, stream);
+  if (a.KS != a.KH)
+    return launch_rows<T, DPL, false, GEN, true>(a, n_split, stream);
+  return a.flat ? launch_rows<T, DPL, true, GEN, false>(a, n_split, stream)
+                : launch_rows<T, DPL, false, GEN, false>(a, n_split, stream);
 }
 
 // The fast case (dh in {32, 64, 128, 256}, bs <= 32) and the GEN instances
@@ -666,20 +681,23 @@ extern "C" {
 // which the plain version follows). flat null: B3 alone; else (C = 1
 // only) slot b's new rows nk, nv [B, 1, KH, dh] (pool dtype, 16-byte
 // aligned) go to pool row flat[b] unless it is 0, and the attention reads
-// them there.
+// them there. KS: the pools' row stride in heads; KS > KH reads the KH
+// heads from k, v of pools with KS heads a row (a head slice, in place;
+// B3 alone, flat null).
 int paged_attn_launch(int pool_bf16, int q_bf16, int out_bf16, const void* q,
                       void* k, void* v, const void* nk, const void* nv,
                       const int* flat, const int* tables, const int* lens,
                       const int* kvl, void* out, int B, int C, int H, int KH,
-                      int dh, int bs, int MB, int n_split, int per,
+                      int KS, int dh, int bs, int MB, int n_split, int per,
                       float scale, cudaStream_t stream) {
   if (B <= 0 || C <= 0) return 0;
   if (bs < 1 || dh < 1 || dh > 256 || KH <= 0 || H % KH || MB < 1 ||
       n_split < 1 || n_split > kMaxSplit || per < 1 || n_split * per < MB ||
-      (flat && (C != 1 || !nk || !nv)))
+      KS < KH || (flat && (C != 1 || !nk || !nv || KS != KH)))
     return (int)cudaErrorInvalidValue;
   const AttnArgs a = {q, k, v, nk, nv, flat, tables, lens, kvl, out, q_bf16,
-                      out_bf16, B, C, H, KH, H / KH, dh, bs, MB, per, scale};
+                      out_bf16, B, C, H, KH, H / KH, dh, bs, MB, per, KS,
+                      scale};
   if (pool_bf16) return dispatch_dh<__nv_bfloat16>(a, n_split, stream);
   return dispatch_dh<float>(a, n_split, stream);
 }

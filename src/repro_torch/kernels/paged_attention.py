@@ -22,6 +22,15 @@ pos_s < kv_len; masked scores are −1e30 and their weights forced to 0; V
 rows at or past kv_len are zeroed with `where` before the PV product (the
 trash block may hold NaN); the output is acc / max(l, 1e−30), so idle lanes
 (kv_len = 0) emit 0.
+
+Mesh dispatch (the reference's `_mesh_attn_specs`): when the active
+mesh's "model" axis has more than one rank and divides KH, the kernel and
+plain backends attend each rank's KV-head slice (q's matching query heads,
+the pools' heads read in place: B3 takes a head slice of the pools as a
+row stride of KS heads) and the outputs are gathered over "model" on the
+head axis. Each KV head's math is independent of the others', so the
+split is bit-exact against no mesh. Otherwise every rank attends every
+head, as the reference's fallback does.
 """
 from __future__ import annotations
 
@@ -33,6 +42,7 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.parallel import sharding
 from repro_torch.runtime.telemetry import KERNEL_COUNTERS
 
 from . import autotune, build
@@ -57,20 +67,25 @@ class AttnBackendSpec:
       decode_write_attend(q, k_pool, v_pool, new_k, new_v, flat_idx,
                           tables, lens, kv_len, splits) -> o
     It replaces `models.common.paged_write` + `fn` on this backend.
+    `head_split`: the backend takes a head slice of the pools, so it runs
+    each rank's KV heads on a mesh (module docstring).
     """
 
     name: str
     fn: Callable
     decode_write_attend: Callable | None = None
+    head_split: bool = False
 
 
 _ATTN_REGISTRY: dict[str, AttnBackendSpec] = {}
 
 
-def register_attn_backend(name: str, *, decode_write_attend=None):
+def register_attn_backend(name: str, *, decode_write_attend=None,
+                          head_split=False):
     """Register a paged-attention backend under `name` (decorator)."""
     def deco(fn):
-        _ATTN_REGISTRY[name] = AttnBackendSpec(name, fn, decode_write_attend)
+        _ATTN_REGISTRY[name] = AttnBackendSpec(name, fn, decode_write_attend,
+                                               head_split)
         return fn
     return deco
 
@@ -246,6 +261,26 @@ def paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len, splits=None):
 _DTYPES = (torch.bfloat16, torch.float32)
 
 
+def _pool_heads(pool: torch.Tensor) -> int | None:
+    """KS, the row stride in heads of pools [NB, bs, KH, dh] laid out as
+    (a head slice of) contiguous pools of KS >= KH heads; None for any
+    other layout."""
+    nb, bs, kh, dh = pool.shape
+    st = pool.stride()
+    if st[3] != 1 or st[2] != dh or st[1] % dh or (nb > 1
+                                                   and st[0] != bs * st[1]):
+        return None
+    ks = st[1] // dh
+    return ks if ks >= kh else None
+
+
+def _unit_bytes(dh: int, itemsize: int) -> int:
+    """The widest copy unit (16, 8, 4 or 2 bytes) that divides a row of dh
+    elements, as the kernel picks it."""
+    rb = dh * itemsize
+    return next(u for u in (16, 8, 4, 2) if rb % u == 0)
+
+
 def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write,
             splits):
     """One launch of the B3 kernel on q's CUDA device; `write` is None (B3
@@ -267,17 +302,24 @@ def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write,
     for t in (k_pool, v_pool, tables, lens, kv_len):
         if t.device != q.device:
             raise ValueError("all operands must lie on q's CUDA device")
-    if not (k_pool.is_contiguous() and v_pool.is_contiguous()):
-        raise ValueError("pools must be contiguous")
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("pools must be 16-byte aligned (copied in 16-byte "
-                         "chunks)")
+    ks = _pool_heads(k_pool)
+    if ks is None or v_pool.stride() != k_pool.stride():
+        raise ValueError("pools must be contiguous, or a head slice of "
+                         "contiguous pools")
+    # a head slice starts kh0 · dh elements into 16-byte aligned pools
+    align = 16 if ks == kh else _unit_bytes(dh, k_pool.element_size())
+    if k_pool.data_ptr() % align or v_pool.data_ptr() % align:
+        raise ValueError(f"pools must be {align}-byte aligned (copied in "
+                         f"{align}-byte units)")
     nk = nv = flat = None
     if write is not None:
         new_k, new_v, flat_idx = write
         if c != 1:
             raise ValueError(f"the folded K/V write is a decode step (C = "
                              f"1), got C = {c}")
+        if ks != kh:
+            raise ValueError("the folded K/V write takes whole pools, not "
+                             "a head slice")
         if (new_k.shape != (b, 1, kh, dh) or new_v.shape != new_k.shape
                 or flat_idx.numel() != b):
             raise ValueError(f"shape mismatch pools {tuple(k_pool.shape)} "
@@ -309,7 +351,7 @@ def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write,
         int(out_dtype == bf16), q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), nk, nv, None if flat is None else flat.data_ptr(),
         tables.data_ptr(), lens.data_ptr(), kv_len.data_ptr(),
-        out.data_ptr(), b, c, h, kh, dh, bs, mb, *attn_splits(mb, splits),
+        out.data_ptr(), b, c, h, kh, ks, dh, bs, mb, *attn_splits(mb, splits),
         1.0 / math.sqrt(dh), torch.cuda.current_stream(q.device).cuda_stream)
     return rc, out
 
@@ -317,7 +359,8 @@ def _launch(q, k_pool, v_pool, tables, lens, kv_len, out_dtype, write,
 def paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len, *,
                     out_dtype=torch.float32, splits=None):
     """B3 wrapper: q [B, C, H, dh] (bfloat16 or float32, read as it is) ×
-    pools [NB, bs, KH, dh] through tables [B, MB] → [B, C, H, dh] in
+    pools [NB, bs, KH, dh] (contiguous, or a head slice of contiguous
+    pools, read in place) through tables [B, MB] → [B, C, H, dh] in
     `out_dtype` (float32, or bfloat16 rounded once from the f32 result as
     `.to(torch.bfloat16)` rounds); `splits` is B3's S (`attn_splits`).
     Replaces `kernels/paged_attention.py:_paged_attn_call` of the JAX
@@ -402,14 +445,16 @@ def _plain_decode(q, k_pool, v_pool, new_k, new_v, flat_idx, tables, lens,
                                      splits).to(q.dtype)
 
 
-@register_attn_backend("kernel", decode_write_attend=_kernel_decode)
+@register_attn_backend("kernel", decode_write_attend=_kernel_decode,
+                       head_split=True)
 def _kernel_attention(q, k_pool, v_pool, tables, positions, kv_len, lens,
                       splits=None):
     return paged_attn_call(q, k_pool, v_pool, tables, lens, kv_len,
                            out_dtype=q.dtype, splits=splits)
 
 
-@register_attn_backend("plain", decode_write_attend=_plain_decode)
+@register_attn_backend("plain", decode_write_attend=_plain_decode,
+                       head_split=True)
 def _plain_attention(q, k_pool, v_pool, tables, positions, kv_len, lens,
                      splits=None):
     return paged_attn_plain(q, k_pool, v_pool, tables, lens, kv_len,
@@ -438,11 +483,32 @@ def paged_attention(q, k_pool, v_pool, tables, *, positions, kv_len,
     if lens is None:
         lens = positions[:, 0]
     splits = resolve_splits(tables, q.shape[1], k_pool.shape[1])
+    kh = k_pool.shape[2]
+    if spec.head_split and head_split(kh):
+        b, c, h, dh = q.shape
+        khl = kh // sharding.axis_size("model")
+        # q's query heads grouped by KV head, this rank's KV heads; the
+        # pools are storage (no gradient), their heads taken in place
+        q_l = sharding.shard(q.reshape(b, c, kh, h // kh, dh),
+                             [(2, ("model",))], ("model",))
+        k0 = sharding.axis_index("model") * khl
+        o = spec.fn(q_l.reshape(b, c, khl * (h // kh), dh),
+                    k_pool.narrow(2, k0, khl), v_pool.narrow(2, k0, khl),
+                    tables, positions, kv_len, lens, splits)
+        return sharding.gather(o.reshape(b, c, khl, h // kh, dh), 2,
+                               ("model",)).reshape(b, c, h, dh)
     return spec.fn(q, k_pool, v_pool, tables, positions, kv_len, lens, splits)
+
+
+def head_split(kh: int) -> bool:
+    """True when the active mesh splits KV heads over "model": the axis has
+    more than one rank and divides `kh`."""
+    n = sharding.axis_size("model")
+    return n > 1 and kh % n == 0
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 build.declare("paged_attention", {
     "paged_attn_launch": [_I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+                          _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
 })

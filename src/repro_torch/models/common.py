@@ -654,7 +654,11 @@ def paged_attention_apply(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
         q = rope(q, index.positions, cfg.rope_theta, _rope_dims(cfg))
         k1 = rope(k1, index.positions, cfg.rope_theta, _rope_dims(cfg))
     spec = get_attn_backend(choose_attn_backend(cfg.attn_backend))
-    if c == 1 and spec.decode_write_attend is not None:
+    # a live "model" axis writes the whole pools, then splits the heads
+    # (the reference's unfused route under a mesh); one rank keeps the
+    # one-launch decode
+    if (c == 1 and spec.decode_write_attend is not None
+            and sharding.axis_size("model") == 1):
         # this route bypasses `paged_attention`, which counts the others
         KERNEL_COUNTERS.count_attn(spec.name)
         splits = resolve_splits(index.tables, 1, cache["k"].shape[1])

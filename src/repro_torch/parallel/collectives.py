@@ -1,7 +1,13 @@
-"""Gradient compression with error feedback: the int8 part of the
-reference's `parallel/collectives.py`, and `compressed_psum` on a
-torch.distributed process group (the expert-parallel all-to-all waits for
-its only users, the MoE expert-parallel paths, ROADMAP A11b).
+"""The reference's `parallel/collectives.py` on torch.distributed:
+gradient compression with error feedback (`compressed_psum` on a process
+group) and the expert-parallel all-to-all token exchange
+(`a2a_dispatch` / `a2a_combine`, used by models.moe's a2a-EP path).
+
+a2a_dispatch / a2a_combine are the static-capacity expert-parallel token
+exchange: every source rank packs its routed tokens into per-expert
+capacity slots, and the pair of all-to-alls over the mesh axis moves only
+those slots. Each is an autograd function whose backward is the other
+one, and the identity on an axis of one rank (no collective is issued).
 
 Each tensor is quantized to int8 with a per-tensor symmetric scale; the
 residue the codes cannot represent is carried into the next step's
@@ -16,6 +22,81 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.adc import fma_f32
+from repro_torch.parallel import sharding
+
+
+def dispatch_exchange(send: torch.Tensor, group) -> torch.Tensor:
+    """a2a_dispatch's all-to-all over `group` (no autograd, no skip on one
+    rank): send [E_pad, cap, D] → [E_pad / ep, ep·cap, D]."""
+    ep = dist.get_world_size(group)
+    e_pad, cap = send.shape[:2]
+    recv = torch.empty_like(send.contiguous())
+    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    # recv holds source s's [E_local, cap, D] block at [s]
+    return recv.reshape(ep, e_pad // ep, cap, *send.shape[2:]) \
+        .transpose(0, 1).reshape(e_pad // ep, ep * cap, *send.shape[2:])
+
+
+def combine_exchange(out: torch.Tensor, group) -> torch.Tensor:
+    """a2a_combine's all-to-all over `group` (no autograd, no skip on one
+    rank): out [E_local, ep·cap, D] → [ep·E_local, cap, D]."""
+    ep = dist.get_world_size(group)
+    e_local, rows = out.shape[:2]
+    cap = rows // ep
+    send = out.reshape(e_local, ep, cap, *out.shape[2:]).transpose(0, 1) \
+        .contiguous()
+    back = torch.empty_like(send)
+    dist.all_to_all_single(back, send, group=group)
+    return back.reshape(ep * e_local, cap, *out.shape[2:])
+
+
+class _Dispatch(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, send, axis):
+        ctx.axis = axis
+        return dispatch_exchange(send, sharding.get_mesh().get_group(axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return combine_exchange(
+            g, sharding.get_mesh().get_group(ctx.axis)), None
+
+
+class _Combine(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, out, axis):
+        ctx.axis = axis
+        return combine_exchange(out, sharding.get_mesh().get_group(axis))
+
+    @staticmethod
+    def backward(ctx, g):
+        return dispatch_exchange(
+            g, sharding.get_mesh().get_group(ctx.axis)), None
+
+
+def a2a_dispatch(send: torch.Tensor, axis: str) -> torch.Tensor:
+    """EP dispatch: route capacity-slotted tokens to their expert's rank
+    over mesh axis `axis` of the active mesh.
+
+    send [E_pad, cap, D] per source rank (slot (e, c) = the c-th token
+    this source routed to global expert e). Returns [E_local, ep·cap, D]
+    per expert rank: its E_local experts' slots from every source,
+    source-major along the capacity axis — recv[e, s·cap + c] is source
+    s's slot (rank·E_local + e, c). The backward is a2a_combine's
+    exchange; over one rank, the identity."""
+    if not sharding._live((axis,)):
+        return send
+    return _Dispatch.apply(send, axis)
+
+
+def a2a_combine(out: torch.Tensor, axis: str) -> torch.Tensor:
+    """Inverse exchange of a2a_dispatch for the expert outputs: out
+    [E_local, ep·cap, D] per expert rank → [E_pad, cap, D] per source
+    rank, every token back in the slot its source packed it into. The
+    backward is a2a_dispatch's exchange; over one rank, the identity."""
+    if not sharding._live((axis,)):
+        return out
+    return _Combine.apply(out, axis)
 
 
 def quantize_int8(x: torch.Tensor):

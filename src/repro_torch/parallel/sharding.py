@@ -24,11 +24,15 @@ reference tests' stand-in). Without a mesh every helper is the identity.
 
 Execution model. The port runs eagerly and keeps every model tensor whole
 and identical on every rank (every rank builds the same params from the
-seed). Only the CIM MVM is partitioned (`core.engine`): each rank takes
-its shard of x and of the weights by `mvm_plan`, runs its kernel, and the
-partial results are summed and gathered back into the whole output
-(`shard`, `ordered_sum`, `gather`: autograd functions whose backward is
-the matching collective, so gradients are those of the whole tensors).
+seed). Only the partitioned computations run on a rank's block: the CIM
+MVM (`core.engine`: each rank takes its shard of x and of the weights by
+`mvm_plan` and runs its kernel), the MoE experts (`models.moe`: a rank's
+experts and tokens) and the paged attention's KV heads
+(`kernels.paged_attention`). The partial results are summed and gathered
+back into the whole output (`shard`, `ordered_sum`, `mean_over`,
+`gather`: autograd functions whose backward is the matching collective,
+so gradients are those of the whole tensors; a tensor read whole by
+every rank's block sums its gradient over the partitioning axes).
 `constrain` is therefore a layout annotation with no effect: the
 activations it names are already whole on every rank.
 """
@@ -107,6 +111,11 @@ def _axes() -> dict[str, int]:
 
 def _axis_size(name: str) -> int:
     return _axes().get(name, 1)
+
+
+def axis_size(name: str) -> int:
+    """The rank count of mesh axis `name` (1 without a mesh or axis)."""
+    return _axis_size(name)
 
 
 def resolve(logical: Optional[str]) -> Optional[tuple[str, ...]]:
@@ -322,6 +331,12 @@ def _live(axes: Sequence[str]) -> tuple:
     return tuple(a for a in axes if _axis_size(a) > 1)
 
 
+def axis_index(name: str) -> int:
+    """This rank's index on mesh axis `name` (the reference's
+    `jax.lax.axis_index`): 0 without a mesh or on an axis of one rank."""
+    return shard_index((name,))[0] if _live((name,)) else 0
+
+
 def shard_index(axes: Sequence[str]) -> tuple[int, int]:
     """(this rank's linear index, the shard count) over `axes`, the first
     axis major."""
@@ -395,6 +410,21 @@ class _OrderedSum(torch.autograd.Function):
         return g, None
 
 
+class _MeanOver(torch.autograd.Function):
+    """Forward: the mean of `t` over the ranks of `axes` (`_sum_over`, then
+    one division by the rank count). Backward: g / n, each rank's share
+    (the reference's pmean)."""
+
+    @staticmethod
+    def forward(ctx, t, axes):
+        ctx.n = math.prod(_axis_size(a) for a in axes)
+        return _sum_over(t, axes) / ctx.n
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
+
+
 class _Gather(torch.autograd.Function):
     """Forward: the shards of a tensor along `dim` over `axes`,
     concatenated in rank order (the last axis innermost). Backward: this
@@ -450,9 +480,12 @@ def shard(t: torch.Tensor, slices: Sequence[tuple[int, Sequence[str]]],
     block's gradient is summed over `part_axes`."""
     live = tuple((dim % t.ndim, _live(axes)) for dim, axes in slices)
     live = tuple((dim, axes) for dim, axes in live if axes)
-    if not live:
+    part = _live(part_axes)
+    if not live and not part:
         return t
-    return _Shard.apply(t, live, _live(part_axes))
+    # with no live slice the block is the whole tensor, still read by
+    # every rank's shard of the computation: its gradient is summed
+    return _Shard.apply(t, live, part)
 
 
 def ordered_sum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -461,9 +494,21 @@ def ordered_sum(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
     return _OrderedSum.apply(t, axes) if axes else t
 
 
-def gather(t: torch.Tensor, dim: int, axes: Sequence[str]) -> torch.Tensor:
-    """The whole tensor from its shards along `dim` over `axes`."""
+def mean_over(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The mean of `t` over the ranks of `axes`, summed in rank order (the
+    reference's pmean; the identity over one rank)."""
     axes = _live(axes)
-    if not axes:
-        return t
-    return _Gather.apply(t, dim % t.ndim, axes)
+    return _MeanOver.apply(t, axes) if axes else t
+
+
+def gather(t: torch.Tensor, dim: int, axes: Sequence[str], *,
+           size: int | None = None) -> torch.Tensor:
+    """The whole tensor from its shards along `dim` over `axes`; with
+    `size`, its first `size` entries along `dim` (the reference's tiled
+    all_gather then [:size], where the shards were padded)."""
+    live = _live(axes)
+    if live:
+        t = _Gather.apply(t, dim % t.ndim, live)
+    if size is not None and size != t.shape[dim]:
+        t = t.narrow(dim, 0, size)
+    return t

@@ -16,6 +16,11 @@ eager on one device.
     (`registry.state_from_numpy`).
   * A straggler watchdog: each step's wall time against the running median
     of the last 32; slow steps are recorded.
+  * On an active mesh (`parallel.sharding.set_mesh`) every rank holds the
+    whole state (nothing is sharded at rest) and takes the same steps:
+    rank 0 writes the checkpoints, the ranks meet at a barrier after each
+    save and each restore, and every rank restores the whole state onto
+    its own device (the reference restores onto the mesh's shardings).
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from typing import Callable, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.ckpt import load_numpy_tree
@@ -37,11 +43,26 @@ from repro_torch.optim import (adafactor, adamw, apply_updates,
 from repro_torch.optim.optimizers import (group_tensor, set_group,
                                           stacked_groups, tree_leaves,
                                           tree_map)
+from repro_torch.parallel import sharding
 from repro_torch.parallel.collectives import compress_decompress
 
 
 class PreemptionError(RuntimeError):
     """Raised to simulate a node preemption mid-run (tests)."""
+
+
+def _mesh_rank() -> tuple[int, int]:
+    """(this rank, the world size) while a mesh is active, (0, 1)
+    without."""
+    if sharding.get_mesh() is None or not dist.is_initialized():
+        return 0, 1
+    return dist.get_rank(), dist.get_world_size()
+
+
+def _meet() -> None:
+    """A barrier of the mesh's ranks (none over one rank)."""
+    if _mesh_rank()[1] > 1:
+        dist.barrier()
 
 
 def make_optimizer(tc: TrainConfig):
@@ -172,8 +193,9 @@ class Trainer:
         if latest is None:
             return self.init_state(), 0
         tree, md = load_numpy_tree(self.mgr.step_dir(latest))
-        return (registry.state_from_numpy(tree, self.cfg, self.dev),
-                int(md["step"]))
+        state = registry.state_from_numpy(tree, self.cfg, self.dev)
+        _meet()           # every rank has read it before rank 0 writes on
+        return state, int(md["step"])
 
     def batch(self, step: int) -> dict:
         return {k: torch.from_numpy(v).to(self.dev)
@@ -201,7 +223,9 @@ class Trainer:
             last_step = step + 1
             if last_step % self.tc.checkpoint_every == 0 \
                     or last_step == self.tc.steps:
-                self.mgr.save(last_step, state)
+                if _mesh_rank()[0] == 0:
+                    self.mgr.save(last_step, state)
+                _meet()
         return {"state": state, "final_step": self.tc.steps,
                 "metrics": self.metrics_log}
 

@@ -162,7 +162,280 @@ def case_parallel() -> dict:
     return out
 
 
-CASES = {"engine": case_engine, "parallel": case_parallel}
+# ---------------------------------------------------------------------------
+# expert parallelism (models.moe's mesh branches), the a2a exchange, the
+# paged attention's head split and the Trainer on a mesh
+# ---------------------------------------------------------------------------
+MOE_LEGS = ("off", "ideal", "noisy")      # float / packed IDEAL / NOISY
+GRAD_LEGS = ("off", "bp")                 # float experts, --cim off / bp
+
+
+def moe_cfg(leg: str, ep_mode: str = "psum"):
+    """The reference's tests/test_moe_distributed.py model (d_model 32, 16
+    experts, top-2, capacity factor 8, float32) at a leg."""
+    from repro_torch.configs.base import ModelConfig, MoEConfig
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    cfg = ModelConfig(arch="t", family="moe", n_layers=2, d_model=32,
+                      n_heads=2, n_kv_heads=2, d_ff=16, vocab=64,
+                      dtype="float32",
+                      moe=MoEConfig(n_experts=16, top_k=2, d_ff_expert=16,
+                                    capacity_factor=8.0, ep_mode=ep_mode))
+    if leg in ("ideal", "bp"):
+        cfg = cfg.replace(cim=CIMConfig(enabled=True))
+    elif leg == "noisy":
+        cfg = cfg.replace(cim=CIMConfig(
+            enabled=True, noise_seed=0, macro=dataclasses.replace(
+                CIMConfig().macro, sim_level=SimLevel.NOISY)))
+    return cfg
+
+
+def _moe_inputs(where) -> dict:
+    with np.load(os.path.join(where, "moe_inputs.npz")) as z:
+        return {k: torch.from_numpy(z[k]) for k in z.files}
+
+
+def _moe_params(inp: dict, leg: str) -> dict:
+    from repro_torch.models.quantize import quantize_params
+    p = {k: inp[k].clone() for k in ("router", "e_gate", "e_up", "e_down")}
+    if leg in ("ideal", "noisy"):
+        p = quantize_params(p, moe_cfg(leg), packed=True)
+    return p
+
+
+def _moe_forwards(inp: dict, legs, modes, prefix: str = "") -> dict:
+    """moe.apply's (y, aux) at each leg and ep_mode on the prefill x and
+    the decode xd, under the active mesh."""
+    from repro_torch.models import moe
+    out = {}
+    for leg in legs:
+        p = _moe_params(inp, leg)
+        for mode in modes:
+            cfg = moe_cfg(leg, mode)
+            for shape in ("prefill", "decode"):
+                x = inp["x" if shape == "prefill" else "xd"]
+                y, aux = moe.apply(p, x, cfg)
+                tag = f"{prefix}{leg}_{mode}_{shape}"
+                out[tag + "_y"], out[tag + "_aux"] = y, aux
+    return out
+
+
+def _moe_grads(inp: dict, legs, modes) -> dict:
+    """Gradients of Σ y·gy + 0.01·aux of moe.apply(train=True) with
+    respect to x and the float weights."""
+    from repro_torch.models import moe
+    out = {}
+    names = ("x", "router", "e_gate", "e_up", "e_down")
+    for leg in legs:
+        for mode in modes:
+            leaves = {n: inp[n].clone().requires_grad_() for n in names}
+            p = {n: leaves[n] for n in names[1:]}
+            y, aux = moe.apply(p, leaves["x"], moe_cfg(leg, mode),
+                               train=True)
+            ((y * inp["gy"]).sum() + 0.01 * aux).backward()
+            tag = f"g_{leg}_{mode}"
+            out[tag + "_y"], out[tag + "_aux"] = y, aux
+            for n in names:
+                out[f"{tag}_{n}"] = leaves[n].grad
+    return out
+
+
+def case_moe() -> dict:
+    """The MoE expert-parallel paths on a 2 x 2 (data, model) mesh (psum
+    and a2a, prefill and decode, float and packed IDEAL / NOISY experts,
+    gradients at off and bp), the same calls without a mesh, and the
+    Trainer preempted and resumed on the mesh."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    where = sys.argv[4]
+    inp = _moe_inputs(where)
+    mesh = make_host_mesh(2, 2, device="cpu")
+    sharding.set_mesh(mesh)
+    out = _moe_forwards(inp, MOE_LEGS, ("psum", "a2a"))
+    out.update(_moe_grads(inp, GRAD_LEGS, ("psum", "a2a")))
+    sharding.set_mesh(None)
+    out.update(_moe_forwards(inp, ("off",), ("psum",), prefix="nomesh_"))
+    sharding.set_mesh(mesh)
+    out.update(_trainer_on_mesh(where))
+    sharding.set_mesh(None)
+    return out
+
+
+def _trainer_on_mesh(where) -> dict:
+    """The smoke qwen2-moe (float32, --cim bp, a2a-EP) through the Trainer
+    on the active mesh: 4 steps uninterrupted, and 4 steps preempted at
+    step 2 and resumed from the step-2 checkpoint (rank 0 writes, every
+    rank restores). The final params of both, flattened."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.trainer import Trainer
+    base = SMOKES["qwen2-moe-a2.7b"]
+    cfg = base.replace(dtype="float32", cim=CIMConfig(enabled=True),
+                       moe=dataclasses.replace(base.moe, ep_mode="a2a"))
+    shape = ShapeConfig("tiny", 16, 4, "train")
+    tc = TrainConfig(steps=4, lr=1e-3, warmup_steps=1, checkpoint_every=2,
+                     log_every=1, keep_checkpoints=2)
+    out = {}
+    for tag, preempt in (("straight", None), ("resumed", 2)):
+        tr = Trainer(cfg, shape, tc, os.path.join(where, "ckpt_" + tag),
+                     preempt_at=preempt, device="cpu")
+        res = tr.run()
+        out["train_" + tag] = torch.cat([t.detach().flatten().float()
+                                         for t in tree_leaves(
+                                             res["state"]["params"])])
+        out["train_" + tag + "_loss"] = torch.tensor(
+            [m["loss"] for m in res["metrics"]])
+    return out
+
+
+def case_moe6() -> dict:
+    """A 2 x 3 mesh: "model" (3) does not divide the 16 padded experts, so
+    moe.apply takes the batch-sharded fallback (float and packed IDEAL,
+    and the float gradients)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    inp = _moe_inputs(sys.argv[4])
+    sharding.set_mesh(make_host_mesh(2, 3, device="cpu"))
+    out = _moe_forwards(inp, ("off", "ideal"), ("psum",))
+    out.update(_moe_grads(inp, ("off",), ("psum",)))
+    sharding.set_mesh(None)
+    return out
+
+
+def a2a_send(rank: int):
+    """Source `rank`'s send buffer of case a2a: [E_pad 4, cap 3, D 5]."""
+    return np.random.RandomState(40 + rank).standard_normal(
+        (4, 3, 5)).astype(np.float32)
+
+
+def case_a2a() -> dict:
+    """a2a_dispatch then a2a_combine over "model" of a 1 x 2 mesh, and the
+    gradient of Σ recv·G through the dispatch."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import collectives, sharding
+    rank = dist.get_rank()
+    sharding.set_mesh(make_host_mesh(1, 2, device="cpu"))
+    send = torch.from_numpy(a2a_send(rank)).requires_grad_()
+    recv = collectives.a2a_dispatch(send, "model")
+    back = collectives.a2a_combine(recv, "model")
+    g = torch.from_numpy(np.random.RandomState(50 + rank).standard_normal(
+        tuple(recv.shape)).astype(np.float32))
+    (recv * g).sum().backward()
+    out = {"recv": recv, "back": back, "send_grad": send.grad, "g": g,
+           "combined_g": collectives.a2a_combine(g, "model")}
+    # the sharded MVM's gradients on this mesh, where no live axis slices
+    # x (K and the rows stay whole, N splits over "model"), and without
+    from repro_torch.core.cim_matmul import CIMConfig, cim_matmul
+    x, w = (t.requires_grad_() for t in _xw())
+    gy = torch.from_numpy(np.random.RandomState(9).standard_normal(
+        (8, 64)).astype(np.float32))
+    for tag in ("mesh", "nomesh"):
+        x.grad = w.grad = None
+        (cim_matmul(x, w, CIMConfig(enabled=True)) * gy).sum().backward()
+        out["xgrad_" + tag], out["wgrad_" + tag] = x.grad, w.grad
+        sharding.set_mesh(None)
+    return out
+
+
+def attn_case(seed: int, *, b=4, kh=4, g=2, dh=32, bs=8, mb=5, c=1):
+    """Numpy inputs of the head-split attention: q [B, C, KH·G, dh], NaN
+    trash block 0, mixed lengths, lane 0 idle: (q, kp, vp, tables, lens,
+    kv_len, new_k, new_v)."""
+    rng = np.random.RandomState(seed)
+    nb = b * mb + 1
+    q = rng.standard_normal((b, c, kh * g, dh)).astype(np.float32)
+    kp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
+    vp = rng.standard_normal((nb, bs, kh, dh)).astype(np.float32)
+    kp[0] = vp[0] = np.nan
+    lens = np.array([0] + [rng.randint(0, mb * bs - c + 1)
+                           for _ in range(b - 1)], np.int32)
+    kvl = (lens + np.array([0] + [c] * (b - 1))).astype(np.int32)
+    free = list(range(1, nb))
+    rng.shuffle(free)
+    tables = np.zeros((b, mb), np.int32)
+    for s in range(b):
+        for j in range(-(-int(kvl[s]) // bs)):
+            tables[s, j] = free.pop()
+    new_k = rng.standard_normal((b, c, kh, dh)).astype(np.float32)
+    new_v = rng.standard_normal((b, c, kh, dh)).astype(np.float32)
+    return q, kp, vp, tables, lens, kvl, new_k, new_v
+
+
+ATTN_CASES = {"decode": dict(seed=60, c=1), "prefill": dict(seed=61, c=4),
+              "gen": dict(seed=62, c=2, dh=20, bs=48, mb=3)}
+
+
+def case_attn() -> dict:
+    """The paged attention on a 2 x 2 mesh (KV heads over "model") and
+    without one, through `paged_attention` (kernel and plain backends) at
+    three shapes, and one `paged_attention_apply` decode step of the smoke
+    internlm2 (the unfused route on the mesh, the one-launch one
+    without): outputs and pools."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    mesh = make_host_mesh(2, 2, device="cpu")
+    out = {}
+    for name, kw in ATTN_CASES.items():
+        q, kp, vp, tables, lens, kvl, _, _ = (torch.from_numpy(a) for a in
+                                              attn_case(**kw))
+        pos = lens[:, None] + torch.arange(q.shape[1], dtype=torch.int32)
+        for tag, m in (("mesh", mesh), ("nomesh", None)):
+            sharding.set_mesh(m)
+            for backend in ("kernel", "plain"):
+                out[f"{name}_{backend}_{tag}"] = pa.paged_attention(
+                    q, kp, vp, tables, positions=pos, kv_len=kvl,
+                    backend=backend)
+    sharding.set_mesh(None)
+    out.update(_layer_step(mesh))
+    return out
+
+
+def _layer_step(mesh) -> dict:
+    """One decode step (C = 1) of the smoke internlm2's first attention
+    layer through `paged_attention_apply` with and without the mesh, from
+    the same pools."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.models import common, registry
+    cfg = SMOKES["internlm2-1.8b"].replace(dtype="float32")
+    params = registry.init_params(cfg, seed=0, device="cpu", max_seq=64)
+    lp = params["layers"][0]["attn"]
+    kh, dh = cfg.n_kv_heads, cfg.head_dim
+    rng = np.random.RandomState(63)
+    b, bs, mb = 4, 8, 4
+    nb = b * mb + 1
+    pools = {n: torch.from_numpy(rng.standard_normal(
+        (nb, bs, kh, dh)).astype(np.float32)) for n in ("k", "v")}
+    tables = torch.from_numpy(np.arange(1, nb, dtype=np.int32).reshape(
+        b, mb))
+    lens = torch.tensor([0, 5, 17, 30], dtype=torch.int32)
+    kvl = lens + torch.tensor([0, 1, 1, 1], dtype=torch.int32)
+    pos = lens[:, None].long()
+    flat = (tables.long().gather(1, (lens // bs).long()[:, None]) * bs
+            + (lens % bs).long()[:, None])
+    flat[0] = 0
+    index = common.PagedIndex(positions=pos, flat_idx=flat, tables=tables,
+                              lens=lens, kv_len=kvl,
+                              flat=flat.to(torch.int32))
+    x = torch.from_numpy(rng.standard_normal((b, 1, cfg.d_model)).astype(
+        np.float32))
+    out = {}
+    from repro_torch.parallel import sharding
+    for tag, m in (("mesh", mesh), ("nomesh", None)):
+        sharding.set_mesh(m)
+        cache = {n: t.clone() for n, t in pools.items()}
+        y, cache = common.paged_attention_apply(lp, x, cfg, cache=cache,
+                                                index=index)
+        out["layer_y_" + tag] = y
+        out["layer_k_" + tag], out["layer_v_" + tag] = cache["k"], cache["v"]
+    sharding.set_mesh(None)
+    return out
+
+
+CASES = {"engine": case_engine, "parallel": case_parallel, "moe": case_moe,
+         "moe6": case_moe6, "a2a": case_a2a, "attn": case_attn}
 
 
 def main() -> None:

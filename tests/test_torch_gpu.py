@@ -1574,3 +1574,168 @@ def test_one_rank_nccl_mesh_mvm_identical_to_no_mesh():
         sharding.set_mesh(None)
         if owned:
             dist.destroy_process_group()
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism and the KV-head split: the per-shard launches of a
+# rank of an ep-rank "model" axis
+# ---------------------------------------------------------------------------
+EP_RANKS = (2, 4, 8)
+# qwen2-moe-a2.7b at full width: 60 experts padded to 64, d_model 2048,
+# d_ff_expert 1408; capacity 8 (a decode step's)
+EP_PROJ = [(2048, 1408), (1408, 2048)]
+
+
+def _expert_kernels(kid, dev):
+    """(kernel, plain version, extra args) of an expert-batched entry."""
+    seed = (torch.tensor([7], dtype=torch.int32, device=dev),)
+    return {"B1e": (cim_mvm.cim_mvm_grouped_packed_experts,
+                    cim_mvm.cim_mvm_grouped_packed_experts_plain, ()),
+            "B6e": (cim_mvm.cim_mvm_grouped_noisy_packed_experts,
+                    cim_mvm.cim_mvm_grouped_noisy_packed_experts_plain,
+                    seed),
+            "B2e": (cim_mvm.cim_mvm_grouped_experts,
+                    cim_mvm.cim_mvm_grouped_experts_plain, ()),
+            "B5e": (cim_mvm.cim_mvm_grouped_noisy_experts,
+                    cim_mvm.cim_mvm_grouped_noisy_experts_plain, seed)}[kid]
+
+
+@pytest.mark.parametrize("k,n", EP_PROJ)
+@pytest.mark.parametrize("kid", ["B1e", "B6e", "B2e", "B5e"])
+def test_expert_slices_bit_exact_vs_whole_launch(kid, k, n):
+    """Each rank's expert slice (E_pad / ep experts, a leading-dim narrow
+    of the whole stack, launched as it is) equals the matching experts of
+    the whole launch and its plain version, bit for bit, for ep 2, 4, 8."""
+    dev = gpu_device()
+    fn, plain, args = _expert_kernels(kid, dev)
+    kw = dict(KW, sigma=0.277) if args else KW
+    e = 64
+    x = _codes(k, (e, 8, k)).to(dev)
+    w = _codes(n, (e, k, n)).to(dev)
+    if kid in ("B1e", "B6e"):
+        w = ops.pack_codes(w).contiguous()
+    whole = fn(x, w, *args, **kw)
+    for ep in EP_RANKS:
+        el = e // ep
+        for r in range(ep):
+            xs, ws = x.narrow(0, r * el, el), w.narrow(0, r * el, el)
+            assert ws.is_contiguous()
+            before = fn.launches
+            y = fn(xs, ws, *args, **kw)
+            assert fn.launches == before + 1
+            assert torch.equal(y, whole[r * el:(r + 1) * el]), (ep, r)
+            assert torch.equal(y, plain(xs, ws, *args, **kw)), (ep, r)
+
+
+# (KH, G): internlm2-1.8b (16 / 8 heads) and qwen2-moe-a2.7b (16 / 16),
+# dh 128
+HEAD_SPLITS = [(8, 2), (16, 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("bs", [16, 64])
+@pytest.mark.parametrize("kh,g", HEAD_SPLITS)
+def test_b3_head_slice_bit_exact_vs_whole_launch(kh, g, bs, c, dtype):
+    """B3 on each rank's KV-head slice of the pools (a strided view read in
+    place, ep 2, 4, 8) equals the slice of the whole launch and its plain
+    version on the same view, bit for bit; at C = 1 the unfused route
+    (paged_write of the whole pools, then B3 on the slice) gives the
+    one-launch decode's output slice and pools."""
+    from repro_torch.models.common import paged_write
+    dev = gpu_device()
+    mb = 16 if bs == 16 else 4
+    q, kp, vp, tables, lens, kvl = _attn_case(13, c, dtype, dev, kh=kh, g=g,
+                                              bs=bs, mb=mb)
+    q = q.to(dtype)
+    whole = pa.paged_attn_call(q, kp, vp, tables, lens, kvl, out_dtype=dtype)
+    if c == 1:
+        nk, nv, flat = _decode_writes((q, kp, vp, tables, lens, kvl), dtype,
+                                      dev)
+        kf, vf = kp.clone(), vp.clone()
+        fused = pa.decode_write_attend_call(q, kf, vf, nk, nv, flat, tables,
+                                            lens, kvl, out_dtype=dtype)
+        ku, vu = kp.clone(), vp.clone()
+        paged_write(ku, nk, flat.long()[:, None])
+        paged_write(vu, nv, flat.long()[:, None])
+        assert _same_bits(ku[1:], kf[1:]) and _same_bits(vu[1:], vf[1:])
+        with pytest.raises(ValueError, match="whole pools"):
+            pa.decode_write_attend_call(q[:, :, :g], kf[:, :, :1],
+                                        vf[:, :, :1], nk[:, :, :1],
+                                        nv[:, :, :1], flat, tables, lens,
+                                        kvl)
+    for ep in EP_RANKS:
+        khl = kh // ep
+        for r in range(ep):
+            heads = slice(r * khl * g, (r + 1) * khl * g)
+            qs = q[:, :, heads].contiguous()
+            ks, vs = kp.narrow(2, r * khl, khl), vp.narrow(2, r * khl, khl)
+            assert not ks.is_contiguous() or khl == kh
+            before = pa.paged_attn_call.launches
+            y = pa.paged_attn_call(qs, ks, vs, tables, lens, kvl,
+                                   out_dtype=dtype)
+            assert pa.paged_attn_call.launches == before + 1
+            assert _same_bits(y, whole[:, :, heads].contiguous()), (ep, r)
+            assert _same_bits(y, pa.paged_attn_plain(
+                qs, ks, vs, tables, lens, kvl).to(dtype)), (ep, r)
+            if c == 1:
+                yu = pa.paged_attn_call(
+                    qs, ku.narrow(2, r * khl, khl),
+                    vu.narrow(2, r * khl, khl), tables, lens, kvl,
+                    out_dtype=dtype)
+                assert _same_bits(yu, fused[:, :, heads].contiguous())
+
+
+def test_one_rank_nccl_mesh_moe_and_a2a_identical_to_no_mesh():
+    """A 1-rank nccl mesh: the smoke qwen2-moe's moe.apply with packed
+    experts at IDEAL and NOISY, psum-EP and a2a-EP, gives no mesh's bits
+    with the same B1e / B6e launches; the a2a exchange's all-to-alls on
+    the 1-rank group give the send buffer back bit for bit."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.core.macro import SimLevel
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe, registry
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.parallel import collectives, sharding
+    dev = gpu_device()
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(1, 1)
+    try:
+        base = SMOKES["qwen2-moe-a2.7b"]
+        ffn = registry.init_params(base, seed=0, device=dev,
+                                   max_seq=64)["layers"][1]["ffn"]
+        x = torch.from_numpy(np.random.RandomState(14).standard_normal(
+            (4, 16, base.d_model)).astype(np.float32)).to(dev, torch.bfloat16)
+        for level in (SimLevel.IDEAL, SimLevel.NOISY):
+            cim = CIMConfig(enabled=True, noise_seed=0, macro=dataclasses
+                            .replace(CIMConfig().macro, sim_level=level))
+            p = quantize_params(ffn, base.replace(cim=cim))
+            for mode in ("psum", "a2a"):
+                cfg = base.replace(cim=cim, moe=dataclasses.replace(
+                    base.moe, ep_mode=mode))
+                for t in (16, 1):
+                    sharding.set_mesh(None)
+                    build.reset_launch_counts()
+                    y0, a0 = moe.apply(p, x[:, :t], cfg)
+                    n0 = build.launch_counts()
+                    sharding.set_mesh(mesh)
+                    build.reset_launch_counts()
+                    y1, a1 = moe.apply(p, x[:, :t], cfg)
+                    assert build.launch_counts() == n0
+                    assert torch.equal(y0, y1) and torch.equal(a0, a1)
+        send = torch.from_numpy(np.random.RandomState(15).standard_normal(
+            (64, 8, 2048)).astype(np.float32)).to(dev)
+        group = mesh.get_group("model")
+        recv = collectives.dispatch_exchange(send, group)
+        assert recv.shape == send.shape and torch.equal(recv, send)
+        assert torch.equal(collectives.combine_exchange(recv, group), send)
+    finally:
+        sharding.set_mesh(None)
+        if owned:
+            dist.destroy_process_group()
