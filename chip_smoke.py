@@ -82,6 +82,22 @@ of which fails the run when it fails:
      paged spec Server with the model drafter (spec_k 4) sharing the
      target's weights against plain greedy: a draft must be accepted;
      accept rate, mean accept length and target steps are printed;
+  dryrun. the lowering analysis (`launch.dryrun`, `phase_dryrun`, after
+     phase 3l on its second server's model): (a) the reference's CI cells
+     through `run_cell` (internlm2-1.8b decode_32k on the planned 512-chip
+     mesh and train_4k on the 256-chip one, llama3-8b long_500k, which
+     must be skipped with the reference's reason, internlm2-1.8b
+     decode_32k --cim bp-prequant, qwen2-moe-a2.7b decode_32k --mesh
+     host --ep a2a on this card's 1-rank nccl mesh), each status line and
+     its seconds; (b) the dry-run's cost counter on the meta device at
+     phase 3l's own shape (the slot decode step, 4 slots, max_len 256,
+     full width, --cim bp-prequant, one chip): the planned argument bytes
+     must equal the real params', cache's and tokens' bytes exactly, and
+     the MVMs the trace dispatched the B1 launches of one real step
+     (169); the planned temp bytes beside the measured
+     max_memory_allocated growth of one real step, and the roofline's
+     three terms (the H100's data-sheet peaks) beside the step's CUDA
+     graph time; (c) the phase's seconds (limit DRYRUN_LIMIT_S);
   3p. calibrated static grids and precision manifests at phase 3's width
      and settings: (a) calibrate_act_scale and calibrate_act_tree on the
      reference launcher's batch (RandomState(7), 2 x 16 tokens), the grid
@@ -322,9 +338,13 @@ import types
 import warnings
 
 ROOT = pathlib.Path(__file__).resolve().parent
-HBM_BYTES_S = 3.35e12          # H100 SXM HBM3 (data sheet)
-F32_FLOP_S = 67e12             # H100 SXM f32 outside the tensor cores
-INT_OP_S = 1979e12             # H100 SXM int8 tensor-core ops (dense)
+sys.path.insert(0, str(ROOT / "src"))
+try:    # the card's data-sheet peaks, from the port's one source of them
+    from repro_torch.analysis.roofline import F32_FLOPS as F32_FLOP_S
+    from repro_torch.analysis.roofline import HBM_BW as HBM_BYTES_S
+    from repro_torch.analysis.roofline import INT8_OPS as INT_OP_S
+except ImportError:     # no port beside this file: main() says so, exits 2
+    HBM_BYTES_S = F32_FLOP_S = INT_OP_S = None
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (half
 # the 128 FP32 lanes that give the data sheet's 67 TFLOP/s) x 1.98 GHz
 INT32_OP_S = 132 * 64 * 1.98e9
@@ -379,10 +399,44 @@ E_DEPTH = {"llama3-8b": 4, "granite-3-8b": 4}
 # whisper-large-v3: its published text context (arXiv:2212.04356) and the
 # greedy decode steps after each prefill of phase 3w
 W_MAX_SEQ, W_STEPS = 448, 4   # 8 steps cut to 4 to keep the script's time
+# phase 3w's kernels-vs-plain runs hold the kernels at the encoder's shapes
+# over its first W_PLAIN_ENC layers (of 32), to keep the script's time
+W_PLAIN_ENC = 4
+DRYRUN_LIMIT_S = 40.0          # phase "dryrun"'s time limit
+# the reference's CI dry-run cells: (arch, shape, mesh, cim, ep, status)
+DRYRUN_CELLS = (
+    ("internlm2-1.8b", "decode_32k", "multi", "off", None, "ok"),
+    ("internlm2-1.8b", "train_4k", "single", "off", None, "ok"),
+    ("llama3-8b", "long_500k", "single", "off", None, "skipped"),
+    ("internlm2-1.8b", "decode_32k", "single", "bp-prequant", None, "ok"),
+    ("qwen2-moe-a2.7b", "decode_32k", "host", "bp-prequant", "a2a", "ok"))
+
+
+# the phase clock: a line that starts "phase <name>" whose name differs
+# from the last one's starts that phase; each phase gets the seconds up to
+# the next one's start (summed where a phase's lines come back)
+_CLOCK = {"t0": time.monotonic(), "phase": "start", "at": 0.0, "secs": {}}
 
 
 def log(msg: str) -> None:
+    m = re.match(r"phase (\w+)", msg)
+    if m and m.group(1) != _CLOCK["phase"]:
+        now = time.monotonic() - _CLOCK["t0"]
+        secs = _CLOCK["secs"]
+        secs[_CLOCK["phase"]] = round(secs.get(_CLOCK["phase"], 0.0)
+                                      + now - _CLOCK["at"], 1)
+        _CLOCK.update(phase=m.group(1), at=now)
     print(msg, flush=True)
+
+
+def clock_line() -> str:
+    """Every phase's seconds so far, and the script's."""
+    now = time.monotonic() - _CLOCK["t0"]
+    secs = dict(_CLOCK["secs"])
+    secs[_CLOCK["phase"]] = round(secs.get(_CLOCK["phase"], 0.0) + now
+                                  - _CLOCK["at"], 1)
+    return (f"clock: {now:.1f} s since the script started; by phase, from "
+            f"its first line to the next phase's: {json.dumps(secs)}")
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1747,6 +1801,128 @@ def phase_ep(torch, np, dev, card: str, ctx) -> dict:
     return out
 
 
+def phase_dryrun(torch, np, dev, card: str, server) -> dict:
+    """Phase "dryrun" (module docstring) on `server`'s model: phase 3l's
+    slot Server (internlm2-1.8b at full width, --cim bp-prequant, 4 slots,
+    max_len 256). Returns the numbers it printed."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import hlo
+    from repro_torch.analysis.roofline import Roofline, model_flops
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import registry, transformer
+    from repro_torch.models.quantize import abstract_quantized_params
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+
+    t_phase = time.monotonic()
+    out = {}
+    # (a) the reference's CI cells
+    had_group = dist.is_initialized()
+    for arch, shape, mesh, cim, ep, want in DRYRUN_CELLS:
+        t0 = time.monotonic()
+        r = dr.run_cell(arch, shape, mesh, cim=cim, ep=ep)
+        dt = time.monotonic() - t0
+        log(f"phase dryrun (a): {dr.status_line(r)} ({dt:.2f} s)")
+        if r["status"] == "ok":
+            m, rl = r["memory_analysis"], r["roofline"]
+            log(f"  program {r['program']} (work chips {rl['work_chips']}), "
+                f"argument {m['argument_size_in_bytes']:.0f} B/chip, temp "
+                f"{m['temp_size_in_bytes']:.0f} B, {rl['hlo_flops']:.0f} "
+                f"FLOP, {rl['hlo_bytes']:.0f} B, collectives "
+                f"{rl['collective_detail']}, t_compute "
+                f"{rl['t_compute_s']:.6g} s, t_memory {rl['t_memory_s']:.6g}"
+                f" s, t_collective {rl['t_collective_s']:.6g} s")
+        check(r["status"] == want, f"phase dryrun: {r['cell']} is "
+              f"{r['status']}, the reference's is {want}: "
+              f"{r.get('error', r.get('reason'))}")
+        if want == "skipped":
+            check(r["reason"].startswith("skip: pure full-softmax"),
+                  f"phase dryrun: {r['cell']} skipped for {r['reason']}")
+        out[r["cell"]] = dt
+    if dist.is_initialized() and not had_group:
+        dist.destroy_process_group()       # --mesh host's 1-rank group
+    t_a = time.monotonic() - t_phase
+
+    # (b) the plan at phase 3l's own shape against one real step
+    cfg, b, max_len = server.cfg, 4, 256
+    params_m = abstract_quantized_params(registry.abstract_params(cfg), cfg)
+    cache_m = transformer.init_cache(cfg, b, max_len, device="meta")
+    tok_m = torch.empty((b, 1), dtype=torch.int32, device="meta")
+    args = (dr.Placed(params_m, dr.params_shardings(params_m, None)),
+            dr.Placed(tok_m, (None, None)),
+            dr.Placed(cache_m, dr.cache_shardings(cache_m, None)))
+    disp0 = sum(KERNEL_COUNTERS.backend_dispatch.values())
+    t0 = time.monotonic()
+    cost = dr.trace_step(
+        lambda p, t, c: transformer.decode_step(p, t, c, cfg),
+        tuple(a.tree for a in args), train=False)
+    t_trace = time.monotonic() - t0
+    dispatched = sum(KERNEL_COUNTERS.backend_dispatch.values()) - disp0
+    planned_args = sum(dr.per_chip_bytes(a) for a in args)
+
+    cache = transformer.init_cache(cfg, b, max_len, device=dev)
+    cache["pos"].fill_(100)
+    tok = torch.from_numpy(np.random.RandomState(8).randint(
+        0, cfg.vocab, (b, 1)).astype(np.int32)).to(dev)
+
+    def nbytes(tree):
+        return sum(t.numel() * t.element_size()
+                   for t in hlo.tensors(tree))
+
+    real_args = nbytes(server.params) + nbytes(tok) + nbytes(cache)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with torch.no_grad():
+        transformer.decode_step(server.params, tok, cache, cfg)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    b1 = build.launch_counts()["cim_mvm_grouped_packed"]
+
+    def step():
+        with torch.no_grad():
+            transformer.decode_step(server.params, tok, cache, cfg)
+
+    t_graph = graph_ms(torch, step, [()], reps=3, min_iters=3)
+    shape = ShapeConfig("decode_card", max_len, b, "decode")
+    rl = Roofline(arch=cfg.arch, shape=shape.name, mesh="card1", chips=1,
+                  hlo_flops=float(cost.flops), hlo_bytes=float(cost.bytes),
+                  collective_bytes=0.0,
+                  model_flops=model_flops(cfg, shape, params_m),
+                  peak_bytes_per_chip=float(planned_args + cost.temp_bytes),
+                  collective_detail={})
+    bound_ms = 1e3 * max(rl.t_compute, rl.t_memory, rl.t_collective)
+    log(f"phase dryrun (b) ({card}): {cfg.arch} slot decode step, {b} slots, "
+        f"max_len {max_len}, --cim bp-prequant, one chip: meta trace "
+        f"{t_trace:.2f} s; planned argument bytes {planned_args} vs the "
+        f"real params + tokens + cache {real_args}; MVMs dispatched in the "
+        f"trace {dispatched} (hook {cost.mvms}) vs B1 launches of one real "
+        f"step {b1}; planned temp {cost.temp_bytes} B vs the real step's "
+        f"max_memory_allocated growth {grown} B; {cost.flops} FLOP, "
+        f"{cost.bytes} B -> t_compute {rl.t_compute * 1e3:.6f} ms, t_memory "
+        f"{rl.t_memory * 1e3:.6f} ms, t_collective "
+        f"{rl.t_collective * 1e3:.6f} ms (data-sheet peaks): bound "
+        f"{bound_ms:.6f} ms vs the step's CUDA graph {t_graph:.4f} ms")
+    check(planned_args == real_args, f"phase dryrun: planned argument bytes "
+          f"{planned_args} != the real {real_args}")
+    check(dispatched == cost.mvms == b1 == 169, f"phase dryrun: the trace "
+          f"dispatched {dispatched} MVMs ({cost.mvms} counted), one real "
+          f"step launched B1 {b1} times; expected 169")
+    del cache
+    t_all = time.monotonic() - t_phase
+    log(f"phase dryrun ({card}): {t_all:.2f} s in all ((a) {t_a:.2f} s), "
+        f"limit {DRYRUN_LIMIT_S:.0f} s")
+    check(t_all <= DRYRUN_LIMIT_S, f"phase dryrun took {t_all:.1f} s, over "
+          f"its {DRYRUN_LIMIT_S:.0f} s")
+    out.update(planned_args=planned_args, real_args=real_args,
+               mvms=dispatched, b1=b1, temp=cost.temp_bytes, grown=grown,
+               bound_ms=bound_ms, graph_ms=t_graph, seconds=t_all)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2935,7 +3111,7 @@ def main() -> int:
         f"{max(b96):.3f} ms (bytes {b96[0]:.3f} ms, operations "
         f"{b96[1]:.3f} ms)")
     del server
-    _, _, streams_l2 = serve_slots("phase 3l: slot engine run 2")
+    server_l2, _, streams_l2 = serve_slots("phase 3l: slot engine run 2")
     check(streams_l2 == streams_l, "phase 3l: two same-seed slot serves "
           "gave different streams")
     log("phase 3l: the two slot serves gave identical streams")
@@ -2990,6 +3166,10 @@ def main() -> int:
                 f"greedy in {same} of 8 requests")
         del srv
     del sparams
+
+    # ---- phase "dryrun": the lowering analysis on phase 3l's model -------
+    phase_dryrun(torch, np, dev, card, server_l2)
+    del server_l2
 
     # ---- phase 3p: calibrated static grids and precision manifests -------
     # (a) the reference launcher's calibration batch (RandomState(7), 2 x 16
@@ -3854,8 +4034,13 @@ def main() -> int:
               "frames": torch.from_numpy(wrng.standard_normal(
                   (2, wcfg.encoder_len, wcfg.d_model)).astype(np.float32)
               ).to(dev)}
-    w_prefill, w_step = 6 * wcfg.encoder_layers + 10 * wcfg.n_layers + 1, \
-        8 * wcfg.n_layers + 1
+    w_step = 8 * wcfg.n_layers + 1
+
+    def cut(params, step_cfg):
+        """The kernels-vs-plain runs' model: the first W_PLAIN_ENC encoder
+        layers."""
+        return ({**params, "enc_layers": params["enc_layers"][:W_PLAIN_ENC]},
+                step_cfg.replace(encoder_layers=W_PLAIN_ENC))
     w_kname = {"IDEAL": "cim_mvm_grouped_packed",
                "NOISY": "cim_mvm_grouped_noisy_packed",
                "bp-noisy": "cim_mvm_grouped_noisy"}
@@ -3863,9 +4048,11 @@ def main() -> int:
     def whisper_run(params, step_cfg, steps, level, tag):
         """One prefill of wbatch, then `steps` greedy decode steps; (the
         logits, the cache leaves, the streams). With the kernels (not the
-        plain versions), B1 / B6 / B5 must launch w_prefill times in the
-        prefill and w_step times per decode step."""
+        plain versions), B1 / B6 / B5 must launch once per MVM: 6 an
+        encoder layer, 10 a decoder layer and the head in the prefill,
+        w_step times per decode step."""
         kernels = step_cfg.cim.backend != "plain"
+        w_prefill = 6 * step_cfg.encoder_layers + 10 * step_cfg.n_layers + 1
         torch.cuda.synchronize()
         build.reset_launch_counts()
         t0 = time.monotonic()
@@ -3892,7 +4079,8 @@ def main() -> int:
                   f"{tag}: {kname} launched {p_counts[kname]} times in the "
                   f"prefill and {d_counts[kname]} in {steps} decode steps, "
                   f"expected {w_prefill} and {steps * w_step}")
-            main_w[level] = (p_counts[kname], d_counts[kname])
+            if step_cfg.encoder_layers == wcfg.encoder_layers:
+                main_w[level] = (p_counts[kname], d_counts[kname])
         check(all(a.shape == (2, wcfg.vocab) and bool(torch.isfinite(a).all())
                   for a in logits), f"{tag}: logits malformed")
         check(tuple(cache["cross"]["k"].shape)
@@ -3920,16 +4108,21 @@ def main() -> int:
                             f"phase 3w (a): {level} run {r + 1}")
                 for r in range(runs)]
         torch.cuda.reset_peak_memory_stats()
-        plain_out = whisper_run(wparams, step_cfg.replace(
+        cparams, ccfg = cut(wparams, step_cfg)
+        cut_out = whisper_run(cparams, ccfg, W_STEPS, level,
+                              f"phase 3w (a): {level} {W_PLAIN_ENC} "
+                              f"encoder layers")
+        plain_out = whisper_run(cparams, ccfg.replace(
             cim=dataclasses.replace(step_cfg.cim, backend="plain")),
-            W_STEPS, level, f"phase 3w (a): {level} plain")
-        err, same = whisper_same(outs[0], plain_out)
-        log(f"phase 3w (a): {level} prefill + {W_STEPS} decode steps, "
-            f"kernels vs plain versions: max |dlogit| = {err}, self and "
-            f"cross K/V identical: {same} (tolerance 0); streams "
-            f"{outs[0][2]}; plain run's peak "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        check(err == 0.0 and same and outs[0][2] == plain_out[2],
+            W_STEPS, level, f"phase 3w (a): {level} {W_PLAIN_ENC} encoder "
+            f"layers, plain")
+        err, same = whisper_same(cut_out, plain_out)
+        log(f"phase 3w (a): {level} prefill + {W_STEPS} decode steps over "
+            f"{W_PLAIN_ENC} of {wcfg.encoder_layers} encoder layers, kernels "
+            f"vs plain versions: max |dlogit| = {err}, self and cross K/V "
+            f"identical: {same} (tolerance 0); streams {cut_out[2]}; plain "
+            f"run's peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        check(err == 0.0 and same and cut_out[2] == plain_out[2],
               f"phase 3w: {level} kernel and plain runs differ")
         if runs > 1:
             err, same = whisper_same(outs[0], outs[1])
@@ -3937,7 +4130,7 @@ def main() -> int:
                   "phase 3w: the two same-seed NOISY runs differ")
             log("phase 3w (a): the two same-seed NOISY runs are identical "
                 "(logits, caches, streams)")
-        del outs, plain_out
+        del outs, cut_out, plain_out
         torch.cuda.empty_cache()
 
     # (c) where the time goes: the encoder and the prefill alone, then the
@@ -3984,19 +4177,24 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"phase 3w (b): float model {gbytes(fparams):.2f} GB (bf16) in "
         f"{time.monotonic() - t0:.1f} s")
-    k_out = whisper_run(fparams, wnoisy, 1, "bp-noisy",
-                        "phase 3w (b): --cim bp-noisy")
-    p_out = whisper_run(fparams, wnoisy.replace(cim=dataclasses.replace(
+    whisper_run(fparams, wnoisy, 1, "bp-noisy",
+                "phase 3w (b): --cim bp-noisy")
+    cparams, ccfg = cut(fparams, wnoisy)
+    k_out = whisper_run(cparams, ccfg, 1, "bp-noisy",
+                        f"phase 3w (b): --cim bp-noisy, {W_PLAIN_ENC} "
+                        f"encoder layers")
+    p_out = whisper_run(cparams, ccfg.replace(cim=dataclasses.replace(
         noisy, backend="plain")), 1, "bp-noisy",
-        "phase 3w (b): --cim bp-noisy plain")
+        f"phase 3w (b): --cim bp-noisy, {W_PLAIN_ENC} encoder layers, plain")
     err, same = whisper_same(k_out, p_out)
-    log(f"phase 3w (b): --cim bp-noisy prefill + decode step, kernels vs "
+    log(f"phase 3w (b): --cim bp-noisy prefill + decode step over "
+        f"{W_PLAIN_ENC} of {wcfg.encoder_layers} encoder layers, kernels vs "
         f"plain versions: max |dlogit| = {err}, K/V identical: {same} "
         f"(tolerance 0); peak {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB")
     check(err == 0.0 and same, "phase 3w: --cim bp-noisy kernel and plain "
           "runs differ")
-    del fparams, k_out, p_out
+    del fparams, cparams, k_out, p_out
     torch.cuda.empty_cache()
     log(f"phase 3w ({card}): launches (prefill, {W_STEPS} decode steps) "
         f"{main_w}; {time.monotonic() - t3w:.1f} s in all")
@@ -4105,6 +4303,7 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"]})
+    log(clock_line())
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
 """Architecture registry: --arch <id> → (full CONFIG, reduced SMOKE), the
-reference's ten archs."""
+reference's ten archs, and the dry-run's cell filter."""
 from __future__ import annotations
 
 from . import (deepseek_v3_671b, granite_3_8b, internlm2_1_8b,
@@ -20,3 +20,16 @@ def get(arch: str, *, smoke: bool = False) -> ModelConfig:
     if arch not in table:
         raise KeyError(f"unknown arch {arch!r}; available: {sorted(table)}")
     return table[arch]
+
+
+def cell_is_runnable(cfg: ModelConfig, shape: ShapeConfig) -> tuple[bool, str]:
+    """Whether an (arch × shape) dry-run cell runs, and why not if skipped.
+
+    Per the brief: long_500k needs sub-quadratic attention — skipped for pure
+    softmax-attention archs (incl. MLA, which is still full softmax attention
+    over the latent cache) and run for SSM/hybrid archs.
+    """
+    if shape.name == "long_500k" and not cfg.supports_long_context:
+        return False, ("skip: pure full-softmax-attention arch at 512k context"
+                       " (sub-quadratic archs only, per brief)")
+    return True, ""

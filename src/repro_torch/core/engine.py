@@ -89,6 +89,19 @@ their expert MVMs per shard, on a rank's expert slice inside
 runs whole on every rank (the reference's vmap does not enter its
 shard_map either).
 
+The dry-run (meta operands)
+---------------------------
+On operands on the meta device (`launch.dryrun`) a backend runs nothing:
+`_meta_mvm` records the MVM's own work with `telemetry.record_mvm` —
+2·M·K·N operations; the x codes, the stored codes as they arrive (K·N/2
+bytes nibble-packed, 4·K·N as dense f32 codes) and the f32 output in
+bytes, as a kernel launch moves them — and returns an empty f32 output
+of the right shape. Every backend is counted so, the plain versions' and
+the eager backends' loops over groups and experts included, and no
+container conversion runs for it; the dispatch is still counted in
+KERNEL_COUNTERS, and the Eq. 7 correction and the dequantization still
+run (on meta). A sharded MVM counts this rank's shard.
+
 Expert-batched MVMs (the MoE routed experts)
 --------------------------------------------
 Weights with a leading expert axis (PackedCodes data [E, K2, M], or
@@ -112,7 +125,7 @@ import torch
 
 from repro_torch.kernels import cim_mvm, ops
 from repro_torch.parallel import sharding
-from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+from repro_torch.runtime.telemetry import KERNEL_COUNTERS, record_mvm
 
 from .adc import adc_quantize
 from .energy import mvm_energy
@@ -472,6 +485,22 @@ def _per_expert(spec: BackendSpec, x_codes, weights, macro, kw):
     return torch.stack(outs)
 
 
+def _meta_mvm(x_codes: torch.Tensor, weights) -> torch.Tensor:
+    """An MVM on meta operands (module docstring): its kernel's work is
+    recorded, and its output is an empty f32 [..., M] on meta."""
+    packed = isinstance(weights, PackedCodes)
+    data = weights.data if packed else weights
+    k = weights.k if packed else data.shape[-2]
+    n = data.shape[-1]
+    rows = x_codes.numel() // x_codes.shape[-1]
+    w_bytes = data.numel() * (1 if packed else 4)
+    record_mvm(2 * rows * k * n,
+                   x_codes.numel() * x_codes.element_size() + w_bytes
+                   + rows * n * 4)
+    return torch.empty(x_codes.shape[:-1] + (n,), dtype=torch.float32,
+                       device=x_codes.device)
+
+
 def _sharded_mvm(spec: BackendSpec, x_codes: torch.Tensor, weights, cfg, *,
                  key, inl_seed: int, noise_seed, x_zero_point):
     """One MVM on the active mesh, this rank's shard of it (module
@@ -484,12 +513,10 @@ def _sharded_mvm(spec: BackendSpec, x_codes: torch.Tensor, weights, cfg, *,
     plan = sharding.mvm_plan(x_codes.shape, k_logical, data.shape[-1],
                              k_unit=2 if packed else 1)
     part = plan.axes
-    x_slices = [(-1, plan.ctr_axes)]
-    if x_codes.ndim > 1:
-        x_slices.append((0, plan.row_axes))
-    x_l = sharding.shard(x_codes, x_slices, part)
-    w_l = sharding.shard(data, [(0, plan.ctr_axes), (-1, plan.col_axes)],
+    x_l = sharding.shard(x_codes,
+                         sharding.spec_slices(plan.x_spec(x_codes.ndim)),
                          part)
+    w_l = sharding.shard(data, sharding.spec_slices(plan.w_spec()), part)
     n_ctr = sharding.shard_index(plan.ctr_axes)[1]
     shard_seed = None
     if SimLevel.IDEAL not in spec.sim_levels:
@@ -502,6 +529,8 @@ def _sharded_mvm(spec: BackendSpec, x_codes: torch.Tensor, weights, cfg, *,
 
     def run(xc, wd):
         wt = PackedCodes(wd, k_local) if packed else wd
+        if xc.device.type == "meta":
+            return _meta_mvm(xc, wt)
         return spec.fn(xc, wt, macro, **kw)
 
     with sharding.shard_context():
@@ -515,9 +544,10 @@ def _sharded_mvm(spec: BackendSpec, x_codes: torch.Tensor, weights, cfg, *,
                                   w_offset=cfg.weight.offset,
                                   x_zero_point=x_zero_point, sum_w=sum_w, k=0)
     y_int = sharding.ordered_sum(y_int, plan.ctr_axes)
-    y_int = sharding.gather(y_int, -1, plan.col_axes)
-    if x_codes.ndim > 1:
-        y_int = sharding.gather(y_int, 0, plan.row_axes)
+    # the output channels first, then the rows (the last axis innermost)
+    for dim, axes in reversed(sharding.spec_slices(plan.out_spec(
+            y_int.ndim))):
+        y_int = sharding.gather(y_int, dim, axes)
     return y_int + cfg.weight.offset * x_zero_point * k_logical
 
 
@@ -564,9 +594,10 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
         if s_w is None:
             raise ValueError("execute_mvm needs s_w (or a PackedCodes "
                              "container carrying its scale)")
-    if packed and spec.packed is False:
+    meta = x_codes.device.type == "meta"   # counted as it arrives
+    if packed and spec.packed is False and not meta:
         weights, packed = unpack(weights), False
-    elif not packed and spec.packed:
+    elif not packed and spec.packed and not meta:
         w_codes = weights.to(torch.float32)
         weights = PackedCodes(ops.pack_codes(w_codes), w_codes.shape[-2])
         packed = True
@@ -585,6 +616,8 @@ def execute_mvm(x_codes: torch.Tensor, weights, cfg, *, s_x: torch.Tensor,
 
     def run(xc, wd):
         wt = PackedCodes(wd, weights.k) if packed else wd
+        if meta:
+            return _meta_mvm(xc, wt)
         if experts and not spec.experts:
             return _per_expert(spec, xc, wt, macro, kw)
         return spec.fn(xc, wt, macro, **kw)

@@ -60,15 +60,6 @@ def make_mesh(shape, axes, *, device=None):
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False, device=None):
-    """The reference's production topology: (data 16, model 16), or
-    (pod 2, data 16, model 16) multi-pod. Raises unless the world has
-    256 (512) ranks."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return make_mesh(shape, axes, device=device)
-
-
 def make_host_mesh(data: int = 1, model: int = 1, *, device=None):
     """A (data, model) mesh over the world's ranks."""
     return make_mesh((data, model), ("data", "model"), device=device)

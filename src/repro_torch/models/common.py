@@ -106,6 +106,22 @@ def embed_init(gen, cfg: ModelConfig, *, device) -> Params:
 # ---------------------------------------------------------------------------
 # primitive layers
 # ---------------------------------------------------------------------------
+def token_specs(shape, t: int | None = None) -> dict:
+    """Meta int32 stand-ins for a cell's token inputs (the dry-run): train
+    {"tokens", "labels"} [B, t], prefill {"tokens"} [B, t], decode
+    {"tokens"} [B, 1]; t defaults to the shape's seq_len."""
+    b = shape.global_batch
+    t = shape.seq_len if t is None else t
+
+    def mk(n):
+        return torch.empty((b, n), dtype=torch.int32, device="meta")
+    if shape.kind == "train":
+        return {"tokens": mk(t), "labels": mk(t)}
+    if shape.kind == "prefill":
+        return {"tokens": mk(t)}
+    return {"tokens": mk(1)}
+
+
 def dense(p: Params, x: torch.Tensor, cfg: ModelConfig, *,
           train: bool = False, w: str = "w",
           b: str | None = "b") -> torch.Tensor:
@@ -304,6 +320,10 @@ class _RowGather(torch.autograd.Function):
         (idx,) = ctx.saved_tensors
         flat = idx.reshape(-1)
         g2 = g.reshape(flat.numel(), -1)
+        if g.device.type == "meta":
+            # the dry-run: the pass count below is data; one scatter-add
+            return g.new_zeros(ctx.shape).index_add_(
+                0, flat, g2.reshape(-1, *ctx.shape[1:])), None
         order = torch.argsort(flat, stable=True)
         uniq, counts = torch.unique_consecutive(flat[order],
                                                 return_counts=True)

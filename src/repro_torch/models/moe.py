@@ -101,6 +101,8 @@ def _expert_stack(gen, shape, scale, dtype, device) -> torch.Tensor:
     deepseek-v3 projection)."""
     out = torch.empty(shape, dtype=dtype, device=device)
     step = max(1, _INIT_CHUNK_ELEMS // (shape[1] * shape[2]))
+    if out.device.type == "meta":     # no values: one draw of the stack
+        step = shape[0]
     for e0 in range(0, shape[0], step):
         e1 = min(shape[0], e0 + step)
         out[e0:e1] = (_normal(gen, (e1 - e0,) + tuple(shape[1:]), device)

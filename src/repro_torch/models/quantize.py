@@ -42,3 +42,11 @@ def quantize_params(params, cfg: ModelConfig, *, packed: bool = True):
         else:
             out[k] = v
     return out
+
+
+def abstract_quantized_params(params_abs, cfg: ModelConfig, *,
+                              packed: bool = True):
+    """`quantize_params` of a params tree on the meta device (the
+    dry-run's serving cells): the stored codes' and scales' shapes and
+    dtypes, with no storage."""
+    return quantize_params(params_abs, cfg, packed=packed)

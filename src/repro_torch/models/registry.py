@@ -37,6 +37,18 @@ def init_params(cfg: ModelConfig, *, seed: int = 0, device=None, **kw):
     return get_module(cfg).init(cfg, seed=seed, device=device, **kw)
 
 
+def abstract_params(cfg: ModelConfig, *, max_seq: int = 0) -> dict:
+    """The params tree on the meta device (the dry-run path): the port's
+    own init, so its layout (layer stacks as per-layer lists), shapes and
+    dtypes, with no storage and no draw."""
+    return init_params(cfg, device="meta", max_seq=max_seq)
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """The family module's meta-tensor stand-ins for a cell's inputs."""
+    return get_module(cfg).input_specs(cfg, shape)
+
+
 def _to_tensor(a, device) -> torch.Tensor:
     a = np.array(a)        # a writable copy torch may own
     if a.dtype == np.uint16:              # bf16 stored as a uint16 view

@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 
 from . import common
 from .common import (_normal, cumsum_f32, dense, dtype_of, embed_init,
@@ -77,7 +77,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None,
     models.quantize.quantize_params). `max_seq` is taken and ignored, as
     the reference's init takes `**_`."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     layer_fn = layer_fn or (lambda lp: lp)
     kw = dict(dtype=dtype_of(cfg), device=dev, kind=cfg.norm)
     params = {"tok": embed_init(gen, cfg, device=dev),
@@ -304,3 +304,8 @@ def decode_step(params: dict, tokens: torch.Tensor, cache: dict,
     h = norm(params["final_norm"], h, cfg)
     return unembed(params["tok"], h[:, 0], cfg), \
         {**cache, "pos": cache["pos"] + 1}
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """Meta-tensor stand-ins for a dry-run cell's tokens (and labels)."""
+    return common.token_specs(shape)

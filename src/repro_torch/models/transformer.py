@@ -49,7 +49,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 
 from . import common, mla, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
@@ -108,7 +108,7 @@ def init(cfg: ModelConfig, *, seed: int = 0, device=None, layer_fn=None,
     if cfg.pos_embed == "learned" and max_seq <= 0:
         raise ValueError("learned positions need max_seq at init")
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen = generator(dev, seed)
     layer_fn = layer_fn or (lambda lp: lp)
     n_dense = _n_dense(cfg)
     params = {"tok": embed_init(gen, cfg, device=dev),
@@ -511,3 +511,21 @@ def paged_step(params: dict, tokens: torch.Tensor, cache: dict,
     last = torch.clamp(valid - 1, min=0)
     h_last = x[torch.arange(b, device=x.device), last]
     return unembed(params["tok"], h_last, cfg), cache
+
+
+def input_specs(cfg: ModelConfig, shape) -> dict:
+    """Meta-tensor stand-ins for every model input of a dry-run cell: the
+    tokens (and labels) behind a VLM's image prefix, plus "image_embeds"
+    [B, n_image_tokens, D] and whisper's "frames" [B, encoder_len, D] in
+    bf16 outside decode."""
+    b, s = shape.global_batch, shape.seq_len
+    specs = common.token_specs(
+        shape, s - cfg.n_image_tokens if cfg.n_image_tokens else s)
+    if cfg.n_image_tokens and shape.kind != "decode":
+        specs["image_embeds"] = torch.empty(
+            (b, cfg.n_image_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device="meta")
+    if cfg.encoder_layers and shape.kind != "decode":
+        specs["frames"] = torch.empty((b, cfg.encoder_len, cfg.d_model),
+                                      dtype=torch.bfloat16, device="meta")
+    return specs

@@ -28,10 +28,10 @@ from repro_torch.parallel import sharding
 def dispatch_exchange(send: torch.Tensor, group) -> torch.Tensor:
     """a2a_dispatch's all-to-all over `group` (no autograd, no skip on one
     rank): send [E_pad, cap, D] → [E_pad / ep, ep·cap, D]."""
-    ep = dist.get_world_size(group)
+    ep = sharding.group_size(group)
     e_pad, cap = send.shape[:2]
     recv = torch.empty_like(send.contiguous())
-    dist.all_to_all_single(recv, send.contiguous(), group=group)
+    sharding.all_to_all_single(recv, send.contiguous(), group)
     # recv holds source s's [E_local, cap, D] block at [s]
     return recv.reshape(ep, e_pad // ep, cap, *send.shape[2:]) \
         .transpose(0, 1).reshape(e_pad // ep, ep * cap, *send.shape[2:])
@@ -40,13 +40,13 @@ def dispatch_exchange(send: torch.Tensor, group) -> torch.Tensor:
 def combine_exchange(out: torch.Tensor, group) -> torch.Tensor:
     """a2a_combine's all-to-all over `group` (no autograd, no skip on one
     rank): out [E_local, ep·cap, D] → [ep·E_local, cap, D]."""
-    ep = dist.get_world_size(group)
+    ep = sharding.group_size(group)
     e_local, rows = out.shape[:2]
     cap = rows // ep
     send = out.reshape(e_local, ep, cap, *out.shape[2:]).transpose(0, 1) \
         .contiguous()
     back = torch.empty_like(send)
-    dist.all_to_all_single(back, send, group=group)
+    sharding.all_to_all_single(back, send, group)
     return back.reshape(ep * e_local, cap, *out.shape[2:])
 
 
@@ -135,12 +135,12 @@ def compressed_psum(x: torch.Tensor, group, err: torch.Tensor):
     makes of it in the reference's shard_map body."""
     xf = x.float() + err
     amax = torch.max(torch.abs(xf))
-    dist.all_reduce(amax, op=dist.ReduceOp.MAX, group=group)
+    sharding.all_reduce(amax, group, op=dist.ReduceOp.MAX)
     scale = torch.clamp(amax / torch.full((), 127.0, device=xf.device),
                         min=1e-12)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     new_err = fma_f32(-q.float(), scale, xf)
     total = q.to(torch.int32)
-    dist.all_reduce(total, group=group)
-    n = float(dist.get_world_size(group))
+    sharding.all_reduce(total, group)
+    n = float(sharding.group_size(group))
     return total.float() * scale / n, new_err

@@ -4,7 +4,7 @@ The reference's building block for depth-dominated configs (its
 production meshes use DP x TP x EP only, so no launcher runs it; the
 tests do). Schedule: the classic fill-drain loop. At tick t, stage s
 processes microbatch t - s; activations hop stage -> stage + 1 by
-point-to-point sends (`batch_isend_irecv`). Every rank runs the same
+point-to-point sends (`sharding.send_recv`). Every rank runs the same
 function, applying its own slice of the stacked stage parameters; at the
 end the last stage's outputs are broadcast to every rank of the stage
 group.
@@ -12,7 +12,8 @@ group.
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
+
+from repro_torch.parallel import sharding
 
 
 def pipeline_apply(stage_fn, stage_params, x_micro: torch.Tensor, *, mesh,
@@ -28,11 +29,10 @@ def pipeline_apply(stage_fn, stage_params, x_micro: torch.Tensor, *, mesh,
     Returns [n_micro, mb, ...]: the last stage's outputs, on every rank.
     """
     group = mesh.get_group(axis)
-    n_stages = dist.get_world_size(group)
+    n_stages = sharding.group_size(group)
     n_micro = x_micro.shape[0]
     assert n_micro >= n_stages, "need >= n_stages microbatches to fill"
     sid = mesh.get_local_rank(axis)
-    ranks = [dist.get_global_rank(group, i) for i in range(n_stages)]
 
     def local(tree):
         if isinstance(tree, dict):
@@ -52,15 +52,10 @@ def pipeline_apply(stage_fn, stage_params, x_micro: torch.Tensor, *, mesh,
             if sid == n_stages - 1:
                 outs[mb] = h
         # hop to the next stage: s sends to s + 1, s + 1 receives from s
-        ops = []
-        if sid + 1 < n_stages:
-            ops.append(dist.P2POp(dist.isend, h.contiguous(),
-                                  ranks[sid + 1], group))
-        if sid > 0:
-            h_in = torch.empty_like(h_in)
-            ops.append(dist.P2POp(dist.irecv, h_in, ranks[sid - 1], group))
-        if ops:
-            for req in dist.batch_isend_irecv(ops):
-                req.wait()
-    dist.broadcast(outs, ranks[-1], group=group)
+        if n_stages > 1:
+            if sid > 0:
+                h_in = torch.empty_like(h_in)
+            sharding.send_recv(h if sid + 1 < n_stages else None, sid + 1,
+                               h_in if sid > 0 else None, sid - 1, group)
+    sharding.broadcast(outs, n_stages - 1, group)
     return outs

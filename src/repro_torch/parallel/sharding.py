@@ -35,16 +35,29 @@ so gradients are those of the whole tensors; a tensor read whole by
 every rank's block sums its gradient over the partitioning axes).
 `constrain` is therefore a layout annotation with no effect: the
 activations it names are already whole on every rank.
+
+Collectives. Every collective the port issues goes through the helpers
+at the end of this module (`all_gather`, `reduce_scatter_tensor`,
+`all_to_all_single`, `all_reduce`, and `send_recv` / `broadcast` for the
+pipeline), which record (kind, operand bytes) into the active
+`runtime.telemetry` recorders for the dry-run's accounting
+(`analysis.hlo`). Under a `PlannedMesh` (a
+production mesh that is only planned: axis sizes and this rank's
+coordinates, no process group) they issue nothing and return tensors of
+the right shape, so rank 0's program runs on the meta device as it would
+run on the mesh.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.runtime.telemetry import record_collective
 
 _MESH = None
 # (the mesh, its {axis name: size}): read once per mesh, not per MVM
@@ -70,6 +83,30 @@ def shard_context():
         yield
     finally:
         _SHARD_DEPTH[0] -= 1
+
+
+class PlannedGroup(NamedTuple):
+    """One axis of a PlannedMesh, where a process group would be."""
+
+    axis: str
+    size: int
+
+
+class PlannedMesh:
+    """A mesh that is planned, not built: {axis name: size} in mesh order,
+    seen from rank 0 (coordinate 0 on every axis), with no process group.
+    The sharding rules read it as they read a DeviceMesh; its collectives
+    are recorded and issue nothing (module docstring)."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.axis_names = tuple(self.shape)
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
+
+    def get_group(self, axis: str) -> PlannedGroup:
+        return PlannedGroup(axis, self.shape[axis])
 
 
 def set_mesh(mesh) -> None:
@@ -290,6 +327,13 @@ class MVMPlan:
         return tuple(a for a in _axes() if a in used)
 
 
+def spec_slices(spec: Sequence) -> list[tuple[int, tuple]]:
+    """A spec → the (dim, mesh axes) of its sharded dims, in dim order
+    (the `slices` of `shard`)."""
+    return [(d, e if isinstance(e, tuple) else (e,))
+            for d, e in enumerate(spec) if e is not None]
+
+
 def mvm_plan(x_shape: Sequence[int], k: int, m: int, *,
              k_unit: int = 1) -> MVMPlan:
     """Partition plan for one MVM on the active mesh (identity without).
@@ -349,10 +393,7 @@ def shard_index(axes: Sequence[str]) -> tuple[int, int]:
 
 
 def _all_gather(t: torch.Tensor, axis: str) -> list[torch.Tensor]:
-    group = _MESH.get_group(axis)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, t.contiguous(), group=group)
-    return parts
+    return all_gather(t, _MESH.get_group(axis))
 
 
 def _sum_over(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -453,10 +494,10 @@ class _ReduceScatter(torch.autograd.Function):
     def forward(ctx, t, dim, axis):
         ctx.dim, ctx.axis = dim, axis
         group = _MESH.get_group(axis)
-        n = dist.get_world_size(group)
+        n = group_size(group)
         moved = t.movedim(dim, 0).contiguous()
         out = moved.new_empty((moved.shape[0] // n, *moved.shape[1:]))
-        dist.reduce_scatter_tensor(out, moved, group=group)
+        reduce_scatter_tensor(out, moved, group)
         return out.movedim(0, dim)
 
     @staticmethod
@@ -512,3 +553,78 @@ def gather(t: torch.Tensor, dim: int, axes: Sequence[str], *,
     if size is not None and size != t.shape[dim]:
         t = t.narrow(dim, 0, size)
     return t
+
+
+# ---------------------------------------------------------------------------
+# the collectives: recorded (runtime.telemetry), issued unless the group
+# is planned
+# ---------------------------------------------------------------------------
+def group_size(group) -> int:
+    """The rank count of a process group or of a PlannedGroup."""
+    if isinstance(group, PlannedGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def all_gather(t: torch.Tensor, group) -> list[torch.Tensor]:
+    """Every rank's `t` over `group`, in rank order (under a planned group
+    this rank's `t`, then uninitialised stand-ins for the others)."""
+    record_collective("all-gather", t)
+    n = group_size(group)
+    if isinstance(group, PlannedGroup):
+        return [t] + [torch.empty_like(t) for _ in range(n - 1)]
+    parts = [torch.empty_like(t) for _ in range(n)]
+    dist.all_gather(parts, t.contiguous(), group=group)
+    return parts
+
+
+def reduce_scatter_tensor(out: torch.Tensor, inp: torch.Tensor,
+                          group) -> None:
+    """dist.reduce_scatter_tensor (sum) into `out`."""
+    record_collective("reduce-scatter", inp)
+    if not isinstance(group, PlannedGroup):
+        dist.reduce_scatter_tensor(out, inp, group=group)
+
+
+def all_to_all_single(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """dist.all_to_all_single into `out`."""
+    record_collective("all-to-all", inp)
+    if not isinstance(group, PlannedGroup):
+        dist.all_to_all_single(out, inp, group=group)
+
+
+def all_reduce(t: torch.Tensor, group, op=None) -> None:
+    """dist.all_reduce of `t` in place (sum unless `op`)."""
+    record_collective("all-reduce", t)
+    if not isinstance(group, PlannedGroup):
+        dist.all_reduce(t, op=op or dist.ReduceOp.SUM, group=group)
+
+
+def send_recv(send: torch.Tensor | None, dst: int | None,
+              recv: torch.Tensor | None, src: int | None, group) -> None:
+    """One hop of a permute over `group`: `send` to the group's rank
+    `dst` and `recv` (filled in place) from its rank `src`, either side
+    None, issued together (dist.batch_isend_irecv). Recorded as one
+    collective-permute of the hop's tensor, as the reference's ppermute
+    is on every rank."""
+    record_collective("collective-permute",
+                      send if send is not None else recv)
+    if isinstance(group, PlannedGroup):
+        return
+    ops = []
+    if send is not None:
+        ops.append(dist.P2POp(dist.isend, send.contiguous(),
+                              dist.get_global_rank(group, dst), group))
+    if recv is not None:
+        ops.append(dist.P2POp(dist.irecv, recv,
+                              dist.get_global_rank(group, src), group))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+
+
+def broadcast(t: torch.Tensor, src: int, group) -> None:
+    """dist.broadcast of `t` in place from the group's rank `src`
+    (recorded as the reference's ppermute of it: collective-permute)."""
+    record_collective("collective-permute", t)
+    if not isinstance(group, PlannedGroup):
+        dist.broadcast(t, dist.get_global_rank(group, src), group=group)

@@ -301,6 +301,60 @@ KERNEL_COUNTERS = KernelCounters()
 
 
 # ---------------------------------------------------------------------------
+# step recorders: what one traced step does (the dry-run's accounting)
+
+#: the collective kinds, under the reference's (HLO) names
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+class Recorder:
+    """What one traced step did: its collectives (kind, operand bytes) in
+    call order, and the CIM MVMs on meta operands counted by their
+    kernels' work. Written by `parallel.sharding`'s collective helpers
+    and `core.engine`'s meta MVM; read by `analysis.hlo`."""
+
+    def __init__(self):
+        self.collectives: list[tuple[str, int]] = []
+        self.mvms = 0
+        self.mvm_flops = 0
+        self.mvm_bytes = 0
+
+
+_RECORDERS: list[Recorder] = []
+
+
+class recording:
+    """A Recorder that every collective and meta MVM adds to while the
+    block runs (recorders nest; each sees everything inside it)."""
+
+    def __enter__(self) -> Recorder:
+        self.rec = Recorder()
+        _RECORDERS.append(self.rec)
+        return self.rec
+
+    def __exit__(self, *exc) -> None:
+        _RECORDERS.remove(self.rec)
+
+
+def record_collective(kind: str, t) -> None:
+    """One collective call with operand `t` (a tensor), under `kind`."""
+    assert kind in COLLECTIVES, kind
+    if _RECORDERS:
+        n = t.numel() * t.element_size()
+        for rec in _RECORDERS:
+            rec.collectives.append((kind, n))
+
+
+def record_mvm(flops: int, nbytes: int) -> None:
+    """One CIM MVM on meta operands, by its kernel's own work."""
+    for rec in _RECORDERS:
+        rec.mvms += 1
+        rec.mvm_flops += flops
+        rec.mvm_bytes += nbytes
+
+
+# ---------------------------------------------------------------------------
 # per-server telemetry
 
 

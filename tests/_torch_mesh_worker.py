@@ -434,8 +434,71 @@ def _layer_step(mesh) -> dict:
     return out
 
 
+def dryrun_step_cfg(step: str):
+    """(cfg, batch, max_len) of the dry-run's collectives test: one slot
+    decode step of the smoke internlm2, or of the smoke qwen2-moe under
+    a2a-EP, both at IDEAL CIM from packed stored codes."""
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    arch = {"internlm2": "internlm2-1.8b",
+            "qwen2_moe_a2a": "qwen2-moe-a2.7b"}[step]
+    cfg = SMOKES[arch].replace(cim=CIMConfig(enabled=True))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, ep_mode="a2a"))
+    return cfg, 4, 16
+
+
+def dryrun_pipeline(device):
+    """The dry-run test's pipeline on the active mesh: 3 microbatches
+    through 2 stages over "data" (point-to-point hops and the final
+    broadcast)."""
+    from repro_torch.parallel import sharding
+    from repro_torch.parallel.pipeline import pipeline_apply
+    w = torch.ones((2, 8, 8), device=device)
+    x = torch.ones((3, 2, 8), device=device)
+    return pipeline_apply(lambda p, h: h @ p, w, x,
+                          mesh=sharding.get_mesh(), axis="data")
+
+
+def case_dryrun() -> dict:
+    """The collectives (kind, operand bytes) each rank records around the
+    dry-run test's decode steps and pipeline on a 2 x 2 (data, model)
+    mesh."""
+    from repro_torch.analysis import hlo
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.quantize import quantize_params
+    from repro_torch.parallel import sharding
+    sharding.set_mesh(make_host_mesh(2, 2, device="cpu"))
+    out = {}
+    for step in ("internlm2", "qwen2_moe_a2a"):
+        cfg, b, max_len = dryrun_step_cfg(step)
+        params = quantize_params(registry.init_params(
+            cfg, seed=0, device="cpu", max_seq=max_len), cfg)
+        mod = registry.get_module(cfg)
+        cache = mod.init_cache(cfg, b, max_len, device="cpu")
+        tokens = torch.arange(1, b + 1, dtype=torch.int32).reshape(b, 1)
+        with hlo.recording() as rec, torch.no_grad():
+            mod.decode_step(params, tokens, cache, cfg)
+        out[step + "_kinds"] = torch.tensor(
+            [hlo.COLLECTIVES.index(k) for k, _ in rec.collectives],
+            dtype=torch.int64)
+        out[step + "_bytes"] = torch.tensor(
+            [n for _, n in rec.collectives], dtype=torch.int64)
+    with hlo.recording() as rec:
+        out["pipeline_y"] = dryrun_pipeline("cpu")
+    out["pipeline_kinds"] = torch.tensor(
+        [hlo.COLLECTIVES.index(k) for k, _ in rec.collectives],
+        dtype=torch.int64)
+    out["pipeline_bytes"] = torch.tensor([n for _, n in rec.collectives],
+                                         dtype=torch.int64)
+    sharding.set_mesh(None)
+    return out
+
+
 CASES = {"engine": case_engine, "parallel": case_parallel, "moe": case_moe,
-         "moe6": case_moe6, "a2a": case_a2a, "attn": case_attn}
+         "moe6": case_moe6, "a2a": case_a2a, "attn": case_attn,
+         "dryrun": case_dryrun}
 
 
 def main() -> None:

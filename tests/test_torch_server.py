@@ -265,8 +265,9 @@ def test_port_imports_no_jax_and_no_reference():
     on the macro, two --cim bp training steps through launch.train
     (microbatches, int8 gradient compression, checkpoints), the Fig. 18
     rows through figures.run, the quickstart example, a tuned serve on a
-    1-rank host mesh, a pipeline and compressed_psum leave no JAX and no
-    reference module (`repro`, or its figure modules under
+    1-rank host mesh, a pipeline and compressed_psum, and two dry-run
+    cells (direct and extrapolated) with their report leave no JAX and
+    no reference module (`repro`, or its figure modules under
     `benchmarks`) in sys.modules."""
     code = (
         "import sys, pkgutil, importlib\n"
@@ -360,6 +361,17 @@ def test_port_imports_no_jax_and_no_reference():
         "                                  x, mesh=mesh), x)\n"
         "y, e = compressed_psum(x, mesh.get_group('stage'), torch.zeros_like(x))\n"
         "dist.destroy_process_group()\n"
+        "from repro_torch.analysis import perf_report, report\n"
+        "from repro_torch.launch import dryrun, perf\n"
+        "acfg = SMOKES['internlm2-1.8b'].replace(attn_chunk=1024)\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    for a in ('scan', 'extrapolate'):\n"
+        "        r = dryrun.run_cell('internlm2-1.8b', 'decode_32k', 'single',\n"
+        "                            cim='bp-noisy', cfg_override=acfg,\n"
+        "                            analysis=a, out_dir=d)\n"
+        "        assert r['status'] == 'ok', r.get('error')\n"
+        "    assert len(report.load_cells(d)) == 2\n"
+        "assert sorted(perf.VARIANTS)[0] == 'A0'\n"
         "for m in ('repro_torch.core.adc', 'repro_torch.core.engine',\n"
         "          'repro_torch.models.moe', 'repro_torch.models.mla',\n"
         "          'repro_torch.models.rwkv6', 'repro_torch.models.mamba2',\n"
@@ -378,6 +390,10 @@ def test_port_imports_no_jax_and_no_reference():
         "          'repro_torch.parallel.pipeline', 'repro_torch.launch.mesh',\n"
         "          'repro_torch.launch.serve',\n"
         "          'repro_torch.launch.train',\n"
+        "          'repro_torch.launch.dryrun', 'repro_torch.launch.perf',\n"
+        "          'repro_torch.analysis.roofline', 'repro_torch.analysis.hlo',\n"
+        "          'repro_torch.analysis.report',\n"
+        "          'repro_torch.analysis.perf_report',\n"
         "          'repro_torch.examples.train_cim_qat',\n"
         "          'repro_torch.examples.quickstart',\n"
         "          'repro_torch.examples.sqnr_study',\n"
