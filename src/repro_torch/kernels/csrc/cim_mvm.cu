@@ -71,13 +71,35 @@
 // instruction). The split aims at ~64 CTAs: at M = 4 the 2048-wide MVMs
 // take clusters of 2 and the 1024-wide ones clusters of 4.
 //
-// B1/B6 and B2/B5 expert-batched (the MoE routed experts, which the
-// reference runs as jax.vmap of its kernels): x [E, M, K], w [E, K2, N]
-// (or dense [E, K, N]) -> out [E, M, N] in one launch, grid z over
-// (expert, row tile). Separate template instances (EXPERTS = true), so the
-// 2-D instances compile as before. Rows and groups are counted within an
+// Expert-batched (the MoE routed experts, which the reference runs as
+// jax.vmap of its kernels): x [E, M, K], w [E, K2, N] (or dense [E, K, N])
+// -> out [E, M, N] in one launch. Rows and groups are counted within an
 // expert, so an expert's outputs, and under NOISY/FULL its noise draws,
-// are those of a 2-D launch on its own operands.
+// are those of a 2-D launch on its own operands. B2e/B5e are the dense
+// kernel's EXPERTS = true instances, grid z over (expert, row tile).
+//
+// B1e/B6e (cim_mvm_packed_experts_kernel) have a body of their own. What
+// bounds them on this card: at qwen2-moe's decode (64 experts of capacity
+// 8, K 2048 <-> 1408) a projection streams 92 MB of codes for 8 rows, a
+// bytes bound of ~28 us; the __dp4a route costs ~100 integer instructions
+// per 16 weight bytes (the nibble unpack, 8 x 8 dp4a, the activation
+// loads), as long again at full issue, and B6e adds the counter hash
+// (~1.3 G int32 operations a projection). The 2-D body over grid z ran at
+// 0.66 TB/s: 153-163 registers and a 123 KB code buffer held one 8-warp
+// CTA an SM, a warp had 2.5 KB of weights in flight, the next group's
+// loads waited for the current group's dp4a, and every CTA converted its
+// expert's activations in a loop of dependent loads. The new body does
+// the group's MAC on the tensor cores (an m16n8k16 s8 MMA with the 8
+// activation rows as its N: exact integer sums; a __dp4a variant with the
+// same loads took 1.7x as long), streams weights and activations through
+// a cp.async ring per warp, converts the codes in registers and adds them
+// to outputs the warp owns across all its groups (no code buffer, no
+// cluster), splits groups over warps only where that balances the SMs,
+// and walks a persistent grid. It reaches ~1.6 TB/s: the ring's depth (4
+// to 16 k-steps) moved nothing, and an L2 prefetch of whole rows or an
+// activation ring shared by a CTA's warps was slower, so what is left is
+// most likely the DRAM efficiency of 64-byte row pieces (not profiled:
+// ncu is refused on the machine).
 //
 // B2/B5 (cim_mvm_dense_kernel): a lane loads a float4 (4 columns of one
 // f32 weight row) for each of U = 9 rows at once (144 bytes in flight per
@@ -104,8 +126,8 @@
 // packed kernel cannot take the shape: groups of rows that are no multiple
 // of four (an int8x4 word would straddle two groups), or more shared
 // memory than a CTA has. It stages fewer groups per pass where 16 do not
-// fit. Later work: a TMA/cp.async weight pipeline, and tensor-core MMA for
-// prefill-sized M.
+// fit. Later work: B1e's MMA and weight ring for the 2-D B1/B6 and for
+// prefill-sized M (ROADMAP speed item 4).
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -419,7 +441,7 @@ __device__ __forceinline__ void quad_columns(uint32_t r0, uint32_t r1,
   col[3] = (int)__byte_perm(a23, b23, 0x7632);
 }
 
-template <int BM, int VB, int MODE, bool EXPERTS>
+template <int BM, int VB, int MODE>
 __global__ void __launch_bounds__(kGroupWarps * 32)
 cim_mvm_packed_kernel(const float* __restrict__ x,
                       const uint8_t* __restrict__ w, float* __restrict__ out,
@@ -442,18 +464,7 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
   const int wg = warp / wcols;                      // ... and group lane
   const int wgs = (blockDim.x >> 5) / wcols;
   const int n0 = blockIdx.x * nct + wc * NC;
-  int mz = blockIdx.z;                              // the row tile
-  if constexpr (EXPERTS) {
-    // grid z runs over (expert, row tile); the expert's operands are the
-    // next [M, K], [KW, N] and [M, N] blocks
-    const int mt = (M + BM - 1) / BM;
-    const int e = mz / mt;
-    mz -= e * mt;
-    x += (size_t)e * M * K;
-    w += (size_t)e * KW * N;
-    out += (size_t)e * M * N;
-  }
-  const int m0 = mz * BM;
+  const int m0 = blockIdx.z * BM;                   // the row tile
   const int g0 = rank * gpc;
   const int ng = max(0, min(gpc, G - g0));
   const int chunk = lane & 3;
@@ -618,20 +629,19 @@ cim_mvm_packed_kernel(const float* __restrict__ x,
 // may set the cluster size and the column warps (0: the choice below); a
 // tuned geometry whose codes do not fit in shared memory falls back to
 // that choice.
-template <int BM, int VB, int MODE, bool EXPERTS>
-int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
-                  int N, int K, int KW, int n_rows, int G, float inv_lsb,
-                  float lsb, float code_max, const Stochastic& st,
-                  const Knobs& kn, cudaStream_t stream) {
+template <int BM, int VB, int MODE>
+int launch_packed(const float* x, const uint8_t* w, float* out, int M, int N,
+                  int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
+                  float code_max, const Stochastic& st, const Knobs& kn,
+                  cudaStream_t stream) {
   constexpr int NC = kChunks * VB;
   // Wide matrices: up to 8 warps side by side along the columns share one
   // CTA's staged activations. Then the groups split over just enough
   // cluster ranks to give the card ~kCtaTarget CTAs: the cluster barrier
   // and the DSMEM pass cost latency that only pays where the column tiles
   // alone would leave SMs idle. The remaining warps of a CTA (up to 8 in
-  // all) take the rank's groups in turn. E experts (EXPERTS) multiply the
-  // row tiles; a tile's N % VB == 0 keeps every expert's rows aligned.
-  const long mt = (long)((M + BM - 1) / BM) * E;   // (expert, row) tiles
+  // all) take the rank's groups in turn.
+  const long mt = (M + BM - 1) / BM;               // row tiles
   if (mt > 65535) return (int)cudaErrorInvalidValue;
   const long warp_tiles = (long)((N + NC - 1) / NC) * mt;
   int wcols, cs, gpc;
@@ -663,7 +673,7 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
   static size_t cap = 48 * 1024;   // raised once per instantiation and size
   if (smem > cap) {
     cudaError_t e = cudaFuncSetAttribute(
-        cim_mvm_packed_kernel<BM, VB, MODE, EXPERTS>,
+        cim_mvm_packed_kernel<BM, VB, MODE>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     cap = smem;
@@ -682,10 +692,439 @@ int launch_packed(const float* x, const uint8_t* w, float* out, int E, int M,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   cudaError_t e =
-      cudaLaunchKernelEx(&cfg, cim_mvm_packed_kernel<BM, VB, MODE, EXPERTS>,
+      cudaLaunchKernelEx(&cfg, cim_mvm_packed_kernel<BM, VB, MODE>,
                          x, w, out, M, N, K, KW, n_rows, G, gpc, wcols, vec,
                          inv_lsb, lsb, code_max, st);
   if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+// A 4-byte asynchronous copy from global to shared memory, zero-filled
+// where !ok (no bytes are read then).
+__device__ __forceinline__ void cp_async4(float* dst, const float* src,
+                                          bool ok) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(ok ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// ---- B1e / B6e: the expert-batched packed kernel --------------------------
+//
+// x [E, M, K] f32 codes, w [E, KW, N] nibble pairs -> out [E, M, N]. A
+// warp's unit of work is (expert, 8-row tile, 64-column tile) and, where
+// that balances the SMs better, a slice of the groups (`gs` slices; the
+// launcher's choice). A CTA holds kExpWarps warps: wc = kExpWarps / gs
+// column tiles of one (expert, row tile) item, times the gs slices. A
+// step is (item, block of wc column tiles); the grid is persistent:
+// min(steps, SMs x CTAs an SM holds) CTAs, each taking a contiguous run
+// of the steps in expert-major order.
+//
+// Lane (g8 = lane / 4, t = lane % 4) of a warp takes, for k-step s of a
+// group (16 weight rows), chunk c = 4 s + t (4 weight rows: byte rows 2c
+// and 2c + 1) of columns 8 g8 .. 8 g8 + 7, and activation row g8's 4 f32
+// codes of the same chunk. Both arrive by cp.async copies in a
+// shared-memory ring of kExpRing k-steps per warp, kExpRing - 1 in flight
+// across group ends (the next group's rows arrive while this group's ADC
+// runs); a cp.async.wait_group and a __syncwarp are the ring's only
+// synchronisation, and the activations need no staging pass (a CTA-wide
+// staging, even with every copy in flight, stalled each CTA for a loaded
+// memory latency: ~60 us of a layer's 217). The nibbles become one
+// int8x4 word per column (its 4 rows); columns 8 g8 + 2q and 8 g8 + 2q +
+// 1 are the A rows g8 and g8 + 8 of the q-th m16n8k16 integer MMA, whose
+// B is the lane's 4 activation codes as an int8x4 word (an exact s32 sum:
+// the codes are < 16). The lane's 16 group sums (2 columns x 2 rows of
+// each of the 4 MMA tiles) are converted in registers and code * lsb is
+// added to the lane's outputs as one __fmaf_rn per group, in ascending
+// group order: the warp walks its groups in order, so no code leaves the
+// registers. Split groups (gs > 1) park their codes in shared memory, and
+// after a barrier the CTA sums every group's code per output in ascending
+// order.
+constexpr int kExpWarps = 4;          // warps per CTA
+constexpr int kExpCols = 64;          // columns per warp tile
+constexpr int kExpRows = 8;           // activation rows per tile (MMA n)
+constexpr int kExpRing = 8;           // k-steps in the ring of a warp
+constexpr int kExpCtas = 4;           // CTAs an SM holds (128 registers)
+constexpr int kExpVals = 16;          // outputs a lane converts per group
+constexpr int kExpWBytes = 8 * kExpCols;    // weight bytes of a k-step
+constexpr int kExpStep = kExpWBytes + 32 * 16;   // ... and its activations
+
+// c (16 x 8, s32) += a (16 x 16, s8, rows g8 and g8 + 8) * b (16 x 8, s8)
+__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// 16- and 8-byte asynchronous copies from global to shared memory (the
+// 16-byte one past L1) of the first `bytes` of src, zero-filled beyond.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(s),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// The column and the row within the unit of a lane's output v: MMA tile
+// v / 4, its accumulator v % 4.
+__device__ __forceinline__ int exp_col(int v, int g8) {
+  return 8 * g8 + 2 * (v >> 2) + ((v >> 1) & 1);
+}
+__device__ __forceinline__ int exp_row(int v, int t) {
+  return 2 * t + (v & 1);
+}
+
+// Byte row r (0..7) of a k-step's 64-byte rows in a ring slot: rows r and
+// r + 2 land in opposite halves of the 32 banks, so the 8-byte reads of a
+// warp's lanes (rows 2t + h) take the two wavefronts their 256 bytes need.
+__device__ __forceinline__ int exp_row_at(int r) {
+  return (r ^ ((r >> 1) & 1)) * kExpCols;
+}
+
+// k-steps of group grp: its byte rows below KW, two a chunk, four chunks
+// a k-step (the last group of a K that is no multiple of n_rows has fewer)
+__device__ __forceinline__ int exp_ksteps(int grp, int nq, int half,
+                                          int KW) {
+  return (min(nq, (KW - grp * half + 1) >> 1) + 3) >> 2;
+}
+
+// Four f32 codes (integers below 2^22) as an int8x4 word, lowest first:
+// adding 1.5 * 2^23 rounds each to nearest even (__float2int_rn) into the
+// low mantissa bits, and three byte permutes gather the low bytes.
+__device__ __forceinline__ int exp_pack(float4 v) {
+  const float m = 12582912.f;
+  const uint32_t a = __float_as_uint(__fadd_rn(v.x, m));
+  const uint32_t b = __float_as_uint(__fadd_rn(v.y, m));
+  const uint32_t c = __float_as_uint(__fadd_rn(v.z, m));
+  const uint32_t d = __float_as_uint(__fadd_rn(v.w, m));
+  return (int)__byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040),
+                          0x5410);
+}
+
+// The producer side of a warp's ring: k-step pj (k-step ps of group pg)
+// of the warp's n_ks into slot pj % kExpRing, then one commit group (an
+// empty one past the last k-step, so that the consumer's wait counts stay
+// the same). Weights: with 16-byte copies lane l copies 16 bytes of byte
+// row l / 4; with 8-byte ones (rows only 8-byte aligned) its own 8
+// columns of its two rows; rows not 8-byte aligned are loaded and stored.
+// Activations: lane (g8, t) copies row m0 + g8's 4 codes of chunk 4 ps + t
+// (zero past M and K; 4-byte copies where the rows are not 16-byte
+// aligned).
+__device__ __forceinline__ void exp_produce(uint8_t* slots,
+                                            const uint8_t* __restrict__ we,
+                                            const float* __restrict__ xr,
+                                            bool row_ok, int N, int K,
+                                            int KW, int nq, int half,
+                                            int kfull, int n0, int lane,
+                                            int n_ks, int vec, int vec_x,
+                                            int& pj, int& pg, int& ps) {
+  static_assert((kExpRing & (kExpRing - 1)) == 0, "a power of two");
+  uint8_t* slot = slots + (pj & (kExpRing - 1)) * kExpStep;
+  if (pj < n_ks) {
+    {
+      const int c = 4 * ps + (lane & 3);
+      const int k = pg * 4 * nq + 4 * c;           // the chunk's first k
+      const int left = row_ok && c < nq ? K - k : 0;
+      float* d = reinterpret_cast<float*>(slot + kExpWBytes + 16 * lane);
+      if (vec_x) {
+        cp_async16(d, left > 0 ? xr + k : xr, left > 0 ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u)
+          cp_async4(d + u, left > u ? xr + k + u : xr, left > u);
+      }
+    }
+    const int row0 = pg * half + 8 * ps;            // the k-step's byte rows
+    const int rows = min(min(8, 2 * nq - 8 * ps), KW - row0);
+    if (vec == 16) {
+      const int r = lane >> 2, q = 16 * (lane & 3);
+      const int left = r < rows ? N - n0 - q : 0;
+      cp_async16(slot + exp_row_at(r) + q,
+                 left > 0 ? we + (size_t)(row0 + r) * N + n0 + q : we,
+                 max(0, min(16, left)));
+    } else {
+      const int g8 = lane >> 2, t = lane & 3;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = 2 * t + h;
+        const int left = r < rows ? N - n0 - 8 * g8 : 0;
+        uint8_t* d = slot + exp_row_at(r) + 8 * g8;
+        const uint8_t* src = we + (size_t)(row0 + r) * N + n0 + 8 * g8;
+        if (vec >= 8) {
+          cp_async8(d, left > 0 ? src : we, left > 0 ? 8 : 0);
+        } else {
+          uint32_t b[2];
+          load_bytes<8>(we, (size_t)(row0 + r) * N + n0 + 8 * g8, left,
+                        false, b);
+          *reinterpret_cast<uint2*>(d) = make_uint2(b[0], b[1]);
+        }
+      }
+    }
+    if (++ps == kfull) {
+      ps = 0;
+      ++pg;
+    }
+  }
+  cp_async_commit();
+  ++pj;
+}
+
+template <int MODE>
+__global__ void __launch_bounds__(kExpWarps * 32, kExpCtas)
+cim_mvm_packed_experts_kernel(const float* __restrict__ x,
+                              const uint8_t* __restrict__ w,
+                              float* __restrict__ out, int M, int N, int K,
+                              int KW, int n_rows, int G, int gs, int blocks,
+                              long n_steps, int vec_x, int vec_w,
+                              float inv_lsb, float lsb, float code_max,
+                              Stochastic st) {
+  extern __shared__ uint8_t smem_b[];
+  const int nq = n_rows >> 2;                       // chunks per group
+  const int half = n_rows >> 1;                     // byte rows per group
+  const int kfull = (nq + 3) >> 2;                  // k-steps of a group
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wc = kExpWarps / gs;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int ct = warp % wc;                         // the warp's column tile
+  const int sl = warp / wc;                         // ... and group slice
+  // the warps' rings, then the split groups' codes
+  uint8_t* slots = smem_b + (size_t)warp * kExpRing * kExpStep;
+  uint16_t* cs = reinterpret_cast<uint16_t*>(
+      smem_b + (size_t)kExpWarps * kExpRing * kExpStep);
+  const int gb = sl * G / gs, ge = (sl + 1) * G / gs;
+  const int mt = (M + kExpRows - 1) / kExpRows;
+  const int nt = (N + kExpCols - 1) / kExpCols;
+  uint32_t h0 = 0u;
+  if constexpr (MODE != kIdeal)
+    h0 = mix32(((uint32_t)__ldg(st.seed) ^ st.salt) ^ kGolden);
+
+  const long s_end = (blockIdx.x + 1) * n_steps / gridDim.x;
+  for (long step = blockIdx.x * n_steps / gridDim.x; step < s_end; ++step) {
+    const long item = step / blocks;
+    const int tile0 = (int)(step - item * blocks) * wc;
+    const int e = (int)(item / mt);
+    const int m0 = (int)(item - (long)e * mt) * kExpRows;
+    const int n0 = (tile0 + ct) * kExpCols;
+    const bool active = tile0 + ct < nt;
+    const uint8_t* we = w + (size_t)e * KW * N;
+    const bool row_ok = m0 + g8 < M;                // the lane's x row
+    const float* xr = x + ((size_t)e * M + (row_ok ? m0 + g8 : 0)) * K;
+    // the warp's k-steps: its groups' in order, all but the last full
+    const int n_ks = active ? (ge - gb - 1) * kfull +
+                                  exp_ksteps(ge - 1, nq, half, KW)
+                            : 0;
+    // the producer's next k-step (index, group, k-step in the group)
+    int pj = 0, pg = gb, ps = 0;
+#pragma unroll 1
+    for (int i = 0; i < kExpRing - 1; ++i)
+      exp_produce(slots, we, xr, row_ok, N, K, KW, nq, half, kfull, n0, lane,
+                  n_ks, vec_w, vec_x, pj, pg, ps);
+
+    // hash state after absorbing the salted seed, the row and the column
+    uint32_t hrc[MODE == kIdeal ? 1 : kExpVals];
+    if constexpr (MODE != kIdeal) {
+#pragma unroll
+      for (int v = 0; v < kExpVals; ++v)
+        hrc[v] = mix32(mix32(h0 ^ (uint32_t)(m0 + exp_row(v, t))) ^
+                       (uint32_t)(n0 + exp_col(v, g8)));
+    }
+    float o[kExpVals];
+#pragma unroll
+    for (int v = 0; v < kExpVals; ++v) o[v] = 0.f;
+
+    int j = 0;                    // the consumer's k-step
+    for (int grp = gb; active && grp < ge; ++grp) {
+      const int ks = exp_ksteps(grp, nq, half, KW);
+      int acc[4][4] = {};
+      // three k-steps at a time at IDEAL (B6e's hash needs the registers)
+#pragma unroll (MODE == kIdeal ? 3 : 1)
+      for (int s = 0; s < ks; ++s, ++j) {
+        cp_async_wait<kExpRing - 2>();              // k-step j has landed
+        __syncwarp();             // ... for every lane; slot j - 1 is free
+        const uint8_t* slot = slots + (j & (kExpRing - 1)) * kExpStep;
+        const uint2 r0 = *reinterpret_cast<const uint2*>(
+            slot + exp_row_at(2 * t) + 8 * g8);
+        const uint2 r1 = *reinterpret_cast<const uint2*>(
+            slot + exp_row_at(2 * t + 1) + 8 * g8);
+        const int b = exp_pack(
+            *reinterpret_cast<const float4*>(slot + kExpWBytes + 16 * lane));
+        int cw[8];
+        quad_columns(r0.x, r1.x, cw);
+        quad_columns(r0.y, r1.y, cw + 4);
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          mma_s8(acc[q], cw[2 * q], cw[2 * q + 1], b);
+        exp_produce(slots, we, xr, row_ok, N, K, KW, nq, half, kfull, n0,
+                    lane, n_ks, vec_w, vec_x, pj, pg,
+                    ps);          // into the slot k-step j - 1 has left
+      }
+      // TD-ADC transfer in registers
+#pragma unroll
+      for (int v = 0; v < kExpVals; ++v) {
+        const float p = (float)acc[v >> 2][v & 3];  // exact: < 2^24
+        float y = __fmul_rn(p, inv_lsb);
+        if constexpr (MODE == kFull) {
+          const float cf =
+              fminf(fmaxf(__fmul_rn(p, st.frac_scale), 0.f), 1.f);
+          y = __fmaf_rn(p, inv_lsb, inl_curve(cf, st));
+        }
+        if constexpr (MODE != kIdeal) {
+          const uint32_t base =
+              mix32(hrc[v] ^ ((uint32_t)grp * 0x01000193u));
+          y = __fmaf_rn(st.sigma, normal12(base), y);
+        }
+        float code = rintf(y);
+        code = fminf(fmaxf(code, 0.f), code_max);
+        if (gs == 1)
+          o[v] = __fmaf_rn(code, lsb, o[v]);
+        else
+          cs[((ct * G + grp) * kExpRows + exp_row(v, t)) * kExpCols +
+             exp_col(v, g8)] = (uint16_t)code;      // exact: < 2^16
+      }
+    }
+    cp_async_wait<0>();           // no copy outlives the step
+    __syncwarp();
+
+    if (gs == 1) {
+      if (active) {
+#pragma unroll
+        for (int v = 0; v < kExpVals; ++v) {
+          const int m = m0 + exp_row(v, t);
+          const int n = n0 + exp_col(v, g8);
+          if (m < M && n < N) out[((size_t)e * M + m) * N + n] = o[v];
+        }
+      }
+    } else {
+      // digital accumulation of the split groups, ascending group order;
+      // eight codes fetched before their dependent multiply-adds
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < wc * kExpRows * kExpCols;
+           idx += blockDim.x) {
+        const int tc = idx / (kExpRows * kExpCols);
+        const int r = idx - tc * (kExpRows * kExpCols);
+        const int mm = r / kExpCols;
+        const int m = m0 + mm;
+        const int n = (tile0 + tc) * kExpCols + r - mm * kExpCols;
+        if (m >= M || n >= N) continue;
+        const uint16_t* p = cs + (size_t)tc * G * kExpRows * kExpCols + r;
+        float y = 0.f;
+        for (int g0 = 0; g0 < G; g0 += 8) {
+          float v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = g0 + q < G ? (float)p[(size_t)(g0 + q) * kExpRows *
+                                         kExpCols]
+                              : 0.f;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (g0 + q < G) y = __fmaf_rn(v[q], lsb, y);
+        }
+        out[((size_t)e * M + m) * N + n] = y;
+      }
+    }
+    if (gs > 1) __syncthreads();  // the next step parks codes here too
+  }
+}
+
+// The persistent launch of the expert-batched packed kernel; returns -1
+// for groups of rows that are no multiple of four: the caller then takes
+// the fallback body. It takes no launch knob (`used` reports {0, 0}).
+template <int MODE>
+int launch_packed_experts(const float* x, const uint8_t* w, float* out,
+                          int E, int M, int N, int K, int KW, int n_rows,
+                          int G, float inv_lsb, float lsb, float code_max,
+                          const Stochastic& st, const Knobs& kn,
+                          cudaStream_t stream) {
+  if (n_rows % 4) return -1;
+  auto kernel = cim_mvm_packed_experts_kernel<MODE>;
+  const long mt = (M + kExpRows - 1) / kExpRows;
+  const long nt = (N + kExpCols - 1) / kExpCols;
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // shared memory: the warps' rings, then the split groups' 16-bit codes
+  auto smem_of = [&](int s) {
+    return (size_t)kExpWarps * kExpRing * kExpStep +
+           (s > 1 ? sizeof(uint16_t) * (size_t)(kExpWarps / s) * G *
+                        kExpRows * kExpCols
+                  : 0);
+  };
+  // The group slices: a step is a block of wc = kExpWarps / gs column
+  // tiles, each over all G groups, and the busiest SM runs up to kExpCtas
+  // CTAs of ceil(steps / CTAs) steps: the fewest slices that minimise that
+  // SM's tile-groups, where the codes (16-bit) still leave kExpCtas CTAs
+  // an SM; ties go to more resident CTAs where the card would be less than
+  // half full. At qwen2-moe's decode the 64 experts take no split, the
+  // expert-parallel slices (8 to 32 experts) do.
+  int gs = 1;
+  long best = 0, busy = 0;
+  for (int s = 1; s <= kExpWarps && (s == 1 || s <= G); s *= 2) {
+    if (s > 1 && (smem_of(s) > kSmemMax / kExpCtas || code_max > 65535.f))
+      continue;
+    const long steps = (long)E * mt * ((nt + kExpWarps / s - 1) /
+                                       (kExpWarps / s));
+    const long ctas = std::min(steps, (long)sms * kExpCtas);
+    const long cost = (steps + ctas - 1) / ctas * ((ctas + sms - 1) / sms) *
+                      (kExpWarps / s);
+    if (s == 1 || cost < best ||
+        (cost == best && ctas > busy && 2 * busy < (long)sms * kExpCtas)) {
+      gs = s;
+      best = cost;
+      busy = ctas;
+    }
+  }
+  const size_t smem = smem_of(gs);
+  kn.report(0, 0);
+  const int wc = kExpWarps / gs;
+  const long blocks = (nt + wc - 1) / wc;
+  const long n_steps = (long)E * mt * blocks;
+  static size_t cap = 48 * 1024;   // raised once per instantiation and size
+  if (smem > cap) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+    cap = smem;
+  }
+  static size_t occ_smem = 0;      // CTAs an SM holds at that size
+  static int occ = 0;
+  if (smem != occ_smem || occ == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &occ, kernel, kExpWarps * 32, smem);
+    if (e != cudaSuccess) return (int)e;
+    occ_smem = smem;
+  }
+  const long grid = std::min(n_steps, (long)sms * std::max(occ, 1));
+  const int vec_x = (K % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const int vec_w = (N % 16 == 0) && ((uintptr_t)w % 16 == 0) ? 16
+                    : (N % 8 == 0) && ((uintptr_t)w % 8 == 0)   ? 8
+                                                                : 0;
+  kernel<<<(unsigned)grid, kExpWarps * 32, smem, stream>>>(
+      x, w, out, M, N, K, KW, n_rows, G, gs, (int)blocks, n_steps, vec_x,
+      vec_w, inv_lsb, lsb, code_max, st);
   return (int)cudaGetLastError();
 }
 
@@ -739,18 +1178,6 @@ __device__ __forceinline__ float4 load_cols(const float* __restrict__ w,
   if (cols_left > 2) v.z = __ldg(w + off + 2);
   if (cols_left > 3) v.w = __ldg(w + off + 3);
   return v;
-}
-
-// A 4-byte asynchronous copy from global to shared memory, zero-filled
-// where !ok (no bytes are read then).
-__device__ __forceinline__ void cp_async4(float* dst, const float* src,
-                                          bool ok) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-               "l"(src), "r"(ok ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
 // One step of the dense reduce-scatter: lanes `mask` apart swap halves of
@@ -1111,15 +1538,18 @@ int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
                                                    code_max, st, kn, stream);
   } else {
     const uint8_t* wp = static_cast<const uint8_t*>(w);
-    const int rc =
-        M <= 4 ? launch_packed<4, 16, MODE, EXPERTS>(x, wp, out, E, M, N, K,
-                                                     KW, n_rows, G, inv_lsb,
-                                                     lsb, code_max, st, kn,
-                                                     stream)
-               : launch_packed<8, 8, MODE, EXPERTS>(x, wp, out, E, M, N, K,
-                                                    KW, n_rows, G, inv_lsb,
-                                                    lsb, code_max, st, kn,
-                                                    stream);
+    int rc;
+    if constexpr (EXPERTS)
+      rc = launch_packed_experts<MODE>(x, wp, out, E, M, N, K, KW, n_rows,
+                                       G, inv_lsb, lsb, code_max, st, kn,
+                                       stream);
+    else
+      rc = M <= 4 ? launch_packed<4, 16, MODE>(x, wp, out, M, N, K, KW,
+                                               n_rows, G, inv_lsb, lsb,
+                                               code_max, st, kn, stream)
+                  : launch_packed<8, 8, MODE>(x, wp, out, M, N, K, KW,
+                                              n_rows, G, inv_lsb, lsb,
+                                              code_max, st, kn, stream);
     if (rc != -1) return rc;
     return M <= 4 ? launch_fallback<4, MODE, EXPERTS>(
                         x, wp, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb,

@@ -151,11 +151,20 @@ def test_b1_b6_groups_of_rows_not_a_multiple_of_four(level):
 # (E, M, K, N, n_rows) of the expert-batched B1 / B6: qwen2-moe's decode
 # shapes at full width (64 experts of capacity 8), the smoke model's, the
 # 4-row tile (M <= 4), an odd K, warps side by side, and 146-row groups
-# (the one-block-per-32-columns body)
+# (the one-block-per-32-columns body); then one expert, the expert-parallel
+# slices (8 / 16 / 32 experts: the groups split over warps), two row tiles
+# (M 9 and 16), N 1400 (no multiple of the 64-column tile) and 67 experts
+# (steps that do not divide the persistent grid)
 EXPERT_SHAPES = [(64, 8, 2048, 1408, 144), (64, 8, 1408, 2048, 144),
                  (16, 8, 128, 64, 144), (16, 8, 64, 128, 144),
                  (5, 3, 301, 70, 144), (3, 4, 2047, 1024, 144),
-                 (4, 64, 2048, 4096, 144), (6, 8, 700, 96, 146)]
+                 (4, 64, 2048, 4096, 144), (6, 8, 700, 96, 146),
+                 (1, 8, 2048, 1408, 144),
+                 (8, 8, 2048, 1408, 144), (8, 8, 1408, 2048, 144),
+                 (16, 8, 2048, 1408, 144), (16, 8, 1408, 2048, 144),
+                 (32, 8, 2048, 1408, 144), (32, 8, 1408, 2048, 144),
+                 (4, 9, 2048, 1408, 144), (4, 16, 1408, 2048, 144),
+                 (8, 8, 2048, 1400, 144), (67, 8, 2048, 1408, 144)]
 
 
 @pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
@@ -187,6 +196,48 @@ def test_b1_b6_experts_bit_exact(e, m, k, n, n_rows, level):
     assert torch.equal(y, plain(x, wp, *args, **kw))
     assert torch.equal(y, torch.stack([wrapper(x[i], wp[i], *args, **kw)
                                        for i in range(e)]))
+
+
+def test_experts_report_the_launch_they_made():
+    """The expert-batched packed entries take no launch knob: `used` reads
+    {0, 0} whatever cluster and column warps are asked for, and the
+    wrapper counts the clamp; B1's 2-D entry reports the knobs it
+    launched."""
+    from repro_torch.kernels import build
+    from repro_torch.runtime.telemetry import KERNEL_COUNTERS
+    dev = gpu_device()
+    x = _codes(3, (4, 8, 2048)).to(dev)
+    wp = ops.pack_codes(_codes(4, (4, 2048, 1408)).to(dev)).contiguous()
+    lsb, inv_lsb = cim_mvm.adc_constants(362, 1.0, 32400.0)
+    lib = build.load("cim_mvm")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = torch.empty(4, 8, 1408, device=dev)
+    knobs = cim_mvm._knob_args(2, 4)
+    assert lib.cim_mvm_packed_experts_launch(
+        x.data_ptr(), wp.data_ptr(), out.data_ptr(), 4, 8, 1408, 2048, 1024,
+        144, inv_lsb, lsb, 361.0, *knobs, stream) == 0
+    assert (knobs[2][0], knobs[2][1]) == (0, 0)
+    s = torch.tensor([7], dtype=torch.int32, device=dev)
+    st = cim_mvm._stochastic_args(inv_lsb, 362, 0.277, 0.0, 0, False)
+    knobs = cim_mvm._knob_args(8, 8)
+    assert lib.cim_mvm_noisy_packed_experts_launch(
+        x.data_ptr(), wp.data_ptr(), out.data_ptr(), 4, 8, 1408, 2048, 1024,
+        144, inv_lsb, lsb, 361.0, st[0], s.data_ptr(), st[1], st[2], st[3],
+        *knobs, stream) == 0
+    assert (knobs[2][0], knobs[2][1]) == (0, 0)
+    knobs = cim_mvm._knob_args(2, 4)
+    out2 = torch.empty(8, 1408, device=dev)
+    assert lib.cim_mvm_packed_launch(
+        x[0].data_ptr(), wp[0].data_ptr(), out2.data_ptr(), 8, 1408, 2048,
+        1024, 144, inv_lsb, lsb, 361.0, *knobs, stream) == 0
+    assert (knobs[2][0], knobs[2][1]) == (2, 4)
+    torch.cuda.synchronize()
+    KERNEL_COUNTERS.reset()
+    y = cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **KW, cluster=2,
+                                               wcols=4)
+    assert KERNEL_COUNTERS.tune_cache["cim_mvm:clamp"] == 1
+    KERNEL_COUNTERS.reset()
+    assert torch.equal(y, cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **KW))
 
 
 def test_experts_reject_bad_operands():

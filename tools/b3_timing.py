@@ -40,9 +40,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("b3_timing: needs a CUDA device", file=sys.stderr)
         return 2
-    from chip_smoke import copies, graph_ms
+    # the tree's package first: chip_smoke (imported for its timing helpers)
+    # puts this repository's src in front of sys.path
     from repro_torch.kernels import build
     from repro_torch.kernels import paged_attention as pa
+    from chip_smoke import copies, graph_ms
     build.build_all(["paged_attention"])
     if args.build_only:
         return 0
