@@ -154,8 +154,8 @@ of which fails the run when it fails:
      to 64, top-4, 4 gated shared experts, vocab 151936; random weights
      from a torch.Generator seed) initialised and quantized layer by
      layer, peak memory printed; (c) one prefill and one decode
-     paged_step with the kernels and with their plain versions: identical
-     logits and pools; (d) phase 3's 8 requests served --paged --cim
+     paged_step over the first M_PLAIN_LAYERS layers with the kernels and
+     with their plain versions: identical logits and pools; (d) phase 3's 8 requests served --paged --cim
      bp-prequant with the kernel attention (B1, B1e, B3 and the B3+B4
      decode launch must launch), the decode step on the card (CUDA graph)
      vs eager, then twice at SimLevel.NOISY, noise_seed 0 (B6, B6e, B3 and
@@ -402,6 +402,10 @@ W_MAX_SEQ, W_STEPS = 448, 4   # 8 steps cut to 4 to keep the script's time
 # phase 3w's kernels-vs-plain runs hold the kernels at the encoder's shapes
 # over its first W_PLAIN_ENC layers (of 32), to keep the script's time
 W_PLAIN_ENC = 4
+# phase 3m's paged steps kernels vs plain run qwen2-moe's first
+# M_PLAIN_LAYERS layers (of 24), to keep the script's time; its serves
+# stay at full depth
+M_PLAIN_LAYERS = 4
 DRYRUN_LIMIT_S = 40.0          # phase "dryrun"'s time limit
 # the reference's CI dry-run cells: (arch, shape, mesh, cim, ep, status)
 DRYRUN_CELLS = (
@@ -753,6 +757,18 @@ Y_DENSE_MVMS = [("wq+wk+wv+wo", 2048, 2048, 4), ("w_gate+w_up", 2048, 5632, 2),
                 ("w_down", 5632, 2048, 1)]
 
 
+def stated_width(fn, *lead, bits: int = 4):
+    """`fn` (B2e / B5e or a plain version) with `lead` arguments after its
+    operands and, for a kernel (bits > 0), the codes' width stated as
+    `ops` states the MacroConfig's: the launch then takes the tensor-core
+    body, where a direct call that states none takes the dense kernel's."""
+    def call(x, w, *args, **kw):
+        return fn(x, w, *lead, *args, **kw,
+                  **({"code_bits": bits} if bits else {}))
+    call.__name__ = fn.__name__
+    return call
+
+
 def _mvm_time(torch, kern, plain, x, w, kw):
     """(kernel ms, plain ms, the kernel's max |diff| from its plain
     version) of one MVM at these operands; bit-exact or the run fails."""
@@ -796,19 +812,42 @@ def phase_train_legs(torch, np, dev, card: str) -> dict:
         return torch.from_numpy(rng.integers(0, 16, size=shape_,
                                              dtype=np.uint8)).to(dev).float()
 
-    # (0) B2e at the train step's capacity and B2 at its M = T, one MoE
-    # layer's forward MVMs each: bit-exact vs plain, timed against bounds
-    for kid, kern, plain_fn, mvms, lead in (
-            ("B2e", cm.cim_mvm_grouped_experts,
-             cm.cim_mvm_grouped_experts_plain, Y_EXPERT_MVMS, (n_exp, cap)),
+    # (0) B2e and B5e (NOISY, seed 7) at the train step's capacity and B2
+    # at its M = T, one MoE layer's forward MVMs each: bit-exact vs plain,
+    # timed against bounds (B5e's: the counter hash). B2e and B5e share
+    # their operands, drawn on the card (0.74 GB of f32 codes a projection)
+    seed = torch.tensor([7], dtype=torch.int32, device=dev)
+    nkw = dict(kw, sigma=0.277)
+    cgen = torch.Generator(device=dev).manual_seed(25)
+    expert_ops = {}
+
+    def operands(kid, label, k, n, lead):
+        if kid == "B2":
+            return codes(lead + (k,)), codes((k, n))
+        if label not in expert_ops:
+            expert_ops[label] = tuple(
+                torch.randint(0, 16, sh, generator=cgen, device=dev,
+                              dtype=torch.float32)
+                for sh in (lead + (k,), (n_exp, k, n)))
+        return expert_ops[label] if kid == "B2e" \
+            else expert_ops.pop(label)
+
+    for kid, kern, plain_fn, mvms, lead, mkw in (
+            ("B2e", stated_width(cm.cim_mvm_grouped_experts),
+             cm.cim_mvm_grouped_experts_plain, Y_EXPERT_MVMS, (n_exp, cap),
+             kw),
+            ("B5e", stated_width(cm.cim_mvm_grouped_noisy_experts, seed),
+             stated_width(cm.cim_mvm_grouped_noisy_experts_plain, seed,
+                          bits=0),
+             Y_EXPERT_MVMS, (n_exp, cap), nkw),
             ("B2", cm.cim_mvm_grouped, cm.cim_mvm_grouped_plain,
-             Y_DENSE_MVMS, (Y_BATCH * Y_SEQ,))):
+             Y_DENSE_MVMS, (Y_BATCH * Y_SEQ,), kw)):
+        t_kid = time.monotonic()
         tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "ops": 0.0,
-               "err": 0.0}
+               "hash_ops": 0.0, "err": 0.0}
         for label, k, n, count in mvms:
-            x = codes(lead + (k,))
-            w = codes(((n_exp,) if kid == "B2e" else ()) + (k, n))
-            t_k, t_p, e = _mvm_time(torch, kern, plain_fn, x, w, kw)
+            x, w = operands(kid, label, k, n, lead)
+            t_k, t_p, e = _mvm_time(torch, kern, plain_fn, x, w, mkw)
             rows = x.numel() // k
             wbytes = w.numel() * 4
             log(f"  phase 3y (0): {kid} {label:12s} x {tuple(x.shape)} w "
@@ -819,17 +858,25 @@ def phase_train_legs(torch, np, dev, card: str) -> dict:
             tot["plain_ms"] += count * t_p
             tot["bytes"] += count * (wbytes + rows * (k + n) * 4)
             tot["ops"] += count * 2 * rows * k * n
+            if kid == "B5e":
+                tot["hash_ops"] += count * rows * n * (
+                    -(-k // kw["n_rows"]) * HASH_OPS_PER_CONVERSION
+                    + HASH_OPS_PER_OUTPUT)
             tot["err"] = max(tot["err"], e)
             del x, w
             torch.cuda.empty_cache()
         b_bytes = tot["bytes"] / HBM_BYTES_S * 1e3
-        b_ops = tot["ops"] / INT_OP_S * 1e3
+        b_ops = max(tot["ops"] / INT_OP_S,
+                    tot["hash_ops"] / INT32_OP_S) * 1e3
         log(f"phase 3y (0) ({card}): {kid} bit-exact vs plain (max |diff| "
             f"{tot['err']}); one "
-            f"qwen2-moe layer's forward at {'C' if kid == 'B2e' else 'M'} "
+            f"qwen2-moe layer's forward at {'M' if kid == 'B2' else 'C'} "
             f"= {lead[-1]}: kernel {tot['ms']:.3f} ms, plain "
             f"{tot['plain_ms']:.3f} ms, bound {max(b_bytes, b_ops):.3f} ms "
-            f"(bytes {b_bytes:.3f}, operations {b_ops:.3f})")
+            f"(bytes {b_bytes:.3f}, operations {b_ops:.3f}"
+            + (f", hash {tot['hash_ops'] / 1e9:.2f} G int32 ops"
+               if tot["hash_ops"] else "")
+            + f"); {time.monotonic() - t_kid:.1f} s")
 
     # (a) one train step at full width, Y_PARITY_LAYERS layer(s), kernels
     # vs plain versions: loss, gradients, grad norm, params, m and v
@@ -1618,9 +1665,9 @@ def phase_ep(torch, np, dev, card: str, ctx) -> dict:
               cm.cim_mvm_grouped_packed_experts_plain, True, False),
              ("B6e", cm.cim_mvm_grouped_noisy_packed_experts,
               cm.cim_mvm_grouped_noisy_packed_experts_plain, True, True),
-             ("B2e", cm.cim_mvm_grouped_experts,
+             ("B2e", stated_width(cm.cim_mvm_grouped_experts),
               cm.cim_mvm_grouped_experts_plain, False, False),
-             ("B5e", cm.cim_mvm_grouped_noisy_experts,
+             ("B5e", stated_width(cm.cim_mvm_grouped_noisy_experts),
               cm.cim_mvm_grouped_noisy_experts_plain, False, True))
     slices = {}
     for kid, kern, plain, packed, noisy in specs:
@@ -2556,7 +2603,7 @@ def main() -> int:
         check(m["prefix_hit_tokens"] >= 32, "the shared prefix was not reused")
         return counts, [r.output for r in reqs]
 
-    def two_steps(server, step_cfg):
+    def two_steps(params, step_cfg):
         """One prefill (C=16) and one decode step from an empty pool;
         (the two logits, the pools)."""
         cache = transformer.init_paged_cache(step_cfg, 4 * 16 + 1, 16,
@@ -2567,24 +2614,30 @@ def main() -> int:
         toks = torch.from_numpy(srng.randint(0, vocab, (4, 16))).to(dev)
         valid = torch.tensor([16, 16, 9, 0], device=dev)
         l1, cache = transformer.paged_step(
-            server.params, toks, cache, tb, torch.zeros(4, device=dev,
+            params, toks, cache, tb, torch.zeros(4, device=dev,
                                                         dtype=torch.long),
             valid, step_cfg)
         nxt = torch.from_numpy(srng.randint(0, vocab, (4, 1))).to(dev)
         l2, cache = transformer.paged_step(
-            server.params, nxt, cache, tb, valid,
+            params, nxt, cache, tb, valid,
             torch.tensor([1, 1, 1, 0], device=dev), step_cfg)
         return (l1, l2), cache["layers"]
 
-    def check_steps(server, tag):
+    def check_steps(server, tag, layers=None):
         """The two steps with the kernels and with their plain versions
         must give identical logits and pools (blocks >= 1: the trash
-        block takes masked writes by design)."""
-        l_k, pools_k = two_steps(server, server.cfg)
-        plain_cfg = server.cfg.replace(
+        block takes masked writes by design); over the first `layers`
+        layers of the stack where given."""
+        params, cfg = server.params, server.cfg
+        if layers is not None:
+            params = {**params, "layers": params["layers"][:layers]}
+            cfg = cfg.replace(n_layers=layers)
+            tag = f"{tag}, {layers} of {server.cfg.n_layers} layers"
+        l_k, pools_k = two_steps(params, cfg)
+        plain_cfg = cfg.replace(
             attn_backend="plain",
-            cim=dataclasses.replace(server.cfg.cim, backend="plain"))
-        l_p, pools_p = two_steps(server, plain_cfg)
+            cim=dataclasses.replace(cfg.cim, backend="plain"))
+        l_p, pools_p = two_steps(params, plain_cfg)
         torch.cuda.synchronize()
         step_err = 0.0
         for a, p_ in zip(l_k, l_p):
@@ -3592,7 +3645,7 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB resident, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # (c) a prefill chunk and a decode step, kernels vs plain
-    check_steps(mserver, "phase 3m")
+    check_steps(mserver, "phase 3m", M_PLAIN_LAYERS)
     # (d) phase 3's 8 requests, IDEAL, then NOISY (noise_seed 0) twice
     counts, streams_i = serve_mix(mserver, prompts, "phase 3m: IDEAL",
                                   new_tokens=SHORT_NEW_TOKENS)
@@ -3615,7 +3668,7 @@ def main() -> int:
                     ("B3+B4", counts["decode_write_attend_call"])):
         check(n > 0, f"{name} was not launched on the NOISY MoE serve")
     main_launches["B6e"] = counts["cim_mvm_grouped_noisy_packed_experts"]
-    check_steps(nserver, "phase 3m: NOISY")
+    check_steps(nserver, "phase 3m: NOISY", M_PLAIN_LAYERS)
     decode_breakdown(nserver, f"phase 3m ({card}): NOISY")
     del nserver
     nserver = Server(mserver.params, mcfg.replace(cim=noisy), serving,
@@ -3695,9 +3748,9 @@ def main() -> int:
     cgen = torch.Generator(device=dev).manual_seed(3)
     expert_mvms(
         "phase 3d", DS_EXPERTS, DS_CAPACITY, DS_MVMS,
-        (("B2e", cm.cim_mvm_grouped_experts,
+        (("B2e", stated_width(cm.cim_mvm_grouped_experts),
           cm.cim_mvm_grouped_experts_plain, cm.cim_mvm_grouped, {}),
-         ("B5e", cm.cim_mvm_grouped_noisy_experts,
+         ("B5e", stated_width(cm.cim_mvm_grouped_noisy_experts),
           cm.cim_mvm_grouped_noisy_experts_plain, cm.cim_mvm_grouped_noisy,
           noisy_kw)),
         lambda k, n: torch.randint(0, 16, (DS_EXPERTS, k, n), generator=cgen,

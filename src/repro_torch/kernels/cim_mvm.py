@@ -606,11 +606,17 @@ def cim_mvm_grouped_noisy_packed_experts(x: torch.Tensor,
 def cim_mvm_grouped_experts(x: torch.Tensor, w: torch.Tensor, *,
                             n_rows: int, levels: int, gain: float,
                             full_scale: float, cluster: int = 0,
-                            wcols: int = 0) -> torch.Tensor:
+                            wcols: int = 0, code_bits: int = 0
+                            ) -> torch.Tensor:
     """B2, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
     [E, M, N] f32 in one launch, expert e bit-identical to B2 on (x[e],
     w[e]). Replaces `kernels/cim_mvm.py:cim_mvm_grouped` of the JAX package
-    under `jax.vmap` over the routed experts (`models/moe.py`)."""
+    under `jax.vmap` over the routed experts (`models/moe.py`).
+    `code_bits` states the codes' width (the wider of the MacroConfig's
+    act_bits and weight_bits; 0: not stated): codes of at most 8 bits in
+    groups of a multiple of four rows take the tensor-core body (no launch
+    knob), every other launch the dense kernel's body (`launch_dense_
+    experts` in csrc/cim_mvm.cu)."""
     kw = dict(n_rows=n_rows, levels=levels, gain=gain, full_scale=full_scale)
     if not x.is_cuda:
         return cim_mvm_grouped_experts_plain(x, w, **kw)
@@ -621,7 +627,7 @@ def cim_mvm_grouped_experts(x: torch.Tensor, w: torch.Tensor, *,
     lib = build.load("cim_mvm")
     rc = lib.cim_mvm_dense_experts_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
-        inv_lsb, lsb, float(levels - 1),
+        inv_lsb, lsb, float(levels - 1), int(code_bits),
         *knobs, torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_experts.launches += 1
     _check_launch("cim_mvm_grouped_experts", rc)
@@ -635,12 +641,13 @@ def cim_mvm_grouped_noisy_experts(x: torch.Tensor, w: torch.Tensor,
                                   sigma: float, inl_amp: float = 0.0,
                                   inl_seed: int = 0,
                                   apply_inl: bool = False, cluster: int = 0,
-                                  wcols: int = 0) -> torch.Tensor:
+                                  wcols: int = 0, code_bits: int = 0
+                                  ) -> torch.Tensor:
     """B5, expert-batched: x [E, M, K] f32 × w [E, K, N] f32 codes →
     [E, M, N] f32 in one launch, expert e bit-identical to B5 on (x[e],
     w[e]) under the same seed: the counter hash takes the row within the
     expert and no expert index, as the reference's Pallas kernel under
-    vmap."""
+    vmap. `code_bits` as for `cim_mvm_grouped_experts`."""
     kw = dict(n_rows=n_rows, levels=levels, gain=gain, full_scale=full_scale,
               sigma=sigma, inl_amp=inl_amp, inl_seed=inl_seed,
               apply_inl=apply_inl)
@@ -657,7 +664,7 @@ def cim_mvm_grouped_noisy_experts(x: torch.Tensor, w: torch.Tensor,
     rc = lib.cim_mvm_noisy_dense_experts_launch(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, n, k, n_rows,
         inv_lsb, lsb, float(levels - 1), mode, seed.data_ptr(), salt, sig,
-        inl, *knobs,
+        inl, int(code_bits), *knobs,
         torch.cuda.current_stream(x.device).cuda_stream)
     cim_mvm_grouped_noisy_experts.launches += 1
     _check_launch("cim_mvm_grouped_noisy_experts", rc)
@@ -692,8 +699,8 @@ build.declare("cim_mvm", {
                                             _I, _F, _F, _F, _I, _P, _U, _F,
                                             _FA, _I, _I, _P, _P],
     "cim_mvm_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _F,
-                                     _F, _I, _I, _P, _P],
+                                     _F, _I, _I, _I, _P, _P],
     "cim_mvm_noisy_dense_experts_launch": [_P, _P, _P, _I, _I, _I, _I, _I,
                                            _F, _F, _F, _I, _P, _U, _F, _FA,
-                                           _I, _I, _P, _P],
+                                           _I, _I, _I, _P, _P],
 })

@@ -75,8 +75,7 @@
 // jax.vmap of its kernels): x [E, M, K], w [E, K2, N] (or dense [E, K, N])
 // -> out [E, M, N] in one launch. Rows and groups are counted within an
 // expert, so an expert's outputs, and under NOISY/FULL its noise draws,
-// are those of a 2-D launch on its own operands. B2e/B5e are the dense
-// kernel's EXPERTS = true instances, grid z over (expert, row tile).
+// are those of a 2-D launch on its own operands.
 //
 // B1e/B6e (cim_mvm_packed_experts_kernel) have a body of their own. What
 // bounds them on this card: at qwen2-moe's decode (64 experts of capacity
@@ -101,6 +100,23 @@
 // most likely the DRAM efficiency of 64-byte row pieces (not profiled:
 // ncu is refused on the machine).
 //
+// B2e/B5e (cim_mvm_dense_experts_kernel) have a body of their own, B1e's
+// design over f32 weights. What bounds them on this card: the f32 codes
+// (4 bytes a weight): at qwen2-moe's training capacity (64 experts of 40
+// rows, K 2048 <-> 1408) a layer's three MVMs read 2.21 GB, ~0.69 ms, and
+// at deepseek-v3's decode (256 experts of 8 rows) 45.1 GB, ~13.5 ms; B5e
+// adds the counter hash (at C = 40 ~19 G int32 operations a layer, ~1.1
+// ms). The dense kernel's EXPERTS instances (grid z over (expert, 8-row
+// tile), f32 FMAs) read each expert's weights once per 8 rows, 5 times at
+// C = 40. The new body reads them once for up to 40 rows (a tile of 8 rows
+// for M <= 8, of 40 above): the weights and activations stream through a
+// cp.async ring per warp, each lane converts its f32 codes to u8 once in
+// registers, and a u8 m16n8k16 MMA forms the group sums (exact s32); the
+// ADC runs in registers and the digital sum stays in the lane's registers
+// across its groups, on a persistent grid. It takes codes of at most 8
+// bits (the MacroConfig's widths, which the caller states) in groups of a
+// multiple of four rows; every other launch keeps the dense kernel's body.
+//
 // B2/B5 (cim_mvm_dense_kernel): a lane loads a float4 (4 columns of one
 // f32 weight row) for each of U = 9 rows at once (144 bytes in flight per
 // lane, at both tile heights). The f32 container carries 8x the bytes of
@@ -120,6 +136,9 @@
 // stages its groups in passes (adding each pass's codes to its outputs in
 // ascending group order), or a single group's rows in windows when one
 // group alone does not fit.
+//
+// The dense kernel also takes B2e/B5e's launches that their own body does
+// not (EXPERTS = true: grid z over (expert, row tile)).
 //
 // cim_mvm_kernel, the first design's body (one block per 32 columns, 16
 // warps over up to 16 groups at a time), is kept only for B1/B6 where the
@@ -1045,6 +1064,20 @@ cim_mvm_packed_experts_kernel(const float* __restrict__ x,
   }
 }
 
+// The card's SM count, read once.
+cudaError_t sm_count(int* sms) {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  *sms = n;
+  return cudaSuccess;
+}
+
 // The persistent launch of the expert-batched packed kernel; returns -1
 // for groups of rows that are no multiple of four: the caller then takes
 // the fallback body. It takes no launch knob (`used` reports {0, 0}).
@@ -1058,14 +1091,8 @@ int launch_packed_experts(const float* x, const uint8_t* w, float* out,
   auto kernel = cim_mvm_packed_experts_kernel<MODE>;
   const long mt = (M + kExpRows - 1) / kExpRows;
   const long nt = (N + kExpCols - 1) / kExpCols;
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e == cudaSuccess)
-      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-  }
+  int sms = 0;
+  if (cudaError_t e = sm_count(&sms); e != cudaSuccess) return (int)e;
   // shared memory: the warps' rings, then the split groups' 16-bit codes
   auto smem_of = [&](int s) {
     return (size_t)kExpWarps * kExpRing * kExpStep +
@@ -1523,13 +1550,552 @@ int launch_dense(const float* x, const float* w, float* out, int E, int M,
   return (int)cudaGetLastError();
 }
 
+// ---- B2e / B5e: the expert-batched dense kernel ---------------------------
+//
+// x [E, M, K] f32 codes, w [E, K, N] f32 codes -> out [E, M, N], codes of
+// at most 8 bits (the host's rule, from the MacroConfig's widths). A
+// warp's unit of work is (expert, row tile of 8 NT rows, tile of 32 P
+// columns) and, where that balances the SMs better, a slice of the
+// groups; the CTAs (kDxWarps warps) walk a persistent grid of steps (item,
+// block of column tiles), as B1e's do. NT = 1 (8 rows) for M <= 8, else NT
+// = 5 (40 rows: qwen2-moe's training capacity in one tile), so each
+// expert's weights are read once for all its rows up to 40. The column
+// halves P are the launcher's choice (launch_dense_experts).
+//
+// k-step s of a group is 16 weight rows: quads c = 4 s .. 4 s + 3 of the
+// group (rows 4c .. 4c + 3), lane (g8 = lane / 4, t = lane % 4) taking quad
+// 4 s + t. Weights (32 P columns x 16 rows of f32) and activations (row m0
+// + 8 i + g8's 4 codes of the lane's quad, for each n-tile i) arrive by
+// cp.async copies in a shared-memory ring of kDxRing k-steps per warp.
+// The lane reads its quad's 4 rows x 4 columns 4 g8 .. 4 g8 + 3 of each
+// 32-column half p, and turns the 16 f32 codes into 4 words of u8 codes,
+// one per column (its 4 rows, lowest first; exp_pack), once; they are the
+// A rows g8 (columns 2s) and g8 + 8 (2s + 1) of MMA m-tile 2p + s. The
+// activations become one u8x4 word per n-tile, the MMA's B (the same k
+// order). The u8 m16n8k16 MMA sums each group exactly in s32; the lane's
+// 8 NT P group sums are converted in registers and code * lsb is added to
+// its outputs as one __fmaf_rn per group, in ascending group order. Split
+// groups (gs > 1) park their codes in shared memory and the CTA sums them
+// after a barrier, as in B1e.
+constexpr int kDxWarps = 4;           // warps per CTA
+constexpr int kDxRing = 4;            // k-steps in the ring of a warp
+
+// a k-step's bytes in the ring: 16 rows of 32 P f32 weights, then 32
+// lanes' 16-byte activation quads for each of the NT n-tiles
+__host__ __device__ constexpr int dx_step(int nt, int p) {
+  return 16 * 32 * p * 4 + nt * 32 * 16;
+}
+
+// k-steps of normal12x4's draw loop unrolled (of 12) at NT = 1 and 5: with
+// all 12 unrolled, the ADC of a lane's 80 outputs ran to ~10,000
+// instructions a group
+__host__ __device__ constexpr int dx_hash_unroll(int nt) {
+  return nt == 1 ? 3 : 2;
+}
+
+// normal12 of four conversions at once (the same draws, the same order of
+// additions), the four chains interleaved and the draws' loop unrolled U
+// times
+template <int U>
+__device__ __forceinline__ void normal12x4(const uint32_t (&base)[4],
+                                           float (&n)[4]) {
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll (U)
+  for (uint32_t j = 1; j <= 12; ++j)
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      acc[u] = __fadd_rn(acc[u], __uint2float_rn(mix32(base[u] + j * kGolden)));
+#pragma unroll
+  for (int u = 0; u < 4; ++u)
+    n[u] = __fsub_rn(__fmul_rn(acc[u], 0x1p-32f), 6.f);
+}
+
+// c (16 x 8, s32) += a (16 x 16, u8, rows g8 and g8 + 8) * b (16 x 8, u8)
+__device__ __forceinline__ void mma_u8(int (&c)[4], int a0, int a1, int b) {
+  asm("mma.sync.aligned.m16n8k16.row.col.s32.u8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
+// Byte offset of 16-byte chunk c (columns 4c .. 4c + 3) of weight row r
+// in a ring slot of 8 P chunks a row: the chunk index is XORed with 2 (r /
+// 4), so the 8 lanes of a quarter warp (two chunks g8, four quads t) hit 8
+// distinct bank groups with their 16-byte reads.
+template <int P>
+__device__ __forceinline__ int dx_chunk(int r, int c) {
+  return (r * 8 * P + (c ^ ((r >> 2) << 1))) * 16;
+}
+
+// k-steps of group grp: its quads that start below K, four a k-step
+__device__ __forceinline__ int dx_ksteps(int grp, int nq, int n_rows,
+                                         int K) {
+  return (min(nq, (K - grp * n_rows + 3) >> 2) + 3) >> 2;
+}
+
+// The lane's output v = (m-tile T, n-tile i, accumulator r), v = (T NT +
+// i) 4 + r: its column in the warp tile and its row in the row tile.
+__device__ __forceinline__ int dx_col(int T, int r, int g8) {
+  return 32 * (T >> 1) + 4 * g8 + 2 * (T & 1) + (r >> 1);
+}
+__device__ __forceinline__ int dx_row(int i, int r, int t) {
+  return 8 * i + 2 * t + (r & 1);
+}
+
+// The producer side of a warp's ring: k-step pj (k-step ps of group pg)
+// into slot pj % kDxRing, then one commit group (an empty one past the
+// last k-step). Zeros past M, K and N, and for quads past the group's
+// n_rows / 4; 4-byte copies where rows are not 16-byte aligned.
+template <int NT, int P>
+__device__ __forceinline__ void dx_produce(uint8_t* slots,
+                                           const float* __restrict__ we,
+                                           const float* __restrict__ xe,
+                                           int m0, int M, int N, int K,
+                                           int nq, int n_rows, int kfull,
+                                           int n0, int lane, int n_ks,
+                                           int vec_w, int vec_x, int& pj,
+                                           int& pg, int& ps) {
+  static_assert((kDxRing & (kDxRing - 1)) == 0, "a power of two");
+  constexpr int kWBytes = 16 * 32 * P * 4;
+  uint8_t* slot = slots + (pj & (kDxRing - 1)) * dx_step(NT, P);
+  if (pj < n_ks) {
+    const int kg = pg * n_rows;                     // the group's first k
+    {
+      const int c = 4 * ps + (lane & 3);            // the lane's quad
+      const int k = kg + 4 * c;
+      const int left = c < nq ? K - k : 0;
+#pragma unroll
+      for (int i = 0; i < NT; ++i) {
+        const int m = m0 + 8 * i + (lane >> 2);
+        const int l = m < M ? left : 0;
+        const float* src = xe + (l > 0 ? (size_t)m * K + k : 0);
+        float* d = reinterpret_cast<float*>(slot + kWBytes +
+                                            16 * (32 * i + lane));
+        if (vec_x) {
+          cp_async16(d, src, l > 0 ? 16 : 0);
+        } else {
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            cp_async4(d + u, l > u ? src + u : xe, l > u);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4 * P; ++i) {
+      const int id = 32 * i + lane;
+      const int r = id / (8 * P), c = id % (8 * P);   // row, chunk
+      const int row = kg + 16 * ps + r;
+      const bool ok = 4 * ps + (r >> 2) < nq && row < K;
+      const int n = n0 + 4 * c;
+      uint8_t* d = slot + dx_chunk<P>(r, c);
+      const float* src = we + (size_t)row * N + n;
+      if (vec_w) {
+        const bool in = ok && n < N;
+        cp_async16(d, in ? src : we, in ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const bool in = ok && n + u < N;
+          cp_async4(reinterpret_cast<float*>(d) + u, in ? src + u : we, in);
+        }
+      }
+    }
+    if (++ps == kfull) {
+      ps = 0;
+      ++pg;
+    }
+  }
+  cp_async_commit();
+  ++pj;
+}
+
+// The consumer side: the k-step in `slot` once every lane's copies have
+// landed (slot j - 1 is then free), its f32 codes to u8 words, and the
+// MMAs of its NT n-tiles x 2 P m-tiles into acc.
+template <int NT, int P>
+__device__ __forceinline__ void dx_consume(int (&acc)[2 * P][NT][4],
+                                           const uint8_t* slot, int lane) {
+  constexpr int kWBytes = 16 * 32 * P * 4;
+  const int g8 = lane >> 2, t = lane & 3;
+  cp_async_wait<kDxRing - 2>();                     // this k-step has landed
+  __syncwarp();                   // ... for every lane; slot j - 1 is free
+  int b[NT];
+#pragma unroll
+  for (int i = 0; i < NT; ++i)
+    b[i] = exp_pack(*reinterpret_cast<const float4*>(
+        slot + kWBytes + 16 * (32 * i + lane)));
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+    float4 q[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      q[u] = *reinterpret_cast<const float4*>(
+          slot + dx_chunk<P>(4 * t + u, 8 * p + g8));
+    const int a0 = exp_pack(make_float4(q[0].x, q[1].x, q[2].x, q[3].x));
+    const int a1 = exp_pack(make_float4(q[0].y, q[1].y, q[2].y, q[3].y));
+    const int a2 = exp_pack(make_float4(q[0].z, q[1].z, q[2].z, q[3].z));
+    const int a3 = exp_pack(make_float4(q[0].w, q[1].w, q[2].w, q[3].w));
+#pragma unroll
+    for (int i = 0; i < NT; ++i) {
+      mma_u8(acc[2 * p][i], a0, a1, b[i]);
+      mma_u8(acc[2 * p + 1][i], a2, a3, b[i]);
+    }
+  }
+}
+
+// k-step j of a warp's ring: its MMAs, then the copy of k-step j +
+// kDxRing - 1 into the slot k-step j - 1 has left.
+template <int NT, int P>
+__device__ __forceinline__ void dx_kstep(int (&acc)[2 * P][NT][4],
+                                         uint8_t* slots,
+                                         const float* __restrict__ we,
+                                         const float* __restrict__ xe,
+                                         int m0, int M, int N, int K, int nq,
+                                         int n_rows, int kfull, int n0,
+                                         int lane, int n_ks, int vec_w,
+                                         int vec_x, int& j, int& pj, int& pg,
+                                         int& ps) {
+  dx_consume<NT, P>(acc, slots + (j & (kDxRing - 1)) * dx_step(NT, P), lane);
+  dx_produce<NT, P>(slots, we, xe, m0, M, N, K, nq, n_rows, kfull, n0, lane,
+                    n_ks, vec_w, vec_x, pj, pg, ps);
+  ++j;
+}
+
+template <int NT, int P, int MODE>
+__global__ void __launch_bounds__(kDxWarps * 32, NT == 5 ? 2 : 3)
+cim_mvm_dense_experts_kernel(const float* __restrict__ x,
+                             const float* __restrict__ w,
+                             float* __restrict__ out, int M, int N, int K,
+                             int n_rows, int G, int gs, int blocks,
+                             long n_steps, int vec_x, int vec_w,
+                             float inv_lsb, float lsb, float code_max,
+                             Stochastic st) {
+  constexpr int kRows = 8 * NT;                     // rows of a row tile
+  constexpr int kCols = 32 * P;                     // columns of a warp tile
+  constexpr int kStep = dx_step(NT, P);
+  constexpr int kWBytes = 16 * kCols * 4;
+  constexpr int kTiles = 2 * P;                     // MMA m-tiles
+  constexpr int kVals = 4 * kTiles * NT;            // the lane's outputs
+  // hash state after the row and column absorptions, per output
+  constexpr int kHash = MODE == kIdeal ? 1 : kVals;
+  extern __shared__ uint8_t smem_b[];
+  const int nq = n_rows >> 2;                       // quads per group
+  const int kfull = (nq + 3) >> 2;                  // k-steps of a group
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wc = kDxWarps / gs;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int ct = warp % wc;                         // the warp's column tile
+  const int sl = warp / wc;                         // ... and group slice
+  uint8_t* slots = smem_b + (size_t)warp * kDxRing * kStep;
+  uint16_t* cs = reinterpret_cast<uint16_t*>(
+      smem_b + (size_t)kDxWarps * kDxRing * kStep);
+  const int gb = sl * G / gs, ge = (sl + 1) * G / gs;
+  const int mt = (M + kRows - 1) / kRows;
+  const int nt = (N + kCols - 1) / kCols;
+  uint32_t h0 = 0u;
+  if constexpr (MODE != kIdeal)
+    h0 = mix32(((uint32_t)__ldg(st.seed) ^ st.salt) ^ kGolden);
+
+  const long s_end = (blockIdx.x + 1) * n_steps / gridDim.x;
+  for (long step = blockIdx.x * n_steps / gridDim.x; step < s_end; ++step) {
+    const long item = step / blocks;
+    const int tile0 = (int)(step - item * blocks) * wc;
+    const int e = (int)(item / mt);
+    const int m0 = (int)(item - (long)e * mt) * kRows;
+    const int n0 = (tile0 + ct) * kCols;
+    const bool active = tile0 + ct < nt;
+    const float* we = w + (size_t)e * K * N;
+    const float* xe = x + (size_t)e * M * K;
+    // the warp's k-steps: its groups' in order, all but the last full
+    const int n_ks = active ? (ge - gb - 1) * kfull +
+                                  dx_ksteps(ge - 1, nq, n_rows, K)
+                            : 0;
+    int pj = 0, pg = gb, ps = 0;
+#pragma unroll 1
+    for (int i = 0; i < kDxRing - 1; ++i)
+      dx_produce<NT, P>(slots, we, xe, m0, M, N, K, nq, n_rows, kfull, n0,
+                        lane, n_ks, vec_w, vec_x, pj, pg, ps);
+
+    // hash state after absorbing the salted seed, the row and the column
+    uint32_t hs[kHash];
+    if constexpr (MODE != kIdeal) {
+#pragma unroll
+      for (int v = 0; v < kVals; ++v) {
+        const int T = v / (4 * NT), i = (v >> 2) % NT, r = v & 3;
+        hs[v] = mix32(mix32(h0 ^ (uint32_t)(m0 + dx_row(i, r, t))) ^
+                      (uint32_t)(n0 + dx_col(T, r, g8)));
+      }
+    }
+    float o[kVals];
+#pragma unroll
+    for (int v = 0; v < kVals; ++v) o[v] = 0.f;
+
+    int j = 0;                    // the consumer's k-step
+    for (int grp = gb; active && grp < ge; ++grp) {
+      const int ks = dx_ksteps(grp, nq, n_rows, K);
+      int acc[kTiles][NT][4];
+#pragma unroll
+      for (int T = 0; T < kTiles; ++T)
+#pragma unroll
+        for (int i = 0; i < NT; ++i)
+#pragma unroll
+          for (int r = 0; r < 4; ++r) acc[T][i][r] = 0;
+#pragma unroll 1
+      for (int s = 0; s < ks; ++s)
+        dx_kstep<NT, P>(acc, slots, we, xe, m0, M, N, K, nq, n_rows, kfull,
+                        n0, lane, n_ks, vec_w, vec_x, j, pj, pg, ps);
+      // TD-ADC transfer in registers, an MMA tile's 4 sums at a time
+#pragma unroll
+      for (int T = 0; T < kTiles; ++T)
+#pragma unroll
+        for (int i = 0; i < NT; ++i) {
+          float y[4];
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            const float p = (float)acc[T][i][r];    // exact: < 2^24
+            y[r] = __fmul_rn(p, inv_lsb);
+            if constexpr (MODE == kFull) {
+              const float cf =
+                  fminf(fmaxf(__fmul_rn(p, st.frac_scale), 0.f), 1.f);
+              y[r] = __fmaf_rn(p, inv_lsb, inl_curve(cf, st));
+            }
+          }
+          if constexpr (MODE != kIdeal) {
+            uint32_t base[4];
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              base[r] = mix32(hs[(T * NT + i) * 4 + r] ^
+                              ((uint32_t)grp * 0x01000193u));
+            float nz[4];
+            normal12x4<dx_hash_unroll(NT)>(base, nz);
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+              y[r] = __fmaf_rn(st.sigma, nz[r], y[r]);
+          }
+#pragma unroll
+          for (int r = 0; r < 4; ++r) {
+            float code = rintf(y[r]);
+            code = fminf(fmaxf(code, 0.f), code_max);
+            const int v = (T * NT + i) * 4 + r;
+            if (gs == 1)
+              o[v] = __fmaf_rn(code, lsb, o[v]);
+            else
+              cs[((ct * G + grp) * kRows + dx_row(i, r, t)) * kCols +
+                 dx_col(T, r, g8)] = (uint16_t)code;    // exact: < 2^16
+          }
+        }
+    }
+    cp_async_wait<0>();           // no copy outlives the step
+    __syncwarp();
+
+    if (gs == 1) {
+      if (active) {
+        // four columns 4 g8 .. 4 g8 + 3 of each half p at a time
+#pragma unroll
+        for (int p = 0; p < P; ++p)
+#pragma unroll
+          for (int i = 0; i < NT; ++i)
+#pragma unroll
+            for (int rb = 0; rb < 2; ++rb) {
+              const int m = m0 + dx_row(i, rb, t);
+              const int n = n0 + 32 * p + 4 * g8;
+              if (m >= M || n >= N) continue;
+              const int v0 = ((2 * p) * NT + i) * 4, v1 = v0 + 4 * NT;
+              const float c4[4] = {o[v0 + rb], o[v0 + 2 + rb], o[v1 + rb],
+                                   o[v1 + 2 + rb]};
+              float* dst = out + ((size_t)e * M + m) * N + n;
+              if ((N & 3) == 0) {
+                *reinterpret_cast<float4*>(dst) =
+                    make_float4(c4[0], c4[1], c4[2], c4[3]);
+              } else {
+#pragma unroll
+                for (int u = 0; u < 4; ++u)
+                  if (n + u < N) dst[u] = c4[u];
+              }
+            }
+      }
+    } else {
+      // digital accumulation of the split groups, ascending group order;
+      // eight codes fetched before their dependent multiply-adds
+      __syncthreads();
+      for (int idx = threadIdx.x; idx < wc * kRows * kCols;
+           idx += blockDim.x) {
+        const int tc = idx / (kRows * kCols);
+        const int r = idx - tc * (kRows * kCols);
+        const int mm = r / kCols;
+        const int m = m0 + mm;
+        const int n = (tile0 + tc) * kCols + r - mm * kCols;
+        if (m >= M || n >= N) continue;
+        const uint16_t* p = cs + (size_t)tc * G * kRows * kCols + r;
+        float y = 0.f;
+        for (int g0 = 0; g0 < G; g0 += 8) {
+          float v[8];
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            v[q] = g0 + q < G ? (float)p[(size_t)(g0 + q) * kRows * kCols]
+                              : 0.f;
+#pragma unroll
+          for (int q = 0; q < 8; ++q)
+            if (g0 + q < G) y = __fmaf_rn(v[q], lsb, y);
+        }
+        out[((size_t)e * M + m) * N + n] = y;
+      }
+      __syncthreads();            // the next step parks codes here too
+    }
+  }
+}
+
+// The persistent launch of the expert-batched dense kernel at NT n-tiles
+// and P column halves.
+template <int NT, int P, int MODE>
+int launch_dense_experts_nt(const float* x, const float* w, float* out,
+                            int E, int M, int N, int K, int n_rows, int G,
+                            float inv_lsb, float lsb, float code_max,
+                            const Stochastic& st, cudaStream_t stream) {
+  constexpr int kRows = 8 * NT, kCols = 32 * P;
+  auto kernel = cim_mvm_dense_experts_kernel<NT, P, MODE>;
+  const long mt = (M + kRows - 1) / kRows;
+  const long nt = (N + kCols - 1) / kCols;
+  static bool raised = false;      // the shared-memory cap, raised once
+  int sms = 0;
+  if (cudaError_t e = sm_count(&sms); e != cudaSuccess) return (int)e;
+  if (!raised) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemMax);
+    if (e != cudaSuccess) return (int)e;
+    raised = true;
+  }
+  // shared memory: the warps' rings, then the split groups' 16-bit codes
+  auto smem_of = [&](int s) {
+    return (size_t)kDxWarps * kDxRing * dx_step(NT, P) +
+           (s > 1 ? sizeof(uint16_t) * (size_t)(kDxWarps / s) * G * kRows *
+                        kCols
+                  : 0);
+  };
+  // CTAs an SM holds at a shared-memory size (the last few sizes kept)
+  static size_t occ_smem[4] = {};
+  static int occ_n[4] = {};
+  auto occupancy = [&](size_t smem, int* occ) {
+    for (int i = 0; i < 4; ++i)
+      if (occ_smem[i] == smem && occ_n[i] > 0) {
+        *occ = occ_n[i];
+        return cudaSuccess;
+      }
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        occ, kernel, kDxWarps * 32, smem);
+    if (e == cudaSuccess) {
+      for (int i = 3; i > 0; --i) {
+        occ_smem[i] = occ_smem[i - 1];
+        occ_n[i] = occ_n[i - 1];
+      }
+      occ_smem[0] = smem;
+      occ_n[0] = *occ;
+    }
+    return e;
+  };
+  // The group slices, as B1e chooses them: the fewest that minimise the
+  // busiest SM's tile-groups, ties to more resident CTAs; slices only
+  // where one per column tile leaves the card less than full (deepseek-v3
+  // and qwen2-moe's 64 experts take none, the expert-parallel slices do).
+  int gs = 1, occ1 = 0;
+  long best = 0, busy = 0;
+  for (int s = 1; s <= kDxWarps && (s == 1 || s <= G); s *= 2) {
+    if (s > 1 && (smem_of(s) > kSmemMax || code_max > 65535.f)) continue;
+    int occ = 0;
+    cudaError_t e = occupancy(smem_of(s), &occ);
+    if (e != cudaSuccess) return (int)e;
+    if (occ < 1) continue;
+    const long steps = (long)E * mt * ((nt + kDxWarps / s - 1) /
+                                       (kDxWarps / s));
+    if (s == 1) occ1 = occ;
+    else if (busy >= (long)sms * occ1) break;
+    const long ctas = std::min(steps, (long)sms * occ);
+    const long cost = (steps + ctas - 1) / ctas * ((ctas + sms - 1) / sms) *
+                      (kDxWarps / s);
+    if (s == 1 || cost < best || (cost == best && ctas > busy)) {
+      gs = s;
+      best = cost;
+      busy = ctas;
+    }
+  }
+  if (occ1 < 1) return (int)cudaErrorInvalidConfiguration;
+  const size_t smem = smem_of(gs);
+  const int wc = kDxWarps / gs;
+  const long blocks = (nt + wc - 1) / wc;
+  const long n_steps = (long)E * mt * blocks;
+  int occ = 0;
+  cudaError_t e = occupancy(smem, &occ);
+  if (e != cudaSuccess) return (int)e;
+  const long grid = std::min(n_steps, (long)sms * std::max(occ, 1));
+  const int vec_x = (K % 4 == 0) && ((uintptr_t)x % 16 == 0);
+  const int vec_w = (N % 4 == 0) && ((uintptr_t)w % 16 == 0);
+  kernel<<<(unsigned)grid, kDxWarps * 32, smem, stream>>>(
+      x, w, out, M, N, K, n_rows, G, gs, (int)blocks, n_steps, vec_x, vec_w,
+      inv_lsb, lsb, code_max, st);
+  return (int)cudaGetLastError();
+}
+
+// B2e / B5e's MMA body; returns -1 where it cannot take the launch (the
+// caller then takes the dense kernel's): groups of rows that are no
+// multiple of four (a quad would straddle two groups), or codes whose
+// width is not stated (code_bits 0) or exceeds the u8 operand, or whose
+// group sums could reach 2^24 (n_rows (2^b - 1)^2). The host chooses from
+// the shape and the widths, never from the data. It takes no launch knob
+// (`used` reports {0, 0}).
+template <int MODE>
+int launch_dense_experts(const float* x, const float* w, float* out, int E,
+                         int M, int N, int K, int n_rows, int G,
+                         float inv_lsb, float lsb, float code_max,
+                         int code_bits, const Stochastic& st,
+                         const Knobs& kn, cudaStream_t stream) {
+  if (n_rows % 4 || code_bits < 1 || code_bits > 8) return -1;
+  const long cmax = (1L << code_bits) - 1;
+  if ((long)n_rows * cmax * cmax >= (1L << 24)) return -1;
+  kn.report(0, 0);
+  // 40-row tiles: 64 columns a warp, but 32 for the stochastic converter,
+  // where 80 outputs a lane left no registers for the counter hash
+  // (spills at 255; 40 outputs a lane take 204 registers with their hash
+  // state cached per output)
+  if (M > 8) {
+    if constexpr (MODE == kIdeal)
+      return launch_dense_experts_nt<5, 2, MODE>(
+          x, w, out, E, M, N, K, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
+    else
+      return launch_dense_experts_nt<5, 1, MODE>(
+          x, w, out, E, M, N, K, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
+  }
+  // 8-row tiles: 128 columns a warp (512-byte row pieces; one CTA an SM
+  // by its ring) where the launch gives every SM at least 4 steps of 4
+  // such tiles (deepseek-v3's 256 experts), 64 columns otherwise (the
+  // expert-parallel slices, which 128-column tiles leave short of steps)
+  if constexpr (MODE == kIdeal) {
+    int sms = 0;
+    if (cudaError_t e = sm_count(&sms); e != cudaSuccess) return (int)e;
+    if ((long)E * (((N + 127) / 128 + 3) / 4) >= 4L * sms)
+      return launch_dense_experts_nt<1, 4, MODE>(
+          x, w, out, E, M, N, K, n_rows, G, inv_lsb, lsb, code_max, st,
+          stream);
+  }
+  return launch_dense_experts_nt<1, 2, MODE>(
+      x, w, out, E, M, N, K, n_rows, G, inv_lsb, lsb, code_max, st, stream);
+}
+
 template <bool PACKED, int MODE, bool EXPERTS>
 int dispatch_rows(const float* x, const void* w, float* out, int E, int M,
                   int N, int K, int KW, int n_rows, int G, float inv_lsb,
                   float lsb, float code_max, const Stochastic& st,
-                  const Knobs& kn, cudaStream_t stream) {
+                  const Knobs& kn, cudaStream_t stream, int code_bits) {
   if constexpr (!PACKED) {
     const float* wf = static_cast<const float*>(w);
+    if constexpr (EXPERTS) {
+      const int rc = launch_dense_experts<MODE>(
+          x, wf, out, E, M, N, K, n_rows, G, inv_lsb, lsb, code_max,
+          code_bits, st, kn, stream);
+      if (rc != -1) return rc;
+    }
     return M <= 4 ? launch_dense<4, MODE, EXPERTS>(x, wf, out, E, M, N, K,
                                                    n_rows, G, inv_lsb, lsb,
                                                    code_max, st, kn, stream)
@@ -1566,21 +2132,21 @@ template <bool PACKED, bool EXPERTS = false>
 int dispatch(const float* x, const void* w, float* out, int E, int M, int N,
              int K, int KW, int n_rows, int G, float inv_lsb, float lsb,
              float code_max, int mode, const Stochastic& st, const Knobs& kn,
-             cudaStream_t stream) {
+             cudaStream_t stream, int code_bits = 0) {
   if (E <= 0 || M <= 0 || N <= 0) return 0;
   switch (mode) {
     case kIdeal:
       return dispatch_rows<PACKED, kIdeal, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          kn, stream);
+          kn, stream, code_bits);
     case kNoisy:
       return dispatch_rows<PACKED, kNoisy, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          kn, stream);
+          kn, stream, code_bits);
     case kFull:
       return dispatch_rows<PACKED, kFull, EXPERTS>(
           x, w, out, E, M, N, K, KW, n_rows, G, inv_lsb, lsb, code_max, st,
-          kn, stream);
+          kn, stream, code_bits);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -1680,17 +2246,20 @@ int cim_mvm_noisy_packed_launch(const float* x, const uint8_t* w, float* out,
 
 // B2, expert-batched: x [E, M, K] f32, w [E, K, N] f32 codes, out [E, M,
 // N] f32; expert e computes what B2 computes on x[e], w[e] (one launch, its
-// own template instances).
+// own template instances). code_bits: the wider of the activation and
+// weight code widths (the MacroConfig's act_bits / weight_bits), 0 when
+// the caller does not state it; the MMA body takes codes of at most 8
+// bits, every other launch the dense kernel's body.
 int cim_mvm_dense_experts_launch(const float* x, const float* w, float* out,
                                  int E, int M, int N, int K, int n_rows,
                                  float inv_lsb, float lsb, float code_max,
-                                 int cluster, int wcols, int* used,
-                                 cudaStream_t stream) {
+                                 int code_bits, int cluster, int wcols,
+                                 int* used, cudaStream_t stream) {
   const Knobs kn = make_knobs(cluster, wcols, used);
   const Stochastic none{};
   return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
                                groups(K, n_rows), inv_lsb, lsb, code_max,
-                               kIdeal, none, kn, stream);
+                               kIdeal, none, kn, stream, code_bits);
 }
 
 // B5, expert-batched. The counter hash takes the row within the expert and
@@ -1701,14 +2270,14 @@ int cim_mvm_noisy_dense_experts_launch(const float* x, const float* w,
                                        float lsb, float code_max, int mode,
                                        const int* seed, unsigned salt,
                                        float sigma, const float* inl,
-                                       int cluster, int wcols, int* used,
-                                       cudaStream_t stream) {
+                                       int code_bits, int cluster, int wcols,
+                                       int* used, cudaStream_t stream) {
   const Knobs kn = make_knobs(cluster, wcols, used);
   if (mode != kNoisy && mode != kFull) return (int)cudaErrorInvalidValue;
   const Stochastic st = make_stochastic(seed, salt, sigma, inl);
   return dispatch<false, true>(x, w, out, E, M, N, K, K, n_rows,
                                groups(K, n_rows), inv_lsb, lsb, code_max,
-                               mode, st, kn, stream);
+                               mode, st, kn, stream, code_bits);
 }
 
 // B1, expert-batched: x [E, M, K] f32, w [E, K2, N] uint8, out [E, M, N]

@@ -132,6 +132,13 @@ def _resolve_knobs(backend: str, x: torch.Tensor, n: int, cfg: MacroConfig,
         else _NO_KNOBS
 
 
+def _code_bits(cfg: MacroConfig) -> int:
+    """The codes' width as the expert-batched dense kernels take it: the
+    wider of the DAC and stored code widths (their tensor-core body holds
+    codes of at most 8 bits)."""
+    return max(cfg.act_bits, cfg.weight_bits)
+
+
 def _kernel_kw(cfg: MacroConfig) -> dict:
     return dict(n_rows=cfg.n_rows, levels=cfg.effective_adc_levels(),
                 gain=cfg.gain, full_scale=cfg.full_scale())
@@ -191,7 +198,8 @@ def cim_mvm_dense_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
     x3, w3 = _prep_dense_experts(x_codes, w_codes)
     knobs = _resolve_knobs("cuda_experts", x3, w3.shape[-1], cfg, cluster,
                            wcols)
-    return cim_mvm_grouped_experts(x3, w3, **_kernel_kw(cfg), **knobs)
+    return cim_mvm_grouped_experts(x3, w3, **_kernel_kw(cfg), **knobs,
+                                   code_bits=_code_bits(cfg))
 
 
 def _check_stochastic(cfg: MacroConfig) -> dict:
@@ -235,7 +243,8 @@ def cim_mvm_noisy_experts(x_codes: torch.Tensor, w_codes: torch.Tensor,
     knobs = _resolve_knobs("cuda_noisy_experts", x3, w3.shape[-1], cfg,
                            cluster, wcols)
     return cim_mvm_grouped_noisy_experts(x3, w3, noise_seed,
-                                         inl_seed=inl_seed, **kw, **knobs)
+                                         inl_seed=inl_seed, **kw, **knobs,
+                                         code_bits=_code_bits(cfg))
 
 
 def cim_mvm_noisy_packed(x_codes: torch.Tensor, w_packed: torch.Tensor,

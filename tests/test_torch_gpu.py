@@ -26,7 +26,11 @@ companions. B1 and B6's expert-batched entries (the MoE routed experts)
 equal their plain versions and one 2-D launch per expert, bit for bit, and
 the smoke qwen2-moe's paged steps and slot serve are identical with the
 kernels and with their plain versions; so do B2 and B5's (the float
-routed experts at --cim bp / bp-noisy), and the smoke deepseek-v3's slot
+routed experts at --cim bp / bp-noisy) on both of their bodies (the
+tensor-core one for codes of at most 8 bits in groups of a multiple of
+four rows, up to 96 rows and in a CUDA-graph replay; the dense kernel's
+for wider codes and other depths; the launcher's `used` report says which
+ran), and the smoke deepseek-v3's slot
 prefill, decode step and serve (MLA, a leading dense layer, the experts
 through B2 / B5's expert-batched entry). So are the smoke rwkv6-7b's and
 zamba2-2.7b's slot prefill and decode step (their recurrent caches too)
@@ -225,6 +229,21 @@ def test_experts_report_the_launch_they_made():
         144, inv_lsb, lsb, 361.0, st[0], s.data_ptr(), st[1], st[2], st[3],
         *knobs, stream) == 0
     assert (knobs[2][0], knobs[2][1]) == (0, 0)
+    # B2e / B5e: the tensor-core body takes no knob ({0, 0}); without the
+    # codes' width stated the dense kernel's body reports what it launched
+    w = _codes(5, (4, 2048, 1408)).to(dev)
+    for bits, want in ((4, (0, 0)), (0, (2, 4))):
+        knobs = cim_mvm._knob_args(2, 4)
+        assert lib.cim_mvm_dense_experts_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 1408, 2048,
+            144, inv_lsb, lsb, 361.0, bits, *knobs, stream) == 0
+        assert (knobs[2][0], knobs[2][1]) == want, bits
+        knobs = cim_mvm._knob_args(2, 4)
+        assert lib.cim_mvm_noisy_dense_experts_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 8, 1408, 2048,
+            144, inv_lsb, lsb, 361.0, st[0], s.data_ptr(), st[1], st[2],
+            st[3], bits, *knobs, stream) == 0
+        assert (knobs[2][0], knobs[2][1]) == want, bits
     knobs = cim_mvm._knob_args(2, 4)
     out2 = torch.empty(8, 1408, device=dev)
     assert lib.cim_mvm_packed_launch(
@@ -238,6 +257,38 @@ def test_experts_report_the_launch_they_made():
     assert KERNEL_COUNTERS.tune_cache["cim_mvm:clamp"] == 1
     KERNEL_COUNTERS.reset()
     assert torch.equal(y, cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **KW))
+    y = cim_mvm.cim_mvm_grouped_experts(x, w, **KW, cluster=2, wcols=4,
+                                        code_bits=4)
+    assert KERNEL_COUNTERS.tune_cache["cim_mvm:clamp"] == 1
+    KERNEL_COUNTERS.reset()
+    assert torch.equal(y, cim_mvm.cim_mvm_grouped_experts_plain(x, w, **KW))
+    assert torch.equal(y, cim_mvm.cim_mvm_grouped_experts(x, w, **KW,
+                                                          cluster=2, wcols=4))
+    KERNEL_COUNTERS.reset()
+
+
+def test_experts_report_the_launch_they_made_at_c40():
+    """The tensor-core body at 40 rows (one tall tile) takes no knob
+    either; the dense kernel's body at 8-row tiles reports its own."""
+    from repro_torch.kernels import build
+    dev = gpu_device()
+    x = _codes(6, (4, 40, 1408)).to(dev)
+    w = _codes(7, (4, 1408, 2048)).to(dev)
+    lsb, inv_lsb = cim_mvm.adc_constants(362, 1.0, 32400.0)
+    lib = build.load("cim_mvm")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    outs = []
+    for bits, want in ((4, (0, 0)), (0, (1, 2))):
+        out = torch.empty(4, 40, 2048, device=dev)
+        knobs = cim_mvm._knob_args(1, 2)
+        assert lib.cim_mvm_dense_experts_launch(
+            x.data_ptr(), w.data_ptr(), out.data_ptr(), 4, 40, 2048, 1408,
+            144, inv_lsb, lsb, 361.0, bits, *knobs, stream) == 0
+        assert (knobs[2][0], knobs[2][1]) == want, bits
+        outs.append(out)
+    torch.cuda.synchronize()
+    plain = cim_mvm.cim_mvm_grouped_experts_plain(x, w, **KW)
+    assert torch.equal(outs[0], plain) and torch.equal(outs[1], plain)
 
 
 def test_experts_reject_bad_operands():
@@ -254,27 +305,75 @@ def test_experts_reject_bad_operands():
         cim_mvm.cim_mvm_grouped_packed_experts(x, wp, **dict(KW, n_rows=9))
 
 
-# (E, M, K, N, n_rows) of the expert-batched B2 / B5: deepseek-v3's expert
-# widths on fewer experts (capacity 8; K 7168 -> N 256 and K 2048 -> N
-# 896), the smoke model's, the 4-row tile, an odd K, warps side by side
-# (N 4096 at M > 4), N % 4 != 0 (scalar weight loads), depth 9, and
-# groups staged in passes (n_rows 1, no cluster)
-DENSE_EXPERT_SHAPES = [(16, 8, 7168, 256, 144), (16, 8, 2048, 896, 144),
-                       (16, 8, 128, 64, 144), (16, 8, 64, 128, 144),
-                       (5, 3, 301, 70, 144), (3, 4, 2047, 1024, 144),
-                       (4, 64, 2048, 4096, 144), (4, 8, 1500, 18, 144),
-                       (6, 8, 700, 96, 9), (2, 4, 12000, 16, 1)]
+# (E, M, K, N, n_rows, code bits) of the expert-batched B2 / B5:
+# deepseek-v3's expert widths on fewer experts (capacity 8; K 7168 -> N
+# 256 and K 2048 -> N 896), the smoke model's, the 4-row tile, an odd K,
+# warps side by side (N 4096 at M > 4), N % 4 != 0 (4-byte copies);
+# qwen2-moe's widths at its training capacity 40 (one 40-row tile), rows
+# across the tile boundaries (9, 16, 33, 41, 64, 96), a ragged N at C 40,
+# 8-bit codes (up to 255, the u8 MMA's widest); then the dense kernel's
+# body: 9-bit codes, depth 9, and groups staged in passes (n_rows 1)
+DENSE_EXPERT_SHAPES = [(16, 8, 7168, 256, 144, 4), (16, 8, 2048, 896, 144, 4),
+                       (16, 8, 128, 64, 144, 4), (16, 8, 64, 128, 144, 4),
+                       (5, 3, 301, 70, 144, 4), (3, 4, 2047, 1024, 144, 4),
+                       (4, 64, 2048, 4096, 144, 4), (4, 8, 1500, 18, 144, 4),
+                       (4, 40, 2048, 1408, 144, 4), (4, 40, 1408, 2048, 144, 4),
+                       (3, 9, 700, 200, 144, 4), (3, 16, 700, 200, 144, 4),
+                       (3, 33, 700, 200, 144, 4), (2, 41, 1408, 200, 144, 4),
+                       (2, 64, 700, 136, 144, 4), (2, 96, 301, 64, 144, 4),
+                       (3, 40, 700, 70, 144, 4), (3, 40, 1000, 96, 144, 8),
+                       (4, 8, 700, 64, 144, 8), (3, 8, 500, 64, 48, 9),
+                       (6, 8, 700, 96, 9, 4), (2, 4, 12000, 16, 1, 4)]
+
+
+def _wide_codes(seed, shape, bits):
+    return torch.from_numpy(np.random.RandomState(seed).randint(
+        0, 1 << bits, shape).astype(np.float32))
+
+
+def _bits_kw(n_rows, bits, level):
+    """_depth_kw at `bits`-bit codes: the full scale of a group's MAC."""
+    return dict(_depth_kw(n_rows, level),
+                full_scale=float(n_rows * ((1 << bits) - 1) ** 2))
+
+
+def _dense_experts_body(x, w, kw, bits):
+    """Which body an expert-batched B2 launch takes: "mma" where the
+    launcher reports no knob ({0, 0}, the tensor-core body), else "dense"
+    (the dense kernel's body reports the cluster and column warps)."""
+    import ctypes
+    from repro_torch.kernels import build
+    used = (ctypes.c_int * 2)(-1, -1)
+    e, m, k = x.shape
+    out = torch.empty(e, m, w.shape[2], device=x.device)
+    lsb, inv_lsb = cim_mvm.adc_constants(kw["levels"], kw["gain"],
+                                         kw["full_scale"])
+    assert build.load("cim_mvm").cim_mvm_dense_experts_launch(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), e, m, w.shape[2], k,
+        kw["n_rows"], inv_lsb, lsb, float(kw["levels"] - 1), bits, 0, 0,
+        used, torch.cuda.current_stream(x.device).cuda_stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, cim_mvm.cim_mvm_grouped_experts(
+        x, w, **{k_: kw[k_] for k_ in KW}, code_bits=bits))
+    return "mma" if (used[0], used[1]) == (0, 0) else "dense"
 
 
 @pytest.mark.parametrize("level", ["ideal", "noisy", "full"])
-@pytest.mark.parametrize("e,m,k,n,n_rows", DENSE_EXPERT_SHAPES)
-def test_b2_b5_experts_bit_exact(e, m, k, n, n_rows, level):
+@pytest.mark.parametrize("e,m,k,n,n_rows,bits", DENSE_EXPERT_SHAPES)
+def test_b2_b5_experts_bit_exact(e, m, k, n, n_rows, bits, level):
     """One expert-batched B2 / B5 launch equals its plain version and one
-    2-D launch per expert; every expert draws the 2-D kernel's noise."""
+    2-D launch per expert; every expert draws the 2-D kernel's noise. The
+    launch takes the tensor-core body for codes of at most 8 bits in
+    groups of a multiple of four rows, the dense kernel's body
+    otherwise."""
     dev = gpu_device()
-    kw = _depth_kw(n_rows, level)
-    x = _codes(e + m, (e, m, k)).to(dev)
-    w = _codes(n + k, (e, k, n)).to(dev)
+    kw = _bits_kw(n_rows, bits, level)
+    x = _wide_codes(e + m, (e, m, k), bits).to(dev)
+    w = _wide_codes(n + k, (e, k, n), bits).to(dev)
+    if level == "ideal":
+        assert _dense_experts_body(x, w, kw, bits) == (
+            "mma" if n_rows % 4 == 0 and bits <= 8 else "dense")
+    kw = dict(kw, code_bits=bits)
     if level == "ideal":
         fn, wrapper = (cim_mvm.cim_mvm_grouped_experts,
                        cim_mvm.cim_mvm_grouped)
@@ -287,10 +386,46 @@ def test_b2_b5_experts_bit_exact(e, m, k, n, n_rows, level):
         args = (torch.tensor([7], dtype=torch.int32, device=dev),)
     before = fn.launches
     y = fn(x, w, *args, **kw)
+    kw.pop("code_bits")
     assert fn.launches == before + 1 and y.shape == (e, m, n)
     assert torch.equal(y, plain(x, w, *args, **kw))
     assert torch.equal(y, torch.stack([wrapper(x[i], w[i], *args, **kw)
                                        for i in range(e)]))
+
+
+@pytest.mark.parametrize("m", [8, 40])
+def test_b2_b5_experts_cuda_graph_replay(m):
+    """The tensor-core body of B2e / B5e captured in a CUDA graph: a replay
+    after new codes are copied into the captured inputs and a new seed
+    into the captured seed tensor gives the plain versions' outputs on
+    them."""
+    dev = gpu_device()
+    e, k, n = 8, 1408, 2048
+    x = _codes(1, (e, m, k)).to(dev)
+    w = _codes(2, (e, k, n)).to(dev)
+    seed = torch.tensor([3], dtype=torch.int32, device=dev)
+    nkw = dict(KW, sigma=0.277)
+    calls = (lambda: cim_mvm.cim_mvm_grouped_experts(x, w, **KW, code_bits=4),
+             lambda: cim_mvm.cim_mvm_grouped_noisy_experts(
+                 x, w, seed, **nkw, code_bits=4))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for call in calls:
+            call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [call() for call in calls]
+    x.copy_(_codes(3, (e, m, k)).to(dev))
+    w.copy_(_codes(4, (e, k, n)).to(dev))
+    seed.fill_(11)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], cim_mvm.cim_mvm_grouped_experts_plain(
+        x, w, **KW))
+    assert torch.equal(outs[1], cim_mvm.cim_mvm_grouped_noisy_experts_plain(
+        x, w, seed, **nkw))
 
 
 def test_dense_experts_reject_bad_operands():
@@ -1509,12 +1644,19 @@ def _mvm_calls(x, w, dev):
         ("B6", lambda **k: cm.cim_mvm_grouped_noisy_packed(x, wp, seed,
                                                            **NOISY, **k),
          cm.cim_mvm_grouped_noisy_packed_plain(x, wp, seed, **NOISY)),
-        ("B2e", lambda **k: cm.cim_mvm_grouped_experts(xe, we, **KW, **k),
+        ("B2e", lambda **k: cm.cim_mvm_grouped_experts(xe, we, **KW, **k,
+                                                       code_bits=4),
+         cm.cim_mvm_grouped_experts_plain(xe, we, **KW)),
+        ("B2e dense body", lambda **k: cm.cim_mvm_grouped_experts(
+            xe, we, **KW, **k),
          cm.cim_mvm_grouped_experts_plain(xe, we, **KW)),
         ("B1e", lambda **k: cm.cim_mvm_grouped_packed_experts(xe, wpe, **KW,
                                                               **k),
          cm.cim_mvm_grouped_packed_experts_plain(xe, wpe, **KW)),
         ("B5e", lambda **k: cm.cim_mvm_grouped_noisy_experts(
+            xe, we, seed, **NOISY, **k, code_bits=4),
+         cm.cim_mvm_grouped_noisy_experts_plain(xe, we, seed, **NOISY)),
+        ("B5e dense body", lambda **k: cm.cim_mvm_grouped_noisy_experts(
             xe, we, seed, **NOISY, **k),
          cm.cim_mvm_grouped_noisy_experts_plain(xe, we, seed, **NOISY)),
         ("B6e", lambda **k: cm.cim_mvm_grouped_noisy_packed_experts(
@@ -1651,28 +1793,31 @@ def _expert_kernels(kid, dev):
                     cim_mvm.cim_mvm_grouped_noisy_experts_plain, seed)}[kid]
 
 
+@pytest.mark.parametrize("c", [8, 40])
 @pytest.mark.parametrize("k,n", EP_PROJ)
 @pytest.mark.parametrize("kid", ["B1e", "B6e", "B2e", "B5e"])
-def test_expert_slices_bit_exact_vs_whole_launch(kid, k, n):
+def test_expert_slices_bit_exact_vs_whole_launch(kid, k, n, c):
     """Each rank's expert slice (E_pad / ep experts, a leading-dim narrow
     of the whole stack, launched as it is) equals the matching experts of
-    the whole launch and its plain version, bit for bit, for ep 2, 4, 8."""
+    the whole launch and its plain version, bit for bit, for ep 2, 4, 8,
+    at capacity 8 (decode) and 40 (qwen2-moe's training)."""
     dev = gpu_device()
     fn, plain, args = _expert_kernels(kid, dev)
     kw = dict(KW, sigma=0.277) if args else KW
+    bits = {"code_bits": 4} if kid in ("B2e", "B5e") else {}
     e = 64
-    x = _codes(k, (e, 8, k)).to(dev)
+    x = _codes(k + c, (e, c, k)).to(dev)
     w = _codes(n, (e, k, n)).to(dev)
     if kid in ("B1e", "B6e"):
         w = ops.pack_codes(w).contiguous()
-    whole = fn(x, w, *args, **kw)
+    whole = fn(x, w, *args, **kw, **bits)
     for ep in EP_RANKS:
         el = e // ep
         for r in range(ep):
             xs, ws = x.narrow(0, r * el, el), w.narrow(0, r * el, el)
             assert ws.is_contiguous()
             before = fn.launches
-            y = fn(xs, ws, *args, **kw)
+            y = fn(xs, ws, *args, **kw, **bits)
             assert fn.launches == before + 1
             assert torch.equal(y, whole[r * el:(r + 1) * el]), (ep, r)
             assert torch.equal(y, plain(xs, ws, *args, **kw)), (ep, r)
