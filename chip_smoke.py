@@ -142,6 +142,14 @@ of which fails the run when it fails:
      passes of MESH_CALLS calls without and with the mesh); phase 3's serve on the mesh (`serve.py --mesh host`'s mesh), whose
      streams and B1 / B3 / decode launch counts must equal the untuned
      serve's;
+  fsdp. the Trainer's placed state (`phase_fsdp`, inside phase mesh, on
+     its 1-rank nccl mesh): full-width internlm2-1.8b cut to FSDP_LAYERS
+     layers, --cim bp, FSDP_STEPS steps of the Trainer's step from its
+     init_state on the mesh and without one: losses, params and AdamW
+     state bit-identical, B2 on every MVM and its launches equal; then
+     rank 0's bytes of full-depth qwen2-moe-a2.7b's params + AdamW state
+     as placed on the meta device under (data 4, model 1) and (data 2,
+     model 2), beside the card's 80 GB;
   5. B2/B5 at macro depths 9, 145 and 1024 (M in {4, 64}) bit-exact
      against their plain versions, B1/B6 equal to them at the even depth;
   3m. the MoE family at full width (run after phase 5, once phase 3's
@@ -363,6 +371,10 @@ DECODE_MVMS = [("wq+wo", 2048, 2048, 48), ("wk+wv", 2048, 1024, 48),
 PARITY_KN = [(2048, 2048), (2048, 1024), (2048, 8192), (8192, 2048),
              (2048, 92544)]
 MESH_CALLS = 100               # calls a pass of phase mesh's host timing
+# phase fsdp: the Trainer's depth, batch x seq and steps on the mesh
+FSDP_LAYERS, FSDP_BATCH, FSDP_SEQ, FSDP_STEPS = 2, 2, 64, 2
+# ... and the planned meshes of qwen2-moe's placed state
+FSDP_PLANS = ({"data": 4, "model": 1}, {"data": 2, "model": 2})
 MESH_PAIRS = 10                # (no mesh, mesh) pairs of those passes
 DEPTHS = (9, 145, 1024)        # macro depths of phase 5 (the default is 144)
 # B3's head dims and block sizes past its fast case (dh in {32, 64, 128,
@@ -1625,8 +1637,90 @@ def phase_tune_mesh(torch, np, dev, card: str, ctx) -> None:
         f"{same}")
     check(streams_m == streams_a and all(same.values()),
           "phase mesh: the 1-rank mesh serve differs from no mesh")
-    dist.destroy_process_group()
     log(f"phase mesh: {time.monotonic() - t_mesh:.1f} s in all")
+    phase_fsdp(torch, np, dev, card, mesh)
+    dist.destroy_process_group()
+
+
+def phase_fsdp(torch, np, dev, card: str, mesh) -> None:
+    """Phase "fsdp" (module docstring) on `mesh`, phase mesh's 1-rank
+    nccl mesh."""
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import ARCHS
+    from repro_torch.core.cim_matmul import CIMConfig
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import Trainer, make_optimizer
+
+    t_fsdp = time.monotonic()
+    log("phase fsdp: the Trainer's placed state on phase mesh's mesh")
+    cfg = ARCHS["internlm2-1.8b"].replace(n_layers=FSDP_LAYERS,
+                                          cim=CIMConfig(enabled=True))
+    shape = ShapeConfig("fsdp", FSDP_SEQ, FSDP_BATCH, "train")
+    tc = TrainConfig(steps=100, lr=3e-4)
+    runs = {}
+    for tag, m in (("mesh", mesh), ("none", None)):
+        sharding.set_mesh(m)
+        try:
+            tr = Trainer(cfg, shape, tc, str(ROOT / "build" / "fsdp_ckpt"),
+                         device=dev)
+            state = tr.init_state()
+            losses, counts = [], []
+            for i in range(FSDP_STEPS):
+                build.reset_launch_counts()
+                state, metrics = tr.step_fn(state, tr.batch(i))
+                losses.append(float(metrics["loss"]))
+                torch.cuda.synchronize()
+                counts.append(build.launch_counts()["cim_mvm_grouped"])
+        finally:
+            sharding.set_mesh(None)
+        runs[tag] = (tr.specs, losses, counts, state)
+        del tr, state
+    (specs, l_m, c_m, s_m), (_, l_n, c_n, s_n) = runs["mesh"], runs["none"]
+    want = 2 * 7 * FSDP_LAYERS + 1
+    same = tree_equal(torch, s_m, s_n)
+    log(f"phase fsdp ({card}): {cfg.arch} x {FSDP_LAYERS} layers at full "
+        f"width (d_model {cfg.d_model}, vocab {cfg.vocab}), --cim bp, "
+        f"AdamW, batch {FSDP_BATCH} x seq {FSDP_SEQ}: the Trainer's "
+        f"{FSDP_STEPS} steps with its state placed on the 1-rank nccl mesh "
+        f"(no leaf cut: specs {'None' if specs is None else 'set'}) vs no "
+        f"mesh: losses {l_m} / {l_n}, params and optimizer state "
+        f"identical {same}; B2 launches a step {c_m} / {c_n}")
+    check(specs is None, "phase fsdp: a 1-rank mesh cut a state leaf")
+    check(l_m == l_n and same and all(math.isfinite(v) for v in l_m),
+          "phase fsdp: the placed-state Trainer differs from no mesh")
+    check(c_m == c_n and all(c == want for c in c_m),
+          f"phase fsdp: B2 launched {c_m} / {c_n} times a step, expected "
+          f"{want} (7 a layer, twice under remat, + head)")
+    del runs, s_m, s_n
+    torch.cuda.empty_cache()
+    # rank 0's placed state of full-depth qwen2-moe with AdamW, planned
+    qcfg = ARCHS["qwen2-moe-a2.7b"]
+    params = registry.abstract_params(qcfg, max_seq=0)
+    whole = {"params": params, "opt": make_optimizer(tc).init(params)}
+    total = sum(t.numel() * t.element_size() for t in tree_leaves(whole))
+    placed = []
+    for plan in FSDP_PLANS:
+        sharding.set_mesh(sharding.PlannedMesh(plan))
+        try:
+            specs = sharding.tree_param_specs(whole)
+            blocks = sharding.tree_place(whole, specs)
+            nbytes = sum(t.numel() * t.element_size()
+                         for t in tree_leaves(blocks))
+            check(nbytes == dr.per_chip_bytes(dr.Placed(whole, specs)),
+                  f"phase fsdp: {plan}: rank 0's blocks are not the plan")
+        finally:
+            sharding.set_mesh(None)
+        placed.append(f"{plan}: {nbytes / 2**30:.2f} GiB")
+    card_gib = torch.cuda.get_device_properties(0).total_memory / 2**30
+    log(f"phase fsdp: {qcfg.arch} at full depth ({qcfg.n_layers} layers), "
+        f"params + AdamW m / v: {total / 2**30:.2f} GiB whole; rank 0's "
+        f"blocks as placed on the meta device: " + "; ".join(placed)
+        + f"; the card holds {card_gib:.2f} GiB")
+    log(f"phase fsdp: {time.monotonic() - t_fsdp:.1f} s in all")
 
 
 # phase "ep": the per-rank launches of an ep-rank "model" axis

@@ -86,6 +86,12 @@ class StepCost:
     def collectives(self) -> CollectiveStats:
         return collective_bytes(self.recorder.collectives)
 
+    @property
+    def state_collectives(self) -> CollectiveStats:
+        """The collectives that moved the Trainer's placed state (a
+        subset of `collectives`: they partition no work)."""
+        return collective_bytes(self.recorder.state_collectives)
+
 
 def tensors(tree):
     """Every tensor in a tree of dicts, lists and tuples (and the `.data`

@@ -27,13 +27,20 @@ shapes and dtypes and no storage):
 * every argument's placement follows the reference's rules
   (`params_shardings` / `batch_shardings` / `cache_shardings`: the specs
   of `sharding.tree_param_specs` / `spec_for` on the mesh), and its
-  per-chip bytes follow from them. The port's mesh runtime keeps every
-  parameter whole on each rank (`parallel.sharding`), so these are the
-  plan's bytes, the reference's, not what the port's ranks hold today;
+  per-chip bytes follow from them. A train cell's state (params and
+  optimizer state) is placed as the port's Trainer places it: its step
+  runs on rank 0's blocks (`sharding.tree_place`, meta tensors of the
+  blocks' shapes; `Placed.blocks`), so its planned bytes are what rank 0
+  holds. The batch is still whole on every rank in the port (it is not
+  split over the batch axes), and serving params are whole on every rank
+  (`parallel.sharding`): their bytes are the plan's, the reference's,
+  not what the port's ranks hold;
 * rank 0's step runs on meta inside `analysis.hlo.count_costs`: FLOPs
   and bytes of every aten op, each CIM MVM by its kernel's own work (not
   run: `core.engine`), the collectives it issues (recorded, not issued,
-  under a planned mesh) and the peak of the live bytes it allocates.
+  under a planned mesh; the state's gathers and the optimizer's sums over
+  the shards among them, also counted apart as state traffic) and the
+  peak of the live bytes it allocates.
 
 The JSON cell has the reference's keys. memory_analysis holds
 argument_size_in_bytes (the planned per-chip bytes of params, optimizer
@@ -51,8 +58,16 @@ argument bytes are the plan's and everything else is rank 0's program:
 "rank0-whole-tensors" (the step issued no collective: it partitions
 nothing and is the whole model's step, FLOPs, bytes and temp of every
 layer whole, so the roofline sets it against the whole model_flops,
-`work_chips` 1) or "rank0-partitioned" (the sharded kernel MVMs or the
-expert slices divided over the mesh, the rest whole on every rank).
+`work_chips` 1), "rank0-sharded-state" (a train step whose only
+collectives move its placed state: each layer's gather, the optimizer's
+sums over the shards; they partition no work, every rank still computes
+the whole step, so `work_chips` stays 1 and the useful ratio is the
+whole-tensor step's; the gathers count in collective_bytes, and apart in
+collective_detail["state_bytes"] of the direct trace) or
+"rank0-partitioned" (the sharded kernel MVMs, the expert slices or the
+KV heads divided over the mesh, the rest whole on every rank;
+`work_chips` the mesh's chips). Only collectives
+outside the state's decide between the last two.
 peak_memory_in_bytes is one chip's memory only where the program is
 "one-rank". lower_s is the seconds to build the cell, compile_s the
 seconds of the meta trace. The trace runs every layer, so its counts
@@ -81,7 +96,7 @@ from repro_torch.core.cim_matmul import CIMConfig
 from repro_torch.core.macro import SimLevel
 from repro_torch.models import registry
 from repro_torch.parallel import sharding
-from repro_torch.runtime.trainer import make_train_step
+from repro_torch.runtime.trainer import make_optimizer, make_train_step
 
 
 # the reference's production topology, planned at rank 0 (no process group)
@@ -95,10 +110,18 @@ PRODUCTION_MESHES = {"single": {"data": 16, "model": 16},
 class Placed(NamedTuple):
     """An argument of the step (a tree of meta tensors) and its specs (the
     same tree, a spec tuple per tensor): the reference's
-    ShapeDtypeStructs with their NamedShardings."""
+    ShapeDtypeStructs with their NamedShardings. `blocks`: the tree the
+    step runs on where it is not `tree` itself (a train state placed on
+    the mesh: rank 0's block of every leaf)."""
 
     tree: object
     specs: object
+    blocks: object = None
+
+    @property
+    def traced(self):
+        """The tree rank 0's step runs on."""
+        return self.tree if self.blocks is None else self.blocks
 
 
 def _map_path(fn, tree, path=()):
@@ -229,11 +252,14 @@ def build_cell(arch: str, shape_name: str, mesh, *, cim: str = "off",
     if shape.kind == "train":
         tc = TrainConfig(optimizer=choose_optimizer(params_abs),
                          **TC_OVERRIDES)
-        step, opt = make_train_step(cfg, tc)
-        state_abs = {"params": params_abs, "opt": opt.init(params_abs)}
+        state_abs = {"params": params_abs,
+                     "opt": make_optimizer(tc).init(params_abs)}
         state_sh = {"params": p_sh,
                     "opt": sharding.tree_param_specs(state_abs["opt"])}
-        return step, (Placed(state_abs, state_sh),
+        cut = sharding.any_cut(state_sh)     # the Trainer's placement
+        step, _ = make_train_step(cfg, tc, state_sh if cut else None)
+        blocks = sharding.tree_place(state_abs, state_sh) if cut else None
+        return step, (Placed(state_abs, state_sh, blocks),
                       Placed(batch_abs, b_sh)), cfg, params_abs
 
     if shape.kind == "prefill":
@@ -317,7 +343,7 @@ def _layer_knobs(cfg):
 def _measure_costs(arch, shape_name, mesh, *, cim, cfg_variant) -> dict:
     fn, args, _, _ = build_cell(arch, shape_name, mesh, cim=cim,
                                 cfg_override=cfg_variant)
-    cost = trace_step(fn, tuple(a.tree for a in args),
+    cost = trace_step(fn, tuple(a.traced for a in args),
                       train=SHAPES[shape_name].kind == "train")
     coll = cost.collectives
     out = {"flops": cost.flops, "bytes": cost.bytes,
@@ -427,15 +453,17 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                                                 cfg_override=cfg_override,
                                                 ep=ep)
         t_lower = time.monotonic() - t0
-        cost = trace_step(fn, tuple(a.tree for a in args),
+        cost = trace_step(fn, tuple(a.traced for a in args),
                           train=shape.kind == "train")
         t_compile = time.monotonic() - t0 - t_lower
         mem = _memory(args, cost)
         coll = cost.collectives
         flops, bytes_ = float(cost.flops), float(cost.bytes)
         coll_total = float(coll.total_bytes)
+        state = cost.state_collectives
         coll_detail = {"bytes": coll.bytes_by_kind,
-                       "counts": coll.count_by_kind}
+                       "counts": coll.count_by_kind,
+                       "state_bytes": state.total_bytes}
         cost_basis = "traced(every-layer-counted)"
         if analysis == "extrapolate":
             ext = extrapolated_costs(arch, shape_name, mesh, cim=cim,
@@ -447,8 +475,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
                                      k != "coll_total"}}
             cost_basis = "unrolled-per-layer-extrapolation"
         chips = _chips(mesh)
-        program = ("one-rank" if chips == 1 else "rank0-partitioned"
-                   if coll.count_by_kind else "rank0-whole-tensors")
+        program = _program(chips, sum(coll.count_by_kind.values()),
+                           sum(state.count_by_kind.values()))
         rl = Roofline(
             arch=arch, shape=shape_name, mesh=mesh_name, chips=chips,
             hlo_flops=flops, hlo_bytes=bytes_,
@@ -456,7 +484,8 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
             model_flops=model_flops(cfg2, shape, params_abs),
             peak_bytes_per_chip=_peak_bytes(mem),
             collective_detail=coll_detail,
-            work_chips=1 if program == "rank0-whole-tensors" else chips,
+            work_chips=chips if program in ("one-rank", "rank0-partitioned")
+            else 1,
         )
         result.update({
             "status": "ok", "cost_basis": cost_basis, "program": program,
@@ -472,6 +501,16 @@ def run_cell(arch: str, shape_name: str, mesh_kind: str, *,
         sharding.set_mesh(None)
     _dump(result, out_dir, cell_id)
     return result
+
+
+def _program(chips: int, n_collectives: int, n_state: int) -> str:
+    """The cell's "program" (module docstring) from the step's collective
+    count and how many of them moved the placed state."""
+    if chips == 1:
+        return "one-rank"
+    if n_collectives > n_state:
+        return "rank0-partitioned"
+    return "rank0-sharded-state" if n_collectives else "rank0-whole-tensors"
 
 
 def _peak_bytes(mem: MemoryAnalysis) -> float:

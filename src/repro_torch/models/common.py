@@ -225,16 +225,24 @@ def cumsum_f32(x: torch.Tensor, dim: int) -> torch.Tensor:
     return out[..., :n].movedim(-1, dim)
 
 
-def remat(cfg: ModelConfig, fn, *args):
-    """fn(*args), recomputed in the backward under cfg.remat while autograd
-    records (one layer of a training forward). Both remat_policy values
+def remat_layer(cfg: ModelConfig, fn, lp, *args):
+    """fn(lp, *args), one layer of a training forward, recomputed in the
+    backward under cfg.remat while autograd records. The layer's params
+    `lp` are read through `sharding.gathered` inside the recomputed call:
+    under a placed state (`sharding.placed_state`) the layer is gathered
+    whole for its forward and again for its recompute, and no whole layer
+    outlives its use; with cfg.remat off autograd keeps the gathered
+    weights its ops saved until the backward. Both remat_policy values
     recompute the whole call: the policy is a memory choice, and the
     recomputed forward is the same bits, so losses and gradients do not
     depend on it."""
+    def body(*a):
+        return fn(sharding.gathered(lp), *a)
+
     if cfg.remat and torch.is_grad_enabled():
-        return torch.utils.checkpoint.checkpoint(fn, *args,
+        return torch.utils.checkpoint.checkpoint(body, *args,
                                                  use_reentrant=False)
-    return fn(*args)
+    return body(*args)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -340,8 +348,9 @@ class _RowGather(torch.autograd.Function):
 def embed_lookup(p: Params, tokens: torch.Tensor,
                  cfg: ModelConfig) -> torch.Tensor:
     """Embedding rows of `tokens`; under autograd with a deterministic
-    backward (`_RowGather`)."""
-    table = p["embed"]
+    backward (`_RowGather`). A placed table is gathered whole here
+    (`sharding.gathered`)."""
+    table = sharding.gathered(p["embed"])
     if torch.is_grad_enabled() and table.requires_grad:
         return _RowGather.apply(table, tokens)
     return table[tokens]
@@ -354,7 +363,10 @@ def unembed(p: Params, h: torch.Tensor, cfg: ModelConfig, *,
             logits = cim_matmul_prequant(h.float(), p["head_q"],
                                          p["head_scale"], cfg.cim)
     else:
-        w = p["embed"].T if cfg.tie_embeddings else p["head"]
+        # a placed head is gathered at its use (each CE chunk's, again in
+        # its recompute)
+        w = sharding.gathered(p["embed"]).T if cfg.tie_embeddings \
+            else sharding.gathered(p["head"])
         if cfg.cim.enabled:
             fn = cim_matmul_ste if train else cim_matmul
             with quant.act_site("head"):

@@ -24,6 +24,7 @@ from repro_torch.core import quant
 from repro_torch.core.cim_matmul import (CIMConfig, cim_matmul,
                                          cim_matmul_prequant, cim_matmul_ste)
 from repro_torch.device import resolve_device
+from repro_torch.parallel import sharding
 
 from .common import _normal
 
@@ -94,6 +95,7 @@ def train_loss(p: dict, batch: dict, cfg: ModelConfig,
                rng=None) -> torch.Tensor:
     """Mean cross-entropy of the keyword labels (`rng` is taken for the
     reference's signature)."""
-    logits = forward(p, batch["frames"], cfg, train=True)
+    # a placed state is gathered once: the cell runs every frame
+    logits = forward(sharding.gathered(p), batch["frames"], cfg, train=True)
     logp = torch.log_softmax(logits, dim=-1)
     return -logp.gather(1, batch["labels"].long()[:, None]).mean()

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator, resolve_device
+from repro_torch.parallel import sharding
 
 from . import common
 from .common import (_normal, attention_apply, attention_init, cumsum_f32,
@@ -235,6 +236,13 @@ def _shared_block(sp: dict, h, cfg: ModelConfig, *, positions, cache=None,
 
 
 
+def _train_block(lp: dict, h, cfg: ModelConfig):
+    """One Mamba layer of the training forward (no residual around the
+    block, as in the reference)."""
+    return _mamba_block(lp["ssm"], norm(lp["norm1"], h, cfg), cfg,
+                        train=True)[0]
+
+
 def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
              shared_kv=None, pos0=0, chunked: bool = True,
              train: bool = False):
@@ -257,9 +265,7 @@ def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
         for i in range(lo, hi):
             lp = params["layers"][i]
             if train:       # recomputed in the backward under cfg.remat
-                h = common.remat(cfg, lambda hh, lp=lp: _mamba_block(
-                    lp["ssm"], norm(lp["norm1"], hh, cfg), cfg,
-                    train=True)[0], h)
+                h = common.remat_layer(cfg, _train_block, lp, h, cfg)
                 continue
             c = None if caches is None else \
                 {leaf: st[i] for leaf, st in caches.items()}
@@ -271,13 +277,16 @@ def _forward(params: dict, tokens, cfg: ModelConfig, *, caches=None,
                 and app < _n_shared_apps(cfg):
             kv = None if train else {} if shared_kv is None else \
                 {leaf: st[app] for leaf, st in shared_kv.items()}
-            h, new_kv = _shared_block(params["shared"], h, cfg,
-                                      positions=positions, cache=kv,
+            # not recomputed (as in the reference): under a placed state
+            # the gathered shared block lives until the backward
+            h, new_kv = _shared_block(sharding.gathered(params["shared"]),
+                                      h, cfg, positions=positions, cache=kv,
                                       pos_idx=pos0, train=train)
             if not train:
                 shared.append(new_kv)
             app += 1
-    return norm(params["final_norm"], h, cfg), entries, shared
+    return norm(sharding.gathered(params["final_norm"]), h, cfg), \
+        entries, shared
 
 
 # ---------------------------------------------------------------------------

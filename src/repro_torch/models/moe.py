@@ -191,9 +191,15 @@ def _shard_experts(wp: dict, part: tuple, ep: bool = True) -> dict:
     (the packed bytes and their [E, 1, 1] / [E, 1, M] scales, int8 codes
     with their scales, the float weights) narrowed on dim 0 over "model",
     else the whole set; a gradient comes back whole, summed over `part`.
-    The reference gathers FSDP D-shards here (`_gather_expert`): the
-    port's weights are whole on every rank, so there is nothing to
-    gather."""
+    The reference gathers FSDP D-shards here (`_gather_expert`). In the
+    port the weights arrive whole: the Server's are, and a Trainer's
+    placed layer was gathered whole when it began (`sharding.gathered`),
+    so EP narrows the whole stack. Its "expert" block could be read in
+    place (gathering only D over "data"), but psum-EP's expert gradients
+    are partial over the batch axes, and `_Shard`'s backward is what sums
+    them in rank order before the gather's backward slices the block:
+    gathering keeps that order, and the step bit-identical to the
+    whole-state Trainer's."""
     sl = [(0, ("model",))] if ep else []
     if "pk" in wp:
         pk = wp["pk"]

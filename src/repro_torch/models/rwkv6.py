@@ -29,6 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator, resolve_device
+from repro_torch.parallel import sharding
 
 from . import common
 from .common import (_normal, cumsum_f32, dense, dtype_of, embed_init,
@@ -232,16 +233,21 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, cache=None,
     return h + f, {"tm_x": tm_x, "cm_x": cm_x, "S": s}
 
 
+def _train_layer(lp: dict, h, cfg: ModelConfig):
+    """One layer of the training forward (chunked, zero carries)."""
+    return _layer(lp, h, cfg, train=True)[0]
+
+
 def train_loss(params: dict, batch: dict, cfg: ModelConfig, rng=None):
     """Next-token cross-entropy of batch["tokens"] against batch["labels"]:
     embed → layers (chunked, zero carries; each recomputed in the backward
-    under cfg.remat) → final_norm → head, a scalar f32 tensor to
-    differentiate (`rng` is the reference's PRNG key argument, unread)."""
+    under cfg.remat, `common.remat_layer`) → final_norm → head, a scalar
+    f32 tensor to differentiate (`rng` is the reference's PRNG key
+    argument, unread)."""
     h = embed_lookup(params["tok"], batch["tokens"].long(), cfg)
     for lp in params["layers"]:
-        h = common.remat(cfg, lambda hh, lp=lp: _layer(lp, hh, cfg,
-                                                       train=True)[0], h)
-    h = norm(params["final_norm"], h, cfg)
+        h = common.remat_layer(cfg, _train_layer, lp, h, cfg)
+    h = norm(sharding.gathered(params["final_norm"]), h, cfg)
     return common.cross_entropy(unembed(params["tok"], h, cfg, train=True),
                                 batch["labels"].long())
 

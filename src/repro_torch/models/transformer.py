@@ -50,6 +50,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import generator, resolve_device
+from repro_torch.parallel import sharding
 
 from . import common, mla, moe
 from .common import (attention_apply, attention_init, dtype_of, embed_init,
@@ -157,7 +158,7 @@ def _embed_inputs(params, batch, cfg: ModelConfig):
         x = torch.cat([batch["image_embeds"].to(x.dtype), x], dim=1)
     b, t = x.shape[:2]
     if cfg.pos_embed == "learned":
-        x = x + params["dec_pos"]["pos_embed"][:t]
+        x = x + sharding.gathered(params["dec_pos"]["pos_embed"])[:t]
     return x, torch.arange(t, device=x.device).expand(b, t)
 
 
@@ -175,14 +176,15 @@ def _encode(params: dict, batch: dict, cfg: ModelConfig, *,
             "decode_step, as in the reference")
     frames = batch["frames"]
     b, t = frames.shape[:2]
-    h = frames.to(dtype_of(cfg)) + params["enc_pos"]["pos_embed"][:t]
+    h = frames.to(dtype_of(cfg)) \
+        + sharding.gathered(params["enc_pos"]["pos_embed"])[:t]
     positions = torch.arange(t, device=h.device).expand(b, t)
     for lp in params["enc_layers"]:
         if train:
             h, _ = _train_layer(lp, h, cfg, positions, causal=False)
         else:
             h, _, _ = _layer(lp, h, cfg, positions=positions, causal=False)
-    return norm(params["enc_norm"], h, cfg)
+    return norm(sharding.gathered(params["enc_norm"]), h, cfg)
 
 
 def _ffn(p: dict, x, cfg: ModelConfig, train: bool = False):
@@ -232,13 +234,14 @@ def _layer(lp: dict, h, cfg: ModelConfig, *, positions, cache=None,
 def _train_layer(lp: dict, h, cfg: ModelConfig, positions, *,
                  causal: bool = True, enc_out=None):
     """One layer of the training forward → (h, its load-balance loss),
-    recomputed in the backward under cfg.remat (`common.remat`)."""
-    def body(hh, pos, enc):
-        out, _, aux = _layer(lp, hh, cfg, positions=pos, causal=causal,
+    recomputed in the backward under cfg.remat, a placed state's layer
+    gathered inside the recomputed body (`common.remat_layer`)."""
+    def body(lpw, hh, pos, enc):
+        out, _, aux = _layer(lpw, hh, cfg, positions=pos, causal=causal,
                              enc_out=enc, train=True)
         return out, aux
 
-    return common.remat(cfg, body, h, positions, enc_out)
+    return common.remat_layer(cfg, body, lp, h, positions, enc_out)
 
 
 def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
@@ -261,7 +264,8 @@ def forward(params: dict, batch: dict, cfg: ModelConfig, *, train: bool):
                                    enc_out=enc_out)
             aux_stack = aux_stack + aux
         aux_total = aux_total + aux_stack
-    return norm(params["final_norm"], x, cfg), aux_total, enc_out
+    return norm(sharding.gathered(params["final_norm"]), x, cfg), \
+        aux_total, enc_out
 
 
 def train_loss(params: dict, batch: dict, cfg: ModelConfig,
@@ -284,8 +288,9 @@ def _mtp_loss(params: dict, h, batch: dict, cfg: ModelConfig):
     """deepseek-v3's multi-token prediction: position t predicts token t + 2
     (labels[:, t + 1]) from norm_h(h_t) ∥ norm_e(embed(token_{t+1})),
     through w_proj, one block (not recomputed in the backward, as in the
-    reference) and the shared head."""
-    mp = params["mtp"]
+    reference: a placed state's MTP block, gathered here, lives until the
+    backward) and the shared head."""
+    mp = sharding.gathered(params["mtp"])
     tokens, labels = batch["tokens"].long(), batch["labels"].long()
     h_in = norm(mp["norm_h"], h[:, :-1], cfg)
     e_next = norm(mp["norm_e"], embed_lookup(params["tok"], tokens[:, 1:],

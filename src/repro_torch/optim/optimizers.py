@@ -23,12 +23,26 @@ reference's op order: m = b1·m + (1 − b1)·g, the bias corrections
 1 − b1^step as f32 powers, (m/bc1) / (√(v/bc2) + eps), the casts back to
 the parameter dtype in apply_updates. Divisors are tensors, so every
 division is a true division on every device.
+
+On a mesh the Trainer's state is placed (`parallel.sharding`): each rank
+holds its block of every leaf, and `global_norm_clip` and `update` take
+the params' spec tree (`specs`). The elementwise rules run on the blocks
+as they are. A reduction over a cut dim (the clip's norm, Adafactor's row
+and column statistics and its RMS clip) is the block's sum, summed over
+the axes that cut those dims in ascending rank order
+(`sharding.sum_over_ranks`), then divided by the whole count: the same
+bits on every rank, within float reassociation of the whole tensor's
+reduction (a leaf that no live axis cuts keeps the whole-tensor op).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, NamedTuple
 
 import torch
+
+from repro_torch.parallel import sharding
+from repro_torch.trees import tree_leaves, tree_map  # noqa: F401 (re-export)
 
 
 class Optimizer(NamedTuple):
@@ -39,29 +53,6 @@ class Optimizer(NamedTuple):
 # ---------------------------------------------------------------------------
 # trees
 # ---------------------------------------------------------------------------
-def tree_map(f, tree, *rest):
-    """f over the tensor leaves of `tree` (dicts and lists), with the
-    matching leaves of `rest`, into a tree of the same structure; leaves
-    are visited in `tree_leaves` order."""
-    if isinstance(tree, dict):
-        return {k: tree_map(f, tree[k], *(r[k] for r in rest))
-                for k in sorted(tree)}
-    if isinstance(tree, list):
-        return [tree_map(f, v, *(r[i] for r in rest))
-                for i, v in enumerate(tree)]
-    return f(tree, *rest)
-
-
-def tree_leaves(tree) -> list:
-    """The tensor leaves, dict keys in sorted order (as jax.tree.leaves
-    orders them), layer lists in layer order."""
-    if isinstance(tree, dict):
-        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
-    if isinstance(tree, list):
-        return [x for v in tree for x in tree_leaves(v)]
-    return [tree]
-
-
 def _get(node, path):
     for k in path:
         node = node[k]
@@ -122,14 +113,65 @@ def _scalar(v, like: torch.Tensor) -> torch.Tensor:
     return torch.full((), float(v), dtype=torch.float32, device=like.device)
 
 
+def group_spec(specs, members, path):
+    """The spec of a group's tensor (`group_tensor`): a layer stack's
+    leaf gains its uncut [L] dim."""
+    if specs is None:
+        return None
+    if members is None:
+        return _get(specs, path)
+    return (None,) + tuple(_get(specs, members[0]))
+
+
+def _mean(x: torch.Tensor, dim: int | None, spec, *,
+          keepdim: bool = False) -> torch.Tensor:
+    """torch.mean of the whole tensor over `dim` (None: every dim), from
+    this rank's block x cut by `spec`: where live axes cut that dim, the
+    block's sum, summed over those axes in rank order, over the whole
+    count."""
+    dims = tuple(range(x.ndim)) if dim is None else (dim % x.ndim,)
+    axes = () if spec is None else sharding.spec_axes(
+        [spec[d] for d in dims])
+    if not axes:
+        return torch.mean(x) if dim is None \
+            else torch.mean(x, dim=dim, keepdim=keepdim)
+    s = torch.sum(x) if dim is None else torch.sum(x, dim=dim,
+                                                   keepdim=keepdim)
+    s = sharding.sum_over_ranks(s, axes)
+    n = math.prod(x.shape[d] for d in dims) \
+        * math.prod(sharding.axis_size(a) for a in axes)
+    return s / _scalar(n, s)
+
+
 # ---------------------------------------------------------------------------
 # clip, apply
 # ---------------------------------------------------------------------------
-def global_norm_clip(grads, max_norm: float):
+def _leaf_sums(sums: list, axes: list) -> list:
+    """Each leaf's partial sum summed over its axes in rank order; the
+    leaves cut over the same axes share one collective (a stacked vector,
+    each entry added in the same order as alone)."""
+    out = list(sums)
+    for ax in dict.fromkeys(a for a in axes if a):
+        idx = [i for i, a in enumerate(axes) if a == ax]
+        total = sharding.sum_over_ranks(torch.stack([sums[i] for i in idx]),
+                                        ax)
+        for i, t in zip(idx, total.unbind(0)):
+            out[i] = t
+    return out
+
+
+def global_norm_clip(grads, max_norm: float, specs=None):
     """(grads scaled by min(1, max_norm / max(‖g‖, 1e-9)) in f32 and cast
-    back to each leaf's dtype, the global norm ‖g‖ as an f32 tensor)."""
+    back to each leaf's dtype, the global norm ‖g‖ as an f32 tensor).
+    With the params' spec tree `specs` the leaves are blocks: each leaf's
+    sum of squares over its block, summed over the axes that cut it (a
+    whole leaf counts once), the leaves then added in tree order."""
     leaves = tree_leaves(grads)
-    gn = torch.sqrt(sum(torch.sum(torch.square(g.float())) for g in leaves))
+    sums = [torch.sum(torch.square(g.float())) for g in leaves]
+    if specs is not None:
+        sums = _leaf_sums(sums, [sharding.spec_axes(s)
+                                 for s in tree_leaves(specs)])
+    gn = torch.sqrt(sum(sums))
     scale = torch.clamp(_scalar(max_norm, gn) / torch.clamp(gn, min=1e-9),
                         max=1.0)
     return tree_map(lambda g: (g.float() * scale).to(g.dtype), grads), gn
@@ -152,7 +194,8 @@ def adamw(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, b1=0.9, b2=0.95,
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "m": tree_map(zeros, params), "v": tree_map(zeros, params)}
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
+        # elementwise: blocks update as they are (specs unread)
         step = state["step"] + 1
         lr = lr_fn(step)
         m = tree_map(lambda m_, g: b1 * m_ + (1 - b1) * g.float(),
@@ -202,13 +245,16 @@ def adafactor(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, decay=0.8,
         return {"step": torch.zeros((), dtype=torch.int32, device=dev),
                 "stats": stats}
 
-    def one(g, s, p, beta, lr):
+    def one(g, s, p, beta, lr, spec):
+        """One reference leaf; `spec` cuts its block (None: whole)."""
         gf = g.float()
         g2 = torch.square(gf) + eps
         if "vr" in s:
-            vr = beta * s["vr"] + (1 - beta) * torch.mean(g2, dim=-1)
-            vc = beta * s["vc"] + (1 - beta) * torch.mean(g2, dim=-2)
-            r = vr / torch.clamp(torch.mean(vr, dim=-1, keepdim=True),
+            vr = beta * s["vr"] + (1 - beta) * _mean(g2, -1, spec)
+            vc = beta * s["vc"] + (1 - beta) * _mean(g2, -2, spec)
+            # vr's last dim is the leaf's second to last
+            r = vr / torch.clamp(_mean(vr, -1, None if spec is None
+                                       else spec[:-1], keepdim=True),
                                  min=eps)
             precond = gf / (torch.sqrt(r)[..., None]
                             * torch.sqrt(vc)[..., None, :])
@@ -217,12 +263,13 @@ def adafactor(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, decay=0.8,
             v = beta * s["v"] + (1 - beta) * g2
             precond = gf / torch.sqrt(v)
             new_s = {"v": v}
-        rms = torch.sqrt(torch.mean(torch.square(precond)) + 1e-12)
+        rms = torch.sqrt(_mean(torch.square(precond), None, spec) + 1e-12)
         precond = precond / torch.clamp(rms / _scalar(clip_threshold, rms),
                                        min=1.0)
         return -lr * (precond + weight_decay * p.float()), new_s
 
-    def update(grads, state, params):
+    def update(grads, state, params, specs=None):
+        """specs: the params' spec tree where they are placed blocks."""
         step = state["step"] + 1
         lr = lr_fn(step)
         beta = 1.0 - torch.pow(step.float(), _scalar(-decay, lr))
@@ -231,7 +278,8 @@ def adafactor(lr_fn: Callable[[torch.Tensor], torch.Tensor], *, decay=0.8,
         for path, members in stacked_groups(params):
             u, new_s = one(group_tensor(grads, members, path),
                            _get(state["stats"], path),
-                           group_tensor(params, members, path), beta, lr)
+                           group_tensor(params, members, path), beta, lr,
+                           group_spec(specs, members, path))
             set_group(upd, members, path, u)
             node = stats
             for k in path[:-1]:

@@ -99,12 +99,15 @@ def a2a_combine(out: torch.Tensor, axis: str) -> torch.Tensor:
     return _Combine.apply(out, axis)
 
 
-def quantize_int8(x: torch.Tensor):
+def quantize_int8(x: torch.Tensor, axes: tuple = ()):
     """x (f32/bf16) → (int8 codes, f32 scale): scale = max(max|x|,
     1e-12) / 127 (a true division), codes = clip(round(x / scale), −127,
-    127), round half to even as jnp.round."""
+    127), round half to even as jnp.round. With `axes`, x is a rank's
+    block of a placed leaf cut over those mesh axes: max|x| is the max
+    over the blocks (exact), so the codes are the whole leaf's."""
     xf = x.float()
-    scale = torch.clamp(torch.max(torch.abs(xf)), min=1e-12) \
+    amax = sharding.max_over_ranks(torch.max(torch.abs(xf)), axes)
+    scale = torch.clamp(amax, min=1e-12) \
         / torch.full((), 127.0, device=xf.device)
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
@@ -114,11 +117,13 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.float() * scale
 
 
-def compress_decompress(x: torch.Tensor, err: torch.Tensor):
+def compress_decompress(x: torch.Tensor, err: torch.Tensor,
+                        axes: tuple = ()):
     """Single-participant Q→DQ with error feedback: xf = x + err (f32) →
-    (dequantized xf in x's dtype, the new residue xf − dequantized)."""
+    (dequantized xf in x's dtype, the new residue xf − dequantized); with
+    `axes`, on a rank's block of a leaf cut over them (`quantize_int8`)."""
     xf = x.float() + err
-    q, scale = quantize_int8(xf)
+    q, scale = quantize_int8(xf, axes)
     y = dequantize_int8(q, scale)
     return y.to(x.dtype), xf - y
 

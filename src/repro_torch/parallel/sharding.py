@@ -22,19 +22,36 @@ The active mesh is process-wide (`set_mesh`): a
 pure rules, any object with `axis_names` and a `shape` dict (the
 reference tests' stand-in). Without a mesh every helper is the identity.
 
-Execution model. The port runs eagerly and keeps every model tensor whole
-and identical on every rank (every rank builds the same params from the
-seed). Only the partitioned computations run on a rank's block: the CIM
-MVM (`core.engine`: each rank takes its shard of x and of the weights by
-`mvm_plan` and runs its kernel), the MoE experts (`models.moe`: a rank's
-experts and tokens) and the paged attention's KV heads
-(`kernels.paged_attention`). The partial results are summed and gathered
-back into the whole output (`shard`, `ordered_sum`, `mean_over`,
-`gather`: autograd functions whose backward is the matching collective,
-so gradients are those of the whole tensors; a tensor read whole by
-every rank's block sums its gradient over the partitioning axes).
-`constrain` is therefore a layout annotation with no effect: the
+Execution model. The port runs eagerly. Activations are whole and
+identical on every rank, and so are the parameters a step reads: the
+Server's and the model API's params are whole on every rank (every rank
+builds the same params from the seed). Only the partitioned computations
+run on a rank's block: the CIM MVM (`core.engine`: each rank takes its
+shard of x and of the weights by `mvm_plan` and runs its kernel), the MoE
+experts (`models.moe`: a rank's experts and tokens) and the paged
+attention's KV heads (`kernels.paged_attention`). The partial results are
+summed and gathered back into the whole output (`shard`, `ordered_sum`,
+`mean_over`, `gather`: autograd functions whose backward is the matching
+collective, so gradients are those of the whole tensors; a tensor read
+whole by every rank's block sums its gradient over the partitioning
+axes). `constrain` is therefore a layout annotation with no effect: the
 activations it names are already whole on every rank.
+
+The Trainer's state at rest is the exception (the reference's ZeRO-3):
+on a mesh each rank holds only its block of every state leaf (params,
+the optimizer's moments or factored statistics, the error-feedback
+buffers), cut by the rule tree (`tree_param_specs`; `place` /
+`tree_place`, the block the reference's NamedSharding puts on the device
+at the same mesh coordinates). The train step reads its params inside
+`placed_state`, where the models gather each layer whole when it runs
+(`gathered`, built on `unshard`) and drop it after; the gradients come
+back as blocks, and the optimizer updates blocks, summing over the
+shards in rank order where a rule reduces over a cut dim
+(`sum_over_ranks`, `max_over_ranks`). Serving never enters
+`placed_state`, so `gathered` is the identity there. The collectives of
+the state (its gathers, the optimizer's sums) run inside
+`runtime.telemetry.state_traffic`, which the dry-run counts apart: they
+move the state and partition no work.
 
 Collectives. Every collective the port issues goes through the helpers
 at the end of this module (`all_gather`, `reduce_scatter_tensor`,
@@ -57,7 +74,8 @@ from typing import NamedTuple, Optional, Sequence
 import torch
 import torch.distributed as dist
 
-from repro_torch.runtime.telemetry import record_collective
+from repro_torch.runtime.telemetry import record_collective, state_traffic
+from repro_torch.trees import tree_leaves, tree_map
 
 _MESH = None
 # (the mesh, its {axis name: size}): read once per mesh, not per MVM
@@ -275,6 +293,13 @@ def axes_for(path: tuple, ndim: int) -> tuple:
     return tuple(rules[:ndim])
 
 
+def leaf_spec(path: Sequence, shape: Sequence[int]) -> tuple:
+    """The spec of one leaf at `path` (its keys, a list index as an int)
+    whose whole shape is `shape`, by PARAM_RULES on the active mesh."""
+    shape = tuple(shape)
+    return spec_for(shape, axes_for(tuple(path), len(shape)))
+
+
 def tree_param_specs(params, path: tuple = ()):
     """A params tree (dicts, lists; tensors or containers with `.data`) →
     the same tree of specs by PARAM_RULES."""
@@ -284,8 +309,7 @@ def tree_param_specs(params, path: tuple = ()):
     if isinstance(params, (list, tuple)):
         return type(params)(tree_param_specs(v, path + (i,))
                             for i, v in enumerate(params))
-    shape = tuple(getattr(params, "data", params).shape)
-    return spec_for(shape, axes_for(path, len(shape)))
+    return leaf_spec(path, getattr(params, "data", params).shape)
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +493,8 @@ class _MeanOver(torch.autograd.Function):
 class _Gather(torch.autograd.Function):
     """Forward: the shards of a tensor along `dim` over `axes`,
     concatenated in rank order (the last axis innermost). Backward: this
-    rank's slice of the whole gradient."""
+    rank's slice of the whole gradient, a copy (a view would keep the
+    whole gradient alive)."""
 
     @staticmethod
     def forward(ctx, t, dim, axes):
@@ -482,7 +507,8 @@ class _Gather(torch.autograd.Function):
     def backward(ctx, g):
         idx, n = shard_index(ctx.axes)
         size = g.shape[ctx.dim] // n
-        return g.narrow(ctx.dim, idx * size, size), None, None
+        return g.narrow(ctx.dim, idx * size, size).clone(
+            memory_format=torch.contiguous_format), None, None
 
 
 class _ReduceScatter(torch.autograd.Function):
@@ -552,6 +578,150 @@ def gather(t: torch.Tensor, dim: int, axes: Sequence[str], *,
         t = _Gather.apply(t, dim % t.ndim, live)
     if size is not None and size != t.shape[dim]:
         t = t.narrow(dim, 0, size)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# the Trainer's state at rest: this rank's block of every leaf (module
+# docstring), and the whole leaf back from the blocks
+# ---------------------------------------------------------------------------
+def _cuts(spec: Sequence) -> list[tuple[int, tuple]]:
+    """The (dim, live mesh axes) of each dim of `spec` that a live axis
+    cuts (`spec_slices` less the axes of one rank)."""
+    return [(d, live) for d, axes in spec_slices(spec)
+            if (live := _live(axes))]
+
+
+def spec_axes(spec: Sequence) -> tuple:
+    """The live mesh axes that cut any dim of `spec`, in the mesh's order
+    (empty for a leaf that is whole on every rank)."""
+    used = {a for _, axes in _cuts(spec) for a in axes}
+    return tuple(a for a in _axes() if a in used)
+
+
+def block_bounds(shape: Sequence[int], spec: Sequence) -> tuple:
+    """(start, stop) of this rank's block along each dim of a whole tensor
+    of `shape` cut by `spec`; along a dim cut over several axes the last
+    axis is innermost (`shard_index`: the order `_Gather` concatenates
+    in, and the reference's NamedSharding's)."""
+    out = [(0, n) for n in shape]
+    for d, axes in _cuts(spec):
+        idx, k = shard_index(axes)
+        size = shape[d] // k
+        out[d] = (idx * size, (idx + 1) * size)
+    return tuple(out)
+
+
+def place(t, spec: Sequence):
+    """This rank's block of the whole `t` (a tensor, or a numpy array read
+    from a checkpoint) by `spec`: a copy, so the whole leaf can be freed;
+    `t` itself where no live axis cuts it. Under a PlannedMesh, rank 0's
+    block (a meta tensor of the block's shape)."""
+    if not _cuts(spec):
+        return t
+    block = t[tuple(slice(lo, hi) for lo, hi in block_bounds(t.shape, spec))]
+    if isinstance(block, torch.Tensor):
+        return block.clone(memory_format=torch.contiguous_format)
+    return block.copy()
+
+
+def tree_place(tree, specs):
+    """`place` over a state tree and its spec tree."""
+    return tree_map(place, tree, specs)
+
+
+def any_cut(specs) -> bool:
+    """Whether any spec of a spec tree has a live axis (a tree on no mesh
+    or on a 1-rank mesh has none: placing it changes nothing)."""
+    return any(spec_axes(s) for s in tree_leaves(specs))
+
+
+def unshard(t: torch.Tensor, spec: Sequence) -> torch.Tensor:
+    """The whole leaf from this rank's block `t` cut by `spec`: `_Gather`
+    along each cut dim (recorded as state traffic). Its backward is this
+    rank's slice of the whole gradient, which is right while the
+    activations, and so the whole gradients, are identical on every rank;
+    once the batch is split over "data" it becomes a reduce-scatter."""
+    cuts = _cuts(spec)
+    if not cuts:
+        return t
+    with state_traffic():
+        for dim, axes in reversed(cuts):
+            t = _Gather.apply(t, dim, axes)
+    return t
+
+
+def unshard_tree(tree, specs):
+    """`unshard` over a tree of blocks and its spec tree."""
+    return tree_map(unshard, tree, specs)
+
+
+# the leaves of the state a train step reads (`placed_state`): one table
+# {id(block): (block, spec)} per open context
+_PLACED: list[dict] = []
+
+
+@contextlib.contextmanager
+def placed_state(tree, specs):
+    """While the block runs (a train step's loss and its backward, where
+    a recomputed layer gathers again), `gathered` reads the leaves of
+    `tree`, this rank's blocks cut by `specs`, whole. specs None: the
+    state is whole and nothing is gathered."""
+    table = {}
+    if specs is not None:
+        def note(t, spec):
+            if spec_axes(spec):
+                table[id(t)] = (t, spec)
+        tree_map(note, tree, specs)
+    _PLACED.append(table)
+    try:
+        yield
+    finally:
+        _PLACED.pop()
+
+
+def gathered(tree):
+    """`tree` (a leaf, or dicts and lists of leaves) with every placed
+    block of the open `placed_state` gathered whole (`unshard`): a
+    model's layer at its use. The identity outside a placed_state, and
+    for leaves that are whole."""
+    if not _PLACED or not _PLACED[-1]:
+        return tree
+    table = _PLACED[-1]
+
+    def one(node):
+        if isinstance(node, dict):
+            return {k: one(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return [one(v) for v in node]
+        hit = table.get(id(node))
+        return unshard(node, hit[1]) if hit is not None \
+            and hit[0] is node else node
+
+    return one(tree)
+
+
+def sum_over_ranks(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """Σ of `t` over the ranks of `axes`, in ascending rank order on each
+    axis (`_sum_over`; state traffic, no autograd): the same bits on every
+    rank."""
+    axes = _live(axes)
+    if not axes:
+        return t
+    with state_traffic():
+        return _sum_over(t, axes)
+
+
+def max_over_ranks(t: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
+    """The max of `t` over the ranks of `axes` (a MAX all-reduce per axis,
+    exact; state traffic, no autograd)."""
+    axes = _live(axes)
+    if not axes:
+        return t
+    t = t.clone()
+    with state_traffic():
+        for a in axes:
+            all_reduce(t, _MESH.get_group(a), op=dist.ReduceOp.MAX)
     return t
 
 

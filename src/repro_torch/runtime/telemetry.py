@@ -310,18 +310,36 @@ COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
 
 class Recorder:
     """What one traced step did: its collectives (kind, operand bytes) in
-    call order, and the CIM MVMs on meta operands counted by their
-    kernels' work. Written by `parallel.sharding`'s collective helpers
-    and `core.engine`'s meta MVM; read by `analysis.hlo`."""
+    call order, those of them that moved the Trainer's placed state
+    (`state_traffic`: its gathers and the optimizer's sums over the
+    shards, which partition no work) again in `state_collectives`, and
+    the CIM MVMs on meta operands counted by their kernels' work. Written
+    by `parallel.sharding`'s collective helpers and `core.engine`'s meta
+    MVM; read by `analysis.hlo`."""
 
     def __init__(self):
         self.collectives: list[tuple[str, int]] = []
+        self.state_collectives: list[tuple[str, int]] = []
         self.mvms = 0
         self.mvm_flops = 0
         self.mvm_bytes = 0
 
 
 _RECORDERS: list[Recorder] = []
+# depth of open state_traffic blocks
+_STATE_DEPTH: list[int] = [0]
+
+
+class state_traffic:
+    """Collectives issued inside the block move the Trainer's placed
+    state (`parallel.sharding`'s gathers of a layer, the optimizer's sums
+    over the shards): each is recorded in `state_collectives` too."""
+
+    def __enter__(self):
+        _STATE_DEPTH[0] += 1
+
+    def __exit__(self, *exc) -> None:
+        _STATE_DEPTH[0] -= 1
 
 
 class recording:
@@ -344,6 +362,8 @@ def record_collective(kind: str, t) -> None:
         n = t.numel() * t.element_size()
         for rec in _RECORDERS:
             rec.collectives.append((kind, n))
+            if _STATE_DEPTH[0]:
+                rec.state_collectives.append((kind, n))
 
 
 def record_mvm(flops: int, nbytes: int) -> None:

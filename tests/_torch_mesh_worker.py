@@ -264,12 +264,14 @@ def case_moe() -> dict:
 def _trainer_on_mesh(where) -> dict:
     """The smoke qwen2-moe (float32, --cim bp, a2a-EP) through the Trainer
     on the active mesh: 4 steps uninterrupted, and 4 steps preempted at
-    step 2 and resumed from the step-2 checkpoint (rank 0 writes, every
-    rank restores). The final params of both, flattened."""
+    step 2 and resumed from the step-2 checkpoint (rank 0 writes it
+    whole, every rank restores its blocks). The final params of both,
+    gathered whole and flattened."""
     from repro_torch.configs.base import ShapeConfig, TrainConfig
     from repro_torch.configs.registry import SMOKES
     from repro_torch.core.cim_matmul import CIMConfig
     from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel import sharding
     from repro_torch.runtime.trainer import Trainer
     base = SMOKES["qwen2-moe-a2.7b"]
     cfg = base.replace(dtype="float32", cim=CIMConfig(enabled=True),
@@ -282,9 +284,11 @@ def _trainer_on_mesh(where) -> dict:
         tr = Trainer(cfg, shape, tc, os.path.join(where, "ckpt_" + tag),
                      preempt_at=preempt, device="cpu")
         res = tr.run()
+        with torch.no_grad():
+            params = sharding.unshard_tree(res["state"]["params"],
+                                           tr.specs["params"])
         out["train_" + tag] = torch.cat([t.detach().flatten().float()
-                                         for t in tree_leaves(
-                                             res["state"]["params"])])
+                                         for t in tree_leaves(params)])
         out["train_" + tag + "_loss"] = torch.tensor(
             [m["loss"] for m in res["metrics"]])
     return out
@@ -496,9 +500,236 @@ def case_dryrun() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the Trainer's placed state (tests/test_torch_train_sharded.py)
+# ---------------------------------------------------------------------------
+FSDP_ARCHS = {"internlm2": "internlm2-1.8b", "qwen2moe": "qwen2-moe-a2.7b"}
+FSDP_SHAPE = (16, 4)                 # seq, batch of the Trainer runs
+# the sharded-vs-whole legs: TrainConfig overrides (AdamW with a clip that
+# does not bind is the bit-identical one)
+FSDP_LEGS = {"adamw": dict(grad_clip=1e9),
+             "clip": dict(grad_clip=1e-3),
+             "adafactor": dict(grad_clip=1e9, optimizer="adafactor"),
+             "int8": dict(grad_clip=1e9, grad_compression=True)}
+
+
+def fsdp_tc(**kw):
+    from repro_torch.configs.base import TrainConfig
+    base = dict(steps=3, lr=1e-3, warmup_steps=1, checkpoint_every=100,
+                log_every=1, keep_checkpoints=2)
+    base.update(kw)
+    return TrainConfig(**base)
+
+
+def resume_tc():
+    """The reference-resume leg's TrainConfig (both packages')."""
+    return dict(steps=5, lr=1e-3, warmup_steps=2, checkpoint_every=2,
+                log_every=1, keep_checkpoints=2)
+
+
+def fsdp_cfg(arch: str, cim: bool = False):
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.core.cim_matmul import CIMConfig
+    cfg = SMOKES[FSDP_ARCHS[arch]].replace(dtype="float32")
+    if cim:
+        cfg = cfg.replace(cim=CIMConfig(enabled=True))
+    if cfg.moe is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(cfg.moe, ep_mode="a2a"))
+    return cfg
+
+
+def ref_key(path) -> str:
+    """The reference's keystr of a port state leaf (a layer list's index
+    dropped: the reference stacks the layers)."""
+    return "".join(f"['{k}']" for k in path if not isinstance(k, int))
+
+
+def _walk(tree, path=()):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _walk(tree[k], path + (k,))
+    elif isinstance(tree, list):
+        for i, v in enumerate(tree):
+            yield from _walk(v, path + (i,))
+    else:
+        yield path, tree
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _whole_abstract(cfg, tc, max_seq):
+    """A train state's whole leaves on meta (params, the optimizer's state
+    and, with compression, the f32 error buffers)."""
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import tree_map
+    from repro_torch.runtime.trainer import make_optimizer
+    params = registry.abstract_params(cfg, max_seq=max_seq)
+    state = {"params": params, "opt": make_optimizer(tc).init(params)}
+    if tc.grad_compression:
+        state["err"] = tree_map(lambda p: torch.empty(
+            p.shape, dtype=torch.float32, device="meta"), params)
+    return state
+
+
+def _placement(tag: str, cfg, tc, shape) -> dict:
+    """Each leaf's block bounds on this rank under the Trainer's specs,
+    keyed by the reference's leaf path (a layer list's leaf once, with its
+    [0, L) stack dim; every layer must agree); the Trainer's init_state
+    must hold exactly those blocks (the seeded params' values too), and
+    its resident bytes must be the dry-run's plan for the same trees."""
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import registry
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import Trainer
+    tr = Trainer(cfg, shape, tc, os.path.join(sys.argv[4], "unused"),
+                 device="cpu")
+    whole = _whole_abstract(cfg, tc, shape.seq_len + 8)
+    state = tr.init_state()
+    params = registry.init_params(cfg, seed=tc.seed, device="cpu",
+                                  max_seq=shape.seq_len + 8)
+    out = {}
+    for path, t in _walk(whole):
+        spec = _get(tr.specs, path)
+        bounds = sharding.block_bounds(t.shape, spec)
+        block = _get(state, path)
+        assert tuple(block.shape) == tuple(hi - lo for lo, hi in bounds), \
+            (path, block.shape, bounds)
+        if path[0] == "params":
+            want = _get(params, path[1:])[tuple(slice(*b) for b in bounds)]
+            assert torch.equal(block, want), path
+        ints = [i for i, k in enumerate(path) if isinstance(k, int)]
+        if ints:
+            stack = _get(whole, path[:ints[0]])
+            bounds = ((0, len(stack)),) + bounds
+        key = f"place|{tag}|{ref_key(path)}"
+        b = torch.tensor(bounds, dtype=torch.int64).reshape(-1, 2)
+        if key in out:
+            assert torch.equal(out[key], b), key
+        out[key] = b
+    resident = sum(t.numel() * t.element_size()
+                   for t in tree_leaves(state))
+    planned = dr.per_chip_bytes(dr.Placed(whole, tr.specs))
+    out[f"bytes|{tag}"] = torch.tensor([resident, planned])
+    return out
+
+
+def _gathered_params(tr, state):
+    """The state's params whole (gathered where placed), flattened."""
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.parallel import sharding
+    params = state["params"]
+    if tr.specs is not None:
+        with torch.no_grad():
+            params = sharding.unshard_tree(params, tr.specs["params"])
+    return torch.cat([t.flatten().float() for t in tree_leaves(params)])
+
+
+def _run(tag, cfg, tc, *, shard: bool, preempt=None, ckpt=None) -> dict:
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.optim.optimizers import tree_leaves
+    from repro_torch.runtime.trainer import Trainer
+    seq, batch = FSDP_SHAPE
+    tr = Trainer(cfg, ShapeConfig("tiny", seq, batch, "train"), tc,
+                 ckpt or os.path.join(sys.argv[4], f"ck_{tag}"),
+                 preempt_at=preempt, device="cpu", shard_state=shard)
+    res = tr.run()
+    out = {}
+    if tr.specs is not None and ckpt is None:
+        # the last checkpoint (rank 0's, in the shared directory), read
+        # back onto this rank's blocks
+        got, _ = tr.mgr.restore(_whole_abstract(cfg, tc, seq + 8),
+                                device="cpu", specs=tr.specs)
+        out[tag + "_restored"] = torch.tensor(all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(got),
+                                              tree_leaves(res["state"]))))
+    return {**out,
+            tag + "_loss": torch.tensor([m["loss"] for m in res["metrics"]]),
+            tag + "_gnorm": torch.tensor([m["grad_norm"]
+                                          for m in res["metrics"]]),
+            tag + "_params": _gathered_params(tr, res["state"]),
+            tag + "_blocks": torch.cat([t.flatten().float() for t in
+                                        tree_leaves(res["state"])])}
+
+
+def case_fsdp() -> dict:
+    """The Trainer's placed state on a 2 x 2 (data, model) mesh: the
+    blocks (smoke internlm2 and qwen2-moe, AdamW and Adafactor with int8
+    error feedback, FSDP on and off) and their bytes; the sharded Trainer
+    against the whole-state one at each FSDP_LEGS leg and for qwen2-moe
+    at --cim bp under a2a-EP; a resume of the reference's checkpoint
+    (DIR/ref_ckpt); a preempted sharded run against an uninterrupted
+    one."""
+    import shutil
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    where = sys.argv[4]
+    mesh = make_host_mesh(2, 2, device="cpu")
+    sharding.set_mesh(mesh)
+    out = {"coords": torch.tensor([mesh.get_local_rank("data"),
+                                   mesh.get_local_rank("model")])}
+    seq, batch = FSDP_SHAPE
+    shape = ShapeConfig("tiny", seq, batch, "train")
+    for fsdp in (True, False):
+        sharding.set_fsdp(fsdp)
+        for arch in FSDP_ARCHS:
+            for opt in ("adamw", "adafactor"):
+                out.update(_placement(
+                    f"{arch}|{int(fsdp)}|{opt}", fsdp_cfg(arch),
+                    fsdp_tc(optimizer=opt, grad_compression=True), shape))
+    sharding.set_fsdp(True)
+    cfg = fsdp_cfg("internlm2")
+    for leg, kw in FSDP_LEGS.items():
+        for shard in (True, False):
+            out.update(_run(f"{leg}_{'placed' if shard else 'whole'}", cfg,
+                            fsdp_tc(**kw), shard=shard))
+    moe = fsdp_cfg("qwen2moe", cim=True)
+    for shard in (True, False):
+        out.update(_run(f"moe_{'placed' if shard else 'whole'}", moe,
+                        fsdp_tc(steps=2, grad_clip=1e9), shard=shard))
+    # the reference's step-2 checkpoint, resumed for steps 2-4
+    ckpt = os.path.join(where, f"ref_resume_{dist.get_rank()}")
+    shutil.copytree(os.path.join(where, "ref_ckpt"), ckpt)
+    out.update(_run("resume", cfg, fsdp_tc(**resume_tc()), shard=True,
+                    ckpt=ckpt))
+    for tag, preempt in (("straight", None), ("preempted", 2)):
+        out.update(_run(tag, cfg, fsdp_tc(steps=4, checkpoint_every=2),
+                        shard=True, preempt=preempt))
+    sharding.set_mesh(None)
+    return out
+
+
+def case_fsdp2() -> dict:
+    """The same on a 2 x 1 mesh (FSDP over "data" only): the blocks and
+    bytes of the smoke internlm2 with AdamW, and the sharded Trainer
+    against the whole-state one (AdamW, a clip that does not bind; and
+    with microbatches of 2, accumulated into blocks)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    sharding.set_mesh(make_host_mesh(2, 1, device="cpu"))
+    seq, batch = FSDP_SHAPE
+    cfg = fsdp_cfg("internlm2")
+    out = _placement("internlm2|1|adamw", cfg, fsdp_tc(),
+                     ShapeConfig("tiny", seq, batch, "train"))
+    for shard in (True, False):
+        tag = "placed" if shard else "whole"
+        out.update(_run(f"adamw_{tag}", cfg, fsdp_tc(**FSDP_LEGS["adamw"]),
+                        shard=shard))
+        out.update(_run(f"micro_{tag}", cfg, fsdp_tc(
+            microbatch=2, **FSDP_LEGS["adamw"]), shard=shard))
+    sharding.set_mesh(None)
+    return out
+
+
 CASES = {"engine": case_engine, "parallel": case_parallel, "moe": case_moe,
          "moe6": case_moe6, "a2a": case_a2a, "attn": case_attn,
-         "dryrun": case_dryrun}
+         "dryrun": case_dryrun, "fsdp": case_fsdp, "fsdp2": case_fsdp2}
 
 
 def main() -> None:

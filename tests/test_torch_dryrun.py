@@ -222,11 +222,16 @@ def test_extrapolate_equals_direct(arch, shape, cim):
     assert a["collective_detail"]["bytes"] == b["collective_detail"]["bytes"]
     if cim == "bp-noisy":       # the stochastic kernels are partitioned
         assert a["collective_bytes"] > 0
-    # a step that issues no collective is the whole model's (one chip)
-    whole = a["collective_bytes"] == 0
+    # a step that issues no collective is the whole model's (one chip);
+    # so is a train step whose only collectives move its placed state
+    state = a["collective_detail"]["state_bytes"]
+    whole = a["collective_bytes"] == state
     assert direct["program"] == xp["program"] == \
-        ("rank0-whole-tensors" if whole else "rank0-partitioned")
+        ("rank0-partitioned" if not whole else "rank0-sharded-state"
+         if state else "rank0-whole-tensors")
     assert a["work_chips"] == b["work_chips"] == (1 if whole else 256)
+    # the train cells' state is placed: its gathers are recorded
+    assert (state > 0) == (shape == "train_4k")
     assert a["useful_ratio"] == pytest.approx(
         a["model_flops"] / a["work_chips"] / a["hlo_flops"])
 
@@ -595,3 +600,58 @@ def test_run_cell_skips(name, ref):
     assert got == want
 
 
+
+
+@pytest.mark.parametrize("arch,program", [
+    ("internlm2-1.8b", "rank0-sharded-state"),
+    ("qwen2-moe-a2.7b", "rank0-partitioned")])
+def test_train_cell_runs_on_the_placed_state(arch, program):
+    """A train cell on the planned mesh runs rank 0's step on the state
+    as the Trainer places it: the blocks' bytes plus the batch's plan are
+    the cell's argument bytes. The dense --cim off step's only
+    collectives move the state (each layer's gather, the optimizer's
+    sums): "rank0-sharded-state", work_chips 1, and the traced FLOPs (so
+    the useful ratio) are those of the same step on the whole state, the
+    parent's program. The MoE step's expert slices split work:
+    "rank0-partitioned" over the mesh's chips, the state's gathers
+    counted beside."""
+    from repro_torch.optim.optimizers import tree_leaves
+    cfg = _smoke(arch)
+    mesh = PlannedMesh(dr.PRODUCTION_MESHES["single"])
+    sharding.set_mesh(mesh)
+    try:
+        step, (state, batch), cfg2, _ = dr.build_cell(
+            arch, "train_4k", mesh, cfg_override=cfg)
+        assert state.blocks is not None
+        resident = sum(t.numel() * t.element_size()
+                       for t in tree_leaves(state.blocks))
+        planned = dr.per_chip_bytes(state)
+        batch_bytes = dr.per_chip_bytes(batch)
+        whole_step, _ = make_train_step(cfg2, TrainConfig(
+            optimizer=dr.choose_optimizer(state.tree["params"])))
+        whole = dr.trace_step(whole_step, (state.tree, batch.tree),
+                              train=True)
+    finally:
+        sharding.set_mesh(None)
+    assert resident == planned
+    assert resident < sum(t.numel() * t.element_size()
+                          for t in tree_leaves(state.tree)) // 16
+    r = dr.run_cell(arch, "train_4k", "single", cfg_override=cfg)
+    assert r["status"] == "ok", r.get("error")
+    assert r["memory_analysis"]["argument_size_in_bytes"] == \
+        resident + batch_bytes
+    assert r["program"] == program
+    rl = r["roofline"]
+    state_bytes = rl["collective_detail"]["state_bytes"]
+    assert state_bytes > 0
+    assert rl["collective_detail"]["counts"]["all-gather"] > 0
+    assert rl["hlo_flops"] == whole.flops
+    if program == "rank0-sharded-state":
+        assert rl["work_chips"] == 1
+        assert rl["collective_bytes"] == state_bytes
+        assert not whole.collectives.count_by_kind
+    else:
+        assert rl["work_chips"] == 256
+        assert rl["collective_bytes"] > state_bytes
+    assert rl["useful_ratio"] == pytest.approx(
+        rl["model_flops"] / rl["work_chips"] / rl["hlo_flops"], rel=1e-12)

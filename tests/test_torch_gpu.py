@@ -62,7 +62,9 @@ size and column-warp count bit-exact against the default launch and the
 plain version for B1, B2, B5, B6 and their expert-batched entries (a
 knob the launcher cannot take clamped and counted), B3 and the decode
 launch at every split S from 1 to 8 against their plain versions at that
-S; a 1-rank nccl mesh's sharded MVMs bit-identical to no mesh. Inputs
+S; a 1-rank nccl mesh's sharded MVMs bit-identical to no mesh, and the
+Trainer with its state placed on that mesh bit-identical to no mesh's
+(two smoke internlm2 steps at --cim bp, 29 B2 launches each). Inputs
 come from numpy seeds. This file needs no JAX.
 """
 import importlib
@@ -1935,3 +1937,47 @@ def test_one_rank_nccl_mesh_moe_and_a2a_identical_to_no_mesh():
         sharding.set_mesh(None)
         if owned:
             dist.destroy_process_group()
+
+
+def test_one_rank_nccl_mesh_placed_trainer_identical_to_no_mesh(tmp_path):
+    """The Trainer with its state placed on a 1-rank nccl mesh (no leaf is
+    cut there) takes two steps of the smoke internlm2 at --cim bp: its
+    losses, params and AdamW state equal no mesh's bit for bit, with the
+    same 29 B2 launches a step."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.base import ShapeConfig, TrainConfig
+    from repro_torch.configs.registry import SMOKES
+    from repro_torch.kernels import build
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.parallel import sharding
+    from repro_torch.runtime.trainer import Trainer
+    dev = gpu_device()
+    owned = not dist.is_initialized()
+    mesh = make_host_mesh(1, 1)
+    cfg = SMOKES["internlm2-1.8b"].replace(cim=_cim("ideal"))
+    runs = []
+    try:
+        for m in (mesh, None):
+            sharding.set_mesh(m)
+            tr = Trainer(cfg, ShapeConfig("tiny", 32, 4, "train"),
+                         TrainConfig(steps=10, lr=1e-3), str(tmp_path),
+                         device=dev)
+            assert tr.specs is None
+            state = tr.init_state()
+            losses, counts = [], []
+            for i in range(2):
+                build.reset_launch_counts()
+                state, metrics = tr.step_fn(state, tr.batch(i))
+                torch.cuda.synchronize()
+                counts.append(build.launch_counts()["cim_mvm_grouped"])
+                losses.append(metrics["loss"])
+            runs.append((state, losses, counts))
+    finally:
+        sharding.set_mesh(None)
+        if owned:
+            dist.destroy_process_group()
+    (s1, l1, c1), (s0, l0, c0) = runs
+    assert all(torch.equal(a, b) for a, b in zip(l1, l0))
+    assert _same_tree(s1, s0)
+    assert c1 == c0 == [29, 29]
